@@ -1,0 +1,104 @@
+"""ctypes loader for the host BVH builder in ``native/`` (sah.cpp, bvh8.cpp).
+
+The port compiles the repository's ``native/*.cpp`` with g++ into its own
+ignored build directory (utils/build.py) and never rebuilds the reference's
+tracked ``native/libvhr_native.so``.  Argument types follow the reference
+bridge (``vulkanhybridrenderer_tpu/native_bridge.py``).  There is no Python
+builder to fall back on: a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import numpy as np
+
+from vulkanhybridrenderer_tpu_torch.utils.build import GXX_FLAGS, REPO_DIR, build_library
+
+NATIVE_DIR = REPO_DIR / "native"
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    srcs = sorted(NATIVE_DIR.glob("*.cpp"))
+    if not srcs:
+        raise RuntimeError(f"no native sources under {NATIVE_DIR}")
+    lib = ctypes.CDLL(str(build_library("vhr_native", ["g++"] + GXX_FLAGS, srcs)))
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.sah_build.restype = ctypes.c_int
+    lib.sah_build.argtypes = [f32p, ctypes.c_int] + [i32p] * 5 + [f32p] * 2
+    lib.bvh8_collapse.restype = ctypes.c_int
+    lib.bvh8_collapse.argtypes = [
+        f32p, ctypes.c_int, i32p, i32p, i32p, i32p, f32p, f32p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        f32p, i32p, u8p, i32p, ctypes.c_int, i32p,
+    ]
+    return lib
+
+
+def _f32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+
+
+def _i32p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def build_sah_host(tri_verts: np.ndarray) -> dict:
+    """Binned-SAH binary BVH over (T, 3, 3) triangles (native/sah.cpp).
+    Returns the node arrays; the root is node 0, leaves index `order`."""
+    lib = load()
+    tris = np.ascontiguousarray(np.asarray(tri_verts, np.float32)).reshape(-1, 9)
+    n = tris.shape[0]
+    if n == 0:
+        raise ValueError("cannot build a BVH over zero triangles")
+    total = 2 * n - 1
+    out = dict(
+        left=np.empty(total, np.int32),
+        right=np.empty(total, np.int32),
+        escape=np.empty(total, np.int32),
+        leaf_tri=np.empty(total, np.int32),
+        order=np.empty(n, np.int32),
+        aabb_min=np.empty((total, 3), np.float32),
+        aabb_max=np.empty((total, 3), np.float32),
+    )
+    rc = lib.sah_build(
+        _f32p(tris), n, _i32p(out["left"]), _i32p(out["right"]),
+        _i32p(out["escape"]), _i32p(out["leaf_tri"]), _i32p(out["order"]),
+        _f32p(out["aabb_min"]), _f32p(out["aabb_max"]),
+    )
+    if rc != 0:
+        raise RuntimeError(f"sah_build failed with code {rc}")
+    return out
+
+
+def bvh8_collapse_host(binary: dict, tri_verts: np.ndarray, leaf_max: int = 8):
+    """Collapse a binary BVH (build_sah_host's arrays, one triangle per leaf)
+    into BVH8 rows (native/bvh8.cpp).  Returns ((N, 128) f32 rows, depth)."""
+    lib = load()
+    tris = np.ascontiguousarray(np.asarray(tri_verts, np.float32)).reshape(-1, 9)
+    t = tris.shape[0]
+    arrays = {
+        k: np.ascontiguousarray(binary[k])
+        for k in ("left", "right", "leaf_tri", "order", "aabb_min", "aabb_max")
+    }
+    cap = 2 * max(t, 8) + 16
+    rows = np.zeros((cap, 128), np.float32)
+    child8 = np.zeros((cap, 8), np.int32)
+    valid8 = np.zeros((cap, 8), np.uint8)
+    tri8 = np.zeros((cap, leaf_max), np.int32)
+    out = np.zeros(2, np.int32)
+    rc = lib.bvh8_collapse(
+        _f32p(tris), t, _i32p(arrays["left"]), _i32p(arrays["right"]),
+        _i32p(arrays["leaf_tri"]), _i32p(arrays["order"]),
+        _f32p(arrays["aabb_min"]), _f32p(arrays["aabb_max"]),
+        arrays["left"].shape[0], 1, 0, leaf_max, _f32p(rows), _i32p(child8),
+        valid8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), _i32p(tri8),
+        cap, _i32p(out),
+    )
+    if rc != 0:
+        raise RuntimeError(f"bvh8_collapse failed with code {rc}")
+    n_rows, depth = int(out[0]), int(out[1])
+    return rows[:n_rows].copy(), depth
