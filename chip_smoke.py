@@ -1,34 +1,59 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (vulkanhybridrenderer_tpu_torch) once on one CUDA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --profile    # and a torch.profiler window of the full frame
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
-  1. device   - the GPU's name and nvidia-smi's name / power limit (no CUDA: fail)
-  2. build    - nvcc builds K1a (csrc/raster_tile.cu) and K2 (csrc/bvh8_trace.cu)
-                for sm_90a, g++ builds the host BVH builder (native/*.cpp)
-  3. golden   - the hybrid RT-shadows frame of cornell_box() at 64x64 on the GPU
-                against tests/goldens/hybrid_rt_shadows_cornell.npy (RMSE <= 2e-3
-                after clamping to [0, 1], the reference's golden tolerance)
-  4. kernels  - at the slice's shapes (SponzaProxy, 1920x1080, first frame) each
-                kernel against its plain PyTorch version on the same inputs:
-                K1a tri id equal on >= 99.99% of pixels and depth / bary exactly
+  1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
+                (no CUDA: fail)
+  2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c) and
+                csrc/bvh8_trace.cu (K2) for sm_90a and g++ the host BVH builder
+                (native/*.cpp), all at once; ptxas registers / spills per kernel
+  3. golden   - cornell_box() at 64x64 on the GPU against the JAX package's
+                goldens (RMSE <= 2e-3 after clamping to [0, 1], the reference's
+                golden tolerance): the RT-shadows frame
+                (hybrid_rt_shadows_cornell.npy) and the full hybrid frame after
+                2 frames (hybrid_full_cornell.npy)
+  4. kernels  - at the slice's shapes (SponzaProxy, 1920x1080, the full
+                configuration's second frame: frame 0's RNG seed is the same
+                for every pixel, so its AO rays are coherent and fast) each
+                kernel against its plain
+                PyTorch version on the same inputs:
+                K1a on every triangle and on the full frame's opaque stream:
+                tri id equal on >= 99.99% of pixels and depth / bary exactly
                 equal where ids agree (both round every product separately);
-                K2 any-hit on the frame's shadow rays: identical hit mask;
-                K2 closest-hit on the frame's mirror-reflection rays: tri equal on
-                >= 99.99% of rays.  Kernel and plain times by CUDA events.
-  5. gpu-cpu  - the SponzaProxy frame at 320x180 on the GPU and on the CPU (plain
-                versions): within 1e-4 on >= 99.9% of pixels
-  6. main     - the slice: SponzaProxy 1920x1080, HybridSettings(), alpha off;
-                2 warm-up + 10 timed frames (CUDA events), finite output, launch
-                counters of K1a and K2 reset before and read after the timed
-                frames (each must rise by >= 1 per frame), per-pass ms, share of
-                shadowed pixels
+                K1b on the alpha-masked stream, round 1's bound and the real
+                round-2 bound: the same check;
+                K1c on round 2's live tiles against K1b's full-width round 2:
+                identical on every pixel (and round 2 must have a live tile);
+                K1c's kernel is timed alone, into outputs filled before the
+                timing window, and its wrapper (fill + kernel) beside it;
+                K2 any-hit on the frame's shadow and AO wavefronts: identical
+                hit masks; K2 closest-hit on its reflection wavefront: tri equal
+                on >= 99.99% of rays.  Kernel and plain times by CUDA events,
+                each kernel's bound, and the peel's tiles / killed pixels per
+                round.
+  5. gpu-cpu  - SponzaProxy at 320x180 on the GPU and on the CPU (plain
+                versions): the RT-shadows frame within 1e-4 on >= 99.9% of
+                pixels; the full configuration over 3 frames within
+                GPU_CPU_FULL_TOL on >= GPU_CPU_FULL_SHARE of pixels per frame
+  6. main     - the two slices, SponzaProxy 1920x1080, each driven with the
+                launch counters set to 0 just before its 10 timed frames (after
+                2 warm-up frames) and read just after; every kernel of the
+                slice must rise by >= 1 per frame; finite output; per-pass ms:
+                  the RT-shadows frame (HybridSettings(), alpha off): K1a, K2;
+                  the full frame (RT shadows + RT AO + RT reflections + SVGF,
+                  alpha_raster="brute", 4 peel rounds, temporal state carried):
+                  K1a, K1b, K1c, K2 any-hit and closest-hit; live rays per
+                  wavefront and a breakdown of the frame by CUDA events
 Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,7 +63,17 @@ import numpy as np
 import torch
 
 WIDTH, HEIGHT = 1920, 1080
-GOLDEN = Path(__file__).resolve().parent / "tests" / "goldens" / "hybrid_rt_shadows_cornell.npy"
+GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clock
+#: FP32 instructions per (entry, pixel) of the tile raster, counted from
+#: csrc/raster_tile.cu (--fmad=false): 4 planes x (2 FMUL + 2 FADD), 5
+#: coverage compares, 2 depth-test compares; the peel bound adds 2 compares
+RASTER_OPS, PEEL_OPS = 23, 25
+#: the full frame on the GPU against the CPU: measured >= 0.999792 of pixels
+#: within 1e-3 by frame 2 (NVIDIA H100 80GB HBM3, 700 W).  A grazing AO ray
+#: flips between the two devices' sin / cos, and SVGF spreads the flip.
+GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE = 1e-3, 0.999
 
 
 def _check(ok: bool, what: str) -> None:
@@ -69,121 +104,252 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def _full_settings(config):
+    return config.HybridSettings(
+        shadow_mode=config.ShadowMode.RAYTRACED,
+        ao_mode=config.AmbientOcclusionMode.RAYTRACED,
+        reflection_mode=config.ReflectionMode.RAYTRACED, denoise=True, rt_scale=1,
+    )
+
+
+def _ptxas_report(log: str, names: dict[str, str]) -> list[str]:
+    """ptxas -v lines (registers, spills) per kernel entry of an nvcc log;
+    names maps a substring of the mangled entry name to a kernel name."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = next((v for k, v in names.items() if k in m.group(1)), m.group(1))
+        elif entry and ("registers" in line or "spill" in line):
+            out.append(f"  ptxas {entry}: {line.strip()}")
+    return out
+
+
+def _vis_diff(a, b):
+    """(share of pixels with equal tri id, max |depth / bary diff| there)."""
+    same = a.tri_id == b.tri_id
+    return (float(same.float().mean()),
+            max(_max_abs((a.depth - b.depth)[same]), _max_abs((a.bary - b.bary)[same])))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke test needs a CUDA GPU", file=sys.stderr)
         return 1
+    profile = "--profile" in sys.argv[1:]
 
     from vulkanhybridrenderer_tpu_torch import native_bridge
-    from vulkanhybridrenderer_tpu_torch.core.config import HybridSettings, RenderConfig
+    from vulkanhybridrenderer_tpu_torch.core import config as cfgmod
+    from vulkanhybridrenderer_tpu_torch.core.config import RenderConfig
     from vulkanhybridrenderer_tpu_torch.models import hybrid as hybrid_path
-    from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled, traverse
+    from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled as rt, traverse
     from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
     from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
     from vulkanhybridrenderer_tpu_torch.scene import procedural
     from vulkanhybridrenderer_tpu_torch.utils.build import build_log
-    from vulkanhybridrenderer_tpu_torch.utils.math3d import normalize, reflect
+
+    full = _full_settings(cfgmod)
 
     # ---- 1. device -------------------------------------------------------------
     t0 = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| count {torch.cuda.device_count()}")
-    print(f"nvidia-smi: {smi}")
+    smi = _smi("name,power.limit")
+    sm_clock_mhz = float(_smi("clocks.max.sm").split()[0])
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fp32_per_s = n_sm * FP32_LANES_PER_SM * sm_clock_mhz * 1e6
+    print(f"device: {kind} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| count {torch.cuda.device_count()} | {n_sm} SMs, max SM clock "
+          f"{sm_clock_mhz:.0f} MHz -> {fp32_per_s / 1e12:.2f} T FP32 instructions/s")
+    print(f"nvidia-smi: {smi}")
     _phase("device", t0)
+
+    def bound(ops: float, nbytes: float):
+        """(ms, what sets it): the larger of ops at the FP32 issue rate and
+        bytes at the HBM rate."""
+        t_ops, t_bytes = ops / fp32_per_s, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    rasterizer_tiled.load_kernel()
-    traverse.load_kernel()
-    native_bridge.load()
-    for src in ("raster_tile.cu", "bvh8_trace.cu"):
-        for line in build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {src}: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for f in [pool.submit(fn) for fn in (rt.load_kernel, traverse.load_kernel,
+                                             native_bridge.load)]:
+            f.result()
+    for line in (_ptxas_report(build_log("raster_tile.cu"),
+                               {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c"})
+                 + _ptxas_report(build_log("bvh8_trace.cu"), {"bvh8_trace": "K2"})):
+        print(line)
     _phase("build", t0)
 
     # ---- 3. golden ---------------------------------------------------------------
     t0 = time.perf_counter()
-    r = Renderer(procedural.cornell_box(),
-                 RenderConfig(width=64, height=64, alpha_raster="off"), device=dev)
-    img = r.render_frame().cpu().numpy()
-    golden = np.load(GOLDEN).astype(np.float32)
-    err = float(np.sqrt(np.mean((np.clip(img, 0, 1) - np.clip(golden, 0, 1)) ** 2)))
-    print(f"golden cornell 64x64 RMSE {err:.6f} (limit 2e-3)")
-    _check(np.isfinite(img).all() and err <= 2e-3, f"golden RMSE {err}")
+    for name, hs, frames in (("hybrid_rt_shadows_cornell", cfgmod.HybridSettings(), 1),
+                             ("hybrid_full_cornell", full, 2)):
+        r = Renderer(procedural.cornell_box(),
+                     RenderConfig(width=64, height=64, hybrid=hs), device=dev)
+        for _ in range(frames):
+            img = r.render_frame().cpu().numpy()
+        golden = np.load(GOLDENS / f"{name}.npy").astype(np.float32)
+        err = float(np.sqrt(np.mean((np.clip(img, 0, 1) - np.clip(golden, 0, 1)) ** 2)))
+        print(f"golden {name} 64x64 after {frames} frame(s): RMSE {err:.6f} (limit 2e-3)")
+        _check(np.isfinite(img).all() and err <= 2e-3, f"golden {name} RMSE {err}")
     _phase("golden", t0)
 
     # ---- 4. kernels against their plain versions at the slice's shapes -----------
     t0 = time.perf_counter()
     scene = procedural.sponza_proxy()
-    slice_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off")
-    r = Renderer(scene, slice_cfg, device=dev)
-    res = r.fetch_resources("pfd", "Clip", "BVH", hybrid_path.DEPTH, hybrid_path.NORMALS)
-    pfd, clip, bvh = res["pfd"], res["Clip"], res["BVH"]
+    full_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="brute",
+                            alpha_peel_rounds=4, ao_rays=2, hybrid=full)
+    r = Renderer(scene, full_cfg, device=dev)
+    r.render_frame()
+    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables",
+                            hybrid_path.DEPTH, hybrid_path.NORMALS)
+    pfd, clip, bvh, tables = res["pfd"], res["Clip"], res["BVH"], res["shade_tables"]
     depth, normals = res[hybrid_path.DEPTH], res[hybrid_path.NORMALS]
-    print(f"scene {scene.name}: {scene.buffers.num_triangles} triangles, "
-          f"BVH8 {bvh.num_rows} rows, depth bound {bvh.depth}")
+    buffers = r.buffers
+    print(f"scene {scene.name}: {buffers.num_triangles} triangles "
+          f"({buffers.alpha_tri_idx.shape[0]} alpha-masked), BVH8 {bvh.num_rows} rows, "
+          f"depth bound {bvh.depth}")
+    kernels = {}
 
-    setup = triangle_setup(clip, r.buffers.tri_vertex, WIDTH, HEIGHT)
-    bins = rasterizer_tiled.bin_triangles(setup, WIDTH, HEIGHT)
-    vk = rasterizer_tiled.raster_tiles(setup.planes, bins, WIDTH, HEIGHT)
-    vp = rasterizer_tiled.raster_tiles_plain(setup.planes, bins, WIDTH, HEIGHT)
-    same = vk.tri_id == vp.tri_id
-    k1_share = float(same.float().mean())
-    k1_err = max(_max_abs((vk.depth - vp.depth)[same]),
-                 _max_abs((vk.bary - vp.bary)[same]))
-    k1_ms = _cuda_ms(lambda: rasterizer_tiled.raster_tiles(setup.planes, bins, WIDTH, HEIGHT), 20)
-    k1_plain_ms = _cuda_ms(
-        lambda: rasterizer_tiled.raster_tiles_plain(setup.planes, bins, WIDTH, HEIGHT), 2)
-    print(f"K1a raster_tile: {bins.entry_tri.shape[0]} entries over "
-          f"{bins.ntx * bins.nty} tiles; tri id equal on {k1_share:.6f} of pixels, "
-          f"max |depth/bary diff| where equal {k1_err:.3g}; "
-          f"kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
-    _check(k1_share >= 0.9999, f"K1a tri id agreement {k1_share}")
-    _check(k1_err == 0.0, f"K1a depth/bary differ by {k1_err} where ids agree")
+    def raster_bytes(bins, tiles_px, cap: bool, listed=None):
+        """Bytes a raster call must move: the plane rows its entries name,
+        the entries and offsets, the bound of its pixels, its outputs."""
+        ids = bins.entry_tri
+        if listed is not None:
+            counts = (bins.offsets[1:] - bins.offsets[:-1]).long()
+            tile_of = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev), counts)
+            ids = ids[torch.isin(tile_of, listed.long())]
+        rows = int(torch.unique(ids).shape[0])
+        return (rows * 48 + ids.shape[0] * 4 + bins.offsets.shape[0] * 4
+                + tiles_px * (8 if cap else 0) + tiles_px * 20), int(ids.shape[0])
 
-    hs = HybridSettings()
-    origin, direction, tmax = raygen.shadow_rays(pfd, depth, normals, hs)
-    tmin = torch.full_like(tmax, raygen.SHADOW_TMIN)
+    setup = triangle_setup(clip, buffers.tri_vertex, WIDTH, HEIGHT)
+    planes = setup.planes
+    # K1a: every triangle (the RT-shadows slice's opaque stream)
+    bins = rt.bin_triangles(setup, WIDTH, HEIGHT)
+    share, err = _vis_diff(rt.raster_tiles(planes, bins, WIDTH, HEIGHT),
+                           rt.raster_tiles_plain(planes, bins, WIDTH, HEIGHT))
+    # and the full frame's opaque stream (every triangle but the masked ones)
+    opaque = buffers.materials.alpha_mask[buffers.tri_prim.long()] != 1
+    obins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=opaque)
+    share_o, err_o = _vis_diff(rt.raster_tiles(planes, obins, WIDTH, HEIGHT),
+                               rt.raster_tiles_plain(planes, obins, WIDTH, HEIGHT))
+    ms = _cuda_ms(lambda: rt.raster_tiles(planes, bins, WIDTH, HEIGHT), 20)
+    plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, bins, WIDTH, HEIGHT), 2)
+    nbytes, n_e = raster_bytes(bins, WIDTH * HEIGHT, False)
+    kernels["K1a"] = dict(max_abs_err=max(err, err_o), ms=ms, plain_ms=plain_ms,
+                          **dict(zip(("bound_ms", "bound_by"), bound(n_e * 1024 * RASTER_OPS, nbytes))))
+    print(f"K1a raster_tile: {n_e} entries over {bins.ntx * bins.nty} tiles; tri id equal "
+          f"on {share:.6f} of pixels, max |depth/bary diff| where equal {err:.3g}; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {kernels['K1a']['bound_ms']:.4f} ms")
+    print(f"K1a raster_tile, opaque stream: {int(obins.entry_tri.shape[0])} entries; tri id "
+          f"equal on {share_o:.6f} of pixels, max |depth/bary diff| where equal {err_o:.3g}")
+    for s_, e_ in ((share, err), (share_o, err_o)):
+        _check(s_ >= 0.9999, f"K1a tri id agreement {s_}")
+        _check(e_ == 0.0, f"K1a depth/bary differ by {e_} where ids agree")
+
+    # K1b / K1c: the alpha-masked stream, round 1 and the real round-2 bound
+    include = torch.zeros(buffers.num_triangles, dtype=torch.bool, device=dev)
+    include[buffers.alpha_tri_idx.long()] = True
+    mbins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=include)
+    zc1 = torch.full((HEIGHT, WIDTH), rt.BIG, device=dev)
+    tc1 = torch.full((HEIGHT, WIDTH), 2**31 - 1, dtype=torch.int32, device=dev)
+    v1 = rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc1, tc1)
+    share1, err1 = _vis_diff(v1, rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc1, tc1))
+    _, killed = rt.alpha_test(tables, v1)
+    zc2, tc2 = rt.peel_bound(v1, killed)
+    v2 = rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc2, tc2)
+    share2, err2 = _vis_diff(v2, rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2))
+    ms = _cuda_ms(lambda: rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc1, tc1), 20)
+    plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc1, tc1), 2)
+    nbytes, n_e = raster_bytes(mbins, WIDTH * HEIGHT, True)
+    kernels["K1b"] = dict(max_abs_err=max(err1, err2), ms=ms, plain_ms=plain_ms,
+                          **dict(zip(("bound_ms", "bound_by"), bound(n_e * 1024 * PEEL_OPS, nbytes))))
+    print(f"K1b raster_tile peel bound: {n_e} masked entries; round-1 bound: tri id equal on "
+          f"{share1:.6f}, max diff {err1:.3g}; round-2 bound ({int(killed.sum())} killed "
+          f"pixels): tri id equal on {share2:.6f}, max diff {err2:.3g}; kernel {ms:.4f} ms "
+          f"(round 1), plain {plain_ms:.4f} ms, bound {kernels['K1b']['bound_ms']:.4f} ms")
+    for s_, e_ in ((share1, err1), (share2, err2)):
+        _check(s_ >= 0.9999, f"K1b tri id agreement {s_}")
+        _check(e_ == 0.0, f"K1b depth/bary differ by {e_} where ids agree")
+
+    tiles = rt.live_tiles(killed, mbins.ntx, mbins.nty)
+    _check(tiles.shape[0] > 0, "round 2 of the peel has no live tile on this scene: "
+           "K1c would never launch")
+    v2c = rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)
+    c_err = max(_max_abs(v2c.depth - v2.depth), _max_abs(v2c.bary - v2.bary),
+                _max_abs((v2c.tri_id - v2.tri_id).float()))
+    # the kernel alone: the wrapper's clear of the whole image (20 bytes a
+    # pixel) is made once, before the timing window; re-launching into it
+    # rewrites the listed tiles with the same values
+    pre = rt.clear_visibility(WIDTH, HEIGHT, dev)
+    ms = _cuda_ms(lambda: rt.launch("K1c", planes, mbins, WIDTH, HEIGHT, pre, zc2, tc2, tiles), 20)
+    wrapper_ms = _cuda_ms(
+        lambda: rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles), 20)
+    _check(_vis_diff(pre, v2c) == (1.0, 0.0), "K1c's timed launches changed its output")
+    plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2,
+                                                      tiles), 2)
+    nbytes, n_e = raster_bytes(mbins, tiles.shape[0] * 1024, True, listed=tiles)
+    kernels["K1c"] = dict(max_abs_err=c_err, ms=ms, plain_ms=plain_ms,
+                          **dict(zip(("bound_ms", "bound_by"), bound(n_e * 1024 * PEEL_OPS, nbytes))))
+    print(f"K1c raster_tile compact: {tiles.shape[0]} live tiles of round 2, {n_e} entries; "
+          f"max |diff| against K1b's full-width round 2 on every pixel {c_err:.3g}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {kernels['K1c']['bound_ms']:.4f} ms; "
+          f"wrapper (clear of {WIDTH * HEIGHT * 20} bytes + kernel) {wrapper_ms:.4f} ms")
+    _check(c_err == 0.0, "K1c differs from K1b's full-width round")
+    trace = []
+    rt.rasterize_alpha_peeled(buffers, setup, WIDTH, HEIGHT, tables, rounds=4, trace=trace)
+    print("peel rounds: " + "; ".join(
+        f"round {t['round']}: {t['tiles']} tiles rastered, {t['killed']} pixels killed"
+        for t in trace))
+
+    rays = raygen.Wavefronts(pfd, depth, normals, full, ao_rays=2)
     steps = traverse.default_max_steps(bvh)
-    ak = traverse.trace(bvh, origin, direction, tmin, tmax, anyhit=True)
-    ap = traverse.trace_plain(bvh.rows, bvh.depth, origin, direction, tmin, tmax, True, steps)
-    k2_err = float((ak.hit != ap.hit).float().max())
-    live = int((tmax >= 0).sum())
-    k2_ms = _cuda_ms(lambda: traverse.trace(bvh, origin, direction, tmin, tmax, anyhit=True), 10)
-    k2_plain_ms = _cuda_ms(lambda: traverse.trace_plain(
-        bvh.rows, bvh.depth, origin, direction, tmin, tmax, True, steps), 1)
-    print(f"K2 any-hit bvh8_trace: {origin.shape[0]} shadow rays ({live} live), "
-          f"hits {int(ak.hit.sum())}, mismatched hit flags "
-          f"{int((ak.hit != ap.hit).sum())}; kernel {k2_ms:.4f} ms, "
-          f"plain {k2_plain_ms:.4f} ms")
-    _check(k2_err == 0.0, "K2 any-hit hit masks differ")
-
-    p_world, n, sky = raygen.surface(pfd, depth, normals)
-    i_dir = normalize(p_world - pfd.camera_position).reshape(-1, 3)
-    r_dir = reflect(i_dir, n.reshape(-1, 3)).contiguous()
-    r_tmax = torch.where(sky.reshape(-1), -1.0, raygen.SHADOW_TMAX)
-    ck = traverse.trace(bvh, origin, r_dir, tmin, r_tmax, anyhit=False)
-    cp = traverse.trace_plain(bvh.rows, bvh.depth, origin, r_dir, tmin, r_tmax, False, steps)
-    c_same = ck.tri == cp.tri
-    c_share = float(c_same.float().mean())
-    c_err = _max_abs((ck.t - cp.t)[c_same & ck.hit])
-    ck_ms = _cuda_ms(lambda: traverse.trace(bvh, origin, r_dir, tmin, r_tmax, anyhit=False), 10)
-    cp_ms = _cuda_ms(lambda: traverse.trace_plain(
-        bvh.rows, bvh.depth, origin, r_dir, tmin, r_tmax, False, steps), 1)
-    print(f"K2 closest-hit bvh8_trace: {origin.shape[0]} reflection rays, hits "
-          f"{int(ck.hit.sum())}, tri equal on {c_share:.6f}, max |t diff| where equal "
-          f"{c_err:.3g}; kernel {ck_ms:.4f} ms, plain {cp_ms:.4f} ms")
-    _check(c_share >= 0.9999, f"K2 closest-hit tri agreement {c_share}")
-    del r, res, setup, bins, vk, vp, ak, ap, ck, cp
+    tmin = raygen.SHADOW_TMIN
+    wavefronts = {
+        "shadow": (rays.origin, rays.shadow_dir, rays.shadow_tmax, True),
+        "AO": (rays.origin.repeat(2, 1), rays.ao_dir, rays.ao_tmax.repeat(2), True),
+        "reflection": (rays.origin, rays.refl_dir, rays.refl_tmax, False),
+    }
+    for name, (o, d, tmax, anyhit) in wavefronts.items():
+        tmin_a = torch.full_like(tmax, tmin)
+        k = traverse.trace(bvh, o, d, tmin, tmax, anyhit=anyhit)
+        p = traverse.trace_plain(bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps)
+        ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=anyhit), 10)
+        plain_ms = _cuda_ms(lambda: traverse.trace_plain(
+            bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps), 1)
+        n = o.shape[0]
+        live = int((tmax >= tmin).sum())
+        b_ms, b_by = bound(0.0, n * (12 + 12 + 4 + 4) + n * 16 + bvh.num_rows * 512)
+        if anyhit:
+            err = float((k.hit != p.hit).float().mean())
+            agree = f"mismatched hit flags {int((k.hit != p.hit).sum())}"
+            _check(err == 0.0, f"K2 any-hit hit masks differ on the {name} rays")
+        else:
+            same = k.tri == p.tri
+            err = _max_abs((k.t - p.t)[same & k.hit])
+            agree = (f"tri equal on {float(same.float().mean()):.6f}, max |t diff| where "
+                     f"equal {err:.3g}")
+            _check(float(same.float().mean()) >= 0.9999, f"K2 closest-hit tri agreement")
+        print(f"K2 {'any-hit' if anyhit else 'closest-hit'} bvh8_trace, {name} rays: {n} "
+              f"({live} live), hits {int(k.hit.sum())}, {agree}; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        if name != "shadow":  # the JSON line carries the AO wavefront's any-hit
+            kernels["K2 any-hit" if anyhit else "K2 closest-hit"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    del r, res, setup, bins, obins, mbins, v1, v2, v2c, pre, rays, wavefronts
+    torch.cuda.empty_cache()
     _phase("kernels", t0)
 
     # ---- 5. GPU against CPU ------------------------------------------------------
@@ -192,60 +358,182 @@ def main() -> int:
     g = Renderer(scene, small, device=dev).render_frame().cpu()
     c = Renderer(scene, small, device="cpu").render_frame()
     close = ((g - c).abs().amax(dim=0) <= 1e-4).float().mean().item()
-    print(f"gpu vs cpu 320x180: {close:.6f} of pixels within 1e-4, "
+    print(f"gpu vs cpu 320x180 RT shadows: {close:.6f} of pixels within 1e-4, "
           f"max |diff| {float((g - c).abs().max()):.3g}")
     _check(bool(torch.isfinite(g).all()) and close >= 0.999, f"gpu/cpu agreement {close}")
+    small_full = RenderConfig(width=320, height=180, alpha_raster="brute",
+                              alpha_peel_rounds=4, ao_rays=2, hybrid=full)
+    gr, cr = Renderer(scene, small_full, device=dev), Renderer(scene, small_full, device="cpu")
+    for f in range(3):
+        g, c = gr.render_frame().cpu(), cr.render_frame()
+        d = (g - c).abs().amax(dim=0)
+        shares = {tol: float((d <= tol).float().mean()) for tol in (1e-5, 1e-4, 1e-3)}
+        print(f"gpu vs cpu 320x180 full, frame {f}: share of pixels within "
+              + ", ".join(f"{tol:g}: {s:.6f}" for tol, s in shares.items())
+              + f"; max |diff| {float(d.max()):.3g}")
+        _check(bool(torch.isfinite(g).all()) and bool((d <= GPU_CPU_FULL_TOL).float().mean()
+                                                     >= GPU_CPU_FULL_SHARE),
+               f"gpu/cpu agreement of the full frame {f}: {shares}")
+    del gr, cr
     _phase("gpu-cpu", t0)
 
-    # ---- 6. main path --------------------------------------------------------------
+    # ---- 6. main paths -------------------------------------------------------------
+    counters = {
+        "K1a": lambda: rt.raster_tiles.launches,
+        "K1b": lambda: rt.raster_tiles_peel.launches,
+        "K1c": lambda: rt.raster_tiles_compact.launches,
+        "K2 any-hit": lambda: traverse.trace.anyhit_launches,
+        "K2 closest-hit": lambda: traverse.trace.launches - traverse.trace.anyhit_launches,
+    }
+
+    def drive(r, frames=10):
+        """2 warm-up frames, then `frames` timed ones with every launch
+        counter set to 0 just before them; returns (ms/frame, launches)."""
+        for _ in range(2):
+            frame = r.render_frame()
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(frame).all()), "warm-up frame not finite")
+        rt.raster_tiles.launches = rt.raster_tiles_peel.launches = 0
+        rt.raster_tiles_compact.launches = 0
+        traverse.trace.launches = traverse.trace.anyhit_launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(frames):
+            frame = r.render_frame()
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k: v() for k, v in counters.items()}
+        _check(tuple(frame.shape) == (4, HEIGHT, WIDTH), f"frame shape {tuple(frame.shape)}")
+        _check(bool(torch.isfinite(frame).all()), "main-path frame not finite")
+        return start.elapsed_time(end) / frames, launches
+
     t0 = time.perf_counter()
-    r = Renderer(scene, slice_cfg, device=dev)
-    for _ in range(2):
-        frame = r.render_frame()
-    torch.cuda.synchronize()
-    _check(bool(torch.isfinite(frame).all()), "warm-up frame not finite")
-    frames = 10
-    rasterizer_tiled.raster_tiles.launches = 0
-    traverse.trace.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(frames):
-        frame = r.render_frame()
-    end.record()
-    torch.cuda.synchronize()
-    launches = {"raster_tile": rasterizer_tiled.raster_tiles.launches,
-                "bvh8_trace": traverse.trace.launches}
-    ms_frame = start.elapsed_time(end) / frames
-    _check(tuple(frame.shape) == (4, HEIGHT, WIDTH), f"frame shape {tuple(frame.shape)}")
-    _check(bool(torch.isfinite(frame).all()), "main-path frame not finite")
-    for name, count in launches.items():
-        _check(count >= frames, f"{name} launched {count} times in {frames} frames")
+    r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off"), device=dev)
+    ms_frame, launches = drive(r)
+    for name in ("K1a", "K2 any-hit"):
+        _check(launches[name] >= 10, f"{name} launched {launches[name]} times in 10 frames")
     passes = r.time_passes(iters=5)
     shadow = r.fetch_resources(hybrid_path.RT_SHADOW_AO)[hybrid_path.RT_SHADOW_AO][0]
-    shadowed = float((shadow == 0.0).float().mean())
-    print(f"main path {scene.name} {WIDTH}x{HEIGHT} RT shadows: {ms_frame:.3f} ms/frame "
-          f"over {frames} frames | launches {launches} | shadowed share {shadowed:.4f}")
+    print(f"main path 1: {scene.name} {WIDTH}x{HEIGHT} RT shadows, alpha off: "
+          f"{ms_frame:.3f} ms/frame over 10 frames | launches {launches} | shadowed share "
+          f"{float((shadow == 0.0).float().mean()):.4f}")
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    del r
+
+    r = Renderer(scene, full_cfg, device=dev)
+    ms_frame, launches = drive(r)
+    for name, count in launches.items():
+        _check(count >= 10, f"{name} launched {count} times in the full frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 2: {scene.name} {WIDTH}x{HEIGHT} full hybrid (RT shadows + RT AO + "
+          f"RT reflections + SVGF, alpha_raster=brute, 4 peel rounds): {ms_frame:.3f} ms/frame "
+          f"over 10 frames | launches {launches}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    _breakdown(r, full)
+    if profile:
+        _profile(r)
     print(f"card: {smi}")
     _phase("main", t0)
 
+    source = {"K1a": "raster_tile.cu", "K1b": "raster_tile.cu", "K1c": "raster_tile.cu",
+              "K2 any-hit": "bvh8_trace.cu", "K2 closest-hit": "bvh8_trace.cu"}
+    replaces = {"K1a": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
+                "K1b": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
+                "K1c": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
+                "K2 any-hit": "vulkanhybridrenderer_tpu/ops/traverse.py:135",
+                "K2 closest-hit": "vulkanhybridrenderer_tpu/ops/traverse.py:135"}
     print(json.dumps({"kernels": [
-        {"name": "raster_tile (K1a)", "route": "cuda",
-         "source": "vulkanhybridrenderer_tpu_torch/csrc/raster_tile.cu",
-         "replaces": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
-         "launches": launches["raster_tile"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "bvh8_trace any-hit (K2)", "route": "cuda",
-         "source": "vulkanhybridrenderer_tpu_torch/csrc/bvh8_trace.cu",
-         "replaces": "vulkanhybridrenderer_tpu/ops/traverse.py:135",
-         "launches": launches["bvh8_trace"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": name, "route": "cuda",
+         "source": f"vulkanhybridrenderer_tpu_torch/csrc/{source[name]}",
+         "replaces": replaces[name], "launches": launches[name],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
+         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+         # no single PyTorch call rasters binned triangles or walks a BVH
+         "library_ms": None}
+        for name, k in kernels.items()
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _breakdown(r, settings):
+    """The full frame's steps one by one on one frame's resources, by CUDA
+    events (5 runs each after a warm-up), and its live rays."""
+    from vulkanhybridrenderer_tpu_torch.models import hybrid as hybrid_path
+    from vulkanhybridrenderer_tpu_torch.ops import (
+        gbuffer, raygen, rasterizer_tiled as rt, rt_shade, svgf, traverse,
+    )
+    from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
+
+    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables", "TriRows",
+                            hybrid_path.DEPTH, hybrid_path.NORMALS, hybrid_path.MOTION_MR,
+                            hybrid_path.RT_SHADOW_AO)
+    b, cfg = r.buffers, r.config
+    w, h = cfg.width, cfg.height
+    pfd, bvh, tables = res["pfd"], res["BVH"], res["shade_tables"]
+    depth, normals = res[hybrid_path.DEPTH], res[hybrid_path.NORMALS]
+    setup = triangle_setup(res["Clip"], b.tri_vertex, w, h)
+    opaque = b.materials.alpha_mask[b.tri_prim.long()] != 1
+    bins = rt.bin_triangles(setup, w, h, include=opaque)
+    vis = rt.rasterize_scene(b, res["Clip"], w, h, tables=tables)
+    rays = raygen.Wavefronts(pfd, depth, normals, settings, ao_rays=cfg.ao_rays)
+    rec = traverse.trace(bvh, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN,
+                         rays.refl_tmax, anyhit=False)
+    integrated, _ = svgf.temporal(normals, res[hybrid_path.MOTION_MR],
+                                  res[hybrid_path.RT_SHADOW_AO], r.temporal_state)
+    steps = {
+        "triangle setup": lambda: triangle_setup(res["Clip"], b.tri_vertex, w, h),
+        "opaque binning": lambda: rt.bin_triangles(setup, w, h, include=opaque),
+        "K1a (opaque stream)": lambda: rt.raster_tiles(setup.planes, bins, w, h),
+        "alpha peel": lambda: rt.rasterize_alpha_peeled(b, setup, w, h, tables,
+                                                        rounds=cfg.alpha_peel_rounds),
+        "resolve": lambda: gbuffer.resolve_gbuffer(b, tables, res["TriRows"], vis, pfd),
+        "ray generation": lambda: raygen.Wavefronts(pfd, depth, normals, settings,
+                                                    ao_rays=cfg.ao_rays),
+        "K2 shadow": lambda: traverse.trace(bvh, rays.origin, rays.shadow_dir,
+                                            raygen.SHADOW_TMIN, rays.shadow_tmax, anyhit=True),
+        "K2 AO": lambda: traverse.trace(bvh, rays.origin.repeat(cfg.ao_rays, 1), rays.ao_dir,
+                                        raygen.SHADOW_TMIN, rays.ao_tmax.repeat(cfg.ao_rays),
+                                        anyhit=True),
+        "K2 reflection": lambda: traverse.trace(bvh, rays.origin, rays.refl_dir,
+                                                raygen.SHADOW_TMIN, rays.refl_tmax,
+                                                anyhit=False),
+        "reflection shading": lambda: rt_shade.reflection_hit_shade(
+            b, tables, res["TriRows"], pfd, rec.tri, rec.u, rec.v),
+        "SVGF temporal": lambda: svgf.temporal(normals, res[hybrid_path.MOTION_MR],
+                                               res[hybrid_path.RT_SHADOW_AO], r.temporal_state),
+        "SVGF one a-trous iteration": lambda: svgf.atrous_iteration(integrated, normals, 1),
+    }
+    live = {"shadow": int((rays.shadow_tmax >= raygen.SHADOW_TMIN).sum()),
+            "AO": int((rays.ao_tmax >= raygen.SHADOW_TMIN).sum()) * cfg.ao_rays,
+            "reflection": int((rays.refl_tmax >= raygen.SHADOW_TMIN).sum())}
+    print(f"live rays per wavefront (of {w * h} pixels; AO {cfg.ao_rays} rays each): {live}")
+    print("breakdown ms: " + ", ".join(f"{k} {_cuda_ms(fn, 5):.3f}" for k, fn in steps.items()))
+
+
+def _profile(r, frames: int = 5) -> None:
+    """torch.profiler over `frames` full frames: device busy share of the
+    window and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    r.render_frame()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            r.render_frame()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # device time: only the kernels' own events, not the aten ops above them
+    events = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    print(f"profile: {frames} full frames, window {window_ms:.3f} ms (profiler on), device "
+          f"kernel time {busy_ms:.3f} ms ({busy_ms / frames:.3f} ms/frame), busy share "
+          f"{busy_ms / window_ms:.4f}")
+    print(prof.key_averages().table(sort_by="device_time_total", row_limit=15))
 
 
 if __name__ == "__main__":

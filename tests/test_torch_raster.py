@@ -94,7 +94,7 @@ def test_binning_matches(case):
 def test_visibility_buffer(case):
     js = case["js"]
     j = case["vis"]
-    p = prt.rasterize_scene(case["ps"].buffers.to("cpu"), _t(case["clip"]), W, H)
+    p = prt.rasterize_scene(case["ps"].buffers.to("cpu"), _t(case["clip"]), W, H, alpha=False)
     assert p.tri_id.dtype == torch.int32 and p.tri_id.shape == (H, W)
     jt, pt = np.asarray(j.tri_id), p.tri_id.numpy()
     agree = jt == pt

@@ -1,11 +1,12 @@
 """PyTorch + CUDA port of the hybrid renderer (reference: ``vulkanhybridrenderer_tpu``).
 
-The port runs the reference-defaults hybrid frame (RT shadows, AO / reflections /
-denoise off, alpha-masked geometry rastered solid) end to end on one NVIDIA GPU:
-geometry -> binned tile raster (hand-written CUDA kernel, ``csrc/raster_tile.cu``)
--> G-buffer resolve -> BVH8 any-hit shadow rays (hand-written CUDA kernel,
-``csrc/bvh8_trace.cu``) -> composition.  Module paths mirror the JAX package so
-each module's reference counterpart is easy to find.
+The port runs the hybrid path end to end on one NVIDIA GPU: geometry -> binned
+tile raster of the opaque stream (K1a) and alpha depth-peel of the masked
+stream (K1b, K1c; hand-written CUDA, ``csrc/raster_tile.cu``) -> G-buffer
+resolve -> BVH8 any-hit shadow and AO rays and closest-hit mirror reflections
+(K2, hand-written CUDA, ``csrc/bvh8_trace.cu``) -> SVGF denoise with temporal
+state carried across frames -> composition.  Module paths mirror the JAX
+package so each module's reference counterpart is easy to find.
 
 Conventions are the reference's (see ``vulkanhybridrenderer_tpu/__init__.py``):
 matrices act on column vectors, NDC y points down with reverse-Z depth, images

@@ -1,9 +1,9 @@
 """Carry scenes and BVH tables over from plain numpy arrays.
 
-The reference package's scene and BVH8 are pytrees of arrays; converted to
-numpy (for instance with ``dataclasses.asdict`` and ``np.asarray``) they build
-the port's host objects here, so both packages can render from exactly the
-same arrays.  Nothing in this module imports JAX.
+The reference package's scene, BVH8 and SVGF history are pytrees of arrays;
+converted to numpy (for instance with ``dataclasses.asdict`` and
+``np.asarray``) they build the port's host objects here, so both packages can
+render from exactly the same arrays.  Nothing in this module imports JAX.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from vulkanhybridrenderer_tpu_torch.core.types import (
     DirectionalLight,
     MaterialsSoA,
     SceneBuffers,
+    TemporalState,
     TextureAtlas,
 )
 from vulkanhybridrenderer_tpu_torch.ops.bvh8 import BVH8
@@ -56,3 +57,15 @@ def bvh8_from_numpy(rows, depth: int, leaf_max: int) -> BVH8:
         raise ValueError("the port traces 8-triangle leaf rows only")
     rows = torch.from_numpy(np.array(rows, np.float32))  # a writable copy
     return BVH8(rows=rows, depth=int(depth), leaf_max=int(leaf_max))
+
+
+def temporal_state_from_numpy(shadow_ao_history, moments_history,
+                              prev_normal_oid) -> TemporalState:
+    """An SVGF history, (2, H, W), (4, H, W) and (4, H, W) float32, as CPU
+    tensors (the fields of the reference's TemporalState)."""
+    def t(a):
+        return torch.from_numpy(np.array(a, np.float32))
+
+    return TemporalState(shadow_ao_history=t(shadow_ao_history),
+                         moments_history=t(moments_history),
+                         prev_normal_oid=t(prev_normal_oid))

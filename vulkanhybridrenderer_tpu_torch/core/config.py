@@ -87,8 +87,9 @@ class RenderConfig:
     height: int = 1080
     animated: bool = False
     raster: str = "binned"
-    #: "off" rasters alpha-masked geometry solid (the only mode the port
-    #: carries so far); "brute" is the binned alpha depth-peel
+    #: "brute": alpha-masked triangles get the per-fragment alpha kill,
+    #: through the binned depth peel of `alpha_peel_rounds` rounds; "off":
+    #: they raster solid
     alpha_raster: str = "brute"
     alpha_peel_rounds: int = 4
     shadow_map_size: int = 4096

@@ -140,6 +140,25 @@ class GBuffer:
     depth: Any  # (H, W) reverse-Z depth (0 = far / sky)
 
 
+@dataclasses.dataclass(frozen=True)
+class TemporalState(_Movable):
+    """SVGF cross-frame state (the reference's storage-image history,
+    hybrid_render_path.cpp:245-262), carried from one frame to the next."""
+
+    shadow_ao_history: Any  # (2, H, W) integrated shadow (0) and AO (1)
+    moments_history: Any  # (4, H, W) shadow m1, m2, ao m1, m2
+    prev_normal_oid: Any  # (4, H, W) previous frame's world normals + object id
+
+
+def make_temporal_state(height: int, width: int, device="cpu") -> TemporalState:
+    """Empty history: zeros, and object id / normals -1 (matches nothing)."""
+    return TemporalState(
+        shadow_ao_history=torch.zeros((2, height, width), device=device),
+        moments_history=torch.zeros((4, height, width), device=device),
+        prev_normal_oid=torch.full((4, height, width), -1.0, device=device),
+    )
+
+
 def make_per_frame_data(
     view: np.ndarray,
     proj: np.ndarray,

@@ -3,7 +3,7 @@
 A render path registers its passes on a RenderGraph.  External resources a
 path may read: "scene" (SceneBuffers on the device), "pfd" (PerFrameData),
 "prim_transform" ((P, 4, 4) current primitive transforms), "bvh" (BVH8) and
-"shade_tables" (ShadeTables).
+"shade_tables" (ShadeTables) and "temporal_state" (TemporalState).
 """
 from __future__ import annotations
 
@@ -23,6 +23,12 @@ class RenderPath:
 
     def __init__(self, config: RenderConfig):
         self.config = config
+
+    @property
+    def uses_temporal_state(self) -> bool:
+        """Whether the graph reads "temporal_state" and writes
+        "TemporalStateOut" for the next frame."""
+        return False
 
     def register(self, graph: RenderGraph) -> None:
         raise NotImplementedError

@@ -12,11 +12,6 @@ def check_raster_supported(config) -> None:
             f"raster={config.raster!r}: the brute reference rasterizer is "
             "ROADMAP item 14; the port rasters binned"
         )
-    if config.alpha_raster != "off":
-        raise NotImplementedError(
-            f"alpha_raster={config.alpha_raster!r}: the binned alpha depth-peel "
-            "is ROADMAP item 10; use alpha_raster='off'"
-        )
     rs = config.raster_state
     if rs.depth_compare != "greater_equal" or rs.depth_clear != 0.0:
         raise NotImplementedError(
@@ -24,13 +19,17 @@ def check_raster_supported(config) -> None:
         )
 
 
-def rasterize_for_path(scene, clip, width, height, config):
-    """Binned opaque raster (K1a) honoring the cull mode; alpha-masked
-    geometry rasters solid."""
+def rasterize_for_path(scene, clip, width, height, config, tables=None):
+    """Binned raster honoring the cull mode.  With alpha_raster="brute" the
+    alpha-masked triangles are depth-peeled with the fragment alpha kill
+    (`config.alpha_peel_rounds` rounds, reading `tables`); with "off" they
+    raster solid."""
     check_raster_supported(config)
     return rasterizer_tiled.rasterize_scene(
         scene, clip, width, height,
         cull_backface=config.raster_state.cull_mode == "back",
+        alpha=config.alpha_raster != "off", tables=tables,
+        alpha_rounds=config.alpha_peel_rounds,
     )
 
 

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from vulkanhybridrenderer_tpu_torch.utils.math3d import PI, dot
+from vulkanhybridrenderer_tpu_torch.utils.math3d import PI, dot, normalize
 
 MIN_ROUGHNESS = 0.04  # composition.frag:121
 
@@ -42,3 +42,21 @@ def specular_brdf(roughness, f, v, l, n, h):
 def diffuse_brdf(metallic, albedo, f):
     """common.glsl:147-150."""
     return (1.0 - f) * (1.0 - metallic)[..., None] * albedo / PI
+
+
+def direct_lighting(albedo, metallic, roughness, n, v, l, light_color,
+                    light_intensity, ambient_factor):
+    """Ambient + GGX direct lighting (reflection_hit.rchit:52-71):
+    ambient + (diffuse + specular) * max(N.L, 0) * intensity * color.
+    albedo, n, v, l: (..., 3); metallic, roughness: (...,)."""
+    roughness = torch.clamp(roughness, MIN_ROUGHNESS, 1.0)
+    metallic = torch.clamp(metallic, 0.0, 1.0)
+    h = normalize(l + v)
+    f0 = torch.full_like(albedo, 0.04)
+    f0 = f0 + (albedo - f0) * metallic[..., None]
+    f = fresnel_schlick(f0, h, v)
+    ambient = albedo * ambient_factor
+    diffuse = diffuse_brdf(metallic, albedo, f)
+    specular = specular_brdf(roughness, f, v, l, n, h)
+    n_dot_l = torch.clamp(dot(n, l), min=0.0)[..., None]
+    return ambient + (diffuse + specular) * n_dot_l * light_intensity * light_color

@@ -1,8 +1,9 @@
 """Hybrid composition (composition.frag:64-161; port of ``ops/composition.py``).
 
-G-buffer + shadow source -> final linear lighting.  Shadow sources: RAYTRACED
-(the raytrace pass's channel 0) or OFF.  The rasterized shadow map, SSAO /
-RT AO and SSR / RT reflections are not ported yet (ROADMAP items 8 and 13).
+G-buffer + shadow / AO / reflection sources -> final linear lighting.  The
+sources are the raytrace pass's (possibly denoised) shadow and AO channels,
+its reflections, or OFF.  The rasterized shadow map, SSAO and SSR are not
+ported yet (ROADMAP item 13).
 """
 from __future__ import annotations
 
@@ -22,15 +23,17 @@ from vulkanhybridrenderer_tpu_torch.utils.math3d import PI_INVERSE, normalize
 def check_supported(settings: HybridSettings) -> None:
     if settings.shadow_mode == ShadowMode.RASTERIZED:
         raise NotImplementedError("rasterized shadows: ROADMAP item 13")
-    if settings.ao_mode != AmbientOcclusionMode.OFF:
-        raise NotImplementedError("ambient occlusion: ROADMAP items 8 and 13")
-    if settings.reflection_mode != ReflectionMode.OFF:
-        raise NotImplementedError("reflections: ROADMAP items 8 and 13")
+    if settings.ao_mode == AmbientOcclusionMode.SSAO:
+        raise NotImplementedError("SSAO: ROADMAP item 13")
+    if settings.reflection_mode == ReflectionMode.SSR:
+        raise NotImplementedError("screen-space reflections: ROADMAP item 13")
 
 
 def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
-            rt_shadow_ao=None):
-    """Returns the (4, H, W) linear frame (alpha 1)."""
+            rt_shadow_ao=None, rt_reflections=None):
+    """rt_shadow_ao (4, H, W) when any RT mode is on; rt_reflections
+    (4, H, W) when reflections are RAYTRACED.  Returns the (4, H, W) linear
+    frame (alpha 1)."""
     check_supported(settings)
     h, w = gbuf.depth.shape
     dev = gbuf.depth.device
@@ -49,7 +52,10 @@ def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
         shadow = rt_shadow_ao[0]
     else:
         shadow = torch.ones((h, w), dtype=torch.float32, device=dev)
-    ao = torch.ones((h, w), dtype=torch.float32, device=dev)
+    if settings.ao_mode == AmbientOcclusionMode.RAYTRACED:
+        ao = rt_shadow_ao[1]
+    else:
+        ao = torch.ones((h, w), dtype=torch.float32, device=dev)
 
     light_i = pfd.directional_light.intensity[:3]
     light_c = pfd.directional_light.color[:3]
@@ -62,6 +68,13 @@ def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
     common = (n_dot_l * shadow)[..., None] * light_i * light_c
     diffuse = brdf.diffuse_brdf(metallic, albedo, f) * common
     specular = brdf.specular_brdf(roughness, f, v, l_b, n, h_vec) * common
+
+    if settings.reflection_mode == ReflectionMode.RAYTRACED:  # :145-156
+        refl = rt_reflections[:3].permute(1, 2, 0) * shadow[..., None]
+        specular = torch.where(
+            (metallic == 1.0)[..., None], refl,
+            specular + (refl - specular) * roughness[..., None],
+        )
     rgb = ambient + diffuse + specular
     out = torch.cat([rgb, torch.ones((h, w, 1), dtype=torch.float32, device=dev)], -1)
     return out.permute(2, 0, 1).contiguous()

@@ -1,22 +1,27 @@
-"""Binned tile rasterizer (port of ``ops/rasterizer_tiled.py``, opaque mode).
+"""Binned tile rasterizer (port of ``ops/rasterizer_tiled.py``).
 
 1. ``bin_triangles``: per-triangle screen bbox -> covered range of 8x128-pixel
    tiles; one entry per (triangle, tile), enumerated with repeat_interleave,
    stable-sorted by tile (so each tile's entries stay in triangle-id order)
    and cut into per-tile ranges with searchsorted.  Culling matches the
    reference: non-degenerate and some w > eps, then front-facing, then
-   on-screen.  Buffers are sized by the true entry count (one host sync per
-   frame), so binning can never overflow and the reference's static entry
-   cap and NaN-poison guard have no counterpart here.
-2. ``raster_tiles`` (K1a): the tile depth test, hand-written CUDA
-   (csrc/raster_tile.cu) on the GPU; ``raster_tiles_plain`` is the same
-   function in plain PyTorch, used for CPU tensors and as the kernel's
-   reference on the card.
+   on-screen, then the caller's include mask (the opaque and alpha-masked
+   streams).  Entries keep GLOBAL triangle ids in both streams.  Buffers are
+   sized by the true entry count (one host sync per call), so binning can
+   never overflow and the reference's static entry cap and NaN-poison guard
+   have no counterpart here.
+2. The tile depth test, hand-written CUDA (csrc/raster_tile.cu) on the GPU, in
+   three modes: ``raster_tiles`` (K1a, every tile), ``raster_tiles_peel``
+   (K1b, every tile under a per-pixel (z, id) depth-peel bound) and
+   ``raster_tiles_compact`` (K1c, K1b over a list of tiles).
+   ``raster_tiles_plain`` is the same function in plain PyTorch, used for CPU
+   tensors and as the kernels' reference on the card.
+3. ``rasterize_alpha_peeled``: the alpha-masked stream by depth peeling, and
+   ``rasterize_scene``, which merges it over the opaque stream.
 
 The winner per pixel is the lexicographic max of (reverse-Z depth, triangle
-id), which is what the reference kernel's chunked merge computes.  The
-alpha depth-peel (K1b / K1c) and MSAA samples (K1d) are not ported yet
-(ROADMAP items 10 and 14).
+id), which is what the reference kernel's chunked merge computes.  MSAA
+samples (K1d) are not ported yet (ROADMAP item 14).
 """
 from __future__ import annotations
 
@@ -28,19 +33,25 @@ from typing import Any
 
 import torch
 
+from vulkanhybridrenderer_tpu_torch.ops import shadetab
 from vulkanhybridrenderer_tpu_torch.ops.rasterizer import (
     TriangleSetup,
     VisibilityBuffer,
     triangle_setup,
+    weights_from_bary,
 )
 
 TILE_H = 8
 TILE_W = 128
+#: the reference's "big" (rasterize_alpha_peeled): the round-1 bound admits
+#: every fragment, a -BIG bound admits none
+BIG = 3.4e38
+_INT32_MAX = 2**31 - 1
 
 
 @dataclasses.dataclass(frozen=True)
 class Bins:
-    entry_tri: Any  # (E,) int32 triangle id per entry, tile-major
+    entry_tri: Any  # (E,) int32 global triangle id per entry, tile-major
     offsets: Any  # (ntiles + 1,) int32 start of each tile's entries
     ntx: int
     nty: int
@@ -51,13 +62,17 @@ def _tile_counts(width: int, height: int):
 
 
 def bin_triangles(setup: TriangleSetup, width: int, height: int,
-                  cull_backface: bool = True) -> Bins:
+                  cull_backface: bool = True, include=None) -> Bins:
+    """include: optional (T,) bool; only those triangles are binned (the
+    reference's exclude_mask, and its alpha subset binned with global ids)."""
     ntx, nty = _tile_counts(width, height)
     ntiles = ntx * nty
     dev = setup.planes.device
     alive = setup.valid & setup.w_any
     if cull_backface:
         alive &= setup.front
+    if include is not None:
+        alive &= include
     xmin, ymin, xmax, ymax = setup.bbox.unbind(-1)
     alive &= (xmax > 0) & (xmin < width) & (ymax > 0) & (ymin < height)
 
@@ -91,10 +106,24 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     )
 
 
+def clear_visibility(width: int, height: int, device) -> VisibilityBuffer:
+    """The raster's clear values: depth 0, tri -1, bary (0, 0, 1)."""
+    bary = torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+    bary[..., 2] = 1.0
+    return VisibilityBuffer(
+        tri_id=torch.full((height, width), -1, dtype=torch.int32, device=device),
+        depth=torch.zeros((height, width), dtype=torch.float32, device=device),
+        bary=bary,
+    )
+
+
 def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
+                       zcap=None, captid=None, tile_ids=None,
                        chunk: int = 2048) -> VisibilityBuffer:
-    """Plain PyTorch K1a: every entry against every pixel of its tile, in
-    chunks of entries; per pixel the lexicographic max of (z, id) wins."""
+    """Plain PyTorch K1a / K1b / K1c: every entry against every pixel of its
+    tile, in chunks of entries; per pixel the lexicographic max of (z, id)
+    wins.  zcap / captid: (H, W) float32 / int32 peel bound (K1b); tile_ids:
+    (L,) int32 tiles to raster, the others keep the clear values (K1c)."""
     dev = planes.device
     npx = TILE_W * TILE_H
     hp, wp = bins.nty * TILE_H, bins.ntx * TILE_W  # tile-padded image
@@ -102,6 +131,19 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
     tile_of = torch.repeat_interleave(
         torch.arange(counts.shape[0], device=dev), counts.long()
     )
+    entry_tri = bins.entry_tri
+    if tile_ids is not None:
+        listed = torch.zeros(counts.shape[0], dtype=torch.bool, device=dev)
+        listed[tile_ids.long()] = True
+        keep = listed[tile_of]
+        tile_of, entry_tri = tile_of[keep], entry_tri[keep]
+    if zcap is not None:
+        # pixels of the padding never take a fragment, like the kernel's
+        zc_pad = torch.full((hp, wp), -BIG, dtype=torch.float32, device=dev)
+        tc_pad = torch.full((hp, wp), -1, dtype=torch.int64, device=dev)
+        zc_pad[:height, :width] = zcap
+        tc_pad[:height, :width] = captid
+        zc_pad, tc_pad = zc_pad.reshape(-1), tc_pad.reshape(-1)
     local = torch.arange(npx, device=dev)
     lx = (local % TILE_W).to(torch.float32)
     ly = (local // TILE_W).to(torch.float32)
@@ -109,8 +151,8 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
     best_key = torch.full((hp * wp,), -1, dtype=torch.int64, device=dev)
     best_val = torch.zeros((hp * wp, 4), dtype=torch.float32, device=dev)
     best_val[:, 3] = 1.0
-    for s in range(0, bins.entry_tri.shape[0], chunk):
-        ids = bins.entry_tri[s:s + chunk].long()
+    for s in range(0, entry_tri.shape[0], chunk):
+        ids = entry_tri[s:s + chunk].long()
         tl = tile_of[s:s + chunk]
         tx = (tl % bins.ntx) * TILE_W
         ty = torch.div(tl, bins.ntx, rounding_mode="floor") * TILE_H
@@ -122,13 +164,16 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
             return px * p[:, k, None] + py * p[:, k + 1, None] + p[:, k + 2, None]
 
         l0, l1, l2, z = plane(0), plane(3), plane(6), plane(9)
+        pix = ((ty[:, None] + (local // TILE_W)[None, :]) * wp
+               + tx[:, None] + (local % TILE_W)[None, :])
         covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0) & (z <= 1)
+        if zcap is not None:
+            zc, tc = zc_pad[pix], tc_pad[pix]
+            covered &= (z < zc) | ((z == zc) & (ids[:, None] < tc))
         # (z, id) as one int64 key: z >= 0 here, so its float bits order
         # like the value (+0.0 folds -0.0, which compares equal to it)
         zbits = (z + 0.0).view(torch.int32).to(torch.int64)
         key = torch.where(covered, (zbits << 32) | ids[:, None], -1)
-        pix = ((ty[:, None] + (local // TILE_W)[None, :]) * wp
-               + tx[:, None] + (local % TILE_W)[None, :])
         chunk_best = torch.full_like(best_key, -1).scatter_reduce(
             0, pix.reshape(-1), key.reshape(-1), reduce="amax"
         )
@@ -149,16 +194,88 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
 
 @functools.cache
 def load_kernel():
-    """Build K1a (on first use) and load it; returns its launch function."""
+    """Build csrc/raster_tile.cu (on first use) and load it; returns the
+    launch functions of K1a, K1b and K1c."""
     from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
 
     lib = load_cuda_library("raster_tile.cu")
-    fn = lib.raster_tile_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    signatures = {
+        "raster_tile_launch": [ptr] * 3 + [num] * 6 + [ptr] * 4,
+        "raster_tile_peel_launch": [ptr] * 5 + [num] * 6 + [ptr] * 4,
+        "raster_tile_compact_launch": [ptr] * 4 + [num] + [ptr] * 2 + [num] * 5 + [ptr] * 4,
+    }
+    fns = []
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fns.append(fn)
+    return tuple(fns)
+
+
+def _check(name, t, dtype, device, shape=None):
+    if (t.device != device or t.dtype != dtype or not t.is_contiguous()
+            or (shape is not None and tuple(t.shape) != shape)):
+        raise ValueError(
+            f"raster_tiles: {name} must be a contiguous {dtype} tensor "
+            f"{'' if shape is None else shape} on {device}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+
+
+def _empty_visibility(width: int, height: int, device) -> VisibilityBuffer:
+    return VisibilityBuffer(
+        tri_id=torch.empty((height, width), dtype=torch.int32, device=device),
+        depth=torch.empty((height, width), dtype=torch.float32, device=device),
+        bary=torch.empty((height, width, 3), dtype=torch.float32, device=device),
     )
-    return fn
+
+
+def launch(mode: str, planes, bins: Bins, width: int, height: int,
+           out: VisibilityBuffer, zcap=None, captid=None, tile_ids=None) -> None:
+    """Check the inputs and launch one kernel mode ("K1a", "K1b", "K1c") on
+    the current stream, writing into `out`, which K1c expects pre-filled
+    (it writes the listed tiles only).  Counts nothing: the wrappers below
+    allocate the outputs and count their launches."""
+    if planes.device.type != "cuda":
+        raise ValueError(f"raster_tiles: unsupported device {planes.device}")
+    dev = planes.device
+    _check("planes", planes, torch.float32, dev)
+    _check("entry_tri", bins.entry_tri, torch.int32, dev)
+    _check("offsets", bins.offsets, torch.int32, dev, (bins.ntx * bins.nty + 1,))
+    if planes.dim() != 2 or planes.shape[1] != 12:
+        raise ValueError(f"raster_tiles: planes must be (T, 12), got {tuple(planes.shape)}")
+    if (bins.ntx, bins.nty) != _tile_counts(width, height):
+        raise ValueError("raster_tiles: bins were made for another image size")
+    if zcap is not None:
+        _check("zcap", zcap, torch.float32, dev, (height, width))
+        _check("captid", captid, torch.int32, dev, (height, width))
+    if tile_ids is not None:
+        _check("tile_ids", tile_ids, torch.int32, dev)
+    _check("out depth", out.depth, torch.float32, dev, (height, width))
+    _check("out tri_id", out.tri_id, torch.int32, dev, (height, width))
+    _check("out bary", out.bary, torch.float32, dev, (height, width, 3))
+    k1a, k1b, k1c = load_kernel()
+    outs = (out.depth.data_ptr(), out.tri_id.data_ptr(), out.bary.data_ptr())
+    common = (TILE_W, TILE_H, bins.ntx)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if mode == "K1a":
+            err = k1a(planes.data_ptr(), bins.entry_tri.data_ptr(),
+                      bins.offsets.data_ptr(), *common, bins.nty, width, height,
+                      *outs, stream)
+        elif mode == "K1b":
+            err = k1b(planes.data_ptr(), bins.entry_tri.data_ptr(),
+                      bins.offsets.data_ptr(), zcap.data_ptr(), captid.data_ptr(),
+                      *common, bins.nty, width, height, *outs, stream)
+        else:
+            err = k1c(planes.data_ptr(), bins.entry_tri.data_ptr(),
+                      bins.offsets.data_ptr(), tile_ids.data_ptr(),
+                      tile_ids.shape[0], zcap.data_ptr(), captid.data_ptr(),
+                      *common, width, height, *outs, stream)
+    if err != 0:
+        raise RuntimeError(f"raster_tile {mode} kernel launch failed: CUDA error {err}")
 
 
 def raster_tiles(planes, bins: Bins, width: int, height: int) -> VisibilityBuffer:
@@ -167,47 +284,167 @@ def raster_tiles(planes, bins: Bins, width: int, height: int) -> VisibilityBuffe
     csrc/raster_tile.cu or raise."""
     if planes.device.type == "cpu":
         return raster_tiles_plain(planes, bins, width, height)
-    if planes.device.type != "cuda":
-        raise ValueError(f"raster_tiles: unsupported device {planes.device}")
-    for name, t, dt in (("planes", planes, torch.float32),
-                        ("entry_tri", bins.entry_tri, torch.int32),
-                        ("offsets", bins.offsets, torch.int32)):
-        if t.device != planes.device or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(
-                f"raster_tiles: {name} must be a contiguous {dt} tensor on "
-                f"{planes.device}, got {t.dtype} on {t.device}"
-            )
-    if planes.dim() != 2 or planes.shape[1] != 12:
-        raise ValueError(f"raster_tiles: planes must be (T, 12), got {tuple(planes.shape)}")
-    if bins.offsets.shape[0] != bins.ntx * bins.nty + 1:
-        raise ValueError("raster_tiles: offsets do not match the tile grid")
-    if (bins.ntx, bins.nty) != _tile_counts(width, height):
-        raise ValueError("raster_tiles: bins were made for another image size")
-    fn = load_kernel()
-    dev = planes.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    tri = torch.empty((height, width), dtype=torch.int32, device=dev)
-    bary = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            planes.data_ptr(), bins.entry_tri.data_ptr(), bins.offsets.data_ptr(),
-            TILE_W, TILE_H, bins.ntx, bins.nty, width, height,
-            depth.data_ptr(), tri.data_ptr(), bary.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raster_tile kernel launch failed: CUDA error {err}")
+    out = _empty_visibility(width, height, planes.device)
+    launch("K1a", planes, bins, width, height, out)
     raster_tiles.launches += 1
-    return VisibilityBuffer(tri_id=tri, depth=depth, bary=bary)
+    return out
+
+
+def raster_tiles_peel(planes, bins: Bins, width: int, height: int,
+                      zcap, captid) -> VisibilityBuffer:
+    """K1b: K1a where a fragment must also lie strictly below the pixel's
+    peel bound, z < zcap or (z == zcap and id < captid).  zcap (H, W)
+    float32, captid (H, W) int32."""
+    if planes.device.type == "cpu":
+        return raster_tiles_plain(planes, bins, width, height, zcap, captid)
+    out = _empty_visibility(width, height, planes.device)
+    launch("K1b", planes, bins, width, height, out, zcap, captid)
+    raster_tiles_peel.launches += 1
+    return out
+
+
+def raster_tiles_compact(planes, bins: Bins, width: int, height: int,
+                         zcap, captid, tile_ids) -> VisibilityBuffer:
+    """K1c: K1b over the (L,) int32 physical tiles `tile_ids` only; every
+    other pixel keeps the clear values, which is what K1b gives where the
+    bound admits nothing."""
+    if planes.device.type == "cpu":
+        return raster_tiles_plain(planes, bins, width, height, zcap, captid, tile_ids)
+    out = clear_visibility(width, height, planes.device)
+    launch("K1c", planes, bins, width, height, out, zcap, captid, tile_ids)
+    raster_tiles_compact.launches += 1
+    return out
 
 
 raster_tiles.launches = 0
+raster_tiles_peel.launches = 0
+raster_tiles_compact.launches = 0
+
+
+def alpha_test(tables, vis: VisibilityBuffer):
+    """The fragment alpha kill (gbuf.frag:22-32) of each pixel's winner:
+    returns (accept, killed), (H, W) bool.  Only covered pixels are tested
+    (one host sync sizes them)."""
+    flat = vis.tri_id.reshape(-1)
+    covered = flat >= 0
+    idx = torch.nonzero(covered).squeeze(1)
+    pm = shadetab.fetch_tri_static(tables, flat[idx])
+    wts = weights_from_bary(vis.bary.reshape(-1, 3)[idx])
+    uv = shadetab.interpolate3(pm["uv0"], wts)
+    alpha = shadetab.sample_atlas4(
+        tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], uv
+    )[..., 3]
+    needs = (pm["alpha_mask"] == 1.0) & (pm["base_tex"] >= 0)
+    killed = torch.zeros_like(covered)
+    killed[idx] = needs & (alpha < pm["alpha_cutoff"])
+    shape = vis.tri_id.shape
+    return (covered & ~killed).reshape(shape), killed.reshape(shape)
+
+
+def peel_bound(vis: VisibilityBuffer, killed):
+    """The next round's bound: killed pixels keep their winner's (z, id);
+    every other pixel gets (-BIG, -1), which admits nothing."""
+    zcap = torch.where(killed, vis.depth, -BIG).contiguous()
+    captid = torch.where(killed, vis.tri_id, -1).to(torch.int32).contiguous()
+    return zcap, captid
+
+
+def live_tiles(killed, ntx: int, nty: int):
+    """(L,) int32 ids of the tiles holding a killed pixel (one host sync)."""
+    h, w = killed.shape
+    pad = torch.zeros((nty * TILE_H, ntx * TILE_W), dtype=torch.bool, device=killed.device)
+    pad[:h, :w] = killed
+    per_tile = pad.reshape(nty, TILE_H, ntx, TILE_W).any(dim=3).any(dim=1)
+    return torch.nonzero(per_tile.reshape(-1)).squeeze(1).to(torch.int32)
+
+
+def rasterize_alpha_peeled(scene, setup: TriangleSetup, width: int, height: int,
+                           tables, rounds: int = 4, cull_backface: bool = True,
+                           trace: list | None = None) -> VisibilityBuffer:
+    """Binned raster of the alpha-MASK triangles with the per-fragment alpha
+    kill, by depth peeling (the reference's rasterize_alpha_peeled).
+
+    Round 1 rasters the masked stream over every tile with a bound that
+    admits every fragment (K1b) and alpha-tests each pixel's winner.  A
+    passing winner is final: nothing deeper can win.  A killed pixel gets
+    its winner's (z, id) as the next round's bound, so the next-deepest
+    fragment surfaces.  Rounds 2..`rounds` raster only the tiles that hold a
+    killed pixel (K1c), and stop once no pixel was killed.  A pixel with
+    more than `rounds` rejected fragments stays uncovered, as in the
+    reference.
+
+    The reference sizes its live-tile list and the list's entry blocks with
+    static caps (l_cap, sb_cap) and falls back to a full-width round through
+    lax.cond when one overflows.  Here the list is sized by the true count
+    (one host sync per round, like the binning), so there are no caps and no
+    fallback.  trace: optional list that receives one dict per round run
+    (round, tiles rastered, killed pixels).
+    """
+    dev = setup.planes.device
+    include = torch.zeros(setup.planes.shape[0], dtype=torch.bool, device=dev)
+    include[scene.alpha_tri_idx.long()] = True
+    bins = bin_triangles(setup, width, height, cull_backface=cull_backface,
+                         include=include)
+    final = clear_visibility(width, height, dev)
+    zcap = torch.full((height, width), BIG, dtype=torch.float32, device=dev)
+    captid = torch.full((height, width), _INT32_MAX, dtype=torch.int32, device=dev)
+    killed = None
+    for r in range(rounds):
+        if r == 0:
+            vis = raster_tiles_peel(setup.planes, bins, width, height, zcap, captid)
+            n_tiles = bins.ntx * bins.nty
+        else:
+            tile_ids = live_tiles(killed, bins.ntx, bins.nty)
+            n_tiles = tile_ids.shape[0]
+            if n_tiles == 0:
+                break
+            vis = raster_tiles_compact(setup.planes, bins, width, height,
+                                       zcap, captid, tile_ids)
+        accept, killed = alpha_test(tables, vis)
+        final = VisibilityBuffer(
+            tri_id=torch.where(accept, vis.tri_id, final.tri_id),
+            depth=torch.where(accept, vis.depth, final.depth),
+            bary=torch.where(accept[..., None], vis.bary, final.bary),
+        )
+        zcap, captid = peel_bound(vis, killed)
+        if trace is not None:
+            trace.append(dict(round=r + 1, tiles=int(n_tiles),
+                              killed=int(killed.sum())))
+    return final
+
+
+def merge_visibility(a: VisibilityBuffer, b: VisibilityBuffer) -> VisibilityBuffer:
+    """Depth-merge two visibility buffers (reverse-Z GREATER_OR_EQUAL; b wins
+    ties, matching later-draw-wins): the masked stream over the opaque."""
+    take_b = (b.tri_id >= 0) & (b.depth >= a.depth)
+    return VisibilityBuffer(
+        tri_id=torch.where(take_b, b.tri_id, a.tri_id),
+        depth=torch.where(take_b, b.depth, a.depth),
+        bary=torch.where(take_b[..., None], b.bary, a.bary),
+    )
 
 
 def rasterize_scene(scene, clip, width: int, height: int,
-                    cull_backface: bool = True) -> VisibilityBuffer:
-    """Full-scene visibility buffer: setup, binning, K1a.  Alpha-masked
-    triangles raster solid (alpha_raster="off")."""
+                    cull_backface: bool = True, alpha: bool = True,
+                    tables=None, alpha_rounds: int = 4) -> VisibilityBuffer:
+    """Full-scene visibility buffer: setup, then two binned streams merged
+    by depth.  With alpha (and a scene that has alpha-masked triangles) the
+    opaque stream excludes the masked triangles (K1a) and the masked stream
+    is depth-peeled with the alpha kill (K1b, K1c); without, every triangle
+    rasters solid through K1a (alpha_raster="off")."""
     setup = triangle_setup(clip, scene.tri_vertex, width, height)
-    bins = bin_triangles(setup, width, height, cull_backface=cull_backface)
-    return raster_tiles(setup.planes, bins, width, height)
+    use_alpha = alpha and scene.has_alpha_mask
+    include = None
+    if use_alpha:
+        include = scene.materials.alpha_mask[scene.tri_prim.long()] != 1
+    bins = bin_triangles(setup, width, height, cull_backface=cull_backface,
+                         include=include)
+    vis = raster_tiles(setup.planes, bins, width, height)
+    if use_alpha:
+        if tables is None:
+            tables = shadetab.build_shade_tables(scene)
+        vis_m = rasterize_alpha_peeled(scene, setup, width, height, tables,
+                                       rounds=alpha_rounds,
+                                       cull_backface=cull_backface)
+        vis = merge_visibility(vis, vis_m)
+    return vis

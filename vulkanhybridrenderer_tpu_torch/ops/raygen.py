@@ -1,15 +1,27 @@
-"""Hybrid ray-trace pass, shadow branch (port of ``ops/raygen.py``).
+"""Hybrid ray-trace pass (port of ``ops/raygen.py``): RT shadows, AO and
+mirror reflections from the G-buffer (raygen.rgen:14-67, reflection_hit.rchit
+and the miss shaders).
 
-raygen.rgen:14-41 for RT shadows: one cone-sampled direction around the
-light per pixel (cos_theta_max 0.999995) from P + N * 0.1, tmin 0.01, traced
-any-hit; a miss is lit.  RNG draws follow the reference: seed_thread((y * H +
-x) * frame_index), shadow rnd1 then rnd2.  Rays whose result cannot reach
-the image are dead (tmax = -1 < tmin, so K2 drops them at once): sky pixels,
-and pixels facing away from the light when denoise and reflections are off
-(composition multiplies the shadow by max(N.L, 0) = 0 there).  Sky pixels
-are overridden after the trace: shadow_ao = (1, 1, 0, 1), reflections 0.
-Rays are traced flat, one per pixel in image order.  RT AO and reflections
-are not ported yet (ROADMAP item 8).
+- RNG: seed_thread((y * H + x) * frame_index), xorshift draws in the
+  reference's order: shadow rnd1, rnd2, then rnd1, rnd2 of each AO ray.
+- Shadow: one direction in the cone around the light (cos_theta_max
+  0.999995), traced any-hit; a miss is lit.
+- AO: `ao_rays` cosine-hemisphere rays around N, tmax 5, traced any-hit as
+  ONE wavefront of ao_rays * H * W rays; the result is the mean of misses.
+- Reflection: the mirror reflect() of the camera ray, traced closest-hit and
+  shaded by rt_shade.reflection_hit_shade; a miss is 0.
+- Every ray starts at P + N * 0.1 with tmin 0.01.  Rays whose result cannot
+  reach the image are dead (tmax = -1 < tmin, so K2 drops them at once): sky
+  pixels, and shadow rays of pixels facing away from the light when denoise
+  and reflections are off (composition multiplies the shadow by
+  max(N.L, 0) = 0 there; SVGF and the reflection modes do read it, so then
+  those rays stay live).  Channels no active mode reads are not traced
+  (shadow / AO 1, reflections 0), as in the reference.
+- Sky pixels are overridden after the trace: shadow_ao = (1, 1, 0, 1),
+  reflections 0.
+
+Rays are traced flat in image order: a GPU thread per ray needs none of the
+reference's packet, strip or tiling schedules.
 """
 from __future__ import annotations
 
@@ -22,24 +34,27 @@ from vulkanhybridrenderer_tpu_torch.core.config import (
     ShadowMode,
 )
 from vulkanhybridrenderer_tpu_torch.core.types import PerFrameData
-from vulkanhybridrenderer_tpu_torch.ops import screen, traverse
+from vulkanhybridrenderer_tpu_torch.ops import rt_shade, screen, traverse
 from vulkanhybridrenderer_tpu_torch.ops.bvh8 import BVH8
-from vulkanhybridrenderer_tpu_torch.ops.sampling import to_basis, uniform_sample_cone
+from vulkanhybridrenderer_tpu_torch.ops.sampling import (
+    to_basis,
+    uniform_sample_cone,
+    uniform_sample_cosine_hemisphere,
+)
 from vulkanhybridrenderer_tpu_torch.utils import rng
-from vulkanhybridrenderer_tpu_torch.utils.math3d import normalize
+from vulkanhybridrenderer_tpu_torch.utils.math3d import normalize, reflect
 
 CONE_COS_THETA_MAX = 0.999995
 SHADOW_TMIN = 0.01
 SHADOW_TMAX = 10000.0
+AO_TMAX = 5.0
 
 
 def check_supported(settings: HybridSettings) -> None:
-    if settings.ao_mode != AmbientOcclusionMode.OFF:
-        raise NotImplementedError("ambient occlusion: ROADMAP items 8 and 13")
-    if settings.reflection_mode != ReflectionMode.OFF:
-        raise NotImplementedError("reflections: ROADMAP items 8 and 13")
-    if settings.denoise:
-        raise NotImplementedError("SVGF denoise: ROADMAP item 9")
+    if settings.ao_mode == AmbientOcclusionMode.SSAO:
+        raise NotImplementedError("SSAO: ROADMAP item 13")
+    if settings.reflection_mode == ReflectionMode.SSR:
+        raise NotImplementedError("screen-space reflections: ROADMAP item 13")
     if settings.rt_scale != 1:
         raise NotImplementedError("half-resolution RT (rt_scale > 1): ROADMAP item 12")
 
@@ -54,41 +69,91 @@ def surface(pfd: PerFrameData, depth, normal_oid):
     return p_world, n, depth == 0.0
 
 
-def shadow_rays(pfd: PerFrameData, depth, normal_oid, settings: HybridSettings):
-    """Per-pixel shadow rays in image order: origin (R, 3), direction (R, 3),
-    tmax (R,) with -1 for dead rays."""
-    h, w = depth.shape
-    p_world, n, sky = surface(pfd, depth, normal_oid)
-    l = -pfd.directional_light.direction[:3]
-    origin = (p_world + n * 0.1).reshape(-1, 3)
-    state = rng.pixel_seed(w, h, pfd.frame_index, device=depth.device)
-    state, r1 = rng.random01(state)
-    state, r2 = rng.random01(state)
-    u2 = torch.stack([r1, r2], dim=-1).reshape(-1, 2)
-    cone = normalize(uniform_sample_cone(u2, CONE_COS_THETA_MAX))
-    direction = to_basis(l.expand(h * w, 3), cone)
-    tmax = torch.where(sky.reshape(-1), -1.0, SHADOW_TMAX)
-    if not settings.denoise and settings.reflection_mode == ReflectionMode.OFF:
-        ndl = torch.sum(n.reshape(-1, 3) * l, dim=-1)
-        tmax = torch.where(ndl <= 0.0, -1.0, tmax)
-    return origin.contiguous(), direction.contiguous(), tmax.contiguous()
+class Wavefronts:
+    """Every ray of one frame's raytrace pass in image order (R = H * W):
+    `origin` (R, 3); the shadow rays' `shadow_dir` (R, 3) and `shadow_tmax`
+    (R,); the AO rays' `ao_dir` (ao_rays * R, 3), ray k of pixel i at
+    k * R + i, and `ao_tmax` (R,); the reflection rays' `refl_dir` (R, 3)
+    and `refl_tmax` (R,).  tmax is -1 for dead rays.  The AO and reflection
+    rays are made only when `settings` traces them (else None)."""
+
+    def __init__(self, pfd: PerFrameData, depth, normal_oid,
+                 settings: HybridSettings, ao_rays: int = 2):
+        h, w = depth.shape
+        p_world, n, sky = surface(pfd, depth, normal_oid)
+        sky_flat = sky.reshape(-1)
+        n_flat = n.reshape(-1, 3)
+        l = -pfd.directional_light.direction[:3]
+        self.origin = (p_world + n * 0.1).reshape(-1, 3).contiguous()
+
+        state = rng.pixel_seed(w, h, pfd.frame_index, device=depth.device)
+        state, r1 = rng.random01(state)
+        state, r2 = rng.random01(state)
+        u2 = torch.stack([r1, r2], dim=-1).reshape(-1, 2)
+        cone = normalize(uniform_sample_cone(u2, CONE_COS_THETA_MAX))
+        self.shadow_dir = to_basis(l.expand(h * w, 3), cone).contiguous()
+        tmax = torch.where(sky_flat, -1.0, SHADOW_TMAX)
+        if not settings.denoise and settings.reflection_mode == ReflectionMode.OFF:
+            ndl = torch.sum(n_flat * l, dim=-1)
+            tmax = torch.where(ndl <= 0.0, -1.0, tmax)
+        self.shadow_tmax = tmax.contiguous()
+
+        self.ao_dir = self.ao_tmax = self.refl_dir = self.refl_tmax = None
+        if settings.ao_mode == AmbientOcclusionMode.RAYTRACED:
+            dirs = []
+            for _ in range(ao_rays):
+                state, r1 = rng.random01(state)
+                state, r2 = rng.random01(state)
+                u2 = torch.stack([r1, r2], dim=-1).reshape(-1, 2)
+                dirs.append(to_basis(n_flat, uniform_sample_cosine_hemisphere(u2)))
+            self.ao_dir = torch.cat(dirs).contiguous()
+            self.ao_tmax = torch.where(sky_flat, -1.0, AO_TMAX).contiguous()
+        if settings.reflection_mode == ReflectionMode.RAYTRACED:
+            i_dir = normalize(p_world - pfd.camera_position).reshape(-1, 3)
+            self.refl_dir = reflect(i_dir, n_flat).contiguous()
+            self.refl_tmax = torch.where(sky_flat, -1.0, SHADOW_TMAX).contiguous()
 
 
-def hybrid_raytrace(bvh: BVH8, pfd: PerFrameData, depth, normal_oid,
-                    settings: HybridSettings):
+def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8, pfd: PerFrameData,
+                    depth, normal_oid, settings: HybridSettings, ao_rays: int = 2):
     """depth (H, W), normal_oid (4, H, W) -> ("Raytraced Shadows and Ambient
     Occlusion" (4, H, W), "Raytraced Reflections" (4, H, W))."""
     check_supported(settings)
     h, w = depth.shape
-    ones = torch.ones((h, w), dtype=torch.float32, device=depth.device)
+    dev = depth.device
+    rays = Wavefronts(pfd, depth, normal_oid, settings, ao_rays)
+    ones = torch.ones((h, w), dtype=torch.float32, device=dev)
+
     if settings.shadow_mode == ShadowMode.RAYTRACED:
-        origin, direction, tmax = shadow_rays(pfd, depth, normal_oid, settings)
-        rec = traverse.trace(bvh, origin, direction, SHADOW_TMIN, tmax, anyhit=True)
+        rec = traverse.trace(bvh, rays.origin, rays.shadow_dir, SHADOW_TMIN,
+                             rays.shadow_tmax, anyhit=True)
         shadow = torch.where(rec.hit, 0.0, 1.0).reshape(h, w)
     else:
         shadow = ones
+
+    if rays.ao_dir is not None:
+        rec = traverse.trace(
+            bvh, rays.origin.repeat(ao_rays, 1), rays.ao_dir, SHADOW_TMIN,
+            rays.ao_tmax.repeat(ao_rays), anyhit=True,
+        )
+        miss = torch.where(rec.hit, 0.0, 1.0).reshape(ao_rays, h, w)
+        ao = torch.sum(miss, dim=0) / ao_rays
+    else:
+        ao = ones
+
     sky = depth == 0.0
+    if rays.refl_dir is not None:
+        rec = traverse.trace(bvh, rays.origin, rays.refl_dir, SHADOW_TMIN,
+                             rays.refl_tmax, anyhit=False)
+        shaded = rt_shade.reflection_hit_shade(
+            scene, tables, tri_rows, pfd, rec.tri, rec.u, rec.v
+        )
+        refl = torch.where(rec.hit[:, None], shaded, 0.0).reshape(h, w, 4)
+        refl = torch.where(sky[..., None], 0.0, refl).permute(2, 0, 1).contiguous()
+    else:
+        refl = torch.zeros((4, h, w), dtype=torch.float32, device=dev)
+
     shadow = torch.where(sky, 1.0, shadow)
-    shadow_ao = torch.stack([shadow, ones, torch.zeros_like(shadow), ones], dim=0)
-    refl = torch.zeros((4, h, w), dtype=torch.float32, device=depth.device)
+    ao = torch.where(sky, 1.0, ao)
+    shadow_ao = torch.stack([shadow, ao, torch.zeros_like(shadow), ones], dim=0)
     return shadow_ao, refl

@@ -149,6 +149,18 @@ def fetch_tri(tri_rows, tri_ids):
     return out
 
 
+def fetch_tri_static(tables: ShadeTables, tri_ids):
+    """One static-row gather -> per-vertex uv0 ((..., 3, 2)) and the owning
+    primitive's material fields, for consumers without the per-frame
+    TriRows (the fragment alpha kill)."""
+    row = tables.tri_static[tri_ids.long()]
+    s = tri_ids.shape
+    off = _UV0 - _NRM
+    out = dict(uv0=row[..., off:off + 6].reshape(*s, 3, 2))
+    out.update(_prim_fields(row, _PMAT - _NRM))
+    return out
+
+
 def interpolate3(attr, weights):
     """attr (..., 3, k) per-vertex values + (..., 3) weights -> (..., k)."""
     w = weights[..., None]

@@ -253,7 +253,9 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
     if err != 0:
         raise RuntimeError(f"bvh8_trace kernel launch failed: CUDA error {err}")
     trace.launches += 1
+    trace.anyhit_launches += int(anyhit)
     return HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
 
 
-trace.launches = 0
+trace.launches = 0  # every launch of the kernel
+trace.anyhit_launches = 0  # those of them in any-hit mode

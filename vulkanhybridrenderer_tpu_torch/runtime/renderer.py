@@ -1,8 +1,12 @@
 """Frame driver (port of ``runtime/renderer.py``, the parts the slice runs).
 
 Owns the device copy of the scene, the render graph of the active path, the
-previous-frame matrices, the BVH8 and the shade tables.  ``render_frame``
-runs the graph eagerly on ``device``; nothing is compiled ahead of time.
+previous-frame matrices, the BVH8, the shade tables and the SVGF temporal
+state.  ``render_frame`` runs the graph eagerly on ``device``; nothing is
+compiled ahead of time.  The temporal state is made at construction, passed
+into the graph as "temporal_state", replaced by the graph's
+"TemporalStateOut" after each rendered frame, and made anew when
+``set_config`` changes the resolution.
 """
 from __future__ import annotations
 
@@ -10,7 +14,11 @@ import numpy as np
 import torch
 
 from vulkanhybridrenderer_tpu_torch.core.config import RenderConfig
-from vulkanhybridrenderer_tpu_torch.core.types import PerFrameData, make_per_frame_data
+from vulkanhybridrenderer_tpu_torch.core.types import (
+    PerFrameData,
+    make_per_frame_data,
+    make_temporal_state,
+)
 from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
 from vulkanhybridrenderer_tpu_torch.models.base import get_path
 from vulkanhybridrenderer_tpu_torch.scene.gltf import Scene
@@ -37,13 +45,28 @@ class Renderer:
         self.device = torch.device(device)
         self.buffers = scene.buffers.to(self.device)
         self.prim_transform = self.buffers.prim_transform
+        self.path_name = path
         self.path = get_path(path, self.config)
         self.graph = self.path.build_graph()
+        self.temporal_state = self._new_temporal_state()
         self.frame_index = 0
         self._prev_view: np.ndarray | None = None
         self._prev_proj: np.ndarray | None = None
         self._bvh = None
         self._shade_tables = None
+
+    def _new_temporal_state(self):
+        return make_temporal_state(self.config.height, self.config.width, self.device)
+
+    def set_config(self, config: RenderConfig):
+        """Switch the configuration (the reference's pipeline rebuild): the
+        graph is built anew, and the temporal state when the size changed."""
+        resized = (config.height, config.width) != (self.config.height, self.config.width)
+        self.path = get_path(self.path_name, config)
+        self.graph = self.path.build_graph()
+        self.config = config
+        if resized:
+            self.temporal_state = self._new_temporal_state()
 
     def _make_pfd(self) -> PerFrameData:
         cam = self.scene.camera
@@ -84,26 +107,32 @@ class Renderer:
             "prim_transform": self.prim_transform,
             "bvh": self._get_bvh(),
             "shade_tables": self._get_shade_tables(),
+            "temporal_state": self.temporal_state,
         }
 
     def render_frame(self, srgb8: bool = False):
         """Render one frame; returns the (4, H, W) linear RENDER_OUTPUT on the
         device, or with srgb8=True the (H, W, 4) uint8 sRGB image.  The work
         is queued on the current stream; the caller synchronizes."""
-        out = self.graph.run(self._resources(self._make_pfd()))[RENDER_OUTPUT]
+        res = self.graph.run(self._resources(self._make_pfd()))
+        if self.path.uses_temporal_state:
+            self.temporal_state = res["TemporalStateOut"]
         self.frame_index += 1
+        out = res[RENDER_OUTPUT]
         return _encode_srgb8(out) if srgb8 else out
 
     def fetch_resources(self, *names: str) -> dict:
         """Render one frame and return the named graph resources (the
-        reference's debug-texture view)."""
+        reference's debug-texture view).  Like the reference's, it leaves the
+        temporal state as it was."""
         res = self.graph.run(self._resources(self._make_pfd()))
         self.frame_index += 1
         return {n: res[n] for n in names}
 
     def time_passes(self, iters: int = 5) -> dict[str, float]:
         """Per-pass milliseconds (device time between synchronizations on a
-        GPU).  Uses one frame's PerFrameData and does not advance the frame."""
+        GPU).  Uses one frame's PerFrameData and advances neither the frame
+        nor the temporal state."""
         prev = (self._prev_view, self._prev_proj)
         pfd = self._make_pfd()
         self._prev_view, self._prev_proj = prev

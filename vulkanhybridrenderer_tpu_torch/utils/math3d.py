@@ -13,6 +13,7 @@ import torch
 PI = 3.14159265358979323846264
 TWO_PI = 6.28318530717958647692528
 PI_INVERSE = 0.31830988618379067153776
+COS_PI_4 = 0.70710678118654752440084
 
 
 def normalize(v, dim: int = -1, eps: float = 1e-20):
