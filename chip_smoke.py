@@ -2,19 +2,21 @@
 """Drive the PyTorch port (vulkanhybridrenderer_tpu_torch) once on one CUDA GPU.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # and a torch.profiler window of the full frame
+    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-4
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
                 (no CUDA: fail)
-  2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c) and
+  2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d) and
                 csrc/bvh8_trace.cu (K2) for sm_90a and g++ the host BVH builder
                 (native/*.cpp), all at once; ptxas registers / spills per kernel
-  3. golden   - cornell_box() at 64x64 on the GPU against the JAX package's
-                goldens (RMSE <= 2e-3 after clamping to [0, 1], the reference's
-                golden tolerance): the RT-shadows frame
-                (hybrid_rt_shadows_cornell.npy) and the full hybrid frame after
-                2 frames (hybrid_full_cornell.npy)
+  3. golden   - cornell_box() at 64x64 (shadow_map_size 128) on the GPU against
+                the JAX package's goldens (RMSE <= 2e-3 after clamping to
+                [0, 1], the reference's golden tolerance): the RT-shadows frame
+                (hybrid_rt_shadows_cornell.npy), the full hybrid frame after
+                2 frames (hybrid_full_cornell.npy), the forward frame
+                (forward_cornell.npy) and the raster-mode hybrid frame
+                (hybrid_raster_shadows_ssao.npy)
   4. kernels  - at the slice's shapes (SponzaProxy, 1920x1080, the full
                 configuration's second frame: frame 0's RNG seed is the same
                 for every pixel, so its AO rays are coherent and fast) each
@@ -33,12 +35,23 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 hit masks; K2 closest-hit on its reflection wavefront: tri equal
                 on >= 99.99% of rays.  Kernel and plain times by CUDA events,
                 each kernel's bound, and the peel's tiles / killed pixels per
-                round.
+                round.  Then on the forward configuration's second frame
+                (coverage MSAA 4x): K1d (4 samples) on the opaque stream
+                against its plain version (the same check as K1a), against
+                four K1a launches on offset_planes (identical on every
+                pixel), K1d at 8 samples against eight K1a launches; K1a at
+                the shadow map's shape (4096^2, every triangle, light clip)
+                against its plain version.  K1d's time beside the four K1a
+                launches it replaces.
   5. gpu-cpu  - SponzaProxy at 320x180 on the GPU and on the CPU (plain
                 versions): the RT-shadows frame within 1e-4 on >= 99.9% of
                 pixels; the full configuration over 3 frames within
-                GPU_CPU_FULL_TOL on >= GPU_CPU_FULL_SHARE of pixels per frame
-  6. main     - the two slices, SponzaProxy 1920x1080, each driven with the
+                GPU_CPU_FULL_TOL on >= GPU_CPU_FULL_SHARE of pixels per frame;
+                the forward coverage-MSAA 4x frame (alpha_raster="brute") and
+                the raster-mode hybrid frame with SSR over 3 frames within
+                GPU_CPU_RASTER_TOL on >= GPU_CPU_RASTER_SHARE (shadow_map_size
+                512: the CPU's plain raster of a 4096^2 map takes minutes)
+  6. main     - four paths, SponzaProxy 1920x1080, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
                 slice must rise by >= 1 per frame; finite output; per-pass ms:
@@ -46,12 +59,19 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   the full frame (RT shadows + RT AO + RT reflections + SVGF,
                   alpha_raster="brute", 4 peel rounds, temporal state carried):
                   K1a, K1b, K1c, K2 any-hit and closest-hit; live rays per
-                  wavefront and a breakdown of the frame by CUDA events
+                  wavefront and a breakdown of the frame by CUDA events;
+                  the forward frame, coverage MSAA 4x (alpha_raster="brute",
+                  4 peel rounds, the 4096^2 shadow-map prepass): K1a, K1b,
+                  K1c, K1d;
+                  the raster-mode hybrid (rasterized shadows + SSAO, alpha
+                  off): K1a twice a frame (G-buffer and prepass); and one
+                  time_passes of it with SSR on
 Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import re
 import subprocess
@@ -70,10 +90,23 @@ FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clo
 #: csrc/raster_tile.cu (--fmad=false): 4 planes x (2 FMUL + 2 FADD), 5
 #: coverage compares, 2 depth-test compares; the peel bound adds 2 compares
 RASTER_OPS, PEEL_OPS = 23, 25
+#: K1d per (entry, pixel): px*A + py*B of the 4 planes once (8 FMUL + 4
+#: FADD), then per sample 4 FADD of the shifted constants and the 7 compares
+MSAA_SHARED_OPS, MSAA_SAMPLE_OPS = 12, 11
 #: the full frame on the GPU against the CPU: measured >= 0.999792 of pixels
 #: within 1e-3 by frame 2 (NVIDIA H100 80GB HBM3, 700 W).  A grazing AO ray
 #: flips between the two devices' sin / cos, and SVGF spreads the flip.
 GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE = 1e-3, 0.999
+#: the forward coverage-MSAA frame and the raster-mode hybrid with SSR on the
+#: GPU against the CPU, 3 frames: the full frame's gate.  Measured (NVIDIA H100
+#: 80GB HBM3, 700 W): the forward frame 0.999514 of pixels within 1e-3 (max
+#: 0.309), where a sample's coverage test at a triangle edge flips (per-sample
+#: tri id equal on 0.999722-0.999965 with the peel off): the clip-space
+#: vertices agree, the triangle setups on 0.487 of triangles, as CUDA divides
+#: by a Python scalar (the setup's centroid / 3.0) through its reciprocal;
+#: the raster-mode frame 0.999896 (max 0.00233), where an SSR march step's
+#: hit test flips (hit flags equal on 0.999913).  Phase 5 prints the stages.
+GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE = 1e-3, 0.999
 
 
 def _check(ok: bool, what: str) -> None:
@@ -186,17 +219,26 @@ def main() -> int:
                                              native_bridge.load)]:
             f.result()
     for line in (_ptxas_report(build_log("raster_tile.cu"),
-                               {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c"})
+                               {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c",
+                                "msaa_kernelILi2E": "K1d 2 samples",
+                                "msaa_kernelILi4E": "K1d 4 samples",
+                                "msaa_kernelILi8E": "K1d 8 samples"})
                  + _ptxas_report(build_log("bvh8_trace.cu"), {"bvh8_trace": "K2"})):
         print(line)
     _phase("build", t0)
 
     # ---- 3. golden ---------------------------------------------------------------
     t0 = time.perf_counter()
-    for name, hs, frames in (("hybrid_rt_shadows_cornell", cfgmod.HybridSettings(), 1),
-                             ("hybrid_full_cornell", full, 2)):
+    raster_hs = cfgmod.HybridSettings(shadow_mode=cfgmod.ShadowMode.RASTERIZED,
+                                      ao_mode=cfgmod.AmbientOcclusionMode.SSAO)
+    for name, path, hs, frames in (
+            ("hybrid_rt_shadows_cornell", "hybrid", cfgmod.HybridSettings(), 1),
+            ("hybrid_full_cornell", "hybrid", full, 2),
+            ("forward_cornell", "forward", cfgmod.HybridSettings(), 1),
+            ("hybrid_raster_shadows_ssao", "hybrid", raster_hs, 1)):
         r = Renderer(procedural.cornell_box(),
-                     RenderConfig(width=64, height=64, hybrid=hs), device=dev)
+                     RenderConfig(width=64, height=64, shadow_map_size=128, hybrid=hs),
+                     path=path, device=dev)
         for _ in range(frames):
             img = r.render_frame().cpu().numpy()
         golden = np.load(GOLDENS / f"{name}.npy").astype(np.float32)
@@ -350,6 +392,68 @@ def main() -> int:
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     del r, res, setup, bins, obins, mbins, v1, v2, v2c, pre, rays, wavefronts
     torch.cuda.empty_cache()
+
+    # K1d and the shadow map's K1a, on the forward configuration's second frame
+    fwd_cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                           forward=cfgmod.ForwardSettings(msaa_samples=4))
+    r = Renderer(scene, fwd_cfg, path="forward", device=dev)
+    r.render_frame()
+    res = r.fetch_resources("Clip", "LightClip")
+    setup = triangle_setup(res["Clip"], buffers.tri_vertex, WIDTH, HEIGHT)
+    planes = setup.planes
+    obins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=opaque)
+
+    def same(a, b):
+        return all(torch.equal(getattr(a, f), getattr(b, f)) for f in ("tri_id", "depth", "bary"))
+
+    def offset_k1a(samples):
+        return [rt.raster_tiles(p_, obins, WIDTH, HEIGHT) for p_ in
+                [rt.offset_planes(planes, sx / 16.0, sy / 16.0)
+                 for sx, sy in rt.MSAA_PATTERNS[samples]]]
+
+    k4 = rt.raster_tiles_msaa(planes, obins, WIDTH, HEIGHT, 4)
+    diffs = [_vis_diff(a, b) for a, b in
+             zip(k4, rt.raster_tiles_msaa_plain(planes, obins, WIDTH, HEIGHT, 4))]
+    same_k1a = {k: all(same(a, b) for a, b in zip(rt.raster_tiles_msaa(planes, obins, WIDTH,
+                                                                         HEIGHT, k),
+                                                    offset_k1a(k)))
+                for k in (4, 8)}
+    ms = _cuda_ms(lambda: rt.raster_tiles_msaa(planes, obins, WIDTH, HEIGHT, 4), 20)
+    shifted = [rt.offset_planes(planes, sx / 16.0, sy / 16.0) for sx, sy in rt.MSAA_PATTERNS[4]]
+    k1a4_ms = _cuda_ms(lambda: [rt.raster_tiles(p_, obins, WIDTH, HEIGHT) for p_ in shifted], 20)
+    plain_ms = _cuda_ms(lambda: rt.raster_tiles_msaa_plain(planes, obins, WIDTH, HEIGHT, 4), 2)
+    nbytes, n_e = raster_bytes(obins, 0, False)
+    nbytes += 4 * WIDTH * HEIGHT * 20  # four samples' outputs
+    ops = n_e * 1024 * (MSAA_SHARED_OPS + 4 * MSAA_SAMPLE_OPS)
+    kernels["K1d"] = dict(max_abs_err=max(e for _, e in diffs), ms=ms, plain_ms=plain_ms,
+                          **dict(zip(("bound_ms", "bound_by"), bound(ops, nbytes))))
+    k1a_ops_ms = bound(n_e * 1024 * 4 * RASTER_OPS, nbytes)[0]
+    print(f"K1d raster_tile_msaa, 4 samples, forward frame's opaque stream: {n_e} entries; "
+          "tri id equal on " + ", ".join(f"{sh:.6f}" for sh, _ in diffs)
+          + f" of pixels per sample, max |depth/bary diff| where equal "
+          f"{kernels['K1d']['max_abs_err']:.3g}; identical to K1a on offset_planes at 4 "
+          f"samples: {same_k1a[4]}, at 8 samples: {same_k1a[8]}; kernel {ms:.4f} ms, the four "
+          f"K1a launches it replaces {k1a4_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{kernels['K1d']['bound_ms']:.4f} ms ({kernels['K1d']['bound_by']}; counting 4 x 23 "
+          f"operations, as four K1a would: {k1a_ops_ms:.4f} ms)")
+    for sh, e in diffs:
+        _check(sh >= 0.9999, f"K1d tri id agreement {sh}")
+        _check(e == 0.0, f"K1d depth/bary differ by {e} where ids agree")
+    _check(same_k1a[4] and same_k1a[8], f"K1d differs from K1a on offset planes: {same_k1a}")
+
+    size = fwd_cfg.shadow_map_size
+    lsetup = triangle_setup(res["LightClip"], buffers.tri_vertex, size, size)
+    lbins = rt.bin_triangles(lsetup, size, size)
+    share_l, err_l = _vis_diff(rt.raster_tiles(lsetup.planes, lbins, size, size),
+                               rt.raster_tiles_plain(lsetup.planes, lbins, size, size))
+    sm_ms = _cuda_ms(lambda: rt.raster_tiles(lsetup.planes, lbins, size, size), 10)
+    print(f"K1a raster_tile, shadow map {size}x{size}: {int(lbins.entry_tri.shape[0])} entries "
+          f"over {lbins.ntx * lbins.nty} tiles; tri id equal on {share_l:.6f} of texels, max "
+          f"|depth/bary diff| where equal {err_l:.3g}; kernel {sm_ms:.4f} ms")
+    _check(share_l >= 0.9999 and err_l == 0.0, f"shadow-map K1a: {share_l}, {err_l}")
+    kernels["K1a"]["max_abs_err"] = max(kernels["K1a"]["max_abs_err"], err_l)
+    del r, res, setup, obins, k4, shifted, lsetup, lbins
+    torch.cuda.empty_cache()
     _phase("kernels", t0)
 
     # ---- 5. GPU against CPU ------------------------------------------------------
@@ -375,6 +479,30 @@ def main() -> int:
                                                      >= GPU_CPU_FULL_SHARE),
                f"gpu/cpu agreement of the full frame {f}: {shares}")
     del gr, cr
+    raster_ssr = cfgmod.HybridSettings(shadow_mode=cfgmod.ShadowMode.RASTERIZED,
+                                       ao_mode=cfgmod.AmbientOcclusionMode.SSAO,
+                                       reflection_mode=cfgmod.ReflectionMode.SSR)
+    for name, path, small_cfg in (
+            ("forward coverage MSAA 4x", "forward",
+             RenderConfig(width=320, height=180, shadow_map_size=512,
+                          forward=cfgmod.ForwardSettings(msaa_samples=4))),
+            ("raster-mode hybrid + SSR", "hybrid",
+             RenderConfig(width=320, height=180, shadow_map_size=512, alpha_raster="off",
+                          hybrid=raster_ssr))):
+        gr = Renderer(scene, small_cfg, path=path, device=dev)
+        cr = Renderer(scene, small_cfg, path=path, device="cpu")
+        for f in range(3):
+            g, c = gr.render_frame().cpu(), cr.render_frame()
+            d = (g - c).abs().amax(dim=0)
+            shares = {tol: float((d <= tol).float().mean()) for tol in (1e-5, 1e-4, 1e-3)}
+            print(f"gpu vs cpu 320x180 {name}, frame {f}: share of pixels within "
+                  + ", ".join(f"{tol:g}: {s_:.6f}" for tol, s_ in shares.items())
+                  + f"; max |diff| {float(d.max()):.3g}")
+            _check(bool(torch.isfinite(g).all()) and bool(
+                (d <= GPU_CPU_RASTER_TOL).float().mean() >= GPU_CPU_RASTER_SHARE),
+                f"gpu/cpu agreement of the {name} frame {f}: {shares}")
+        _stage_agreement(gr, cr, path)
+        del gr, cr
     _phase("gpu-cpu", t0)
 
     # ---- 6. main paths -------------------------------------------------------------
@@ -382,6 +510,7 @@ def main() -> int:
         "K1a": lambda: rt.raster_tiles.launches,
         "K1b": lambda: rt.raster_tiles_peel.launches,
         "K1c": lambda: rt.raster_tiles_compact.launches,
+        "K1d": lambda: rt.raster_tiles_msaa.launches,
         "K2 any-hit": lambda: traverse.trace.anyhit_launches,
         "K2 closest-hit": lambda: traverse.trace.launches - traverse.trace.anyhit_launches,
     }
@@ -394,7 +523,7 @@ def main() -> int:
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(frame).all()), "warm-up frame not finite")
         rt.raster_tiles.launches = rt.raster_tiles_peel.launches = 0
-        rt.raster_tiles_compact.launches = 0
+        rt.raster_tiles_compact.launches = rt.raster_tiles_msaa.launches = 0
         traverse.trace.launches = traverse.trace.anyhit_launches = 0
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -424,7 +553,8 @@ def main() -> int:
     r = Renderer(scene, full_cfg, device=dev)
     ms_frame, launches = drive(r)
     for name, count in launches.items():
-        _check(count >= 10, f"{name} launched {count} times in the full frame's 10 frames")
+        _check(name == "K1d" or count >= 10,
+               f"{name} launched {count} times in the full frame's 10 frames")
     passes = r.time_passes(iters=5)
     print(f"main path 2: {scene.name} {WIDTH}x{HEIGHT} full hybrid (RT shadows + RT AO + "
           f"RT reflections + SVGF, alpha_raster=brute, 4 peel rounds): {ms_frame:.3f} ms/frame "
@@ -432,15 +562,52 @@ def main() -> int:
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     _breakdown(r, full)
     if profile:
-        _profile(r)
+        _profile(r, "full")
+    del r
+
+    r = Renderer(scene, fwd_cfg, path="forward", device=dev)
+    ms_frame, launches3 = drive(r)
+    for name in ("K1a", "K1b", "K1c", "K1d"):
+        _check(launches3[name] >= 10,
+               f"{name} launched {launches3[name]} times in the forward frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 3: {scene.name} {WIDTH}x{HEIGHT} forward, coverage MSAA 4x "
+          f"(alpha_raster=brute, 4 peel rounds, {fwd_cfg.shadow_map_size}^2 shadow-map "
+          f"prepass): {ms_frame:.3f} ms/frame over 10 frames | launches {launches3}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "forward coverage-MSAA 4x")
+    del r
+
+    raster_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off", hybrid=raster_hs)
+    r = Renderer(scene, raster_cfg, device=dev)
+    ms_frame, launches4 = drive(r)
+    _check(launches4["K1a"] >= 20,
+           f"K1a launched {launches4['K1a']} times in the raster-mode frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 4: {scene.name} {WIDTH}x{HEIGHT} raster-mode hybrid (rasterized shadows "
+          f"+ SSAO, alpha off): {ms_frame:.3f} ms/frame over 10 frames | launches {launches4}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "raster-mode hybrid")
+    r.set_config(dataclasses.replace(raster_cfg, hybrid=raster_ssr))
+    passes = r.time_passes(iters=1)
+    print("per-pass ms with SSR (1 run after a warm-up): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    del r
     print(f"card: {smi}")
     _phase("main", t0)
+    # each kernel's launches from the path that introduced it: the full
+    # frame's for K1a, K1b, K1c and K2, the forward frame's for K1d
+    launches["K1d"] = launches3["K1d"]
 
     source = {"K1a": "raster_tile.cu", "K1b": "raster_tile.cu", "K1c": "raster_tile.cu",
+              "K1d": "raster_tile.cu",
               "K2 any-hit": "bvh8_trace.cu", "K2 closest-hit": "bvh8_trace.cu"}
     replaces = {"K1a": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
                 "K1b": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
                 "K1c": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
+                "K1d": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
                 "K2 any-hit": "vulkanhybridrenderer_tpu/ops/traverse.py:135",
                 "K2 closest-hit": "vulkanhybridrenderer_tpu/ops/traverse.py:135"}
     print(json.dumps({"kernels": [
@@ -457,6 +624,50 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _stage_agreement(gr, cr, path):
+    """Where a GPU and a CPU renderer of one configuration part: their
+    intermediate resources on the next frame, side by side."""
+    from vulkanhybridrenderer_tpu_torch.models import hybrid as hybrid_path
+    from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled as rt
+
+    from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
+
+    cfg = gr.config
+    if path == "forward":
+        k = cfg.forward.msaa_samples
+        g, c = (r.fetch_resources("Clip", "shade_tables") for r in (gr, cr))
+        pg, pc = (triangle_setup(x["Clip"], r.buffers.tri_vertex, cfg.width, cfg.height).planes
+                  for r, x in ((gr, g), (cr, c)))
+        x = torch.linspace(-3.0, 3.0, 1 << 20)
+        print(f"  gpu vs cpu: clip equal on {float((g['Clip'].cpu() == c['Clip']).float().mean()):.6f}"
+              f" of values, triangle setup planes on "
+              f"{float((pg.cpu() == pc).all(dim=1).float().mean()):.6f} of triangles; x / 3.0 "
+              f"equal on {float(((x.to(gr.device) / 3.0).cpu() == x / 3.0).float().mean()):.6f} of "
+              f"2^20 values, x * (1 / 3.0) on the card against x / 3.0 on the CPU on "
+              f"{float(((x.to(gr.device) * (1 / 3.0)).cpu() == x / 3.0).float().mean()):.6f}")
+        for alpha in (False, True):
+            vg, vc = (rt.rasterize_scene_msaa(r.buffers, x["Clip"], cfg.width, cfg.height, k,
+                                              alpha=alpha, tables=x["shade_tables"])
+                      for r, x in ((gr, g), (cr, c)))
+            print(f"  gpu vs cpu per-sample visibility, alpha {'peeled' if alpha else 'off'}: "
+                  "tri id equal on " + ", ".join(
+                      f"{float((a.tri_id.cpu() == b.tri_id).float().mean()):.6f}"
+                      for a, b in zip(vg, vc)))
+        return
+    names = (hybrid_path.DEPTH, hybrid_path.SHADOW_MAP, hybrid_path.SSAO, hybrid_path.SSR)
+    g, c = gr.fetch_resources(*names), cr.fetch_resources(*names)
+    g = {n: v.cpu() for n, v in g.items()}
+    ssao_d = (g[hybrid_path.SSAO] - c[hybrid_path.SSAO]).abs()
+    hit_g, hit_c = g[hybrid_path.SSR][3], c[hybrid_path.SSR][3]
+    print(f"  gpu vs cpu stages: depth equal on "
+          f"{float((g[hybrid_path.DEPTH] == c[hybrid_path.DEPTH]).float().mean()):.6f}, "
+          f"shadow map equal on "
+          f"{float((g[hybrid_path.SHADOW_MAP] == c[hybrid_path.SHADOW_MAP]).float().mean()):.6f}"
+          f" of texels; SSAO max |diff| {float(ssao_d.max()):.3g}, within 1e-4 on "
+          f"{float((ssao_d <= 1e-4).float().mean()):.6f}; SSR hit flag equal on "
+          f"{float((hit_g == hit_c).float().mean()):.6f} (hits {float(hit_c.mean()):.4f})")
 
 
 def _breakdown(r, settings):
@@ -514,9 +725,9 @@ def _breakdown(r, settings):
     print("breakdown ms: " + ", ".join(f"{k} {_cuda_ms(fn, 5):.3f}" for k, fn in steps.items()))
 
 
-def _profile(r, frames: int = 5) -> None:
-    """torch.profiler over `frames` full frames: device busy share of the
-    window and the largest kernels."""
+def _profile(r, label: str, frames: int = 5) -> None:
+    """torch.profiler over `frames` frames of renderer `r`: device busy share
+    of the window and the largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     r.render_frame()
@@ -530,7 +741,7 @@ def _profile(r, frames: int = 5) -> None:
     # device time: only the kernels' own events, not the aten ops above them
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
     busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3
-    print(f"profile: {frames} full frames, window {window_ms:.3f} ms (profiler on), device "
+    print(f"profile: {frames} {label} frames, window {window_ms:.3f} ms (profiler on), device "
           f"kernel time {busy_ms:.3f} ms ({busy_ms / frames:.3f} ms/frame), busy share "
           f"{busy_ms / window_ms:.4f}")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=15))

@@ -92,9 +92,6 @@ def test_shadows_off_and_srgb8():
 
 
 @pytest.mark.parametrize("change", [
-    dict(hybrid=pcfg.HybridSettings(shadow_mode=pcfg.ShadowMode.RASTERIZED)),
-    dict(hybrid=pcfg.HybridSettings(reflection_mode=pcfg.ReflectionMode.SSR)),
-    dict(hybrid=pcfg.HybridSettings(ao_mode=pcfg.AmbientOcclusionMode.SSAO)),
     dict(hybrid=pcfg.HybridSettings(rt_scale=2)),
     dict(raster="brute"),
     dict(animated=True),
@@ -106,9 +103,10 @@ def test_unported_modes_raise(change):
 
 
 def test_unported_paths_and_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(alpha_raster="off"),
-                           path="forward", device="cpu")
+    for path in ("raytraced", "rayquery"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+            prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(alpha_raster="off"),
+                               path=path, device="cpu")
     with pytest.raises(ValueError):
         pcfg.RenderConfig(bvh_dtype="bf16")
     with pytest.raises(ValueError):
@@ -135,18 +133,22 @@ def test_render_graph_order_and_errors():
 
 
 RT_AO = pcfg.AmbientOcclusionMode.RAYTRACED
+RASTERIZED_SHADOWS = pcfg.ShadowMode.RASTERIZED
+SHADOWS_OFF = pcfg.ShadowMode.OFF
 
 
 @pytest.fixture(scope="module")
 def small_sponza():
-    """The small Sponza proxy's RT-shadows frame and its RT AO frame, each
-    the second frame rendered (SVGF has no history, hence no variance, on
-    the first)."""
+    """The small Sponza proxy's RT-shadows frame, its RT AO frame and its
+    frame without shadows, each the second frame rendered (SVGF has no
+    history, hence no variance, on the first)."""
     scene = pproc.sponza_proxy(columns=3, segments=6, extra_boxes=12, grid_res=8)
     cfg = pcfg.RenderConfig(width=W, height=H, alpha_raster="off")
     ao_cfg = dataclasses.replace(cfg, hybrid=pcfg.HybridSettings(ao_mode=RT_AO))
+    off_cfg = dataclasses.replace(cfg, hybrid=pcfg.HybridSettings(shadow_mode=SHADOWS_OFF))
     return scene, cfg, {name: _second_frame(scene, c)
-                        for name, c in (("rt_shadows", cfg), ("rt_ao", ao_cfg))}
+                        for name, c in (("rt_shadows", cfg), ("rt_ao", ao_cfg),
+                                        ("shadows_off", off_cfg))}
 
 
 def _second_frame(scene, cfg):
@@ -159,15 +161,25 @@ def _second_frame(scene, cfg):
     (dict(hybrid=pcfg.HybridSettings(ao_mode=RT_AO)), ("rt_shadows",)),
     (dict(hybrid=pcfg.HybridSettings(ao_mode=RT_AO, denoise=True)), ("rt_shadows", "rt_ao")),
     (dict(alpha_raster="brute"), ("rt_shadows",)),
+    (dict(shadow_map_size=128, hybrid=pcfg.HybridSettings(shadow_mode=RASTERIZED_SHADOWS)),
+     ("rt_shadows",)),
+    # the proxy's closed hall shadows every pixel from the light, and
+    # composition scales reflections by the shadow: SSR shows with shadows off
+    (dict(hybrid=pcfg.HybridSettings(shadow_mode=SHADOWS_OFF,
+                                     reflection_mode=pcfg.ReflectionMode.SSR)),
+     ("shadows_off",)),
+    (dict(hybrid=pcfg.HybridSettings(ao_mode=pcfg.AmbientOcclusionMode.SSAO)),
+     ("rt_shadows", "rt_ao")),
 ])
 def test_ported_modes_render(small_sponza, change, differs_from):
-    """RT AO, SVGF and the alpha peel over the RT-shadows frame (they raised
-    NotImplementedError before they were ported): finite, and not the frames
-    without them.  SVGF is rendered over RT AO: on the proxy's hard RT
-    shadows alone it is an identity (zero variance stops every a-trous tap).
-    Each is the second frame rendered, with the history of the first.
-    test_torch_hybrid_full*.py hold all of them together against the JAX
-    renderer."""
+    """RT AO, SVGF, the alpha peel, rasterized (shadow-map + PCF) shadows,
+    SSR and SSAO over the RT-shadows frame (they raised NotImplementedError
+    before they were ported): finite, and not the frames without them.  SVGF
+    is rendered over RT AO: on the proxy's hard RT shadows alone it is an
+    identity (zero variance stops every a-trous tap).  Each is the second
+    frame rendered, with the history of the first.
+    test_torch_hybrid_full*.py and test_torch_hybrid_raster.py hold them
+    against the JAX renderer."""
     scene, cfg, base = small_sponza
     img = _second_frame(scene, dataclasses.replace(cfg, **change))
     assert bool(torch.isfinite(img).all())

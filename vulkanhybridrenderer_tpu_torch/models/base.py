@@ -40,11 +40,11 @@ class RenderPath:
 
 
 def get_path(name: str, config: RenderConfig) -> RenderPath:
-    """Instantiate a render path by name.  The port carries "hybrid"; the
-    forward, raytraced and rayquery paths are ROADMAP item 14."""
-    from vulkanhybridrenderer_tpu_torch.models import hybrid  # noqa: F401
+    """Instantiate a render path by name.  The port carries "hybrid" and
+    "forward"; the raytraced and rayquery paths are ROADMAP item 14."""
+    from vulkanhybridrenderer_tpu_torch.models import forward, hybrid  # noqa: F401
 
-    if name in ("forward", "raytraced", "rayquery"):
+    if name in ("raytraced", "rayquery"):
         raise NotImplementedError(f"render path {name!r}: ROADMAP item 14")
     if name not in _REGISTRY:
         raise KeyError(f"unknown render path {name!r}; available: {sorted(_REGISTRY)}")

@@ -1,14 +1,17 @@
 """Hybrid render path (port of ``models/hybrid.py``).
 
-  Geometry -> G-Buffer Pass -> [BVH -> Raytrace Pass -> [SVGF Denoise Pass]]
-           -> Composition Pass
+  Geometry -> G-Buffer Pass -> [Depth Prepass] -> [BVH -> Raytrace Pass]
+           -> [SSAO Pass -> SSAO Blur Pass] -> [SSR Pass]
+           -> [SVGF Denoise Pass] -> Composition Pass
 
-The BVH and the Raytrace Pass are registered when any of shadows, AO or
-reflections is RAYTRACED; the SVGF Denoise Pass when denoise is on as well.
-It reads and returns the temporal state ("temporal_state" in,
-"TemporalStateOut" out), which the renderer carries to the next frame.  The
-rasterized shadow map, SSAO, SSR (item 13) and half-resolution RT (item 12)
-raise NotImplementedError naming their ROADMAP item.
+The Depth Prepass (the shadow map) is registered when shadows are
+RASTERIZED; the BVH and the Raytrace Pass when any of shadows, AO or
+reflections is RAYTRACED; the SSAO passes when AO is SSAO; the SSR Pass when
+reflections are SSR; the SVGF Denoise Pass when denoise is on and something
+is traced.  SVGF reads and returns the temporal state ("temporal_state" in,
+"TemporalStateOut" out), which the renderer carries to the next frame.
+Half-resolution RT (item 12) raises NotImplementedError naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -23,10 +26,11 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
+    add_shadow_map_pass,
     check_raster_supported,
     rasterize_for_path,
 )
-from vulkanhybridrenderer_tpu_torch.ops import composition, gbuffer, raygen, svgf
+from vulkanhybridrenderer_tpu_torch.ops import composition, gbuffer, raygen, ssao, ssr, svgf
 
 ALBEDO = "Albedo"
 NORMALS = "World Space Normals and Object IDs"
@@ -35,6 +39,10 @@ DEPTH = "Depth"
 RT_SHADOW_AO = "Raytraced Shadows and Ambient Occlusion"
 RT_REFLECTIONS = "Raytraced Reflections"
 DENOISED = "Denoised Raytraced Shadows and Ambient Occlusion"
+SHADOW_MAP = "Shadow Map"
+SSAO_RAW = "Screen Space Ambient Occlusion Raw"
+SSAO = "Screen Space Ambient Occlusion"
+SSR = "Screen Space Reflections"
 
 
 class HybridPath(RenderPath):
@@ -43,7 +51,6 @@ class HybridPath(RenderPath):
     def __init__(self, config):
         super().__init__(config)
         check_raster_supported(config)
-        composition.check_supported(config.hybrid)
         raygen.check_supported(config.hybrid)
         if config.shadow_accel != "bvh8":
             raise NotImplementedError("the shadow grid: ROADMAP item 16")
@@ -82,6 +89,10 @@ class HybridPath(RenderPath):
 
         comp_inputs = ["pfd", ALBEDO, NORMALS, MOTION_MR, DEPTH]
         comp_sources = {}
+        if s.shadow_mode == ShadowMode.RASTERIZED:
+            add_shadow_map_pass(graph, cfg.shadow_map_size, cfg)
+            comp_sources["shadow_map"] = SHADOW_MAP
+
         if self._rt_needed():
             add_bvh_pass(graph, cfg.animated)
 
@@ -101,6 +112,28 @@ class HybridPath(RenderPath):
             comp_sources["rt_shadow_ao"] = RT_SHADOW_AO
             if s.reflection_mode == ReflectionMode.RAYTRACED:
                 comp_sources["rt_reflections"] = RT_REFLECTIONS
+
+        if s.ao_mode == AmbientOcclusionMode.SSAO:
+            graph.add_pass(
+                "SSAO Pass",
+                lambda res: {SSAO_RAW: ssao.ssao(res["pfd"], res[DEPTH], res[NORMALS],
+                                                 radius=s.ssao.radius)},
+                inputs=("pfd", DEPTH, NORMALS), outputs=(SSAO_RAW,),
+            )
+            graph.add_pass(
+                "SSAO Blur Pass", lambda res: {SSAO: ssao.ssao_blur(res[SSAO_RAW])},
+                inputs=(SSAO_RAW,), outputs=(SSAO,),
+            )
+            comp_sources["ssao_tex"] = SSAO
+
+        if s.reflection_mode == ReflectionMode.SSR:
+            graph.add_pass(
+                "SSR Pass",
+                lambda res: {SSR: ssr.ssr(res["pfd"], res[DEPTH], res[NORMALS], res[ALBEDO],
+                                          res[MOTION_MR], s.ssr)},
+                inputs=("pfd", DEPTH, NORMALS, ALBEDO, MOTION_MR), outputs=(SSR,),
+            )
+            comp_sources["ssr_tex"] = SSR
 
         if self.uses_temporal_state:
             def svgf_pass(res):

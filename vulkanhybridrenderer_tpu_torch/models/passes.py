@@ -19,38 +19,56 @@ def check_raster_supported(config) -> None:
         )
 
 
-def rasterize_for_path(scene, clip, width, height, config, tables=None):
-    """Binned raster honoring the cull mode.  With alpha_raster="brute" the
-    alpha-masked triangles are depth-peeled with the fragment alpha kill
-    (`config.alpha_peel_rounds` rounds, reading `tables`); with "off" they
-    raster solid."""
+def rasterize_for_path(scene, clip, width, height, config, alpha: bool = True,
+                       tables=None):
+    """Binned raster honoring the cull mode.  With alpha and
+    alpha_raster="brute" the alpha-masked triangles are depth-peeled with the
+    fragment alpha kill (`config.alpha_peel_rounds` rounds, reading
+    `tables`); otherwise they raster solid."""
     check_raster_supported(config)
     return rasterizer_tiled.rasterize_scene(
         scene, clip, width, height,
         cull_backface=config.raster_state.cull_mode == "back",
-        alpha=config.alpha_raster != "off", tables=tables,
+        alpha=alpha and config.alpha_raster != "off", tables=tables,
         alpha_rounds=config.alpha_peel_rounds,
     )
 
 
 def add_geometry_pass(graph: RenderGraph):
-    """Vertex transforms: object -> world -> camera clip space, and this
-    frame's TriRow table.  (The reference also emits the light-space clip
-    and world triangles for the shadow map, the BVH refit and reflection
-    shading; they come back with those passes.)"""
+    """Vertex transforms: object -> world -> camera and light clip space, and
+    this frame's TriRow table.  (The reference also emits the world
+    triangles for the BVH refit; they come back with animation.)"""
 
     def fn(res):
         scene = res["scene"]
         pfd = res["pfd"]
         world = geometry.to_world(scene, res.get("prim_transform"))
         clip = geometry.to_clip(world.position, matmul4(pfd.camera_proj, pfd.camera_view))
+        light_clip = geometry.to_clip(world.position, pfd.directional_light.projview)
         tri_rows = shadetab.make_tri_rows(res["shade_tables"], scene, world.position, clip)
-        return {"Clip": clip, "TriRows": tri_rows}
+        return {"Clip": clip, "LightClip": light_clip, "TriRows": tri_rows}
 
     graph.add_pass(
         "Geometry", fn,
         inputs=("scene", "pfd", "prim_transform", "shade_tables"),
-        outputs=("Clip", "TriRows"),
+        outputs=("Clip", "LightClip", "TriRows"),
+    )
+
+
+def add_shadow_map_pass(graph: RenderGraph, size: int, config):
+    """The depth-only prepass into the size x size shadow map from the
+    light's view (forward_raster_render_path.cpp:13-41,
+    hybrid_render_path.cpp:60-96): every triangle binned through K1a with
+    the config's cull mode.  Its fragment shader is empty
+    (depth_prepass.frag), so masked triangles raster solid."""
+
+    def fn(res):
+        vis = rasterize_for_path(res["scene"], res["LightClip"], size, size, config,
+                                 alpha=False)
+        return {"Shadow Map": vis.depth}
+
+    graph.add_pass(
+        "Depth Prepass", fn, inputs=("scene", "LightClip"), outputs=("Shadow Map",)
     )
 
 

@@ -1,9 +1,9 @@
 """Hybrid composition (composition.frag:64-161; port of ``ops/composition.py``).
 
 G-buffer + shadow / AO / reflection sources -> final linear lighting.  The
-sources are the raytrace pass's (possibly denoised) shadow and AO channels,
-its reflections, or OFF.  The rasterized shadow map, SSAO and SSR are not
-ported yet (ROADMAP item 13).
+sources: shadows from the raytrace pass (possibly denoised), the shadow map
+through the 16-tap PCF, or OFF; AO from the raytrace pass, SSAO, or OFF;
+reflections from the raytrace pass, SSR, or OFF.
 """
 from __future__ import annotations
 
@@ -16,25 +16,18 @@ from vulkanhybridrenderer_tpu_torch.core.config import (
     ShadowMode,
 )
 from vulkanhybridrenderer_tpu_torch.core.types import GBuffer, PerFrameData
-from vulkanhybridrenderer_tpu_torch.ops import brdf, screen
+from vulkanhybridrenderer_tpu_torch.ops import brdf, screen, shadowmap
 from vulkanhybridrenderer_tpu_torch.utils.math3d import PI_INVERSE, normalize
 
 
-def check_supported(settings: HybridSettings) -> None:
-    if settings.shadow_mode == ShadowMode.RASTERIZED:
-        raise NotImplementedError("rasterized shadows: ROADMAP item 13")
-    if settings.ao_mode == AmbientOcclusionMode.SSAO:
-        raise NotImplementedError("SSAO: ROADMAP item 13")
-    if settings.reflection_mode == ReflectionMode.SSR:
-        raise NotImplementedError("screen-space reflections: ROADMAP item 13")
-
-
 def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
+            shadow_map=None, ssao_tex=None, ssr_tex=None,
             rt_shadow_ao=None, rt_reflections=None):
-    """rt_shadow_ao (4, H, W) when any RT mode is on; rt_reflections
-    (4, H, W) when reflections are RAYTRACED.  Returns the (4, H, W) linear
-    frame (alpha 1)."""
-    check_supported(settings)
+    """shadow_map (S, S) when shadows are RASTERIZED; ssao_tex (H, W) when AO
+    is SSAO; ssr_tex (4, H, W) when reflections are SSR; rt_shadow_ao
+    (4, H, W) when any RT mode is on; rt_reflections (4, H, W) when
+    reflections are RAYTRACED.  Returns the (4, H, W) linear frame (alpha
+    1)."""
     h, w = gbuf.depth.shape
     dev = gbuf.depth.device
     uv = screen.pixel_uv_grid(h, w, device=dev)
@@ -50,10 +43,14 @@ def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
 
     if settings.shadow_mode == ShadowMode.RAYTRACED:
         shadow = rt_shadow_ao[0]
+    elif settings.shadow_mode == ShadowMode.RASTERIZED:  # :88-111
+        shadow = shadowmap.shadow_pcf16(shadow_map, pfd.directional_light.projview, p)
     else:
         shadow = torch.ones((h, w), dtype=torch.float32, device=dev)
     if settings.ao_mode == AmbientOcclusionMode.RAYTRACED:
         ao = rt_shadow_ao[1]
+    elif settings.ao_mode == AmbientOcclusionMode.SSAO:
+        ao = ssao_tex
     else:
         ao = torch.ones((h, w), dtype=torch.float32, device=dev)
 
@@ -69,8 +66,10 @@ def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
     diffuse = brdf.diffuse_brdf(metallic, albedo, f) * common
     specular = brdf.specular_brdf(roughness, f, v, l_b, n, h_vec) * common
 
-    if settings.reflection_mode == ReflectionMode.RAYTRACED:  # :145-156
-        refl = rt_reflections[:3].permute(1, 2, 0) * shadow[..., None]
+    refl_src = {ReflectionMode.RAYTRACED: rt_reflections,
+                ReflectionMode.SSR: ssr_tex}.get(settings.reflection_mode)
+    if refl_src is not None:  # :145-156
+        refl = refl_src[:3].permute(1, 2, 0) * shadow[..., None]
         specular = torch.where(
             (metallic == 1.0)[..., None], refl,
             specular + (refl - specular) * roughness[..., None],

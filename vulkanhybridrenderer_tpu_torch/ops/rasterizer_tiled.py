@@ -11,17 +11,18 @@
    never overflow and the reference's static entry cap and NaN-poison guard
    have no counterpart here.
 2. The tile depth test, hand-written CUDA (csrc/raster_tile.cu) on the GPU, in
-   three modes: ``raster_tiles`` (K1a, every tile), ``raster_tiles_peel``
-   (K1b, every tile under a per-pixel (z, id) depth-peel bound) and
-   ``raster_tiles_compact`` (K1c, K1b over a list of tiles).
-   ``raster_tiles_plain`` is the same function in plain PyTorch, used for CPU
-   tensors and as the kernels' reference on the card.
+   four modes: ``raster_tiles`` (K1a, every tile), ``raster_tiles_peel``
+   (K1b, every tile under a per-pixel (z, id) depth-peel bound),
+   ``raster_tiles_compact`` (K1c, K1b over a list of tiles) and
+   ``raster_tiles_msaa`` (K1d, K1a at the 2, 4 or 8 standard sample positions
+   in one pass).  ``raster_tiles_plain`` is the same function in plain
+   PyTorch, used for CPU tensors and as the kernels' reference on the card.
 3. ``rasterize_alpha_peeled``: the alpha-masked stream by depth peeling, and
-   ``rasterize_scene``, which merges it over the opaque stream.
+   ``rasterize_scene``, which merges it over the opaque stream;
+   ``rasterize_scene_msaa`` does both per sample position.
 
 The winner per pixel is the lexicographic max of (reverse-Z depth, triangle
-id), which is what the reference kernel's chunked merge computes.  MSAA
-samples (K1d) are not ported yet (ROADMAP item 14).
+id), which is what the reference kernel's chunked merge computes.
 """
 from __future__ import annotations
 
@@ -47,6 +48,14 @@ TILE_W = 128
 #: every fragment, a -BIG bound admits none
 BIG = 3.4e38
 _INT32_MAX = 2**31 - 1
+#: the standard Vulkan sample positions (VkSpec "Multisampling"), offsets from
+#: the pixel centre in 1/16 pixel, of the reference's multisampled attachments
+#: (forward_raster_render_path.cpp:59).  One sample is the plain raster.
+MSAA_PATTERNS = {
+    2: ((4, 4), (-4, -4)),
+    4: ((-2, -6), (6, -2), (-6, 2), (2, 6)),
+    8: ((1, -3), (-1, 3), (5, 1), (-3, -5), (-5, 5), (-7, -1), (3, 7), (7, -7)),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,7 +204,7 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
 @functools.cache
 def load_kernel():
     """Build csrc/raster_tile.cu (on first use) and load it; returns the
-    launch functions of K1a, K1b and K1c."""
+    launch functions of K1a, K1b, K1c and K1d."""
     from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
 
     lib = load_cuda_library("raster_tile.cu")
@@ -204,6 +213,8 @@ def load_kernel():
         "raster_tile_launch": [ptr] * 3 + [num] * 6 + [ptr] * 4,
         "raster_tile_peel_launch": [ptr] * 5 + [num] * 6 + [ptr] * 4,
         "raster_tile_compact_launch": [ptr] * 4 + [num] + [ptr] * 2 + [num] * 5 + [ptr] * 4,
+        "raster_tile_msaa_launch": ([ptr] * 3 + [ctypes.POINTER(ctypes.c_float)]
+                                    + [num] * 7 + [ptr] * 4),
     }
     fns = []
     for name, argtypes in signatures.items():
@@ -224,19 +235,23 @@ def _check(name, t, dtype, device, shape=None):
         )
 
 
-def _empty_visibility(width: int, height: int, device) -> VisibilityBuffer:
+def _empty_visibility(width: int, height: int, device, samples=()) -> VisibilityBuffer:
+    """Uninitialised outputs of (*samples, H, W) (bary (*samples, H, W, 3))."""
+    shape = (*samples, height, width)
     return VisibilityBuffer(
-        tri_id=torch.empty((height, width), dtype=torch.int32, device=device),
-        depth=torch.empty((height, width), dtype=torch.float32, device=device),
-        bary=torch.empty((height, width, 3), dtype=torch.float32, device=device),
+        tri_id=torch.empty(shape, dtype=torch.int32, device=device),
+        depth=torch.empty(shape, dtype=torch.float32, device=device),
+        bary=torch.empty((*shape, 3), dtype=torch.float32, device=device),
     )
 
 
 def launch(mode: str, planes, bins: Bins, width: int, height: int,
-           out: VisibilityBuffer, zcap=None, captid=None, tile_ids=None) -> None:
-    """Check the inputs and launch one kernel mode ("K1a", "K1b", "K1c") on
-    the current stream, writing into `out`, which K1c expects pre-filled
-    (it writes the listed tiles only).  Counts nothing: the wrappers below
+           out: VisibilityBuffer, zcap=None, captid=None, tile_ids=None,
+           samples: int = 1) -> None:
+    """Check the inputs and launch one kernel mode ("K1a", "K1b", "K1c",
+    "K1d") on the current stream, writing into `out`, which K1c expects
+    pre-filled (it writes the listed tiles only) and K1d expects with a
+    leading (samples,) dimension.  Counts nothing: the wrappers below
     allocate the outputs and count their launches."""
     if planes.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {planes.device}")
@@ -253,10 +268,11 @@ def launch(mode: str, planes, bins: Bins, width: int, height: int,
         _check("captid", captid, torch.int32, dev, (height, width))
     if tile_ids is not None:
         _check("tile_ids", tile_ids, torch.int32, dev)
-    _check("out depth", out.depth, torch.float32, dev, (height, width))
-    _check("out tri_id", out.tri_id, torch.int32, dev, (height, width))
-    _check("out bary", out.bary, torch.float32, dev, (height, width, 3))
-    k1a, k1b, k1c = load_kernel()
+    shape = (samples, height, width) if mode == "K1d" else (height, width)
+    _check("out depth", out.depth, torch.float32, dev, shape)
+    _check("out tri_id", out.tri_id, torch.int32, dev, shape)
+    _check("out bary", out.bary, torch.float32, dev, (*shape, 3))
+    k1a, k1b, k1c, k1d = load_kernel()
     outs = (out.depth.data_ptr(), out.tri_id.data_ptr(), out.bary.data_ptr())
     common = (TILE_W, TILE_H, bins.ntx)
     with torch.cuda.device(dev):
@@ -269,11 +285,16 @@ def launch(mode: str, planes, bins: Bins, width: int, height: int,
             err = k1b(planes.data_ptr(), bins.entry_tri.data_ptr(),
                       bins.offsets.data_ptr(), zcap.data_ptr(), captid.data_ptr(),
                       *common, bins.nty, width, height, *outs, stream)
-        else:
+        elif mode == "K1c":
             err = k1c(planes.data_ptr(), bins.entry_tri.data_ptr(),
                       bins.offsets.data_ptr(), tile_ids.data_ptr(),
                       tile_ids.shape[0], zcap.data_ptr(), captid.data_ptr(),
                       *common, width, height, *outs, stream)
+        else:
+            dxdy = [v / 16.0 for xy in MSAA_PATTERNS[samples] for v in xy]
+            err = k1d(planes.data_ptr(), bins.entry_tri.data_ptr(),
+                      bins.offsets.data_ptr(), (ctypes.c_float * len(dxdy))(*dxdy),
+                      samples, *common, bins.nty, width, height, *outs, stream)
     if err != 0:
         raise RuntimeError(f"raster_tile {mode} kernel launch failed: CUDA error {err}")
 
@@ -316,9 +337,46 @@ def raster_tiles_compact(planes, bins: Bins, width: int, height: int,
     return out
 
 
+def offset_planes(planes, dx: float, dy: float):
+    """The planes evaluated at pixel centre + (dx, dy): every constant C
+    (columns 2, 5, 8, 11, the z plane's too) becomes C + ((A * dx) +
+    (B * dy)), each operation rounded on its own, as the reference's
+    offset_bins / _offset_setup compute it."""
+    p = planes.clone()
+    p[:, 2::3] = planes[:, 2::3] + (planes[:, 0::3] * dx + planes[:, 1::3] * dy)
+    return p
+
+
+def raster_tiles_msaa_plain(planes, bins: Bins, width: int, height: int,
+                            samples: int) -> list[VisibilityBuffer]:
+    """Plain PyTorch K1d: raster_tiles_plain on offset_planes, per sample."""
+    return [raster_tiles_plain(offset_planes(planes, sx / 16.0, sy / 16.0), bins,
+                               width, height)
+            for sx, sy in MSAA_PATTERNS[samples]]
+
+
+def raster_tiles_msaa(planes, bins: Bins, width: int, height: int,
+                      samples: int) -> list[VisibilityBuffer]:
+    """K1d: K1a at each of the `samples` (2, 4 or 8) positions of
+    MSAA_PATTERNS, in one launch over the bins (made at pixel centres; the
+    bbox binning is conservative for any in-pixel sample).  Returns one
+    VisibilityBuffer per sample; on the card they are views of (samples, H,
+    W) outputs.  CPU tensors run raster_tiles_msaa_plain."""
+    if samples not in MSAA_PATTERNS:
+        raise ValueError(f"K1d takes {sorted(MSAA_PATTERNS)} samples, got {samples}")
+    if planes.device.type == "cpu":
+        return raster_tiles_msaa_plain(planes, bins, width, height, samples)
+    out = _empty_visibility(width, height, planes.device, samples=(samples,))
+    launch("K1d", planes, bins, width, height, out, samples=samples)
+    raster_tiles_msaa.launches += 1
+    return [VisibilityBuffer(tri_id=out.tri_id[s], depth=out.depth[s], bary=out.bary[s])
+            for s in range(samples)]
+
+
 raster_tiles.launches = 0
 raster_tiles_peel.launches = 0
 raster_tiles_compact.launches = 0
+raster_tiles_msaa.launches = 0
 
 
 def alpha_test(tables, vis: VisibilityBuffer):
@@ -424,6 +482,21 @@ def merge_visibility(a: VisibilityBuffer, b: VisibilityBuffer) -> VisibilityBuff
     )
 
 
+def _opaque_stream(scene, clip, width: int, height: int, cull_backface: bool,
+                   alpha: bool):
+    """Triangle setup and the opaque stream's bins: every triangle, or with
+    alpha (and masked triangles in the scene) every unmasked one.  Returns
+    (setup, bins, whether the masked stream is peeled)."""
+    setup = triangle_setup(clip, scene.tri_vertex, width, height)
+    use_alpha = alpha and scene.has_alpha_mask
+    include = None
+    if use_alpha:
+        include = scene.materials.alpha_mask[scene.tri_prim.long()] != 1
+    bins = bin_triangles(setup, width, height, cull_backface=cull_backface,
+                         include=include)
+    return setup, bins, use_alpha
+
+
 def rasterize_scene(scene, clip, width: int, height: int,
                     cull_backface: bool = True, alpha: bool = True,
                     tables=None, alpha_rounds: int = 4) -> VisibilityBuffer:
@@ -432,13 +505,8 @@ def rasterize_scene(scene, clip, width: int, height: int,
     opaque stream excludes the masked triangles (K1a) and the masked stream
     is depth-peeled with the alpha kill (K1b, K1c); without, every triangle
     rasters solid through K1a (alpha_raster="off")."""
-    setup = triangle_setup(clip, scene.tri_vertex, width, height)
-    use_alpha = alpha and scene.has_alpha_mask
-    include = None
-    if use_alpha:
-        include = scene.materials.alpha_mask[scene.tri_prim.long()] != 1
-    bins = bin_triangles(setup, width, height, cull_backface=cull_backface,
-                         include=include)
+    setup, bins, use_alpha = _opaque_stream(scene, clip, width, height, cull_backface,
+                                            alpha)
     vis = raster_tiles(setup.planes, bins, width, height)
     if use_alpha:
         if tables is None:
@@ -448,3 +516,33 @@ def rasterize_scene(scene, clip, width: int, height: int,
                                        cull_backface=cull_backface)
         vis = merge_visibility(vis, vis_m)
     return vis
+
+
+def rasterize_scene_msaa(scene, clip, width: int, height: int, samples: int,
+                         alpha: bool = True, cull_backface: bool = True,
+                         tables=None) -> list[VisibilityBuffer]:
+    """Multisampled visibility: one VisibilityBuffer per sample position of
+    MSAA_PATTERNS[samples], at the base resolution (the reference's
+    rasterize_scene_msaa).  Triangle setup and the opaque binning run once;
+    the opaque stream goes through K1d.  With alpha (and masked triangles in
+    the scene) each sample then peels the masked stream on its offset setup
+    (K1b, K1c) and merges it over its opaque buffer.  The reference passes
+    no round count to that peel, so it runs the default 4 rounds whatever
+    alpha_peel_rounds says; so does this."""
+    if samples not in MSAA_PATTERNS:
+        raise ValueError(f"msaa_samples must be one of {sorted(MSAA_PATTERNS)}")
+    setup, bins, use_alpha = _opaque_stream(scene, clip, width, height, cull_backface,
+                                            alpha)
+    vises = raster_tiles_msaa(setup.planes, bins, width, height, samples)
+    if not use_alpha:
+        return vises
+    if tables is None:
+        tables = shadetab.build_shade_tables(scene)
+    out = []
+    for (sx, sy), vis in zip(MSAA_PATTERNS[samples], vises):
+        shifted = dataclasses.replace(
+            setup, planes=offset_planes(setup.planes, sx / 16.0, sy / 16.0))
+        vis_m = rasterize_alpha_peeled(scene, shifted, width, height, tables,
+                                       cull_backface=cull_backface)
+        out.append(merge_visibility(vis, vis_m))
+    return out

@@ -51,10 +51,6 @@ AO_TMAX = 5.0
 
 
 def check_supported(settings: HybridSettings) -> None:
-    if settings.ao_mode == AmbientOcclusionMode.SSAO:
-        raise NotImplementedError("SSAO: ROADMAP item 13")
-    if settings.reflection_mode == ReflectionMode.SSR:
-        raise NotImplementedError("screen-space reflections: ROADMAP item 13")
     if settings.rt_scale != 1:
         raise NotImplementedError("half-resolution RT (rt_scale > 1): ROADMAP item 12")
 

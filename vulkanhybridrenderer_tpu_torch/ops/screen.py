@@ -16,6 +16,16 @@ def pixel_uv_grid(height: int, width: int, device="cpu"):
     )
 
 
+def pixel_coords(height: int, width: int, device="cpu"):
+    """(H, W, 2) uv = pixel index / size, without the half-texel offset: the
+    coords of ssao.comp:17 and ssr.comp."""
+    xx = torch.arange(width, dtype=torch.float32, device=device) / width
+    yy = torch.arange(height, dtype=torch.float32, device=device) / height
+    return torch.stack(
+        [xx[None, :].expand(height, width), yy[:, None].expand(height, width)], dim=-1
+    )
+
+
 def position_from_depth(depth, uv, inverse_matrix):
     """inverse_matrix @ (uv*2-1, depth, 1), divided by w.  Sky (depth 0, w 0)
     is clamped to |w| >= 1e-8 so it stays finite, like the reference."""

@@ -15,6 +15,17 @@ TWO_PI = 6.28318530717958647692528
 PI_INVERSE = 0.31830988618379067153776
 COS_PI_4 = 0.70710678118654752440084
 
+#: NDC xy in [-1, 1] -> uv in [0, 1] for shadow-map lookups (common.glsl:6-11)
+SHADOW_BIAS_MATRIX = np.array(
+    [
+        [0.5, 0.0, 0.0, 0.5],
+        [0.0, 0.5, 0.0, 0.5],
+        [0.0, 0.0, 1.0, 0.0],
+        [0.0, 0.0, 0.0, 1.0],
+    ],
+    dtype=np.float32,
+)
+
 
 def normalize(v, dim: int = -1, eps: float = 1e-20):
     """Normalize vectors along `dim` (safe at zero length)."""
@@ -51,6 +62,13 @@ def transform_points(m, p):
     homogeneous results, no perspective divide."""
     x, y, z = p[..., 0:1], p[..., 1:2], p[..., 2:3]
     return x * m[:, 0] + y * m[:, 1] + z * m[:, 2] + m[:, 3]
+
+
+def transform_directions(m, d):
+    """Apply the upper-left 3x3 of a (4, 4) matrix to (..., 3) directions
+    (w=0); returns (..., 3)."""
+    r = m[:3, :3]
+    return d[..., 0:1] * r[:, 0] + d[..., 1:2] * r[:, 1] + d[..., 2:3] * r[:, 2]
 
 
 def infinite_reverse_z_projection(yfov: float, aspect: float, znear: float,
