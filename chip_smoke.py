@@ -2,21 +2,28 @@
 """Drive the PyTorch port (vulkanhybridrenderer_tpu_torch) once on one CUDA GPU.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-4
+    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-7
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
                 (no CUDA: fail)
-  2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d) and
-                csrc/bvh8_trace.cu (K2) for sm_90a and g++ the host BVH builder
-                (native/*.cpp), all at once; ptxas registers / spills per kernel
+  2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d),
+                csrc/bvh8_trace.cu (K2, with and without the alpha filter),
+                csrc/toy_scale.cu and csrc/gather_probe.cu for sm_90a and g++
+                the host BVH build (native/*.cpp), all at once; ptxas
+                registers / spills per kernel.  The toy library is asked for
+                again by a subprocess in another working directory: the same
+                _build/ file, no second compile; the toy kernel's output
+                equals x * 2 exactly (its launch is the toy's path)
   3. golden   - cornell_box() at 64x64 (shadow_map_size 128) on the GPU against
                 the JAX package's goldens (RMSE <= 2e-3 after clamping to
                 [0, 1], the reference's golden tolerance): the RT-shadows frame
                 (hybrid_rt_shadows_cornell.npy), the full hybrid frame after
                 2 frames (hybrid_full_cornell.npy), the forward frame
-                (forward_cornell.npy) and the raster-mode hybrid frame
-                (hybrid_raster_shadows_ssao.npy)
+                (forward_cornell.npy), the raster-mode hybrid frame
+                (hybrid_raster_shadows_ssao.npy), the raytraced frame
+                (raytraced_cornell.npy) and the rayquery frame on
+                checker_quad() (rayquery_checker.npy)
   4. kernels  - at the slice's shapes (SponzaProxy, 1920x1080, the full
                 configuration's second frame: frame 0's RNG seed is the same
                 for every pixel, so its AO rays are coherent and fast) each
@@ -42,7 +49,18 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 pixel), K1d at 8 samples against eight K1a launches; K1a at
                 the shadow map's shape (4096^2, every triangle, light clip)
                 against its plain version.  K1d's time beside the four K1a
-                launches it replaces.
+                launches it replaces.  Then on the raytraced path's second
+                frame (RaytracedSettings(test_alpha=True)): filtered K2
+                closest-hit on the primary wavefront against its plain
+                version (tri equal on >= 99.99% of rays), filtered K2 any-hit
+                on the shadow wavefront (identical hit masks), and the
+                filtered against the unfiltered primary hits (they must
+                differ: the filter rejected something).  Then the inputs of
+                main paths 7 and 6: K2 on the rt_scale=2 frame's shadow, AO
+                and reflection wavefronts (960x540, second frame; the same
+                checks), K1a on the rayquery frame's entry stream (every
+                triangle, masked ones solid) and K2 any-hit on its shadow
+                rays
   5. gpu-cpu  - SponzaProxy at 320x180 on the GPU and on the CPU (plain
                 versions): the RT-shadows frame within 1e-4 on >= 99.9% of
                 pixels; the full configuration over 3 frames within
@@ -50,7 +68,12 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 the forward coverage-MSAA 4x frame (alpha_raster="brute") and
                 the raster-mode hybrid frame with SSR over 3 frames within
                 GPU_CPU_RASTER_TOL on >= GPU_CPU_RASTER_SHARE (shadow_map_size
-                512: the CPU's plain raster of a 4096^2 map takes minutes)
+                512: the CPU's plain raster of a 4096^2 map takes minutes);
+                the raytraced frame with test_alpha (the RT-shadows gate),
+                the rayquery frame and the full frame at rt_scale=2 over 3
+                frames (the full frame's gate).  The stages of the forward
+                frame: clip-space vertices and triangle setups must agree on
+                every value
   6. main     - four paths, SponzaProxy 1920x1080, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
@@ -65,7 +88,15 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   K1c, K1d;
                   the raster-mode hybrid (rasterized shadows + SSAO, alpha
                   off): K1a twice a frame (G-buffer and prepass); and one
-                  time_passes of it with SSR on
+                  time_passes of it with SSR on;
+                  5. the raytraced frame with test_alpha: filtered K2
+                  closest-hit and any-hit;
+                  6. the rayquery frame: K1a, K2 any-hit;
+                  7. the full frame at rt_scale=2: K2 any-hit and
+                  closest-hit, its ms/frame beside path 2's
+  7. probe    - the row-gather probe (probes/gather.py), printed in full:
+                every probe kernel against its plain version bit for bit,
+                with the launch counts of its run
 Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 """
 from __future__ import annotations
@@ -73,6 +104,7 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -83,7 +115,8 @@ import numpy as np
 import torch
 
 WIDTH, HEIGHT = 1920, 1080
-GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens"
+REPO = Path(__file__).resolve().parent
+GOLDENS = REPO / "tests" / "goldens"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clock
 #: FP32 instructions per (entry, pixel) of the tile raster, counted from
@@ -97,15 +130,14 @@ MSAA_SHARED_OPS, MSAA_SAMPLE_OPS = 12, 11
 #: within 1e-3 by frame 2 (NVIDIA H100 80GB HBM3, 700 W).  A grazing AO ray
 #: flips between the two devices' sin / cos, and SVGF spreads the flip.
 GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE = 1e-3, 0.999
-#: the forward coverage-MSAA frame and the raster-mode hybrid with SSR on the
-#: GPU against the CPU, 3 frames: the full frame's gate.  Measured (NVIDIA H100
-#: 80GB HBM3, 700 W): the forward frame 0.999514 of pixels within 1e-3 (max
-#: 0.309), where a sample's coverage test at a triangle edge flips (per-sample
-#: tri id equal on 0.999722-0.999965 with the peel off): the clip-space
-#: vertices agree, the triangle setups on 0.487 of triangles, as CUDA divides
-#: by a Python scalar (the setup's centroid / 3.0) through its reciprocal;
-#: the raster-mode frame 0.999896 (max 0.00233), where an SSR march step's
-#: hit test flips (hit flags equal on 0.999913).  Phase 5 prints the stages.
+#: the forward coverage-MSAA frame, the raster-mode hybrid with SSR and the
+#: rayquery frame on the GPU against the CPU: the full frame's gate.  Measured
+#: (NVIDIA H100 80GB HBM3, 700 W) since the port divides by a 0-dim tensor on
+#: the tensor's device (math3d.div) wherever it divided by a Python scalar,
+#: which CUDA turns into a product with the reciprocal: triangle setups equal
+#: on every triangle (0.487 before), the forward frame within 1e-5 on every
+#: pixel (0.999514 within 1e-3 before), the raster-mode frame within 1e-4 on
+#: 0.999965 (max 2.7e-4), the rayquery frame equal.  Phase 5 prints the stages.
 GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE = 1e-3, 0.999
 
 
@@ -183,10 +215,15 @@ def main() -> int:
     from vulkanhybridrenderer_tpu_torch.core import config as cfgmod
     from vulkanhybridrenderer_tpu_torch.core.config import RenderConfig
     from vulkanhybridrenderer_tpu_torch.models import hybrid as hybrid_path
-    from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled as rt, traverse
+    from vulkanhybridrenderer_tpu_torch.models import rayquery as rayquery_path
+    from vulkanhybridrenderer_tpu_torch.models import raytraced as raytraced_path
+    from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled as rt, rt_shade
+    from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
     from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
+    from vulkanhybridrenderer_tpu_torch.probes import gather as probe
     from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
     from vulkanhybridrenderer_tpu_torch.scene import procedural
+    from vulkanhybridrenderer_tpu_torch.utils import build
     from vulkanhybridrenderer_tpu_torch.utils.build import build_log
 
     full = _full_settings(cfgmod)
@@ -214,29 +251,74 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        for f in [pool.submit(fn) for fn in (rt.load_kernel, traverse.load_kernel,
-                                             native_bridge.load)]:
+    loaders = (rt.load_kernel, traverse.load_kernel, native_bridge.load,
+               build.load_toy_kernel, probe.load_kernel)
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for f in [pool.submit(fn) for fn in loaders]:
             f.result()
+    compiles = build.build_library.compiles
     for line in (_ptxas_report(build_log("raster_tile.cu"),
                                {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c",
                                 "msaa_kernelILi2E": "K1d 2 samples",
                                 "msaa_kernelILi4E": "K1d 4 samples",
                                 "msaa_kernelILi8E": "K1d 8 samples"})
-                 + _ptxas_report(build_log("bvh8_trace.cu"), {"bvh8_trace": "K2"})):
+                 + _ptxas_report(build_log("bvh8_trace.cu"),
+                                 {"ILb0ELb0E": "K2 closest-hit", "ILb1ELb0E": "K2 any-hit",
+                                  "ILb0ELb1E": "K2 filtered closest-hit",
+                                  "ILb1ELb1E": "K2 filtered any-hit"})
+                 + _ptxas_report(build_log("toy_scale.cu"), {"toy_scale": "toy"})
+                 + _ptxas_report(build_log("gather_probe.cu"),
+                                 {k: k for k in ("walk_thread_row", "walk_warp_row",
+                                                 "walk_chase", "walk_lane", "walk_rows_acc",
+                                                 "gather16")})):
         print(line)
+    print(f"build: {compiles} compiler runs")
+
+    # the toy library once more, from another working directory and process:
+    # the same file, no compiler run
+    toy_lib = build.cuda_library_path("toy_scale.cu")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + ([env["PYTHONPATH"]]
+                                                       if env.get("PYTHONPATH") else []))
+    proc = subprocess.run(
+        [sys.executable, "-c", "from vulkanhybridrenderer_tpu_torch.utils import build; "
+         "print(build.cuda_library_path('toy_scale.cu')); print(build.build_library.compiles)"],
+        cwd=str(build.CSRC_DIR), env=env, capture_output=True, text=True, check=True)
+    other_lib, other_compiles = proc.stdout.split()
+    print(f"toy library {toy_lib.name}: asked again from {build.CSRC_DIR.name}/ in a "
+          f"subprocess: {Path(other_lib).name}, {other_compiles} compiler runs there")
+    _check(other_lib == str(toy_lib) and other_compiles == "0",
+           f"the toy library resolved to {other_lib} with {other_compiles} compiler runs")
+    _check(build.build_library.compiles == compiles, "the toy library was compiled twice")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((256, 256), np.float32)).to(dev)
+    build.toy_scale.launches = 0  # the toy's path: one launch of the cached library
+    y = build.toy_scale(x)
+    toy_launches = build.toy_scale.launches
+    _check(toy_launches == 1 and torch.equal(y, x * 2.0), "the toy kernel differs from x * 2")
+    kernels_toy = dict(max_abs_err=0.0, ms=_cuda_ms(lambda: build.toy_scale(x), 50),
+                       plain_ms=_cuda_ms(lambda: x * 2.0, 50),
+                       library_ms=_cuda_ms(lambda: torch.mul(x, 2.0), 50),
+                       **dict(zip(("bound_ms", "bound_by"), bound(x.numel(), x.numel() * 8))))
+    print(f"toy_scale (256x256): equal to x * 2 bit for bit; kernel {kernels_toy['ms']:.4f} ms, "
+          f"plain (x * 2.0) {kernels_toy['plain_ms']:.4f} ms, library (torch.mul) "
+          f"{kernels_toy['library_ms']:.4f} ms, bound {kernels_toy['bound_ms']:.6f} ms")
     _phase("build", t0)
 
     # ---- 3. golden ---------------------------------------------------------------
     t0 = time.perf_counter()
     raster_hs = cfgmod.HybridSettings(shadow_mode=cfgmod.ShadowMode.RASTERIZED,
                                       ao_mode=cfgmod.AmbientOcclusionMode.SSAO)
-    for name, path, hs, frames in (
-            ("hybrid_rt_shadows_cornell", "hybrid", cfgmod.HybridSettings(), 1),
-            ("hybrid_full_cornell", "hybrid", full, 2),
-            ("forward_cornell", "forward", cfgmod.HybridSettings(), 1),
-            ("hybrid_raster_shadows_ssao", "hybrid", raster_hs, 1)):
-        r = Renderer(procedural.cornell_box(),
+    for name, path, hs, frames, make_scene in (
+            ("hybrid_rt_shadows_cornell", "hybrid", cfgmod.HybridSettings(), 1,
+             procedural.cornell_box),
+            ("hybrid_full_cornell", "hybrid", full, 2, procedural.cornell_box),
+            ("forward_cornell", "forward", cfgmod.HybridSettings(), 1, procedural.cornell_box),
+            ("hybrid_raster_shadows_ssao", "hybrid", raster_hs, 1, procedural.cornell_box),
+            ("raytraced_cornell", "raytraced", cfgmod.HybridSettings(), 1,
+             procedural.cornell_box),
+            ("rayquery_checker", "rayquery", cfgmod.HybridSettings(), 1,
+             procedural.checker_quad)):
+        r = Renderer(make_scene(),
                      RenderConfig(width=64, height=64, shadow_map_size=128, hybrid=hs),
                      path=path, device=dev)
         for _ in range(frames):
@@ -356,41 +438,59 @@ def main() -> int:
         f"round {t['round']}: {t['tiles']} tiles rastered, {t['killed']} pixels killed"
         for t in trace))
 
+    def hybrid_wavefronts(rays, ao_rays):
+        """name -> (origin, dir, tmax, any-hit) of a hybrid frame's rays."""
+        return {
+            "shadow": (rays.origin, rays.shadow_dir, rays.shadow_tmax, True),
+            "AO": (rays.origin.repeat(ao_rays, 1), rays.ao_dir, rays.ao_tmax.repeat(ao_rays),
+                   True),
+            "reflection": (rays.origin, rays.refl_dir, rays.refl_tmax, False),
+        }
+
+    def check_k2(bvh, wavefronts, label, timed):
+        """K2 on each wavefront against trace_plain on the same rays:
+        identical any-hit masks, closest-hit tri equal on >= 99.99% of rays.
+        With `timed`, kernel and plain times and the bound; the AO and
+        reflection wavefronts' numbers go to the JSON line."""
+        steps = traverse.default_max_steps(bvh)
+        tmin = raygen.SHADOW_TMIN
+        for name, (o, d, tmax, anyhit) in wavefronts.items():
+            mode = "any-hit" if anyhit else "closest-hit"
+            tmin_a = torch.full_like(tmax, tmin)
+            k = traverse.trace(bvh, o, d, tmin, tmax, anyhit=anyhit)
+            p = traverse.trace_plain(bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps)
+            n = o.shape[0]
+            if anyhit:
+                err = float((k.hit != p.hit).float().mean())
+                agree = f"mismatched hit flags {int((k.hit != p.hit).sum())}"
+                _check(err == 0.0, f"K2 any-hit hit masks differ on the {label} {name} rays")
+            else:
+                same = k.tri == p.tri
+                err = _max_abs((k.t - p.t)[same & k.hit])
+                agree = (f"tri equal on {float(same.float().mean()):.6f}, max |t diff| where "
+                         f"equal {err:.3g}")
+                _check(float(same.float().mean()) >= 0.9999,
+                       f"K2 closest-hit tri agreement on the {label} {name} rays")
+            times = ""
+            if timed:
+                ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=anyhit), 10)
+                plain_ms = _cuda_ms(lambda: traverse.trace_plain(
+                    bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps), 1)
+                b_ms, b_by = bound(0.0, n * (12 + 12 + 4 + 4) + n * 16 + bvh.num_rows * 512)
+                times = (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                         f"({b_by})")
+                if name != "shadow":  # the JSON line carries the AO wavefront's any-hit
+                    kernels[f"K2 {mode}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                                 bound_ms=b_ms, bound_by=b_by)
+            else:
+                kernels[f"K2 {mode}"]["max_abs_err"] = max(
+                    kernels[f"K2 {mode}"]["max_abs_err"], err)
+            print(f"K2 {mode} bvh8_trace, {label} {name} rays: {n} "
+                  f"({int((tmax >= tmin).sum())} live), hits {int(k.hit.sum())}, {agree}{times}")
+
     rays = raygen.Wavefronts(pfd, depth, normals, full, ao_rays=2)
-    steps = traverse.default_max_steps(bvh)
-    tmin = raygen.SHADOW_TMIN
-    wavefronts = {
-        "shadow": (rays.origin, rays.shadow_dir, rays.shadow_tmax, True),
-        "AO": (rays.origin.repeat(2, 1), rays.ao_dir, rays.ao_tmax.repeat(2), True),
-        "reflection": (rays.origin, rays.refl_dir, rays.refl_tmax, False),
-    }
-    for name, (o, d, tmax, anyhit) in wavefronts.items():
-        tmin_a = torch.full_like(tmax, tmin)
-        k = traverse.trace(bvh, o, d, tmin, tmax, anyhit=anyhit)
-        p = traverse.trace_plain(bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps)
-        ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=anyhit), 10)
-        plain_ms = _cuda_ms(lambda: traverse.trace_plain(
-            bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps), 1)
-        n = o.shape[0]
-        live = int((tmax >= tmin).sum())
-        b_ms, b_by = bound(0.0, n * (12 + 12 + 4 + 4) + n * 16 + bvh.num_rows * 512)
-        if anyhit:
-            err = float((k.hit != p.hit).float().mean())
-            agree = f"mismatched hit flags {int((k.hit != p.hit).sum())}"
-            _check(err == 0.0, f"K2 any-hit hit masks differ on the {name} rays")
-        else:
-            same = k.tri == p.tri
-            err = _max_abs((k.t - p.t)[same & k.hit])
-            agree = (f"tri equal on {float(same.float().mean()):.6f}, max |t diff| where "
-                     f"equal {err:.3g}")
-            _check(float(same.float().mean()) >= 0.9999, f"K2 closest-hit tri agreement")
-        print(f"K2 {'any-hit' if anyhit else 'closest-hit'} bvh8_trace, {name} rays: {n} "
-              f"({live} live), hits {int(k.hit.sum())}, {agree}; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        if name != "shadow":  # the JSON line carries the AO wavefront's any-hit
-            kernels["K2 any-hit" if anyhit else "K2 closest-hit"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-    del r, res, setup, bins, obins, mbins, v1, v2, v2c, pre, rays, wavefronts
+    check_k2(bvh, hybrid_wavefronts(rays, 2), "full frame's", timed=True)
+    del r, res, setup, bins, obins, mbins, v1, v2, v2c, pre, rays
     torch.cuda.empty_cache()
 
     # K1d and the shadow map's K1a, on the forward configuration's second frame
@@ -454,54 +554,165 @@ def main() -> int:
     kernels["K1a"]["max_abs_err"] = max(kernels["K1a"]["max_abs_err"], err_l)
     del r, res, setup, obins, k4, shifted, lsetup, lbins
     torch.cuda.empty_cache()
+
+    # filtered K2, on the raytraced path's second frame with test_alpha
+    rt_cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                          raytraced=cfgmod.RaytracedSettings(test_alpha=True))
+    r = Renderer(scene, rt_cfg, path="raytraced", device=dev)
+    r.render_frame()
+    res = r.fetch_resources("pfd", "BVH", "shade_tables", "TriRows")
+    pfd, bvh, tables = res["pfd"], res["BVH"], res["shade_tables"]
+    filt = traverse.make_alpha_hit_filter(tables)
+    steps = traverse.default_max_steps(bvh)
+    o, d = raytraced_path.primary_rays(pfd, HEIGHT, WIDTH)
+    n = o.shape[0]
+    p_tmin = torch.full((n,), raytraced_path.PRIMARY_TMIN, device=dev)
+    p_tmax = torch.full((n,), raytraced_path.TMAX, device=dev)
+    k = traverse.trace(bvh, o, d, p_tmin, p_tmax, alpha_tables=tables)
+    p = traverse.trace_plain(bvh.rows, bvh.depth, o, d, p_tmin, p_tmax, False, steps, filt)
+    u = traverse.trace(bvh, o, d, p_tmin, p_tmax)
+    same = k.tri == p.tri
+    share_p, err_p = float(same.float().mean()), _max_abs((k.t - p.t)[same & k.hit])
+    rejected = int((k.tri != u.tri).sum())
+    pos = rt_shade.interpolate_hit_attributes(tables, res["TriRows"], k.tri, k.u,
+                                              k.v)["position"].contiguous()
+    s_dir = (-pfd.directional_light.direction[:3]).expand(pos.shape).contiguous()
+    s_tmin = torch.full((n,), raytraced_path.SHADOW_TMIN, device=dev)
+    s_tmax = torch.where(k.hit, raytraced_path.TMAX, -1.0)
+    ks = traverse.trace(bvh, pos, s_dir, s_tmin, s_tmax, anyhit=True, alpha_tables=tables)
+    ps = traverse.trace_plain(bvh.rows, bvh.depth, pos, s_dir, s_tmin, s_tmax, True, steps,
+                              filt)
+    us = traverse.trace(bvh, pos, s_dir, s_tmin, s_tmax, anyhit=True)
+    mism = int((ks.hit != ps.hit).sum())
+    timed = {
+        "filtered closest-hit": (
+            lambda: traverse.trace(bvh, o, d, p_tmin, p_tmax, alpha_tables=tables),
+            lambda: traverse.trace(bvh, o, d, p_tmin, p_tmax),
+            lambda: traverse.trace_plain(bvh.rows, bvh.depth, o, d, p_tmin, p_tmax, False,
+                                         steps, filt)),
+        "filtered any-hit": (
+            lambda: traverse.trace(bvh, pos, s_dir, s_tmin, s_tmax, anyhit=True,
+                                   alpha_tables=tables),
+            lambda: traverse.trace(bvh, pos, s_dir, s_tmin, s_tmax, anyhit=True),
+            lambda: traverse.trace_plain(bvh.rows, bvh.depth, pos, s_dir, s_tmin, s_tmax,
+                                         True, steps, filt)),
+    }
+    # the bound's bytes: rays in and out, the BVH8 table once, and the
+    # tri_static rows (240 bytes) of the triangles hit with or without the
+    # filter, each read at least once (a lower bound: not the atlas quads)
+    for (name, (kfn, ufn, pfn)), (kk, uu, tmax) in zip(
+            timed.items(), ((k, u, p_tmax), (ks, us, s_tmax))):
+        ms, u_ms, plain_ms = _cuda_ms(kfn, 10), _cuda_ms(ufn, 10), _cuda_ms(pfn, 1)
+        tris = torch.unique(torch.cat([kk.tri, uu.tri]))
+        b_ms, b_by = bound(0.0, n * (12 + 12 + 4 + 4) + n * 16 + bvh.num_rows * 512
+                           + int((tris >= 0).sum()) * 240)
+        kernels[f"K2 {name}"] = dict(
+            max_abs_err=float(mism) if name.endswith("any-hit") else err_p, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"K2 {name} bvh8_trace, raytraced frame's {'shadow' if 'any' in name else 'primary'}"
+              f" rays: {n} ({int((tmax >= 0.1).sum())} live), hits {int(kk.hit.sum())} "
+              f"(unfiltered {int(uu.hit.sum())}); kernel {ms:.4f} ms, unfiltered kernel "
+              f"{u_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"K2 filtered closest-hit: tri equal to its plain version on {share_p:.6f} of rays, "
+          f"max |t diff| where equal {err_p:.3g}; differs from the unfiltered walk on "
+          f"{rejected} rays.  K2 filtered any-hit: mismatched hit flags {mism}, shadowed by "
+          f"the filter's walk {int(ks.hit.sum())} against {int(us.hit.sum())} without it")
+    _check(share_p >= 0.9999, f"filtered K2 closest-hit tri agreement {share_p}")
+    _check(mism == 0, "filtered K2 any-hit hit masks differ from the plain version's")
+    _check(rejected > 0, "the alpha filter rejected no primary hit")
+    del r, res, o, d, k, p, u, pos, s_dir, ks, ps, us, timed
+    torch.cuda.empty_cache()
+
+    # K2 on main path 7's wavefronts: the full frame at rt_scale=2, second
+    # frame, rays from the RT Downsample Pass's depth and normals
+    half_cfg = dataclasses.replace(full_cfg, hybrid=dataclasses.replace(full, rt_scale=2))
+    r = Renderer(scene, half_cfg, device=dev)
+    r.render_frame()
+    res = r.fetch_resources("pfd", "BVH", hybrid_path.RT_DEPTH, hybrid_path.RT_NORMALS)
+    rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.RT_DEPTH], res[hybrid_path.RT_NORMALS],
+                             half_cfg.hybrid, ao_rays=half_cfg.ao_rays)
+    check_k2(res["BVH"], hybrid_wavefronts(rays, half_cfg.ao_rays), "rt_scale=2 frame's",
+             timed=False)
+    del r, res, rays
+
+    # K1a and K2 any-hit on main path 6's inputs: the rayquery frame's
+    # entry stream (every triangle, masked ones solid) and its shadow rays
+    rq_cfg = RenderConfig(width=WIDTH, height=HEIGHT)
+    r = Renderer(scene, rq_cfg, path="rayquery", device=dev)
+    r.render_frame()
+    res = r.fetch_resources("scene", "pfd", "Clip", "BVH", "shade_tables", "TriRows")
+    qsetup, qbins, _ = rt._opaque_stream(
+        res["scene"], res["Clip"], WIDTH, HEIGHT,
+        cull_backface=rq_cfg.raster_state.cull_mode == "back", alpha=False)
+    vis = rt.raster_tiles(qsetup.planes, qbins, WIDTH, HEIGHT)
+    share_q, err_q = _vis_diff(vis, rt.raster_tiles_plain(qsetup.planes, qbins, WIDTH, HEIGHT))
+    print(f"K1a raster_tile, rayquery frame's entry stream: {int(qbins.entry_tri.shape[0])} "
+          f"entries; tri id equal on {share_q:.6f} of pixels, max |depth/bary diff| where "
+          f"equal {err_q:.3g}")
+    _check(share_q >= 0.9999 and err_q == 0.0, f"rayquery K1a: {share_q}, {err_q}")
+    kernels["K1a"]["max_abs_err"] = max(kernels["K1a"]["max_abs_err"], err_q)
+    attrs = shade.resolve_forward_attributes(res["scene"], res["shade_tables"], res["TriRows"],
+                                             vis)
+    origins = attrs["position"].reshape(-1, 3).contiguous()
+    dirs = (-res["pfd"].directional_light.direction[:3]).expand(origins.shape).contiguous()
+    tmax = torch.where(attrs["valid"].reshape(-1), rayquery_path.SHADOW_TMAX, -1.0)
+    # the rayquery pass traces from tmin 0.1, the hybrid's shadow rays from 0.01
+    k = traverse.trace(res["BVH"], origins, dirs, rayquery_path.SHADOW_TMIN, tmax, anyhit=True)
+    p = traverse.trace_plain(res["BVH"].rows, res["BVH"].depth, origins, dirs,
+                             torch.full_like(tmax, rayquery_path.SHADOW_TMIN), tmax, True,
+                             traverse.default_max_steps(res["BVH"]))
+    mism = int((k.hit != p.hit).sum())
+    print(f"K2 any-hit bvh8_trace, rayquery frame's shadow rays: {origins.shape[0]} "
+          f"({int((tmax >= rayquery_path.SHADOW_TMIN).sum())} live), hits {int(k.hit.sum())}, "
+          f"mismatched hit flags {mism}")
+    _check(mism == 0, "K2 any-hit hit masks differ on the rayquery frame's shadow rays")
+    del r, res, qsetup, qbins, vis, attrs, origins, dirs, k, p
+    torch.cuda.empty_cache()
     _phase("kernels", t0)
 
     # ---- 5. GPU against CPU ------------------------------------------------------
     t0 = time.perf_counter()
-    small = RenderConfig(width=320, height=180, alpha_raster="off")
-    g = Renderer(scene, small, device=dev).render_frame().cpu()
-    c = Renderer(scene, small, device="cpu").render_frame()
-    close = ((g - c).abs().amax(dim=0) <= 1e-4).float().mean().item()
-    print(f"gpu vs cpu 320x180 RT shadows: {close:.6f} of pixels within 1e-4, "
-          f"max |diff| {float((g - c).abs().max()):.3g}")
-    _check(bool(torch.isfinite(g).all()) and close >= 0.999, f"gpu/cpu agreement {close}")
-    small_full = RenderConfig(width=320, height=180, alpha_raster="brute",
-                              alpha_peel_rounds=4, ao_rays=2, hybrid=full)
-    gr, cr = Renderer(scene, small_full, device=dev), Renderer(scene, small_full, device="cpu")
-    for f in range(3):
-        g, c = gr.render_frame().cpu(), cr.render_frame()
-        d = (g - c).abs().amax(dim=0)
-        shares = {tol: float((d <= tol).float().mean()) for tol in (1e-5, 1e-4, 1e-3)}
-        print(f"gpu vs cpu 320x180 full, frame {f}: share of pixels within "
-              + ", ".join(f"{tol:g}: {s:.6f}" for tol, s in shares.items())
-              + f"; max |diff| {float(d.max()):.3g}")
-        _check(bool(torch.isfinite(g).all()) and bool((d <= GPU_CPU_FULL_TOL).float().mean()
-                                                     >= GPU_CPU_FULL_SHARE),
-               f"gpu/cpu agreement of the full frame {f}: {shares}")
-    del gr, cr
     raster_ssr = cfgmod.HybridSettings(shadow_mode=cfgmod.ShadowMode.RASTERIZED,
                                        ao_mode=cfgmod.AmbientOcclusionMode.SSAO,
                                        reflection_mode=cfgmod.ReflectionMode.SSR)
-    for name, path, small_cfg in (
+    small_full = RenderConfig(width=320, height=180, alpha_raster="brute",
+                              alpha_peel_rounds=4, ao_rays=2, hybrid=full)
+    # (name, path, config, frames, tolerance, share of pixels within it,
+    # whether the stages are compared after the last frame)
+    for name, path, small_cfg, frames, tol, share, stages in (
+            ("RT shadows", "hybrid", RenderConfig(width=320, height=180, alpha_raster="off"),
+             1, 1e-4, 0.999, False),
+            ("full", "hybrid", small_full, 3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False),
             ("forward coverage MSAA 4x", "forward",
              RenderConfig(width=320, height=180, shadow_map_size=512,
-                          forward=cfgmod.ForwardSettings(msaa_samples=4))),
+                          forward=cfgmod.ForwardSettings(msaa_samples=4)),
+             3, GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE, True),
             ("raster-mode hybrid + SSR", "hybrid",
              RenderConfig(width=320, height=180, shadow_map_size=512, alpha_raster="off",
-                          hybrid=raster_ssr))):
+                          hybrid=raster_ssr),
+             3, GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE, True),
+            ("raytraced, test_alpha", "raytraced",
+             RenderConfig(width=320, height=180,
+                          raytraced=cfgmod.RaytracedSettings(test_alpha=True)),
+             1, 1e-4, 0.999, False),
+            ("rayquery", "rayquery", RenderConfig(width=320, height=180),
+             1, GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE, False),
+            ("full at rt_scale=2", "hybrid",
+             dataclasses.replace(small_full, hybrid=dataclasses.replace(full, rt_scale=2)),
+             3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False)):
         gr = Renderer(scene, small_cfg, path=path, device=dev)
         cr = Renderer(scene, small_cfg, path=path, device="cpu")
-        for f in range(3):
+        for f in range(frames):
             g, c = gr.render_frame().cpu(), cr.render_frame()
             d = (g - c).abs().amax(dim=0)
-            shares = {tol: float((d <= tol).float().mean()) for tol in (1e-5, 1e-4, 1e-3)}
+            shares = {t: float((d <= t).float().mean()) for t in (1e-5, 1e-4, 1e-3)}
             print(f"gpu vs cpu 320x180 {name}, frame {f}: share of pixels within "
-                  + ", ".join(f"{tol:g}: {s_:.6f}" for tol, s_ in shares.items())
+                  + ", ".join(f"{t:g}: {s_:.6f}" for t, s_ in shares.items())
                   + f"; max |diff| {float(d.max()):.3g}")
-            _check(bool(torch.isfinite(g).all()) and bool(
-                (d <= GPU_CPU_RASTER_TOL).float().mean() >= GPU_CPU_RASTER_SHARE),
-                f"gpu/cpu agreement of the {name} frame {f}: {shares}")
-        _stage_agreement(gr, cr, path)
+            _check(bool(torch.isfinite(g).all()) and bool((d <= tol).float().mean() >= share),
+                   f"gpu/cpu agreement of the {name} frame {f}: {shares}")
+        if stages:
+            _stage_agreement(gr, cr, path)
         del gr, cr
     _phase("gpu-cpu", t0)
 
@@ -511,8 +722,8 @@ def main() -> int:
         "K1b": lambda: rt.raster_tiles_peel.launches,
         "K1c": lambda: rt.raster_tiles_compact.launches,
         "K1d": lambda: rt.raster_tiles_msaa.launches,
-        "K2 any-hit": lambda: traverse.trace.anyhit_launches,
-        "K2 closest-hit": lambda: traverse.trace.launches - traverse.trace.anyhit_launches,
+        **{f"K2 {mode}": (lambda m=mode: traverse.trace.launches[m])
+           for mode in ("any-hit", "closest-hit", "filtered any-hit", "filtered closest-hit")},
     }
 
     def drive(r, frames=10):
@@ -524,7 +735,7 @@ def main() -> int:
         _check(bool(torch.isfinite(frame).all()), "warm-up frame not finite")
         rt.raster_tiles.launches = rt.raster_tiles_peel.launches = 0
         rt.raster_tiles_compact.launches = rt.raster_tiles_msaa.launches = 0
-        traverse.trace.launches = traverse.trace.anyhit_launches = 0
+        traverse.trace.launches.clear()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -552,8 +763,9 @@ def main() -> int:
 
     r = Renderer(scene, full_cfg, device=dev)
     ms_frame, launches = drive(r)
+    ms_full = ms_frame
     for name, count in launches.items():
-        _check(name == "K1d" or count >= 10,
+        _check(name == "K1d" or "filtered" in name or count >= 10,
                f"{name} launched {count} times in the full frame's 10 frames")
     passes = r.time_passes(iters=5)
     print(f"main path 2: {scene.name} {WIDTH}x{HEIGHT} full hybrid (RT shadows + RT AO + "
@@ -595,31 +807,87 @@ def main() -> int:
     print("per-pass ms with SSR (1 run after a warm-up): "
           + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     del r
+
+    r = Renderer(scene, rt_cfg, path="raytraced", device=dev)
+    ms_frame, launches5 = drive(r)
+    for name in ("K2 filtered closest-hit", "K2 filtered any-hit"):
+        _check(launches5[name] >= 10,
+               f"{name} launched {launches5[name]} times in the raytraced frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 5: {scene.name} {WIDTH}x{HEIGHT} raytraced, test_alpha (primary and "
+          f"shadow rays through the alpha filter): {ms_frame:.3f} ms/frame over 10 frames | "
+          f"launches {launches5}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "raytraced test_alpha")
+    del r
+
+    r = Renderer(scene, rq_cfg, path="rayquery", device=dev)
+    ms_frame, launches6 = drive(r)
+    for name in ("K1a", "K2 any-hit"):
+        _check(launches6[name] >= 10,
+               f"{name} launched {launches6[name]} times in the rayquery frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 6: {scene.name} {WIDTH}x{HEIGHT} rayquery (K1a raster, one any-hit "
+          f"shadow ray a pixel): {ms_frame:.3f} ms/frame over 10 frames | launches {launches6}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "rayquery")
+    del r
+
+    r = Renderer(scene, half_cfg, device=dev)
+    ms_frame, launches7 = drive(r)
+    for name in ("K2 any-hit", "K2 closest-hit"):
+        _check(launches7[name] >= 10,
+               f"{name} launched {launches7[name]} times in the rt_scale=2 frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 7: {scene.name} {WIDTH}x{HEIGHT} full hybrid at rt_scale=2 (rays, SVGF "
+          f"at {WIDTH // 2}x{HEIGHT // 2}): {ms_frame:.3f} ms/frame over 10 frames, path 2 "
+          f"{ms_full:.3f} | launches {launches7}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "full at rt_scale=2")
+    del r
     print(f"card: {smi}")
     _phase("main", t0)
-    # each kernel's launches from the path that introduced it: the full
-    # frame's for K1a, K1b, K1c and K2, the forward frame's for K1d
-    launches["K1d"] = launches3["K1d"]
 
-    source = {"K1a": "raster_tile.cu", "K1b": "raster_tile.cu", "K1c": "raster_tile.cu",
-              "K1d": "raster_tile.cu",
-              "K2 any-hit": "bvh8_trace.cu", "K2 closest-hit": "bvh8_trace.cu"}
-    replaces = {"K1a": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
-                "K1b": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
-                "K1c": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
-                "K1d": "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567",
-                "K2 any-hit": "vulkanhybridrenderer_tpu/ops/traverse.py:135",
-                "K2 closest-hit": "vulkanhybridrenderer_tpu/ops/traverse.py:135"}
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"vulkanhybridrenderer_tpu_torch/csrc/{source[name]}",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
-         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         # no single PyTorch call rasters binned triangles or walks a BVH
-         "library_ms": None}
-        for name, k in kernels.items()
-    ]}))
+    # ---- 7. the row-gather probe ---------------------------------------------------
+    t0 = time.perf_counter()
+    probe.launches.clear()
+    probe_res = probe.run()
+    print(f"probe launches: {dict(probe.launches)}")
+    for name in probe.REPLACES:
+        _check(probe.launches[name] >= 1, f"probe kernel {name} never launched")
+    _phase("probe", t0)
+
+    # each kernel's launches from the path that introduced it: the full
+    # frame's for K1a, K1b, K1c and K2, the forward frame's for K1d, the
+    # raytraced frame's for the filtered K2
+    launches["K1d"] = launches3["K1d"]
+    for name in ("K2 filtered closest-hit", "K2 filtered any-hit"):
+        launches[name] = launches5[name]
+
+    entries = []
+    for name, k in kernels.items():
+        k2 = name.startswith("K2")
+        entries.append(dict(
+            name=name, route="cuda",
+            source=f"vulkanhybridrenderer_tpu_torch/csrc/{'bvh8_trace' if k2 else 'raster_tile'}.cu",
+            replaces=("vulkanhybridrenderer_tpu/ops/traverse.py:135" if k2 else
+                      "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567"),
+            launches=launches[name], **k,
+            # no single PyTorch call rasters binned triangles or walks a BVH
+            library_ms=None))
+    entries.append(dict(name="toy x * 2", route="cuda",
+                        source="vulkanhybridrenderer_tpu_torch/csrc/toy_scale.cu",
+                        replaces="tests/test_compile_cache.py:33", launches=toy_launches,
+                        **kernels_toy))
+    for name, k in probe_res.items():
+        # the library call is the plain version itself: tab[idx] / img[idx]
+        entries.append(dict(name=f"probe {name}", route="cuda",
+                            source="vulkanhybridrenderer_tpu_torch/csrc/gather_probe.cu",
+                            replaces=probe.REPLACES[name], launches=probe.launches[name], **k))
+    print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
@@ -633,6 +901,7 @@ def _stage_agreement(gr, cr, path):
     from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled as rt
 
     from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
+    from vulkanhybridrenderer_tpu_torch.utils.math3d import div
 
     cfg = gr.config
     if path == "forward":
@@ -641,12 +910,16 @@ def _stage_agreement(gr, cr, path):
         pg, pc = (triangle_setup(x["Clip"], r.buffers.tri_vertex, cfg.width, cfg.height).planes
                   for r, x in ((gr, g), (cr, c)))
         x = torch.linspace(-3.0, 3.0, 1 << 20)
-        print(f"  gpu vs cpu: clip equal on {float((g['Clip'].cpu() == c['Clip']).float().mean()):.6f}"
-              f" of values, triangle setup planes on "
-              f"{float((pg.cpu() == pc).all(dim=1).float().mean()):.6f} of triangles; x / 3.0 "
-              f"equal on {float(((x.to(gr.device) / 3.0).cpu() == x / 3.0).float().mean()):.6f} of "
-              f"2^20 values, x * (1 / 3.0) on the card against x / 3.0 on the CPU on "
-              f"{float(((x.to(gr.device) * (1 / 3.0)).cpu() == x / 3.0).float().mean()):.6f}")
+        clip_share = float((g["Clip"].cpu() == c["Clip"]).float().mean())
+        setup_share = float((pg.cpu() == pc).all(dim=1).float().mean())
+        print(f"  gpu vs cpu: clip equal on {clip_share:.6f} of values, triangle setup planes "
+              f"on {setup_share:.6f} of triangles; x / 3.0 equal on "
+              f"{float(((x.to(gr.device) / 3.0).cpu() == x / 3.0).float().mean()):.6f} of 2^20 "
+              f"values, math3d.div(x, 3.0) on "
+              f"{float((div(x.to(gr.device), 3.0).cpu() == x / 3.0).float().mean()):.6f}")
+        _check(clip_share == 1.0 and setup_share == 1.0,
+               f"the card's triangle setup differs from the CPU's: clip {clip_share}, "
+               f"setup {setup_share}")
         for alpha in (False, True):
             vg, vc = (rt.rasterize_scene_msaa(r.buffers, x["Clip"], cfg.width, cfg.height, k,
                                               alpha=alpha, tables=x["shade_tables"])

@@ -92,7 +92,7 @@ def test_shadows_off_and_srgb8():
 
 
 @pytest.mark.parametrize("change", [
-    dict(hybrid=pcfg.HybridSettings(rt_scale=2)),
+    dict(shadow_accel="grid"),
     dict(raster="brute"),
     dict(animated=True),
 ])
@@ -103,10 +103,17 @@ def test_unported_modes_raise(change):
 
 
 def test_unported_paths_and_options_raise():
+    """The raytraced and rayquery paths render (test_ported_paths_render);
+    what they do not carry yet raises: animation (BVH8 refit) on both, the
+    brute rasterizer on the rayquery path."""
     for path in ("raytraced", "rayquery"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-            prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(alpha_raster="off"),
+        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
+            prenderer.Renderer(pproc.cornell_box(),
+                               pcfg.RenderConfig(alpha_raster="off", animated=True),
                                path=path, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+        prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(raster="brute"),
+                           path="rayquery", device="cpu")
     with pytest.raises(ValueError):
         pcfg.RenderConfig(bvh_dtype="bf16")
     with pytest.raises(ValueError):
@@ -170,6 +177,10 @@ def _second_frame(scene, cfg):
      ("shadows_off",)),
     (dict(hybrid=pcfg.HybridSettings(ao_mode=pcfg.AmbientOcclusionMode.SSAO)),
      ("rt_shadows", "rt_ao")),
+    # half-resolution RT: shadows traced at 1/2 and upsampled
+    (dict(hybrid=pcfg.HybridSettings(rt_scale=2)), ("rt_shadows",)),
+    (dict(hybrid=pcfg.HybridSettings(ao_mode=RT_AO, denoise=True, rt_scale=2)),
+     ("rt_shadows", "rt_ao")),
 ])
 def test_ported_modes_render(small_sponza, change, differs_from):
     """RT AO, SVGF, the alpha peel, rasterized (shadow-map + PCF) shadows,
@@ -186,3 +197,18 @@ def test_ported_modes_render(small_sponza, change, differs_from):
     for name in differs_from:
         assert img.shape == base[name].shape
         assert float((img - base[name]).abs().max()) > 1e-3, name
+
+
+@pytest.mark.parametrize("path", ["raytraced", "rayquery"])
+def test_ported_paths_render(small_sponza, path):
+    """The raytraced and rayquery paths (they raised NotImplementedError
+    before they were ported): finite, an image, and not the hybrid frame
+    without shadows (the closed hall shadows every pixel, so the raytraced
+    frame's ambient-only shading matches the hybrid RT-shadows frame).
+    test_torch_raytraced.py and test_torch_rayquery.py hold them against the
+    JAX renderer."""
+    scene, cfg, base = small_sponza
+    img = prenderer.Renderer(scene, cfg, path=path, device="cpu").render_frame()
+    assert bool(torch.isfinite(img).all()) and img.shape == base["shadows_off"].shape
+    assert float(img[:3].std()) > 0.01
+    assert float((img - base["shadows_off"]).abs().max()) > 1e-3

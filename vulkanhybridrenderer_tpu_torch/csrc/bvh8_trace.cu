@@ -17,6 +17,16 @@
 //   * at most max_steps rows per ray; a miss returns tri = -1, t = tmax and
 //     u = v = 0; a ray with tmax < tmin misses at once.
 //
+// The alpha any-hit filter (kFilter; the reference's make_alpha_hit_filter,
+// traverse.py:922-951, applied at _trace8:264-270) rejects a leaf candidate
+// whose base-color alpha at the hit uv is below its material's cutoff, as
+// shadetab.fetch_tri_static / interpolate3 / sample_atlas4 compute it: one
+// tri_static row (uv0, alpha_mask, base_tex, base_scale, base_offset,
+// alpha_cutoff) and one quad row of the atlas.  It is evaluated only for
+// candidates that already pass the geometric test (ANDed, so the result is
+// the same) and reads the atlas only for masked textured materials: misses
+// cost no extra row.  Unfiltered launches compile without it.
+//
 // Bound on this card: latency of the dependent row loads.  Each step reads
 // one 512-byte row whose address depends on the previous step, and the table
 // (~10 MB for the 108k-triangle benchmark scene) stays in the 50 MB L2, so a
@@ -36,6 +46,49 @@
 namespace {
 
 constexpr int kMaxDepth = 64;  // stack entries per ray (BVH8.depth bound)
+constexpr int kTriStaticW = 60;  // ShadeTables.tri_static columns
+// tri_static columns (shadetab.py: TriRow [12:72), PrimRow folded in at 28)
+constexpr int kUv0 = 21, kBaseTex = 32, kBaseScale = 33, kBaseOffset = 35,
+              kAlphaMask = 49, kAlphaCutoff = 50;
+
+struct AlphaTables {
+    const float* tri_static;  // (T, 60)
+    const float* atlas_q;     // (AH * AW, 16) quad rows
+    int atlas_rows, atlas_w;
+};
+
+__device__ __forceinline__ float remainder_torch(float a, float b) {
+    // torch.remainder / jnp.remainder: the sign of the divisor
+    float m = fmodf(a, b);
+    if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
+    return m;
+}
+
+__device__ bool alpha_accept(const AlphaTables& at, int tri, float u, float v) {
+    const float* row = at.tri_static + (size_t)tri * kTriStaticW;
+    const int tex = (int)row[kBaseTex];
+    if (!(row[kAlphaMask] == 1.0f) || tex < 0) return true;
+    // interpolate3(uv0, (1 - u - v, u, v)): (a0 w0 + a1 w1) + a2 w2
+    const float w0 = (1.0f - u) - v;
+    const float uvx = (row[kUv0] * w0 + row[kUv0 + 2] * u) + row[kUv0 + 4] * v;
+    const float uvy = (row[kUv0 + 1] * w0 + row[kUv0 + 3] * u) + row[kUv0 + 5] * v;
+    // sample_atlas4: REPEAT wrap, half-texel centres, clamped address
+    const float sx = row[kBaseScale], sy = row[kBaseScale + 1];
+    const float tx = (uvx - floorf(uvx)) * sx - 0.5f;
+    const float ty = (uvy - floorf(uvy)) * sy - 0.5f;
+    const float t0x = floorf(tx), t0y = floorf(ty);
+    const float fx = tx - t0x, fy = ty - t0y;
+    const float x0 = remainder_torch(t0x, fmaxf(sx, 1.0f));
+    const float y0 = remainder_torch(t0y, fmaxf(sy, 1.0f));
+    long long lin = (long long)(row[kBaseOffset + 1] + y0) * at.atlas_w +
+                    (long long)(row[kBaseOffset] + x0);
+    lin = lin < 0 ? 0 : (lin >= at.atlas_rows ? at.atlas_rows - 1 : lin);
+    const float* q = at.atlas_q + lin * 16;  // c00 c10 c01 c11, alpha at 3
+    const float gx = 1.0f - fx, gy = 1.0f - fy;
+    const float alpha = ((q[3] * gx * gy + q[7] * fx * gy) + q[11] * gx * fy) +
+                        q[15] * fx * fy;
+    return !(alpha < row[kAlphaCutoff]);
+}
 
 __device__ __forceinline__ int first_slot(int mask, int oct) {
     // first set slot of `mask` in slot ^ octant order (mask != 0)
@@ -46,8 +99,9 @@ __device__ __forceinline__ int first_slot(int mask, int oct) {
     return oct;
 }
 
-template <bool kAnyHit>
-__global__ void bvh8_trace_kernel(const float* __restrict__ rows,
+template <bool kAnyHit, bool kFilter>
+__global__ void bvh8_trace_kernel(AlphaTables at,
+                                  const float* __restrict__ rows,
                                   const float* __restrict__ origin,
                                   const float* __restrict__ direction,
                                   const float* __restrict__ tmin_a,
@@ -136,8 +190,9 @@ __global__ void bvh8_trace_kernel(const float* __restrict__ rows,
                     const float qz = tvx * e1y - tvy * e1x;
                     const float v = (dx * qx + dy * qy + dz * qz) * invdet;
                     const float t = (e2x * qx + e2y * qy + e2z * qz) * invdet;
-                    const bool ok = okd && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                                    tri >= 0 && t >= tmin && t < t_limit;
+                    bool ok = okd && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+                              tri >= 0 && t >= tmin && t < t_limit;
+                    if (kFilter && ok) ok = alpha_accept(at, tri, u, v);
                     if (ok && (!have || t < t_best)) {
                         have = true;
                         t_best = t;
@@ -174,21 +229,26 @@ extern "C" int bvh8_trace_max_depth() { return kMaxDepth; }
 extern "C" int bvh8_trace_launch(const float* rows, const float* origin,
                                  const float* direction, const float* tmin,
                                  const float* tmax, int n_rays, int max_steps,
-                                 int anyhit, float* out_t, int32_t* out_tri,
-                                 float* out_u, float* out_v, void* stream) {
+                                 int anyhit, const float* tri_static,
+                                 const float* atlas_q, int atlas_rows, int atlas_w,
+                                 float* out_t, int32_t* out_tri, float* out_u,
+                                 float* out_v, void* stream) {
+    // tri_static == nullptr: no alpha filter
     if (n_rays > 0) {
         const int threads = 128;
         const int blocks = (n_rays + threads - 1) / threads;
         cudaStream_t s = (cudaStream_t)stream;
-        if (anyhit) {
-            bvh8_trace_kernel<true><<<blocks, threads, 0, s>>>(
-                rows, origin, direction, tmin, tmax, n_rays, max_steps,
-                out_t, out_tri, out_u, out_v);
-        } else {
-            bvh8_trace_kernel<false><<<blocks, threads, 0, s>>>(
-                rows, origin, direction, tmin, tmax, n_rays, max_steps,
-                out_t, out_tri, out_u, out_v);
-        }
+        const AlphaTables at{tri_static, atlas_q, atlas_rows, atlas_w};
+#define K2_LAUNCH(ANY, FILT)                                                     \
+    bvh8_trace_kernel<ANY, FILT><<<blocks, threads, 0, s>>>(                     \
+        at, rows, origin, direction, tmin, tmax, n_rays, max_steps, out_t,      \
+        out_tri, out_u, out_v)
+        const bool filt = tri_static != nullptr;
+        if (anyhit && filt) K2_LAUNCH(true, true);
+        else if (anyhit) K2_LAUNCH(true, false);
+        else if (filt) K2_LAUNCH(false, true);
+        else K2_LAUNCH(false, false);
+#undef K2_LAUNCH
     }
     return (int)cudaGetLastError();
 }

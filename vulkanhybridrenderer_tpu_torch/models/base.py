@@ -40,12 +40,15 @@ class RenderPath:
 
 
 def get_path(name: str, config: RenderConfig) -> RenderPath:
-    """Instantiate a render path by name.  The port carries "hybrid" and
-    "forward"; the raytraced and rayquery paths are ROADMAP item 14."""
-    from vulkanhybridrenderer_tpu_torch.models import forward, hybrid  # noqa: F401
+    """Instantiate a render path by name: "hybrid", "forward", "raytraced"
+    or "rayquery"."""
+    from vulkanhybridrenderer_tpu_torch.models import (  # noqa: F401
+        forward,
+        hybrid,
+        rayquery,
+        raytraced,
+    )
 
-    if name in ("raytraced", "rayquery"):
-        raise NotImplementedError(f"render path {name!r}: ROADMAP item 14")
     if name not in _REGISTRY:
         raise KeyError(f"unknown render path {name!r}; available: {sorted(_REGISTRY)}")
     return _REGISTRY[name](config)

@@ -10,8 +10,12 @@ reflections is RAYTRACED; the SSAO passes when AO is SSAO; the SSR Pass when
 reflections are SSR; the SVGF Denoise Pass when denoise is on and something
 is traced.  SVGF reads and returns the temporal state ("temporal_state" in,
 "TemporalStateOut" out), which the renderer carries to the next frame.
-Half-resolution RT (item 12) raises NotImplementedError naming its ROADMAP
-item.
+
+With ``rt_scale = s > 1`` the RT Downsample Pass point-samples depth, normals
+and motion to 1/s resolution, the Raytrace Pass and SVGF run there, and the
+RT Upsample Pass brings the (denoised) shadows / AO and the reflections back
+to full resolution, weighted by the full-resolution G-buffer
+(ops/upsample.py).
 """
 from __future__ import annotations
 
@@ -30,7 +34,15 @@ from vulkanhybridrenderer_tpu_torch.models.passes import (
     check_raster_supported,
     rasterize_for_path,
 )
-from vulkanhybridrenderer_tpu_torch.ops import composition, gbuffer, raygen, ssao, ssr, svgf
+from vulkanhybridrenderer_tpu_torch.ops import (
+    composition,
+    gbuffer,
+    raygen,
+    ssao,
+    ssr,
+    svgf,
+    upsample,
+)
 
 ALBEDO = "Albedo"
 NORMALS = "World Space Normals and Object IDs"
@@ -43,6 +55,11 @@ SHADOW_MAP = "Shadow Map"
 SSAO_RAW = "Screen Space Ambient Occlusion Raw"
 SSAO = "Screen Space Ambient Occlusion"
 SSR = "Screen Space Reflections"
+RT_DEPTH = "RT Depth"
+RT_NORMALS = "RT Normals"
+RT_MOTION = "RT Motion"
+UP_SHADOW_AO = "Upsampled Raytraced Shadows and Ambient Occlusion"
+UP_REFLECTIONS = "Upsampled Raytraced Reflections"
 
 
 class HybridPath(RenderPath):
@@ -51,7 +68,6 @@ class HybridPath(RenderPath):
     def __init__(self, config):
         super().__init__(config)
         check_raster_supported(config)
-        raygen.check_supported(config.hybrid)
         if config.shadow_accel != "bvh8":
             raise NotImplementedError("the shadow grid: ROADMAP item 16")
 
@@ -93,25 +109,35 @@ class HybridPath(RenderPath):
             add_shadow_map_pass(graph, cfg.shadow_map_size, cfg)
             comp_sources["shadow_map"] = SHADOW_MAP
 
+        rs = max(1, s.rt_scale)
+        rt_half = self._rt_needed() and rs > 1
+        if rt_half:
+            graph.add_pass(
+                "RT Downsample Pass",
+                lambda res: {RT_DEPTH: upsample.downsample_nearest(res[DEPTH], rs),
+                             RT_NORMALS: upsample.downsample_nearest(res[NORMALS], rs),
+                             RT_MOTION: upsample.downsample_nearest(res[MOTION_MR], rs)},
+                inputs=(DEPTH, NORMALS, MOTION_MR), outputs=(RT_DEPTH, RT_NORMALS, RT_MOTION),
+            )
+        rt_depth, rt_normals, rt_motion = ((RT_DEPTH, RT_NORMALS, RT_MOTION) if rt_half
+                                           else (DEPTH, NORMALS, MOTION_MR))
+
         if self._rt_needed():
             add_bvh_pass(graph, cfg.animated)
 
             def raytrace_pass(res):
                 shadow_ao, refl = raygen.hybrid_raytrace(
                     res["scene"], res["shade_tables"], res["TriRows"], res["BVH"],
-                    res["pfd"], res[DEPTH], res[NORMALS], ao_rays=cfg.ao_rays,
+                    res["pfd"], res[rt_depth], res[rt_normals], ao_rays=cfg.ao_rays,
                     settings=s,
                 )
                 return {RT_SHADOW_AO: shadow_ao, RT_REFLECTIONS: refl}
 
             graph.add_pass(
                 "Raytrace Pass", raytrace_pass,
-                inputs=("scene", "shade_tables", "TriRows", "pfd", "BVH", DEPTH, NORMALS),
+                inputs=("scene", "shade_tables", "TriRows", "pfd", "BVH", rt_depth, rt_normals),
                 outputs=(RT_SHADOW_AO, RT_REFLECTIONS),
             )
-            comp_sources["rt_shadow_ao"] = RT_SHADOW_AO
-            if s.reflection_mode == ReflectionMode.RAYTRACED:
-                comp_sources["rt_reflections"] = RT_REFLECTIONS
 
         if s.ao_mode == AmbientOcclusionMode.SSAO:
             graph.add_pass(
@@ -135,19 +161,47 @@ class HybridPath(RenderPath):
             )
             comp_sources["ssr_tex"] = SSR
 
+        shadow_ao_src, refl_src = RT_SHADOW_AO, RT_REFLECTIONS
         if self.uses_temporal_state:
             def svgf_pass(res):
                 denoised, new_state = svgf.denoise(
-                    res[NORMALS], res[MOTION_MR], res[RT_SHADOW_AO], res["temporal_state"]
+                    res[rt_normals], res[rt_motion], res[RT_SHADOW_AO], res["temporal_state"]
                 )
                 return {DENOISED: denoised, "TemporalStateOut": new_state}
 
             graph.add_pass(
                 "SVGF Denoise Pass", svgf_pass,
-                inputs=(NORMALS, MOTION_MR, RT_SHADOW_AO, "temporal_state"),
+                inputs=(rt_normals, rt_motion, RT_SHADOW_AO, "temporal_state"),
                 outputs=(DENOISED, "TemporalStateOut"),
             )
-            comp_sources["rt_shadow_ao"] = DENOISED
+            shadow_ao_src = DENOISED
+
+        refl_rt = s.reflection_mode == ReflectionMode.RAYTRACED
+        if rt_half:
+            up_inputs = [shadow_ao_src, DEPTH, NORMALS, RT_DEPTH, RT_NORMALS]
+            up_outputs = [UP_SHADOW_AO]
+            if refl_rt:
+                up_inputs.append(RT_REFLECTIONS)
+                up_outputs.append(UP_REFLECTIONS)
+
+            def rt_up_pass(res, src=shadow_ao_src):
+                def up(lo):
+                    return upsample.joint_bilateral_upsample(
+                        lo, rs, res[DEPTH], res[NORMALS], res[RT_DEPTH], res[RT_NORMALS])
+
+                out = {UP_SHADOW_AO: up(res[src])}
+                if refl_rt:
+                    out[UP_REFLECTIONS] = up(res[RT_REFLECTIONS])
+                return out
+
+            graph.add_pass("RT Upsample Pass", rt_up_pass, inputs=tuple(up_inputs),
+                           outputs=tuple(up_outputs))
+            shadow_ao_src, refl_src = UP_SHADOW_AO, UP_REFLECTIONS
+
+        if self._rt_needed():
+            comp_sources["rt_shadow_ao"] = shadow_ao_src
+            if refl_rt:
+                comp_sources["rt_reflections"] = refl_src
         comp_inputs += comp_sources.values()
 
         def composition_pass(res):

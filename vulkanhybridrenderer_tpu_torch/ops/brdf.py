@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-from vulkanhybridrenderer_tpu_torch.utils.math3d import PI, dot, normalize
+from vulkanhybridrenderer_tpu_torch.utils.math3d import PI, div, dot, normalize
 
 MIN_ROUGHNESS = 0.04  # composition.frag:121
 
@@ -41,7 +41,7 @@ def specular_brdf(roughness, f, v, l, n, h):
 
 def diffuse_brdf(metallic, albedo, f):
     """common.glsl:147-150."""
-    return (1.0 - f) * (1.0 - metallic)[..., None] * albedo / PI
+    return div((1.0 - f) * (1.0 - metallic)[..., None] * albedo, PI)
 
 
 def direct_lighting(albedo, metallic, roughness, n, v, l, light_color,

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from vulkanhybridrenderer_tpu_torch.core.types import GBuffer, PerFrameData
-from vulkanhybridrenderer_tpu_torch.ops import shadetab
+from vulkanhybridrenderer_tpu_torch.ops import screen, shadetab
 from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer, weights_from_bary
 from vulkanhybridrenderer_tpu_torch.utils.math3d import (
     cross,
@@ -70,9 +70,7 @@ def resolve_gbuffer(scene, tables, tri_rows, vis: VisibilityBuffer,
     )
 
     # motion vectors: current pixel uv - previous-frame uv of the surface
-    xx = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
-    yy = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
-    cur_uv = torch.stack([xx[None, :].expand(h, w), yy[:, None].expand(h, w)], -1)
+    cur_uv = screen.pixel_uv_grid(h, w, device=dev)
     prev_vp = matmul4(pfd.camera_proj_prev_frame, pfd.camera_view_prev_frame)
     prev_clip = transform_points(prev_vp, pos_world)
     prev_ndc = prev_clip[..., :2] / prev_clip[..., 3:4]

@@ -19,7 +19,7 @@ from typing import Any
 
 import torch
 
-from vulkanhybridrenderer_tpu_torch.utils.math3d import cross
+from vulkanhybridrenderer_tpu_torch.utils.math3d import cross, div
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,8 +68,8 @@ def triangle_setup(clip, tri_vertex, width: int, height: int) -> TriangleSetup:
     # centroid-centered coordinates condition the adjugate; the translation
     # is folded back into the constant term
     zero = torch.zeros_like(w_ok, dtype=torch.float32)
-    cx = torch.where(w_ok, (sx[:, 0] + sx[:, 1] + sx[:, 2]) / 3.0, zero)
-    cy = torch.where(w_ok, (sy[:, 0] + sy[:, 1] + sy[:, 2]) / 3.0, zero)
+    cx = torch.where(w_ok, div(sx[:, 0] + sx[:, 1] + sx[:, 2], 3.0), zero)
+    cy = torch.where(w_ok, div(sy[:, 0] + sy[:, 1] + sy[:, 2], 3.0), zero)
     Xc = X - cx[:, None] * w
     Yc = Y - cy[:, None] * w
 
@@ -116,8 +116,8 @@ def triangle_setup(clip, tri_vertex, width: int, height: int) -> TriangleSetup:
         crosses = in_front[:, i] ^ in_front[:, j]
         dw = w[:, j] - w[:, i]
         tt = (eps - w[:, i]) / torch.where(torch.abs(dw) > 1e-20, dw, torch.ones_like(dw))
-        cxp = (X[:, i] + tt * (X[:, j] - X[:, i])) / eps
-        cyp = (Y[:, i] + tt * (Y[:, j] - Y[:, i])) / eps
+        cxp = div(X[:, i] + tt * (X[:, j] - X[:, i]), eps)
+        cyp = div(Y[:, i] + tt * (Y[:, j] - Y[:, i]), eps)
         bxmin = torch.where(crosses, torch.minimum(bxmin, cxp), bxmin)
         bxmax = torch.where(crosses, torch.maximum(bxmax, cxp), bxmax)
         bymin = torch.where(crosses, torch.minimum(bymin, cyp), bymin)

@@ -42,17 +42,12 @@ from vulkanhybridrenderer_tpu_torch.ops.sampling import (
     uniform_sample_cosine_hemisphere,
 )
 from vulkanhybridrenderer_tpu_torch.utils import rng
-from vulkanhybridrenderer_tpu_torch.utils.math3d import normalize, reflect
+from vulkanhybridrenderer_tpu_torch.utils.math3d import div, normalize, reflect
 
 CONE_COS_THETA_MAX = 0.999995
 SHADOW_TMIN = 0.01
 SHADOW_TMAX = 10000.0
 AO_TMAX = 5.0
-
-
-def check_supported(settings: HybridSettings) -> None:
-    if settings.rt_scale != 1:
-        raise NotImplementedError("half-resolution RT (rt_scale > 1): ROADMAP item 12")
 
 
 def surface(pfd: PerFrameData, depth, normal_oid):
@@ -114,7 +109,6 @@ def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8, pfd: PerFrameData,
                     depth, normal_oid, settings: HybridSettings, ao_rays: int = 2):
     """depth (H, W), normal_oid (4, H, W) -> ("Raytraced Shadows and Ambient
     Occlusion" (4, H, W), "Raytraced Reflections" (4, H, W))."""
-    check_supported(settings)
     h, w = depth.shape
     dev = depth.device
     rays = Wavefronts(pfd, depth, normal_oid, settings, ao_rays)
@@ -133,7 +127,7 @@ def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8, pfd: PerFrameData,
             rays.ao_tmax.repeat(ao_rays), anyhit=True,
         )
         miss = torch.where(rec.hit, 0.0, 1.0).reshape(ao_rays, h, w)
-        ao = torch.sum(miss, dim=0) / ao_rays
+        ao = div(torch.sum(miss, dim=0), ao_rays)
     else:
         ao = ones
 

@@ -1,10 +1,12 @@
-"""Ray-hit shading (port of ``ops/rt_shade.py``, the reflection hit).
+"""Ray-hit shading (port of ``ops/rt_shade.py``).
 
-reflection_hit.rchit:10-72 as batched gathers and BRDF math: the hit's
-attributes come from one TriRow gather blended by the hit barycentrics, then
-ambient (PI_INV * 0.2) plus GGX direct lighting, unshadowed (the reference's
-shadow trace there is commented out).  The full-RT path's primary hit is
-ROADMAP item 14.
+The closest-hit shaders as batched gathers and BRDF math; a hit's attributes
+come from one TriRow gather blended by the hit barycentrics.
+  reflection_hit_shade - reflection_hit.rchit:10-72: ambient (PI_INV * 0.2)
+      plus GGX direct lighting, unshadowed (the reference's shadow trace
+      there is commented out);
+  primary_hit_shade - the full-RT path's closesthit.rchit:26-67 (and
+      closesthit_test_alpha.rchit's constants), lit by its shadow ray.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import torch
 
 from vulkanhybridrenderer_tpu_torch.core.types import PerFrameData
 from vulkanhybridrenderer_tpu_torch.ops import brdf, shadetab
-from vulkanhybridrenderer_tpu_torch.utils.math3d import PI_INVERSE, normalize
+from vulkanhybridrenderer_tpu_torch.ops.gbuffer import apply_normal_map
+from vulkanhybridrenderer_tpu_torch.utils.math3d import PI_INVERSE, dot, normalize
 
 
 def interpolate_hit_attributes(tables, tri_rows, tri, u, v):
@@ -62,3 +65,35 @@ def reflection_hit_shade(scene, tables, tri_rows, pfd: PerFrameData, tri, u, v):
         ambient_factor=PI_INVERSE * 0.2,
     )
     return torch.cat([lighting, torch.ones_like(lighting[..., :1])], dim=-1)
+
+
+def primary_hit_shade(scene, tables, tri_rows, pfd: PerFrameData, tri, u, v, lit,
+                      test_alpha: bool = False):
+    """closesthit.rchit:26-67: albedo / pi ambient plus, where the shadow ray
+    missed (`lit`, (R,) bool), N.L * albedo * intensity * color, with the
+    object-space normal map (:37-46).  test_alpha switches to
+    closesthit_test_alpha.rchit's constants: ambient 0.2 * albedo and no
+    intensity in the direct term (:39, :46).  Returns (R, 4) rgba."""
+    at = interpolate_hit_attributes(tables, tri_rows, tri, u, v)
+    pm = at["pm"]
+    albedo = shadetab.sample_atlas4(
+        tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], at["uv"],
+        fallback=pm["base_color"],
+    )[..., :3]
+    n = at["normal"]
+    if scene.has_normal_maps:
+        ts = shadetab.sample_atlas4(
+            tables, pm["nm_tex"], pm["nm_scale"], pm["nm_offset"], at["uv"]
+        )[..., :3]
+        n = apply_normal_map(n, at["tangent"], pm["nm_tex"], ts)
+
+    light = pfd.directional_light
+    n_dot_l = torch.clamp(dot(n, -light.direction[:3]), min=0.0)
+    if test_alpha:
+        ambient = 0.2 * albedo
+        direct = albedo * n_dot_l[..., None] * light.color[:3]
+    else:
+        ambient = PI_INVERSE * albedo
+        direct = albedo * n_dot_l[..., None] * light.intensity[:3] * light.color[:3]
+    rgb = ambient + torch.where(lit[..., None], direct, 0.0)
+    return torch.cat([rgb, torch.ones_like(rgb[..., :1])], dim=-1)

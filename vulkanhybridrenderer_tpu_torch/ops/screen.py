@@ -3,13 +3,13 @@ from __future__ import annotations
 
 import torch
 
-from vulkanhybridrenderer_tpu_torch.utils.math3d import transform_points
+from vulkanhybridrenderer_tpu_torch.utils.math3d import div, transform_points
 
 
 def pixel_uv_grid(height: int, width: int, device="cpu"):
     """(H, W, 2) uv at pixel centers: uv = (pixel + 0.5) / size."""
-    xx = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) / width
-    yy = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) / height
+    xx = div(torch.arange(width, dtype=torch.float32, device=device) + 0.5, width)
+    yy = div(torch.arange(height, dtype=torch.float32, device=device) + 0.5, height)
     return torch.stack(
         [xx[None, :].expand(height, width), yy[:, None].expand(height, width)],
         dim=-1,
@@ -19,8 +19,8 @@ def pixel_uv_grid(height: int, width: int, device="cpu"):
 def pixel_coords(height: int, width: int, device="cpu"):
     """(H, W, 2) uv = pixel index / size, without the half-texel offset: the
     coords of ssao.comp:17 and ssr.comp."""
-    xx = torch.arange(width, dtype=torch.float32, device=device) / width
-    yy = torch.arange(height, dtype=torch.float32, device=device) / height
+    xx = div(torch.arange(width, dtype=torch.float32, device=device), width)
+    yy = div(torch.arange(height, dtype=torch.float32, device=device), height)
     return torch.stack(
         [xx[None, :].expand(height, width), yy[:, None].expand(height, width)], dim=-1
     )

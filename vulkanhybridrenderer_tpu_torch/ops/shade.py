@@ -1,5 +1,6 @@
-"""Forward-path shading (forward_raster_render_path default.frag; port of
-``ops/shade.py``, the forward half).
+"""Per-pixel shading of the forward and ray-query paths (port of
+``ops/shade.py``): forward_raster_render_path's default.frag and
+rayquery_render_path's default.frag.
 
 The reference's forward shaders interpolate object-space normals (default.
 vert:26 passes in_normal straight through, no normal matrix); kept.
@@ -54,5 +55,19 @@ def forward_shade(attrs: dict, pfd: PerFrameData, shadow=None):
     diffuse = albedo * (n_dot_l * s)[..., None] * pfd.directional_light.color[:3]
     valid = attrs["valid"]
     rgb = torch.where(valid[..., None], ambient + diffuse, 0.0)
+    a = torch.where(valid, 1.0, 0.0)
+    return torch.cat([rgb, a[..., None]], dim=-1).permute(2, 0, 1).contiguous()
+
+
+def rayquery_shade(attrs: dict, pfd: PerFrameData, in_shadow):
+    """rayquery default.frag:71-85: 0.2 * albedo + N.L * albedo * light color
+    * visibility; in_shadow (H, W) is 1.0 where the inline shadow query
+    missed, else 0.0.  (4, H, W) linear, clear color 0."""
+    l = -pfd.directional_light.direction[:3]
+    n_dot_l = torch.clamp(dot(attrs["normal"], l), min=0.0)
+    albedo = attrs["albedo"][..., :3]
+    diffuse = albedo * (n_dot_l * in_shadow)[..., None] * pfd.directional_light.color[:3]
+    valid = attrs["valid"]
+    rgb = torch.where(valid[..., None], 0.2 * albedo + diffuse, 0.0)
     a = torch.where(valid, 1.0, 0.0)
     return torch.cat([rgb, a[..., None]], dim=-1).permute(2, 0, 1).contiguous()

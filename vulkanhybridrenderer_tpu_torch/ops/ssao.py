@@ -21,7 +21,7 @@ from vulkanhybridrenderer_tpu_torch.core.types import PerFrameData
 from vulkanhybridrenderer_tpu_torch.ops import screen
 from vulkanhybridrenderer_tpu_torch.ops.filters import bilinear_quad, quad2x2_rows
 from vulkanhybridrenderer_tpu_torch.utils import rng
-from vulkanhybridrenderer_tpu_torch.utils.math3d import TWO_PI, transform_directions
+from vulkanhybridrenderer_tpu_torch.utils.math3d import TWO_PI, div, transform_directions
 
 NUM_SAMPLES = 16
 SIGMA = 1.0
@@ -69,4 +69,4 @@ def ssao_blur(ao):
     for dy in range(2 * r + 1):
         for dx in range(2 * r + 1):
             acc = acc + pad[dy:dy + h, dx:dx + w]
-    return acc / float((2 * r + 1) ** 2)
+    return div(acc, float((2 * r + 1) ** 2))

@@ -5,14 +5,18 @@ ops/bvh8.py once per ray with the semantics of the reference's per-ray walk
 (``_trace8``): near-first slot ^ octant child order, 8-wide slab tests with
 empty slots masked, 8-wide Moller-Trumbore leaves without culling, any-hit
 stopping at the first accepted hit, at most ``min(4 * rows + 4, 32768)``
-steps per ray.  On CUDA tensors it launches the hand-written kernel
-csrc/bvh8_trace.cu; on CPU tensors it runs ``trace_plain``, a lockstep port
-of ``_trace8`` that drops finished rays between steps.  The reference's TPU
-schedules (strips, packets, compaction, ray sorting, unrolling) have no
-counterpart: a GPU thread per ray needs none of them.
+steps per ray.  With ``alpha_tables`` (the scene's ShadeTables) the alpha
+any-hit filter (``make_alpha_hit_filter``) rejects leaf candidates whose
+base-color alpha at the hit is below the material's cutoff.  On CUDA tensors
+it launches the hand-written kernel csrc/bvh8_trace.cu; on CPU tensors it
+runs ``trace_plain``, a lockstep port of ``_trace8`` that drops finished
+rays between steps.  The reference's TPU schedules (strips, packets,
+compaction, ray sorting, unrolling) have no counterpart: a GPU thread per
+ray needs none of them.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -20,6 +24,7 @@ from typing import Any
 
 import torch
 
+from vulkanhybridrenderer_tpu_torch.ops import shadetab
 from vulkanhybridrenderer_tpu_torch.ops.bvh8 import BVH8
 
 
@@ -56,10 +61,32 @@ def _first_slot(mask, oct_):
     return slot, mask & ~(1 << slot)
 
 
+def make_alpha_hit_filter(tables: shadetab.ShadeTables):
+    """The non-opaque any-hit alpha test (shadow_anyhit.rahit:10-26):
+    hit_filter(tri, u, v) -> accept mask, rejecting a hit whose base-color
+    alpha at the hit uv is below its material's cutoff.  One tri_static row
+    and one atlas quad row per candidate."""
+
+    def hit_filter(tri, u, v):
+        pm = shadetab.fetch_tri_static(tables, tri)
+        uv = shadetab.interpolate3(pm["uv0"], torch.stack([1.0 - u - v, u, v], dim=-1))
+        alpha = shadetab.sample_atlas4(
+            tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], uv
+        )[..., 3]
+        reject = ((pm["alpha_mask"] == 1.0) & (pm["base_tex"] >= 0)
+                  & (alpha < pm["alpha_cutoff"]))
+        return ~reject
+
+    return hit_filter
+
+
 def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
-                anyhit: bool, max_steps: int) -> HitRecord:
+                anyhit: bool, max_steps: int, hit_filter=None) -> HitRecord:
     """Plain PyTorch K2: ``_trace8`` stepped in lockstep over the live rays.
-    rows (N, 128) f32; origin / direction (R, 3); tmin / tmax (R,)."""
+    rows (N, 128) f32; origin / direction (R, 3); tmin / tmax (R,).
+    hit_filter(tri, u, v) -> accept mask is ANDed into the leaf candidates
+    before the nearest is picked (``_trace8:264-270``); it is asked only
+    about candidates that pass the geometric test."""
     dev = origin.device
     r = origin.shape[0]
     t_out = tmax.clone()
@@ -145,6 +172,10 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
             okd & (u8 >= 0.0) & (v8 >= 0.0) & (u8 + v8 <= 1.0) & (tri8 >= 0)
             & (t8 >= tn_[:, None]) & (t8 < tb[:, None]) & is_leaf[:, None]
         )
+        if hit_filter is not None:
+            ri, si = torch.nonzero(ok8, as_tuple=True)
+            rej = ~hit_filter(tri8[ri, si], u8[ri, si], v8[ri, si])
+            ok8[ri[rej], si[rej]] = False
         t8m = torch.where(ok8, t8, torch.inf)
         sbest = torch.argmin(t8m, dim=-1)
         have = torch.any(ok8, dim=-1)
@@ -200,7 +231,8 @@ def load_kernel():
     fn = lib.bvh8_trace_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
     )
     lib.bvh8_trace_max_depth.restype = ctypes.c_int
     lib.bvh8_trace_max_depth.argtypes = []
@@ -208,9 +240,12 @@ def load_kernel():
 
 
 def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
-          max_steps: int | None = None) -> HitRecord:
+          max_steps: int | None = None,
+          alpha_tables: shadetab.ShadeTables | None = None) -> HitRecord:
     """Trace rays through `bvh`.  origin / direction: (R, 3) float32;
-    tmin / tmax: scalars or (R,).  Rays with tmax < tmin miss at once."""
+    tmin / tmax: scalars or (R,).  Rays with tmax < tmin miss at once.
+    alpha_tables: the scene's shade tables, to apply the alpha any-hit
+    filter (None: every geometric hit counts)."""
     dev = origin.device
     r = origin.shape[0]
     tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r).contiguous()
@@ -220,13 +255,18 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
     if bvh.leaf_max != 8:
         raise ValueError("trace: the port's BVH8 rows hold 8-triangle leaves")
     if dev.type == "cpu":
-        return trace_plain(bvh.rows, bvh.depth, origin, direction, tmin_a,
-                           tmax_a, anyhit, max_steps)
+        return trace_plain(
+            bvh.rows, bvh.depth, origin, direction, tmin_a, tmax_a, anyhit, max_steps,
+            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
-    for name, t, shape in (("rows", bvh.rows, (bvh.num_rows, 128)),
-                           ("origin", origin, (r, 3)),
-                           ("direction", direction, (r, 3))):
+    checks = [("rows", bvh.rows, (bvh.num_rows, 128)), ("origin", origin, (r, 3)),
+              ("direction", direction, (r, 3))]
+    if alpha_tables is not None:
+        ts, aq = alpha_tables.tri_static, alpha_tables.atlas_q
+        checks += [("tri_static", ts, (ts.shape[0], shadetab._N_STATIC)),
+                   ("atlas_q", aq, (aq.shape[0], 16))]
+    for name, t, shape in checks:
         if (t.device != dev or t.dtype != torch.float32
                 or not t.is_contiguous() or tuple(t.shape) != shape):
             raise ValueError(
@@ -238,6 +278,11 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
         raise ValueError(
             f"trace: BVH depth {bvh.depth} exceeds the kernel's stack of {max_depth}"
         )
+    if alpha_tables is None:
+        tables = (None, None, 0, 0)
+    else:
+        tables = (alpha_tables.tri_static.data_ptr(), alpha_tables.atlas_q.data_ptr(),
+                  alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
     out_t = torch.empty(r, dtype=torch.float32, device=dev)
     out_tri = torch.empty(r, dtype=torch.int32, device=dev)
     out_u = torch.empty(r, dtype=torch.float32, device=dev)
@@ -246,16 +291,17 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             bvh.rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit),
+            tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit), *tables,
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
             out_v.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"bvh8_trace kernel launch failed: CUDA error {err}")
-    trace.launches += 1
-    trace.anyhit_launches += int(anyhit)
+    mode = "any-hit" if anyhit else "closest-hit"
+    trace.launches[mode if alpha_tables is None else f"filtered {mode}"] += 1
     return HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
 
 
-trace.launches = 0  # every launch of the kernel
-trace.anyhit_launches = 0  # those of them in any-hit mode
+#: launches of the kernel by mode: "any-hit", "closest-hit", "filtered
+#: any-hit", "filtered closest-hit"
+trace.launches = collections.Counter()

@@ -1,12 +1,15 @@
 """Frame driver (port of ``runtime/renderer.py``, the parts the slice runs).
 
-Owns the device copy of the scene, the render graph of the active path, the
-previous-frame matrices, the BVH8, the shade tables and the SVGF temporal
-state.  ``render_frame`` runs the graph eagerly on ``device``; nothing is
-compiled ahead of time.  The temporal state is made at construction, passed
-into the graph as "temporal_state", replaced by the graph's
-"TemporalStateOut" after each rendered frame, and made anew when
-``set_config`` changes the resolution.
+Owns the device copy of the scene, the render graphs, the previous-frame
+matrices, the BVH8, the shade tables and the SVGF temporal state.
+``render_frame`` runs the active graph eagerly on ``device``; nothing is
+compiled ahead of time.  A graph is built once per (path, config), as the
+reference caches its compiled frame functions, so switching back with
+``set_path`` / ``set_config`` reuses it.  The temporal state lives at trace
+resolution (1/rt_scale of the frame on the hybrid path): it is made at
+construction, passed into the graph as "temporal_state", replaced by the
+graph's "TemporalStateOut" after each rendered frame, and made anew when
+``set_config`` changes its size.  ``update_camera`` is the fly camera.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from vulkanhybridrenderer_tpu_torch.core.types import (
 )
 from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
 from vulkanhybridrenderer_tpu_torch.models.base import get_path
+from vulkanhybridrenderer_tpu_torch.runtime import camera as cam_ctl
 from vulkanhybridrenderer_tpu_torch.scene.gltf import Scene
 
 
@@ -46,27 +50,50 @@ class Renderer:
         self.buffers = scene.buffers.to(self.device)
         self.prim_transform = self.buffers.prim_transform
         self.path_name = path
-        self.path = get_path(path, self.config)
-        self.graph = self.path.build_graph()
+        self._graphs: dict = {}
         self.temporal_state = self._new_temporal_state()
         self.frame_index = 0
         self._prev_view: np.ndarray | None = None
         self._prev_proj: np.ndarray | None = None
         self._bvh = None
         self._shade_tables = None
+        self.path, self.graph = self._get_graph(path, self.config)
+
+    def _temporal_dims(self) -> tuple[int, int]:
+        """SVGF's temporal state lives at trace resolution: the frame's, or
+        1/rt_scale of it (rounded up) when the hybrid path traces half-res."""
+        rs = max(1, self.config.hybrid.rt_scale)
+        return -(-self.config.height // rs), -(-self.config.width // rs)
 
     def _new_temporal_state(self):
-        return make_temporal_state(self.config.height, self.config.width, self.device)
+        return make_temporal_state(*self._temporal_dims(), self.device)
+
+    def _get_graph(self, name: str, config: RenderConfig):
+        """(path, graph) of one (path name, config), built on first use."""
+        key = (name, config)
+        if key not in self._graphs:
+            path = get_path(name, config)
+            self._graphs[key] = (path, path.build_graph())
+        return self._graphs[key]
+
+    def set_path(self, name: str):
+        """Switch the render path (renderer.cpp:159-181)."""
+        self.path, self.graph = self._get_graph(name, self.config)
+        self.path_name = name
 
     def set_config(self, config: RenderConfig):
-        """Switch the configuration (the reference's pipeline rebuild): the
-        graph is built anew, and the temporal state when the size changed."""
-        resized = (config.height, config.width) != (self.config.height, self.config.width)
-        self.path = get_path(self.path_name, config)
-        self.graph = self.path.build_graph()
+        """Switch the configuration (the reference's pipeline rebuild); the
+        temporal state is made anew when its size changes."""
+        old_dims = self._temporal_dims()
+        self.path, self.graph = self._get_graph(self.path_name, config)
         self.config = config
-        if resized:
+        if self._temporal_dims() != old_dims:
             self.temporal_state = self._new_temporal_state()
+
+    def update_camera(self, dt: float, keys=frozenset(), mouse_delta=(0.0, 0.0),
+                      mouse_down: bool = False):
+        """The fly camera (runtime/camera.py) on the scene's camera."""
+        cam_ctl.update_camera(self.scene.camera, dt, keys, mouse_delta, mouse_down)
 
     def _make_pfd(self) -> PerFrameData:
         cam = self.scene.camera

@@ -284,6 +284,23 @@ def cornell_box() -> Scene:
     return b.build("CornellBox", cam, light)
 
 
+def checker_quad(alpha_leaf=False) -> Scene:
+    """A textured floor quad; with alpha_leaf its material is the masked
+    leaf texture (alpha_cutoff 0.5), the alpha tests' scene."""
+    b = SceneBuilder()
+    tex = b.add_texture(checker_texture(), srgb=True)
+    mat = dict(base_color_texture=tex, metallic_factor=0.0, roughness_factor=1.0)
+    if alpha_leaf:
+        leaf = b.add_texture(leaf_texture(), srgb=True)
+        mat = dict(base_color_texture=leaf, metallic_factor=0.0, roughness_factor=1.0,
+                   alpha_mask=1, alpha_cutoff=0.5)
+    b.add(quad_mesh((1.0, 1.0)), translate([0, 0, 0]) @ scale_mat([2, 1, 2]), **mat)
+    cam = Camera(yfov=np.deg2rad(60.0), znear=0.05, aspect=1.0, pitch=-0.9,
+                 position=np.array([0.0, 3.5, 2.8], np.float32))
+    light = make_directional_light([0.0, -1.0, -0.2], intensity=6.0)
+    return b.build("CheckerQuad", cam, light)
+
+
 def sponza_proxy(columns=12, segments=48, extra_boxes=600, grid_res=128, seed=7,
                  name="SponzaProxy") -> Scene:
     """Colonnade hall, the perf stand-in for Sponza (BASELINE.md configs).

@@ -4,18 +4,26 @@ CUDA kernels (``csrc/*.cu``) are compiled with nvcc into libraries with a plain
 C interface and loaded with ctypes; the host BVH builder (``native/*.cpp`` of
 the repository) is compiled with g++ the same way.  Outputs go to the
 package's ``_build/`` directory (ignored by git) under a name that hashes the
-command line and every source byte, so an edited source rebuilds and an
-unchanged one loads at once.  A failed build raises with the compiler's
-output; nothing falls back.
+command line and every source byte, and nothing else: not the working
+directory, nor the module or line that asks.  So whoever asks gets one build,
+an edited source or a changed flag gets a new one, and an unchanged one loads
+at once.  A failed build raises with the compiler's output; nothing falls
+back.
+
+``toy_scale`` is the smallest kernel built this way (csrc/toy_scale.cu,
+o = x * 2), the counterpart of the reference's cache-key test kernel.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 REPO_DIR = PACKAGE_DIR.parent
@@ -48,38 +56,48 @@ def nvcc_path() -> str:
 
 def build_library(name: str, compiler: list[str], sources: list[Path]) -> Path:
     """Compile `sources` with `compiler` (a command line without -o) into
-    ``_build/<name>-<digest>.so``; return its path.  The compiler's stderr
-    (nvcc's -Xptxas=-v register report) is kept beside it as ``.log``."""
+    ``BUILD_DIR/<name>-<digest>.so``; return its path.  The digest covers
+    the command line and each source's name and bytes.  The compiler's
+    stderr (nvcc's -Xptxas=-v register report) is kept beside it as
+    ``.log``; ``build_library.compiles`` counts the compiler runs."""
     h = hashlib.sha256(" ".join(compiler).encode())
     for src in sources:
+        src = Path(src)
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # build under a private name, then rename: concurrent test workers may
     # build the same library at once
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    build_library.compiles += 1
     proc = subprocess.run(
-        compiler + ["-o", str(tmp)] + [str(s) for s in sources],
+        compiler + ["-o", str(tmp)] + [str(Path(s).resolve()) for s in sources],
         capture_output=True, text=True,
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"building {name} failed ({' '.join(compiler)}):\n{proc.stderr}"
+            f"building {name} failed ({' '.join(compiler)}):\n{proc.stdout}{proc.stderr}"
         )
     out.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
 
 
+build_library.compiles = 0
+
+
+def cuda_library_path(source: str) -> Path:
+    """Build ``csrc/<source>`` with nvcc (sm_90a) if needed; its path."""
+    return build_library(Path(source).stem, [nvcc_path()] + NVCC_FLAGS, [CSRC_DIR / source])
+
+
 def load_cuda_library(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` with nvcc (sm_90a) and load it."""
-    src = CSRC_DIR / source
-    path = build_library(Path(source).stem, [nvcc_path()] + NVCC_FLAGS, [src])
-    return ctypes.CDLL(str(path))
+    return ctypes.CDLL(str(cuda_library_path(source)))
 
 
 def build_log(source: str) -> str:
@@ -87,3 +105,32 @@ def build_log(source: str) -> str:
     stem = Path(source).stem
     logs = sorted(BUILD_DIR.glob(f"{stem}-*.log"), key=lambda p: p.stat().st_mtime)
     return logs[-1].read_text() if logs else ""
+
+
+@functools.cache
+def load_toy_kernel():
+    fn = load_cuda_library("toy_scale.cu").toy_scale_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return fn
+
+
+def toy_scale(x):
+    """o = x * 2 (float32): csrc/toy_scale.cu on a CUDA tensor, its plain
+    version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return x * 2.0
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError(f"toy_scale: a contiguous float32 CUDA tensor, got {x.dtype} "
+                         f"on {x.device}")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = load_toy_kernel()(x.data_ptr(), out.data_ptr(), x.numel(),
+                                torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"toy_scale kernel launch failed: CUDA error {err}")
+    toy_scale.launches += 1
+    return out
+
+
+toy_scale.launches = 0

@@ -27,6 +27,14 @@ SHADOW_BIAS_MATRIX = np.array(
 )
 
 
+def div(x, s: float):
+    """x / s for a Python scalar s, rounded alike on every device.  CUDA
+    PyTorch divides a tensor by a Python scalar through the scalar's
+    reciprocal, which rounds differently unless s is a power of two; a 0-dim
+    tensor on x's device is a true divisor there, as on the CPU."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def normalize(v, dim: int = -1, eps: float = 1e-20):
     """Normalize vectors along `dim` (safe at zero length)."""
     n = torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True))
