@@ -8,11 +8,12 @@ stopping at the first accepted hit, at most ``min(4 * rows + 4, 32768)``
 steps per ray.  With ``alpha_tables`` (the scene's ShadeTables) the alpha
 any-hit filter (``make_alpha_hit_filter``) rejects leaf candidates whose
 base-color alpha at the hit is below the material's cutoff.  On CUDA tensors
-it launches the hand-written kernel csrc/bvh8_trace.cu; on CPU tensors it
-runs ``trace_plain``, a lockstep port of ``_trace8`` that drops finished
-rays between steps.  The reference's TPU schedules (strips, packets,
-compaction, ray sorting, unrolling) have no counterpart: a GPU thread per
-ray needs none of them.
+it launches the hand-written kernel csrc/bvh8_trace.cu, which walks each ray
+with a group of four lanes, two slots of the row each, so that a step reads
+its row as whole 32-byte sectors; on CPU tensors it runs ``trace_plain``, a
+lockstep port of ``_trace8`` that drops finished rays between steps and can
+count the rows and slots each ray visits.  The reference's TPU schedules (strips,
+packets, compaction, ray sorting, unrolling) have no counterpart.
 """
 from __future__ import annotations
 
@@ -38,6 +39,17 @@ class HitRecord:
     @property
     def hit(self):
         return self.tri >= 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Visits:
+    """What each ray's walk did, counted by ``trace_plain(visits=True)``: the
+    work K2 does for the same rays, which prices a launch."""
+    internal: Any  # (R,) int64 internal rows visited
+    leaf: Any  # (R,) int64 leaf rows visited
+    boxes: Any  # (R,) int64 non-empty slots (lo.x <= hi.x) of those internal rows
+    triangles: Any  # (R,) int64 non-empty slots (tri >= 0) of those leaf rows
+    filtered: Any  # (R,) int64 alpha filter evaluations (geometric candidates)
 
 
 def default_max_steps(bvh: BVH8) -> int:
@@ -81,12 +93,15 @@ def make_alpha_hit_filter(tables: shadetab.ShadeTables):
 
 
 def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
-                anyhit: bool, max_steps: int, hit_filter=None) -> HitRecord:
+                anyhit: bool, max_steps: int, hit_filter=None, visits: bool = False):
     """Plain PyTorch K2: ``_trace8`` stepped in lockstep over the live rays.
     rows (N, 128) f32; origin / direction (R, 3); tmin / tmax (R,).
     hit_filter(tri, u, v) -> accept mask is ANDed into the leaf candidates
     before the nearest is picked (``_trace8:264-270``); it is asked only
-    about candidates that pass the geometric test."""
+    about candidates that pass the geometric test.  Returns a HitRecord, or
+    with ``visits`` (HitRecord, Visits): each ray's internal and leaf rows,
+    their non-empty slots and its filter evaluations (a ray with tmax < tmin
+    visits none); without it nothing is counted."""
     dev = origin.device
     r = origin.shape[0]
     t_out = tmax.clone()
@@ -113,12 +128,17 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
     ub = u_out[ids]
     vb = v_out[ids]
     slots8 = torch.arange(8, dtype=torch.int32, device=dev)
+    # internal rows, leaf rows, boxes, triangles, filter evaluations
+    counts_out = torch.zeros((r, 5), dtype=torch.int64, device=dev)
+    counts = torch.zeros((n, 5), dtype=torch.int64, device=dev)
 
     def retire(keep):
         t_out[ids[~keep]] = tb[~keep]
         tri_out[ids[~keep]] = trb[~keep]
         u_out[ids[~keep]] = ub[~keep]
         v_out[ids[~keep]] = vb[~keep]
+        if visits:
+            counts_out[ids[~keep]] = counts[~keep]
 
     steps = 0
     while n > 0 and steps < max_steps:
@@ -172,8 +192,15 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
             okd & (u8 >= 0.0) & (v8 >= 0.0) & (u8 + v8 <= 1.0) & (tri8 >= 0)
             & (t8 >= tn_[:, None]) & (t8 < tb[:, None]) & is_leaf[:, None]
         )
+        if visits:
+            counts[:, 0] += ~is_leaf
+            counts[:, 1] += is_leaf
+            counts[:, 2] += torch.where(is_leaf, 0, (row[:, 0:8] <= row[:, 24:32]).sum(dim=-1))
+            counts[:, 3] += torch.where(is_leaf, (tri8 >= 0).sum(dim=-1), 0)
         if hit_filter is not None:
             ri, si = torch.nonzero(ok8, as_tuple=True)
+            if visits:
+                counts[:, 4] += ok8.sum(dim=-1)
             rej = ~hit_filter(tri8[ri, si], u8[ri, si], v8[ri, si])
             ok8[ri[rej], si[rej]] = False
         t8m = torch.where(ok8, t8, torch.inf)
@@ -215,23 +242,28 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
             retire(keep)
             ids, o, d, inv, oct_, tn_ = ids[keep], o[keep], d[keep], inv[keep], oct_[keep], tn_[keep]
             node, sp, stack, stack_b = node[keep], sp[keep], stack[keep], stack_b[keep]
+            if visits:
+                counts = counts[keep]
             tb, trb, ub, vb = tb[keep], trb[keep], ub[keep], vb[keep]
             n = ids.shape[0]
     retire(torch.zeros(n, dtype=torch.bool, device=dev))
-    return HitRecord(t=t_out, tri=tri_out, u=u_out, v=v_out)
+    rec = HitRecord(t=t_out, tri=tri_out, u=u_out, v=v_out)
+    if not visits:
+        return rec
+    return rec, Visits(*counts_out.unbind(1))
 
 
 @functools.cache
 def load_kernel():
     """Build K2 (on first use) and load it; returns (launch function, the
-    kernel's stack depth)."""
+    kernel's largest stack depth)."""
     from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
 
     lib = load_cuda_library("bvh8_trace.cu")
     fn = lib.bvh8_trace_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
     )
     lib.bvh8_trace_max_depth.restype = ctypes.c_int
@@ -291,7 +323,8 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             bvh.rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit), *tables,
+            tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit),
+            max(bvh.depth, 1), *tables,
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
             out_v.data_ptr(), stream,
         )
