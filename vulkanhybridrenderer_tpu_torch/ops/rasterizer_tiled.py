@@ -17,6 +17,9 @@
    ``raster_tiles_msaa`` (K1d, K1a at the 2, 4 or 8 standard sample positions
    in one pass).  ``raster_tiles_plain`` is the same function in plain
    PyTorch, used for CPU tensors and as the kernels' reference on the card.
+   The kernels skip every (entry, 8x4 sub-tile) pair that an exact corner
+   test proves empty; ``subtile_masks`` is that test in plain PyTorch (for
+   the bound and the tests, not the render path).
 3. ``rasterize_alpha_peeled``: the alpha-masked stream by depth peeling, and
    ``rasterize_scene``, which merges it over the opaque stream;
    ``rasterize_scene_msaa`` does both per sample position.
@@ -44,6 +47,11 @@ from vulkanhybridrenderer_tpu_torch.ops.rasterizer import (
 
 TILE_H = 8
 TILE_W = 128
+#: the sub-tile of csrc/raster_tile.cu's culling: 16 x 2 of them make a
+#: tile, one bit each of an entry's sub-tile mask (bit 16 * (y // 4) + x // 8
+#: of the tile's local pixel (x, y))
+SUB_W, SUB_H = 8, 4
+N_SUBTILES = (TILE_W // SUB_W) * (TILE_H // SUB_H)
 #: the reference's "big" (rasterize_alpha_peeled): the round-1 bound admits
 #: every fragment, a -BIG bound admits none
 BIG = 3.4e38
@@ -126,6 +134,12 @@ def clear_visibility(width: int, height: int, device) -> VisibilityBuffer:
     )
 
 
+def entry_tiles(bins: Bins):
+    """(E,) int64: the tile of each entry."""
+    counts = (bins.offsets[1:] - bins.offsets[:-1]).long()
+    return torch.repeat_interleave(torch.arange(counts.shape[0], device=counts.device), counts)
+
+
 def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
                        zcap=None, captid=None, tile_ids=None,
                        chunk: int = 2048) -> VisibilityBuffer:
@@ -136,13 +150,10 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
     dev = planes.device
     npx = TILE_W * TILE_H
     hp, wp = bins.nty * TILE_H, bins.ntx * TILE_W  # tile-padded image
-    counts = bins.offsets[1:] - bins.offsets[:-1]
-    tile_of = torch.repeat_interleave(
-        torch.arange(counts.shape[0], device=dev), counts.long()
-    )
+    tile_of = entry_tiles(bins)
     entry_tri = bins.entry_tri
     if tile_ids is not None:
-        listed = torch.zeros(counts.shape[0], dtype=torch.bool, device=dev)
+        listed = torch.zeros(bins.ntx * bins.nty, dtype=torch.bool, device=dev)
         listed[tile_ids.long()] = True
         keep = listed[tile_of]
         tile_of, entry_tri = tile_of[keep], entry_tri[keep]
@@ -199,6 +210,96 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
         depth=val[..., 0].contiguous(),
         bary=val[..., 1:].contiguous(),
     )
+
+
+def subtile_masks(planes, bins: Bins, samples: int | None = None,
+                  chunk: int = 65536):
+    """The kernels' exact sub-tile culling in plain PyTorch: (E,) int64,
+    bit s of entry e set unless the corner test proves that no pixel centre
+    of sub-tile s of its tile passes e's coverage test.  A plane's value
+    fl(fl(fl(px*A) + fl(py*B)) + C) is monotone in px and py, so over the
+    sub-tile its max is at the corner picked by the signs of A and B and its
+    min at the opposite one; a pair is culled when some l_k's max < 0, z's
+    max < 0 or z's min > 1 (a NaN keeps it).  csrc/raster_tile.cu makes the
+    same masks with the same operations while it stages a batch.  With
+    samples: (samples, E), the masks of each sample position of
+    MSAA_PATTERNS[samples] (on offset_planes, which round the shifted
+    constants as K1d does); K1d tests a pair when any sample's bit is set.
+    Nothing on the render path calls it: chip_smoke.py prices the kernels'
+    bound from its pair counts (``passing_pairs``, ``raster_ops``), and the
+    tests hold it conservative."""
+    if samples is not None:
+        return torch.stack([subtile_masks(offset_planes(planes, sx / 16.0, sy / 16.0), bins,
+                                          chunk=chunk)
+                            for sx, sy in MSAA_PATTERNS[samples]])
+    dev = planes.device
+    tile_of = entry_tiles(bins)
+    sub = torch.arange(N_SUBTILES, device=dev)
+    sub_x = (sub % (TILE_W // SUB_W)) * SUB_W
+    sub_y = (sub // (TILE_W // SUB_W)) * SUB_H
+    bit = torch.ones_like(sub) << sub
+    out = torch.zeros(tile_of.shape[0], dtype=torch.int64, device=dev)
+    for s in range(0, tile_of.shape[0], chunk):
+        tl = tile_of[s:s + chunk]
+        x0 = ((tl % bins.ntx) * TILE_W)[:, None] + sub_x[None, :]  # (C, 32)
+        y0 = ((tl // bins.ntx) * TILE_H)[:, None] + sub_y[None, :]
+        xl, xh = x0.to(torch.float32) + 0.5, (x0 + SUB_W - 1).to(torch.float32) + 0.5
+        yl, yh = y0.to(torch.float32) + 0.5, (y0 + SUB_H - 1).to(torch.float32) + 0.5
+        p = planes[bins.entry_tri[s:s + chunk].long()]
+
+        def corner(k, top):
+            """Plane k at its max (top) or min corner of each sub-tile."""
+            a, b, c = p[:, k, None], p[:, k + 1, None], p[:, k + 2, None]
+            px = torch.where((a > 0) == top, xh, xl)
+            py = torch.where((b > 0) == top, yh, yl)
+            return px * a + py * b + c
+
+        culled = ((corner(0, True) < 0) | (corner(3, True) < 0) | (corner(6, True) < 0)
+                  | (corner(9, True) < 0) | (corner(9, False) > 1))
+        out[s:s + chunk] = torch.where(culled, 0, bit).sum(dim=1)
+    return out
+
+
+#: FP32 instructions per tested (entry, pixel) pair, counted from
+#: csrc/raster_tile.cu (--fmad=false): 4 planes x (2 FMUL + 2 FADD), 5
+#: coverage compares, 2 depth-test compares; the peel bound adds 2 compares
+RASTER_OPS, PEEL_OPS = 23, 25
+#: K1d per (entry, pixel): px*A + py*B of the 4 planes once (8 FMUL + 4
+#: FADD), then per sample 4 FADD of the shifted constants and the 7 compares
+MSAA_SHARED_OPS, MSAA_SAMPLE_OPS = 12, 11
+#: the corner test.  Per entry, 8 sign compares that pick each plane's
+#: corners (they depend on A and B alone; the kernel repeats them on every
+#: lane, the function needs them once).  Per (entry, sub-tile), 5 corner
+#: values (l0, l1, l2 and z at their max, z at its min) x (2 FMUL + 2 FADD)
+#: and 5 compares
+CULL_ENTRY_OPS, CULL_PAIR_OPS = 8, 25
+#: K1d's: the 8 sign compares per entry; per (entry, sub-tile) the 5 corner
+#: products (2 FMUL + 1 FADD each), then per sample 5 FADD of the shifted
+#: constants and 5 compares; per (entry, sample) the 4 shifted constants
+#: C + (A dx + B dy), 2 FMUL + 2 FADD each
+MSAA_CULL_PAIR_OPS, MSAA_CULL_SAMPLE_OPS, MSAA_SHIFT_OPS = 15, 10, 16
+
+
+def passing_pairs(masks) -> int:
+    """Set bits over all masks: the (entry, sub-tile) pairs a kernel tests."""
+    bits = torch.arange(N_SUBTILES, device=masks.device)
+    return int(((masks.reshape(-1, 1) >> bits) & 1).sum())
+
+
+def raster_ops(n_entries: int, n_pass: int, mode: str, samples: int = 1):
+    """(FP32 instructions after the culling, those of the dense test) of
+    one raster call: n_entries entries, of which n_pass (entry, sub-tile)
+    pairs pass the corner test (K1d: on some sample).  mode: "K1a", "K1b",
+    "K1c" or "K1d"."""
+    if mode == "K1d":
+        pixel = MSAA_SHARED_OPS + samples * MSAA_SAMPLE_OPS
+        test = (CULL_ENTRY_OPS + samples * MSAA_SHIFT_OPS
+                + N_SUBTILES * (MSAA_CULL_PAIR_OPS + samples * MSAA_CULL_SAMPLE_OPS))
+    else:
+        pixel = RASTER_OPS if mode == "K1a" else PEEL_OPS
+        test = CULL_ENTRY_OPS + N_SUBTILES * CULL_PAIR_OPS
+    return (n_entries * test + n_pass * SUB_W * SUB_H * pixel,
+            n_entries * TILE_W * TILE_H * pixel)
 
 
 @functools.cache
@@ -261,6 +362,9 @@ def launch(mode: str, planes, bins: Bins, width: int, height: int,
     _check("offsets", bins.offsets, torch.int32, dev, (bins.ntx * bins.nty + 1,))
     if planes.dim() != 2 or planes.shape[1] != 12:
         raise ValueError(f"raster_tiles: planes must be (T, 12), got {tuple(planes.shape)}")
+    if planes.data_ptr() % 16:
+        # the kernels copy each 48-byte row as three 16-byte vectors
+        raise ValueError("raster_tiles: planes must be 16-byte aligned")
     if (bins.ntx, bins.nty) != _tile_counts(width, height):
         raise ValueError("raster_tiles: bins were made for another image size")
     if zcap is not None:
