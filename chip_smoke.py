@@ -2,7 +2,7 @@
 """Drive the PyTorch port (vulkanhybridrenderer_tpu_torch) once on one CUDA GPU.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-7
+    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-8
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
@@ -16,6 +16,15 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 again by a subprocess in another working directory: the same
                 _build/ file, no second compile; the toy kernel's output
                 equals x * 2 exactly (its launch is the toy's path)
+  2b. asset   - the flagship asset, realglb: scene/sample_asset writes the
+                sponza-class GLB into the package's _build/, runtime/app's
+                load_any_scene("realglb") reads it (PNG textures through
+                utils/png, no PIL); seconds to write, to decode its PNGs, to
+                load, and to build the host BVH8 (its rows and depth bound);
+                its counts must be the reference writer's (254,636
+                triangles, 370 primitives, 39 textures, 600 alpha-masked
+                triangles, atlas (4, 72, 2560)); a 1024x1024 RGBA PNG round
+                trip must be exact
   3. golden   - cornell_box() at 64x64 (shadow_map_size 128) on the GPU against
                 the JAX package's goldens (RMSE <= 2e-3 after clamping to
                 [0, 1], the reference's golden tolerance): the RT-shadows frame
@@ -24,7 +33,13 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 (forward_cornell.npy), the raster-mode hybrid frame
                 (hybrid_raster_shadows_ssao.npy), the raytraced frame
                 (raytraced_cornell.npy) and the rayquery frame on
-                checker_quad() (rayquery_checker.npy)
+                checker_quad() (rayquery_checker.npy); and the Atrium
+                (build_sample_glb, written and read by the port) forward at
+                96x96 against atrium_forward.npy, RMSE <= 2e-3 on the pixels
+                without a near depth tie (rasterizer_tiled.depth_ties: the
+                floor and the columns' bottom faces z-fight there, decided by
+                the last bits of each setup; at most 0.5% of the frame),
+                printed with the RMSE over every pixel
   4. kernels  - at the slice's shapes (SponzaProxy, 1920x1080, the full
                 configuration's second frame: frame 0's RNG seed is the same
                 for every pixel, so its AO rays are coherent and fast) each
@@ -53,7 +68,9 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 configuration's second frame (coverage MSAA 4x): K1d at 2,
                 4 and 8 samples on the opaque stream against its plain
                 version, and at 4 and 8 against as many K1a launches on
-                offset_planes; K1a at the shadow map's shape (4096^2, every
+                offset_planes; the same K1a, K1b, K1c and K2 instances on
+                realglb's full frame (main path 8's shapes; printed, not in
+                the JSON line); K1a at the shadow map's shape (4096^2, every
                 triangle, light clip) against its plain version, with its
                 bound and launches.  K1d's time beside the four K1a
                 launches it replaces.  Then on the raytraced path's second
@@ -77,11 +94,11 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 GPU_CPU_RASTER_TOL on >= GPU_CPU_RASTER_SHARE (shadow_map_size
                 512: the CPU's plain raster of a 4096^2 map takes minutes);
                 the raytraced frame with test_alpha (the RT-shadows gate),
-                the rayquery frame and the full frame at rt_scale=2 over 3
-                frames (the full frame's gate).  The stages of the forward
+                the rayquery frame, the full frame at rt_scale=2 and
+                realglb's full frame over 3 frames (the full frame's gate).  The stages of the forward
                 frame: clip-space vertices and triangle setups must agree on
                 every value
-  6. main     - four paths, SponzaProxy 1920x1080, each driven with the
+  6. main     - eight paths at 1920x1080, SponzaProxy but path 8, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
                 slice must rise by >= 1 per frame; finite output; per-pass ms:
@@ -100,7 +117,14 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   closest-hit and any-hit;
                   6. the rayquery frame: K1a, K2 any-hit;
                   7. the full frame at rt_scale=2: K2 any-hit and
-                  closest-hit, its ms/frame beside path 2's
+                  closest-hit, its ms/frame beside path 2's;
+                  8. bench.py's flagship as written: the full frame on
+                  realglb (254,636 triangles): K1a, K1b, K1c, K2 any-hit and
+                  closest-hit, its breakdown, its ms/frame beside path 2's
+  6b. surface - realglb's full frame at 320x180: list_resources is the set
+                of the graph's outputs, debug_dump's PNG decodes to
+                to_uint8_image, find_nonfinite_pass() is None, stats.table()
+                printed, profile() writes a Chrome trace under _build/
   7. probe    - the row-gather probe (probes/gather.py), printed in full:
                 every probe kernel against its plain version bit for bit,
                 with the launch counts of its run
@@ -232,11 +256,14 @@ def main() -> int:
     from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled as rt, rt_shade
     from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
     from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
+    from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, bvh8 as bvh8_ops, geometry
     from vulkanhybridrenderer_tpu_torch.probes import gather as probe
+    from vulkanhybridrenderer_tpu_torch.runtime import app
     from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
-    from vulkanhybridrenderer_tpu_torch.scene import procedural
-    from vulkanhybridrenderer_tpu_torch.utils import build
+    from vulkanhybridrenderer_tpu_torch.scene import gltf, procedural, sample_asset
+    from vulkanhybridrenderer_tpu_torch.utils import build, png
     from vulkanhybridrenderer_tpu_torch.utils.build import build_log
+    from vulkanhybridrenderer_tpu_torch.utils.image import to_uint8_image
 
     full = _full_settings(cfgmod)
 
@@ -315,6 +342,48 @@ def main() -> int:
           f"{kernels_toy['library_ms']:.4f} ms, bound {kernels_toy['bound_ms']:.6f} ms")
     _phase("build", t0)
 
+    # ---- 2b. asset: the flagship GLB through the port's own writer and reader ----
+    t0 = time.perf_counter()
+    app.REALGLB_PATH.parent.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    sample_asset.build_sponza_class_glb(app.REALGLB_PATH)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    glb = gltf._Gltf(app.REALGLB_PATH)
+    n_images = len([glb.image_pixels(i) for i in range(len(glb.json["images"]))])
+    decode_s = time.perf_counter() - t
+    t = time.perf_counter()
+    realglb = app.load_any_scene("realglb")
+    load_s = time.perf_counter() - t
+    b = realglb.buffers
+    t = time.perf_counter()
+    host = b.to("cpu")
+    world_tris = bvh_ops.world_triangles(geometry.to_world(host).position, host.tri_vertex)
+    rg_bvh = bvh8_ops.build_bvh8_host(world_tris.numpy())
+    bvh_s = time.perf_counter() - t
+    counts = dict(triangles=b.num_triangles, primitives=b.prim_transform.shape[0],
+                  textures=b.atlas.uv_offset.shape[0], alpha_masked=b.alpha_tri_idx.shape[0],
+                  atlas=tuple(b.atlas.data.shape), images=n_images)
+    print(f"realglb ({app.REALGLB_PATH.stat().st_size} bytes): write {write_s:.3f} s, decode "
+          f"of its {n_images} PNGs {decode_s:.3f} s, load_scene {load_s:.3f} s, host BVH8 "
+          f"{bvh_s:.3f} s ({rg_bvh.num_rows} rows, depth bound {rg_bvh.depth}, "
+          f"{rg_bvh.num_rows * 512} bytes); counts {counts}")
+    _check(counts == dict(triangles=254_636, primitives=370, textures=39, alpha_masked=600,
+                          atlas=(4, 72, 2560), images=39),
+           f"realglb's counts differ from the reference writer's: {counts}")
+    img = np.random.default_rng(1).integers(0, 256, (1024, 1024, 4), dtype=np.uint8)
+    t = time.perf_counter()
+    blob = png.encode_png(img)
+    enc_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = png.decode_png(blob)
+    dec_s = time.perf_counter() - t
+    print(f"PNG round trip of a 1024x1024 RGBA image: encode {enc_s:.3f} s, decode "
+          f"{dec_s:.3f} s, equal {np.array_equal(back, img)}")
+    _check(np.array_equal(back, img), "the PNG round trip is not exact")
+    del host, world_tris, rg_bvh, img, back
+    _phase("asset", t0)
+
     # ---- 3. golden ---------------------------------------------------------------
     t0 = time.perf_counter()
     raster_hs = cfgmod.HybridSettings(shadow_mode=cfgmod.ShadowMode.RASTERIZED,
@@ -338,6 +407,26 @@ def main() -> int:
         err = float(np.sqrt(np.mean((np.clip(img, 0, 1) - np.clip(golden, 0, 1)) ** 2)))
         print(f"golden {name} 64x64 after {frames} frame(s): RMSE {err:.6f} (limit 2e-3)")
         _check(np.isfinite(img).all() and err <= 2e-3, f"golden {name} RMSE {err}")
+    # the Atrium, written and read by the port, in the forward path; its
+    # near depth ties (the floor and the columns' bottom faces, coplanar)
+    # z-fight, decided by the last bits of each setup (rt.depth_ties)
+    atrium_path = build.BUILD_DIR / "atrium.glb"
+    sample_asset.build_sample_glb(atrium_path)
+    r = Renderer(gltf.load_scene(atrium_path),
+                 RenderConfig(width=96, height=96, shadow_map_size=128), path="forward",
+                 device=dev)
+    img = r.render_frame().cpu().numpy()
+    ties = rt.depth_ties(r.buffers, r.fetch_resources("Clip")["Clip"], 96, 96).cpu().numpy()
+    sq = (np.clip(img, 0, 1) - np.clip(np.load(GOLDENS / "atrium_forward.npy")
+                                       .astype(np.float32), 0, 1)) ** 2
+    err = float(np.sqrt(sq[:, ~ties].mean()))
+    print(f"golden atrium_forward 96x96 (the port's GLB writer and reader): RMSE {err:.6f} "
+          f"over the {int((~ties).sum())} pixels without a near depth tie (limit 2e-3), "
+          f"{float(np.sqrt(sq.mean())):.6f} over all {96 * 96}; near ties {int(ties.sum())} "
+          f"(limit {0.005 * 96 * 96:.0f})")
+    _check(np.isfinite(img).all() and err <= 2e-3 and 0 < ties.sum() <= 0.005 * 96 * 96,
+           f"golden atrium_forward RMSE {err}, {int(ties.sum())} near ties")
+    del r
     _phase("golden", t0)
 
     # ---- 4. kernels against their plain versions at the slice's shapes -----------
@@ -400,74 +489,91 @@ def main() -> int:
               + f", bound {k['bound_ms']:.4f} ms (set by {k['bound_by']}; share {k['bound_ms'] / ms:.4f}), "
               f"dense bound {k['dense_bound_ms']:.4f} ms")
 
-    setup = triangle_setup(clip, buffers.tri_vertex, WIDTH, HEIGHT)
-    planes = setup.planes
-    # K1a: every triangle (the RT-shadows slice's opaque stream)
-    bins = rt.bin_triangles(setup, WIDTH, HEIGHT)
-    err = k1_equal("K1a raster_tile, every triangle", rt.raster_tiles(planes, bins, WIDTH, HEIGHT),
-                   rt.raster_tiles_plain(planes, bins, WIDTH, HEIGHT))
-    # and the full frame's opaque stream (every triangle but the masked ones)
+    def k1_flagship(label, buffers, clip, tables, record):
+        """Every K1 instance of a full frame's G-buffer (K1a on every triangle
+        and on the opaque stream, K1b rounds 1 and 2, K1c on round 2's live
+        tiles) against its plain version on every pixel, with its time and
+        bound; with `record`, the entries of the JSON line."""
+        setup = triangle_setup(clip, buffers.tri_vertex, WIDTH, HEIGHT)
+        planes = setup.planes
+        # K1a: every triangle (the RT-shadows slice's opaque stream)
+        bins = rt.bin_triangles(setup, WIDTH, HEIGHT)
+        err = k1_equal(f"{label}K1a raster_tile, every triangle",
+                       rt.raster_tiles(planes, bins, WIDTH, HEIGHT),
+                       rt.raster_tiles_plain(planes, bins, WIDTH, HEIGHT))
+        # and the full frame's opaque stream (every triangle but the masked ones)
+        opaque = buffers.materials.alpha_mask[buffers.tri_prim.long()] != 1
+        obins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=opaque)
+        err_o = k1_equal(f"{label}K1a raster_tile, full frame's opaque stream",
+                         rt.raster_tiles(planes, obins, WIDTH, HEIGHT),
+                         rt.raster_tiles_plain(planes, obins, WIDTH, HEIGHT))
+        ms = _cuda_ms(lambda: rt.raster_tiles(planes, bins, WIDTH, HEIGHT), 20)
+        plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, bins, WIDTH, HEIGHT), 2)
+        kb = k1_bound("K1a", planes, bins, WIDTH * HEIGHT)
+        if record:
+            kernels["K1a"] = dict(max_abs_err=max(err, err_o), ms=ms, plain_ms=plain_ms, **kb)
+        k1_line(f"{label}K1a raster_tile, every triangle", kb, ms, plain_ms)
+        ko = k1_bound("K1a", planes, obins, WIDTH * HEIGHT)
+        print(f"{label}K1a raster_tile, full frame's opaque stream (not timed here): "
+              f"{ko['entries']} entries, {ko['pairs']} (entry, sub-tile) pairs pass; bound "
+              f"{ko['bound_ms']:.4f} ms "
+              f"(set by {ko['bound_by']}), dense bound {ko['dense_bound_ms']:.4f} ms")
+
+        # K1b / K1c: the alpha-masked stream, round 1 and the real round-2 bound
+        include = torch.zeros(buffers.num_triangles, dtype=torch.bool, device=dev)
+        include[buffers.alpha_tri_idx.long()] = True
+        mbins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=include)
+        zc1 = torch.full((HEIGHT, WIDTH), rt.BIG, device=dev)
+        tc1 = torch.full((HEIGHT, WIDTH), 2**31 - 1, dtype=torch.int32, device=dev)
+        v1 = rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc1, tc1)
+        err1 = k1_equal(f"{label}K1b raster_tile peel bound, round 1", v1,
+                        rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc1, tc1))
+        _, killed = rt.alpha_test(tables, v1)
+        zc2, tc2 = rt.peel_bound(v1, killed)
+        v2 = rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc2, tc2)
+        err2 = k1_equal(f"{label}K1b raster_tile peel bound, round 2 ({int(killed.sum())} "
+                        "killed pixels)", v2,
+                        rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2))
+        ms = _cuda_ms(lambda: rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc1, tc1), 20)
+        plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc1, tc1), 2)
+        kb = k1_bound("K1b", planes, mbins, WIDTH * HEIGHT)
+        if record:
+            kernels["K1b"] = dict(max_abs_err=max(err1, err2), ms=ms, plain_ms=plain_ms, **kb)
+        k1_line(f"{label}K1b raster_tile peel bound, round 1, masked stream", kb, ms, plain_ms)
+
+        tiles = rt.live_tiles(killed, mbins.ntx, mbins.nty)
+        _check(tiles.shape[0] > 0, f"{label}round 2 of the peel has no live tile on this scene: "
+               "K1c would never launch")
+        v2c = rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)
+        c_err = max(k1_equal(f"{label}K1c raster_tile compact, round 2's live tiles", v2c,
+                             rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)),
+                    k1_equal(f"{label}K1c against K1b's full-width round 2", v2c, v2))
+        # the kernel alone: the wrapper's clear of the whole image (20 bytes a
+        # pixel) is made once, before the timing window; re-launching into it
+        # rewrites the listed tiles with the same values
+        pre = rt.clear_visibility(WIDTH, HEIGHT, dev)
+        ms = _cuda_ms(lambda: rt.launch("K1c", planes, mbins, WIDTH, HEIGHT, pre, zc2, tc2,
+                                        tiles), 20)
+        wrapper_ms = _cuda_ms(
+            lambda: rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles), 20)
+        _check(same(pre, v2c), "K1c's timed launches changed its output")
+        plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2,
+                                                          tiles), 2)
+        kb = k1_bound("K1c", planes, mbins, tiles.shape[0] * 1024, listed=tiles)
+        if record:
+            kernels["K1c"] = dict(max_abs_err=c_err, ms=ms, plain_ms=plain_ms, **kb)
+        k1_line(f"{label}K1c raster_tile compact, {tiles.shape[0]} live tiles of round 2", kb,
+                ms, plain_ms)
+        print(f"{label}K1c wrapper (clear of {WIDTH * HEIGHT * 20} bytes + kernel) "
+              f"{wrapper_ms:.4f} ms")
+        trace = []
+        rt.rasterize_alpha_peeled(buffers, setup, WIDTH, HEIGHT, tables, rounds=4, trace=trace)
+        print(f"{label}peel rounds: " + "; ".join(
+            f"round {t['round']}: {t['tiles']} tiles rastered, {t['killed']} pixels killed"
+            for t in trace))
+
+    k1_flagship("", buffers, clip, tables, record=True)
     opaque = buffers.materials.alpha_mask[buffers.tri_prim.long()] != 1
-    obins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=opaque)
-    err_o = k1_equal("K1a raster_tile, full frame's opaque stream",
-                     rt.raster_tiles(planes, obins, WIDTH, HEIGHT),
-                     rt.raster_tiles_plain(planes, obins, WIDTH, HEIGHT))
-    ms = _cuda_ms(lambda: rt.raster_tiles(planes, bins, WIDTH, HEIGHT), 20)
-    plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, bins, WIDTH, HEIGHT), 2)
-    kb = k1_bound("K1a", planes, bins, WIDTH * HEIGHT)
-    kernels["K1a"] = dict(max_abs_err=max(err, err_o), ms=ms, plain_ms=plain_ms, **kb)
-    k1_line("K1a raster_tile, every triangle", kb, ms, plain_ms)
-    ko = k1_bound("K1a", planes, obins, WIDTH * HEIGHT)
-    print(f"K1a raster_tile, full frame's opaque stream (not timed here): {ko['entries']} "
-          f"entries, {ko['pairs']} (entry, sub-tile) pairs pass; bound {ko['bound_ms']:.4f} ms "
-          f"(set by {ko['bound_by']}), dense bound {ko['dense_bound_ms']:.4f} ms")
-
-    # K1b / K1c: the alpha-masked stream, round 1 and the real round-2 bound
-    include = torch.zeros(buffers.num_triangles, dtype=torch.bool, device=dev)
-    include[buffers.alpha_tri_idx.long()] = True
-    mbins = rt.bin_triangles(setup, WIDTH, HEIGHT, include=include)
-    zc1 = torch.full((HEIGHT, WIDTH), rt.BIG, device=dev)
-    tc1 = torch.full((HEIGHT, WIDTH), 2**31 - 1, dtype=torch.int32, device=dev)
-    v1 = rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc1, tc1)
-    err1 = k1_equal("K1b raster_tile peel bound, round 1", v1,
-                    rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc1, tc1))
-    _, killed = rt.alpha_test(tables, v1)
-    zc2, tc2 = rt.peel_bound(v1, killed)
-    v2 = rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc2, tc2)
-    err2 = k1_equal(f"K1b raster_tile peel bound, round 2 ({int(killed.sum())} killed pixels)", v2,
-                    rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2))
-    ms = _cuda_ms(lambda: rt.raster_tiles_peel(planes, mbins, WIDTH, HEIGHT, zc1, tc1), 20)
-    plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc1, tc1), 2)
-    kb = k1_bound("K1b", planes, mbins, WIDTH * HEIGHT)
-    kernels["K1b"] = dict(max_abs_err=max(err1, err2), ms=ms, plain_ms=plain_ms, **kb)
-    k1_line("K1b raster_tile peel bound, round 1, masked stream", kb, ms, plain_ms)
-
-    tiles = rt.live_tiles(killed, mbins.ntx, mbins.nty)
-    _check(tiles.shape[0] > 0, "round 2 of the peel has no live tile on this scene: "
-           "K1c would never launch")
-    v2c = rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)
-    c_err = max(k1_equal("K1c raster_tile compact, round 2's live tiles", v2c,
-                         rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)),
-                k1_equal("K1c against K1b's full-width round 2", v2c, v2))
-    # the kernel alone: the wrapper's clear of the whole image (20 bytes a
-    # pixel) is made once, before the timing window; re-launching into it
-    # rewrites the listed tiles with the same values
-    pre = rt.clear_visibility(WIDTH, HEIGHT, dev)
-    ms = _cuda_ms(lambda: rt.launch("K1c", planes, mbins, WIDTH, HEIGHT, pre, zc2, tc2, tiles), 20)
-    wrapper_ms = _cuda_ms(
-        lambda: rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles), 20)
-    _check(same(pre, v2c), "K1c's timed launches changed its output")
-    plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2,
-                                                      tiles), 2)
-    kb = k1_bound("K1c", planes, mbins, tiles.shape[0] * 1024, listed=tiles)
-    kernels["K1c"] = dict(max_abs_err=c_err, ms=ms, plain_ms=plain_ms, **kb)
-    k1_line(f"K1c raster_tile compact, {tiles.shape[0]} live tiles of round 2", kb, ms, plain_ms)
-    print(f"K1c wrapper (clear of {WIDTH * HEIGHT * 20} bytes + kernel) {wrapper_ms:.4f} ms")
-    trace = []
-    rt.rasterize_alpha_peeled(buffers, setup, WIDTH, HEIGHT, tables, rounds=4, trace=trace)
-    print("peel rounds: " + "; ".join(
-        f"round {t['round']}: {t['tiles']} tiles rastered, {t['killed']} pixels killed"
-        for t in trace))
 
     def hybrid_wavefronts(rays, ao_rays):
         """name -> (origin, dir, tmax, any-hit) of a hybrid frame's rays."""
@@ -538,19 +644,37 @@ def main() -> int:
               f", bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f}), share of the bound {b_ms / ms:.4f}")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
-    def check_k2(bvh, wavefronts, label, timed):
+    def check_k2(bvh, wavefronts, label, timed, record=True):
         """k2_wave on each wavefront of a hybrid frame; with `timed`, the
-        plain version's time too, and the AO (any-hit) and reflection
-        (closest-hit) wavefronts' numbers go to the JSON line."""
+        plain version's time too on the AO (any-hit) and reflection
+        (closest-hit) wavefronts, whose numbers then go to the JSON line
+        unless `record` is false."""
         for name, (o, d, tmax, anyhit) in wavefronts.items():
             entry = k2_wave(bvh, f"{label} {name}", o, d, raygen.SHADOW_TMIN, tmax, anyhit,
                             plain_timed=timed and name != "shadow")
-            if timed and name != "shadow":
+            if timed and record and name != "shadow":
                 kernels[f"K2 {'any-hit' if anyhit else 'closest-hit'}"] = entry
 
     rays = raygen.Wavefronts(pfd, depth, normals, full, ao_rays=2)
     check_k2(bvh, hybrid_wavefronts(rays, 2), "full frame's", timed=True)
-    del r, res, setup, bins, obins, mbins, v1, v2, v2c, pre, rays
+    del r, res, rays
+    torch.cuda.empty_cache()
+
+    # the same K1 and K2 instances on main path 8's frame: realglb, the
+    # flagship asset, second frame
+    r = Renderer(realglb, full_cfg, device=dev)
+    r.render_frame()
+    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables", hybrid_path.DEPTH,
+                            hybrid_path.NORMALS)
+    print(f"scene {realglb.name}: {r.buffers.num_triangles} triangles "
+          f"({r.buffers.alpha_tri_idx.shape[0]} alpha-masked), BVH8 {res['BVH'].num_rows} rows, "
+          f"depth bound {res['BVH'].depth}")
+    k1_flagship("realglb: ", r.buffers, res["Clip"], res["shade_tables"], record=False)
+    rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS], full,
+                             ao_rays=2)
+    check_k2(res["BVH"], hybrid_wavefronts(rays, 2), "realglb full frame's", timed=True,
+             record=False)
+    del r, res, rays
     torch.cuda.empty_cache()
 
     # K1d and the shadow map's K1a, on the forward configuration's second frame
@@ -709,9 +833,12 @@ def main() -> int:
              1, GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE, False),
             ("full at rt_scale=2", "hybrid",
              dataclasses.replace(small_full, hybrid=dataclasses.replace(full, rt_scale=2)),
-             3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False)):
-        gr = Renderer(scene, small_cfg, path=path, device=dev)
-        cr = Renderer(scene, small_cfg, path=path, device="cpu")
+             3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False),
+            ("realglb full", "hybrid", small_full, 3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE,
+             False)):
+        frame_scene = realglb if name.startswith("realglb") else scene
+        gr = Renderer(frame_scene, small_cfg, path=path, device=dev)
+        cr = Renderer(frame_scene, small_cfg, path=path, device="cpu")
         for f in range(frames):
             g, c = gr.render_frame().cpu(), cr.render_frame()
             d = (g - c).abs().amax(dim=0)
@@ -858,8 +985,54 @@ def main() -> int:
     if profile:
         _profile(r, "full at rt_scale=2")
     del r
+
+    # main path 8: bench.py's flagship as written, on realglb
+    r = Renderer(realglb, full_cfg, device=dev)
+    ms_frame, launches8 = drive(r)
+    for name in ("K1a", "K1b", "K1c", "K2 any-hit", "K2 closest-hit"):
+        _check(launches8[name] >= 10,
+               f"{name} launched {launches8[name]} times in the realglb frame's 10 frames")
+    passes = r.time_passes(iters=5)
+    print(f"main path 8: {realglb.name} ({r.buffers.num_triangles} triangles) {WIDTH}x{HEIGHT} "
+          f"full hybrid, bench.py's flagship (RT shadows + RT AO + RT reflections + SVGF, "
+          f"alpha_raster=brute, 4 peel rounds): {ms_frame:.3f} ms/frame over 10 frames, path 2 "
+          f"(SponzaProxy) {ms_full:.3f} | launches {launches8}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    _breakdown(r, full)
+    if profile:
+        _profile(r, "realglb full")
+    del r
     print(f"card: {smi}")
     _phase("main", t0)
+
+    # ---- 6b. the Renderer's surface at 320x180 on the card -------------------------
+    t0 = time.perf_counter()
+    r = Renderer(realglb, small_full, device=dev)
+    names = r.list_resources()
+    externals = r._resources(r._make_pfd())
+    produced = set(r.graph.run(externals)) - set(externals)
+    _check(len(names) == len(set(names)) and set(names) == produced,
+           f"list_resources {names} differs from the graph's outputs {sorted(produced)}")
+    dump = build.BUILD_DIR / "chip_smoke_albedo.png"
+    albedo = r.debug_dump("Albedo", dump, srgb=True)
+    dumped = png.decode_png(dump.read_bytes())
+    _check(np.array_equal(dumped[..., :3], to_uint8_image(albedo)),
+           "debug_dump's PNG differs from to_uint8_image")
+    bad = r.find_nonfinite_pass()
+    _check(bad is None, f"find_nonfinite_pass named {bad!r} on a clean frame")
+    for _ in range(3):
+        r.render_frame()
+    r.time_passes(iters=1)
+    torch.cuda.synchronize()
+    table = r.stats.table()
+    _check(r.stats.frame_ms is not None, "no frame time reached stats")
+    trace = Path(r.profile(build.BUILD_DIR / "chip_smoke_trace", frames=2))
+    _check(trace.is_file() and trace.stat().st_size > 0, f"profile wrote no trace at {trace}")
+    print(f"surface: {len(names)} resources listed, the graph's outputs; debug_dump Albedo "
+          f"{dumped.shape} PNG decodes to to_uint8_image; find_nonfinite_pass None; profile "
+          f"trace {trace.name} ({trace.stat().st_size} bytes)\n{table}")
+    del r
+    _phase("surface", t0)
 
     # ---- 7. the row-gather probe ---------------------------------------------------
     t0 = time.perf_counter()

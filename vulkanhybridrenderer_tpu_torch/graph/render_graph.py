@@ -33,6 +33,10 @@ class RenderGraph:
     def __init__(self):
         self._passes: dict[str, Pass] = {}
 
+    @property
+    def passes(self) -> dict[str, Pass]:
+        return self._passes
+
     def add_pass(self, name: str, fn, inputs, outputs):
         """Register a pass: `fn(res: dict) -> dict` returns exactly its
         declared outputs."""
@@ -130,3 +134,35 @@ class RenderGraph:
                 timings[name] = (time.perf_counter() - t0) * 1e3 / iters
             res.update({k: produced[k] for k in p.outputs})
         return timings
+
+
+class PassStats:
+    """EMA-smoothed per-pass timings (reference render_graph.cpp:199:
+    t = 0.95 * old + 0.05 * new) and an FPS counter."""
+
+    ALPHA = 0.05
+
+    def __init__(self):
+        self.timings: dict[str, float] = {}
+        self.frame_ms: float | None = None
+
+    def update(self, new_timings: dict[str, float]):
+        for k, v in new_timings.items():
+            old = self.timings.get(k)
+            self.timings[k] = v if old is None else (1 - self.ALPHA) * old + self.ALPHA * v
+
+    def update_frame(self, ms: float):
+        old = self.frame_ms
+        self.frame_ms = ms if old is None else (1 - self.ALPHA) * old + self.ALPHA * ms
+
+    @property
+    def fps(self) -> float:
+        return 1e3 / self.frame_ms if self.frame_ms else 0.0
+
+    def table(self) -> str:
+        lines = [f"{'pass':<40} {'ms':>8}"]
+        for k, v in self.timings.items():
+            lines.append(f"{k:<40} {v:>8.3f}")
+        if self.frame_ms is not None:
+            lines.append(f"{'[frame]':<40} {self.frame_ms:>8.3f}  ({self.fps:.1f} FPS)")
+        return "\n".join(lines)

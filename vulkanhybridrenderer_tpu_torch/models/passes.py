@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 from vulkanhybridrenderer_tpu_torch.graph.render_graph import RenderGraph
-from vulkanhybridrenderer_tpu_torch.ops import geometry, rasterizer_tiled, shadetab
+from vulkanhybridrenderer_tpu_torch.ops import bvh, geometry, rasterizer_tiled, shadetab
 from vulkanhybridrenderer_tpu_torch.utils.math3d import matmul4
 
 
@@ -35,9 +35,9 @@ def rasterize_for_path(scene, clip, width, height, config, alpha: bool = True,
 
 
 def add_geometry_pass(graph: RenderGraph):
-    """Vertex transforms: object -> world -> camera and light clip space, and
-    this frame's TriRow table.  (The reference also emits the world
-    triangles for the BVH refit; they come back with animation.)"""
+    """Vertex transforms: object -> world -> camera and light clip space, the
+    world triangles (what a BVH refit reads) and this frame's TriRow table:
+    the reference's outputs, so both list the same resources."""
 
     def fn(res):
         scene = res["scene"]
@@ -45,13 +45,15 @@ def add_geometry_pass(graph: RenderGraph):
         world = geometry.to_world(scene, res.get("prim_transform"))
         clip = geometry.to_clip(world.position, matmul4(pfd.camera_proj, pfd.camera_view))
         light_clip = geometry.to_clip(world.position, pfd.directional_light.projview)
+        tris = bvh.world_triangles(world.position, scene.tri_vertex)
         tri_rows = shadetab.make_tri_rows(res["shade_tables"], scene, world.position, clip)
-        return {"Clip": clip, "LightClip": light_clip, "TriRows": tri_rows}
+        return {"World": world, "Clip": clip, "LightClip": light_clip, "WorldTris": tris,
+                "TriRows": tri_rows}
 
     graph.add_pass(
         "Geometry", fn,
         inputs=("scene", "pfd", "prim_transform", "shade_tables"),
-        outputs=("Clip", "LightClip", "TriRows"),
+        outputs=("World", "Clip", "LightClip", "WorldTris", "TriRows"),
     )
 
 

@@ -622,6 +622,24 @@ def rasterize_scene(scene, clip, width: int, height: int,
     return vis
 
 
+def depth_ties(scene, clip, width: int, height: int, cull_backface: bool = True,
+               rel: float = 1e-5):
+    """(H, W) bool: the pixels whose two nearest fragments (every triangle,
+    masked ones solid) differ in depth, but by no more than `rel` of it.
+    There two coplanar surfaces made of different triangles z-fight, and the
+    last bits of each triangle's setup decide which one shows: arithmetic
+    that rounds otherwise (fused multiply-adds) may show the other.  Equal
+    depths (the same triangle twice) are not ties of this kind: the larger
+    triangle id wins them on every device.  The second layer is the first
+    one's peel (K1b with the first layer's (z, id) as its bound)."""
+    setup, bins, _ = _opaque_stream(scene, clip, width, height, cull_backface, alpha=False)
+    first = raster_tiles(setup.planes, bins, width, height)
+    second = raster_tiles_peel(setup.planes, bins, width, height, first.depth.contiguous(),
+                               first.tri_id.contiguous())
+    gap = first.depth - second.depth
+    both = (first.tri_id >= 0) & (second.tri_id >= 0)
+    return both & (gap > 0) & (gap <= rel * first.depth)
+
 def rasterize_scene_msaa(scene, clip, width: int, height: int, samples: int,
                          alpha: bool = True, cull_backface: bool = True,
                          tables=None) -> list[VisibilityBuffer]:

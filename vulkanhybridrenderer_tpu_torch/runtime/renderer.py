@@ -10,8 +10,17 @@ resolution (1/rt_scale of the frame on the hybrid path): it is made at
 construction, passed into the graph as "temporal_state", replaced by the
 graph's "TemporalStateOut" after each rendered frame, and made anew when
 ``set_config`` changes its size.  ``update_camera`` is the fly camera.
+
+Observability: ``stats`` (per-pass EMA timings fed by ``time_passes``, and
+the frame-time EMA), ``list_resources``, ``debug_dump``, ``save_frame``,
+``profile`` (a ``torch.profiler`` Chrome trace) and ``find_nonfinite_pass``.
 """
 from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -22,10 +31,11 @@ from vulkanhybridrenderer_tpu_torch.core.types import (
     make_per_frame_data,
     make_temporal_state,
 )
-from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT, PassStats
 from vulkanhybridrenderer_tpu_torch.models.base import get_path
 from vulkanhybridrenderer_tpu_torch.runtime import camera as cam_ctl
 from vulkanhybridrenderer_tpu_torch.scene.gltf import Scene
+from vulkanhybridrenderer_tpu_torch.utils.image import save_png
 
 
 def _encode_srgb8(planar):
@@ -57,6 +67,10 @@ class Renderer:
         self._prev_proj: np.ndarray | None = None
         self._bvh = None
         self._shade_tables = None
+        self._blue_noise = None
+        self._stats = PassStats()
+        #: (start, end) CUDA events of frames whose time is not read yet
+        self._frame_events: collections.deque = collections.deque()
         self.path, self.graph = self._get_graph(path, self.config)
 
     def _temporal_dims(self) -> tuple[int, int]:
@@ -137,16 +151,57 @@ class Renderer:
             "temporal_state": self.temporal_state,
         }
 
+    @property
+    def blue_noise(self):
+        """(4, 128, 128, 4) blue-noise texture stack on the renderer's device,
+        generated at first access (the reference uploads four prebaked
+        LDR_RGBA PNGs, renderer.cpp:32-36).  No pass reads it; it rides along
+        for user pipelines, so neither the constructor nor a frame makes it."""
+        if self._blue_noise is None:
+            from vulkanhybridrenderer_tpu_torch.utils.bluenoise import blue_noise_rgba
+
+            stack = np.stack([blue_noise_rgba(128, seed=i) for i in range(4)])
+            self._blue_noise = torch.from_numpy(stack).to(self.device)
+        return self._blue_noise
+
+    @property
+    def stats(self) -> PassStats:
+        """Per-pass EMA timings (fed by time_passes) and the frame-time EMA.
+        On a GPU a frame's time comes from CUDA events recorded around it and
+        is read once they have completed, so no frame waits for it."""
+        self._read_frame_times()
+        return self._stats
+
+    def _read_frame_times(self):
+        while self._frame_events and self._frame_events[0][1].query():
+            start, end = self._frame_events.popleft()
+            self._stats.update_frame(start.elapsed_time(end))
+
     def render_frame(self, srgb8: bool = False):
         """Render one frame; returns the (4, H, W) linear RENDER_OUTPUT on the
         device, or with srgb8=True the (H, W, 4) uint8 sRGB image.  The work
         is queued on the current stream; the caller synchronizes."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            self._read_frame_times()
+            stream = torch.cuda.current_stream(self.device)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        else:
+            t0 = time.perf_counter()
         res = self.graph.run(self._resources(self._make_pfd()))
         if self.path.uses_temporal_state:
             self.temporal_state = res["TemporalStateOut"]
         self.frame_index += 1
         out = res[RENDER_OUTPUT]
-        return _encode_srgb8(out) if srgb8 else out
+        out = _encode_srgb8(out) if srgb8 else out
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self._frame_events.append((start, end))
+        else:
+            self._stats.update_frame((time.perf_counter() - t0) * 1e3)
+        return out
 
     def fetch_resources(self, *names: str) -> dict:
         """Render one frame and return the named graph resources (the
@@ -163,4 +218,79 @@ class Renderer:
         prev = (self._prev_view, self._prev_proj)
         pfd = self._make_pfd()
         self._prev_view, self._prev_proj = prev
-        return self.graph.time_passes(self._resources(pfd), self.device, iters=iters)
+        timings = self.graph.time_passes(self._resources(pfd), self.device, iters=iters)
+        self._stats.update(timings)
+        return timings
+
+    def list_resources(self) -> list[str]:
+        """Every named resource the active graph produces, in execution order
+        (the debug-texture dropdown, user_interface.cpp:129-150)."""
+        out: list[str] = []
+        for name in self.graph.find_execution_order():
+            out.extend(self.graph.passes[name].outputs)
+        return out
+
+    def debug_dump(self, resource: str, path, srgb: bool = True) -> np.ndarray:
+        """Render one frame and save the named graph resource as a PNG (the
+        reference's debug-texture viewer); returns it as numpy."""
+        arr = self.fetch_resources(resource)[resource].cpu().numpy()
+        save_png(path, arr, srgb=srgb)
+        return arr
+
+    def save_frame(self, path) -> np.ndarray:
+        """Render one frame and save it as an sRGB PNG; returns it as numpy."""
+        img = self.render_frame().cpu().numpy()
+        save_png(path, img)
+        return img
+
+    def profile(self, trace_dir, frames: int = 3) -> str:
+        """A torch.profiler trace of `frames` frames (after one untraced
+        frame), written as a Chrome trace under `trace_dir`; returns the
+        file's path.  The counterpart of the reference's RenderDoc labels."""
+        from torch.profiler import ProfilerActivity, profile
+
+        self.render_frame()
+        cuda = self.device.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            for _ in range(frames):
+                self.render_frame()
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        trace_dir = Path(trace_dir)
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        out = trace_dir / f"{self.path_name}_frame{self.frame_index}.json"
+        prof.export_chrome_trace(str(out))
+        return str(out)
+
+    def find_nonfinite_pass(self) -> str | None:
+        """Run the active graph's passes one by one, in execution order, on
+        one frame's resources; return the first pass with a float output that
+        is not all finite, or None when the frame is clean."""
+        res = self._resources(self._make_pfd())
+        for name in self.graph.find_execution_order():
+            p = self.graph.passes[name]
+            produced = p.fn(res)
+            for out_name in p.outputs:
+                if not all(bool(torch.isfinite(t).all())
+                           for t in _float_tensors(produced[out_name])):
+                    return name
+            res.update({k: produced[k] for k in p.outputs})
+        return None
+
+
+def _float_tensors(obj):
+    """The floating-point tensors in a resource: a tensor, or the fields and
+    items of dataclasses, dicts, lists and tuples, recursively."""
+    if isinstance(obj, torch.Tensor):
+        if obj.is_floating_point():
+            yield obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _float_tensors(getattr(obj, f.name))
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _float_tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _float_tensors(v)

@@ -389,3 +389,10 @@ def sponza_proxy(columns=12, segments=48, extra_boxes=600, grid_res=128, seed=7,
     )
     light = make_directional_light([0.3, -0.85, 0.25], intensity=30.0)
     return b.build(name, cam, light)
+
+
+def bistro_proxy() -> Scene:
+    """High-triangle-count stand-in for Bistro (BASELINE.md config 5):
+    dense colonnades and high-res displaced surfaces, 434,460 triangles."""
+    return sponza_proxy(columns=28, segments=96, extra_boxes=2400, grid_res=256, seed=11,
+                        name="BistroProxy")

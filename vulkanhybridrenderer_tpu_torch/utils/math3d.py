@@ -143,6 +143,65 @@ def yaw_pitch_roll(yaw: float, pitch: float, roll: float):
     return m
 
 
+
+def extract_euler_yxz(m):
+    """GLM extractEulerAngleYXZ on the rotation part of a (4, 4) matrix:
+    (yaw, pitch, roll) such that yaw_pitch_roll rebuilds the rotation
+    (scene_loader.cpp:62-67)."""
+    r = np.asarray(m, np.float64)[:3, :3]
+    r = r / np.linalg.norm(r, axis=0, keepdims=True)  # strip scale
+    # R = Ry @ Rx @ Rz; R[1, 2] = -sin(pitch)
+    pitch = np.arcsin(np.clip(-r[1, 2], -1.0, 1.0))
+    if abs(np.cos(pitch)) > 1e-6:
+        yaw = np.arctan2(r[0, 2], r[2, 2])
+        roll = np.arctan2(r[1, 0], r[1, 1])
+    else:  # gimbal lock
+        yaw = np.arctan2(-r[2, 0], r[0, 0])
+        roll = 0.0
+    return float(yaw), float(pitch), float(roll)
+
+
+def quat_rotate(q, v):
+    """Rotate vector(s) v by the quaternion q = (w, x, y, z)."""
+    q = np.asarray(q, np.float64)
+    w, xyz = q[0], q[1:]
+    t = 2.0 * np.cross(xyz, v)
+    return np.asarray(v + w * t + np.cross(xyz, t), np.float32)
+
+
+def decompose_rotation(m):
+    """Unit quaternion (w, x, y, z) of the rotation part of a (4, 4)
+    transform (GLM decompose, of which scene_loader.cpp:76-83 keeps the
+    rotation)."""
+    r = np.asarray(m, np.float64)[:3, :3]
+    r = r / np.linalg.norm(r, axis=0, keepdims=True)
+    tr = np.trace(r)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        w = 0.25 * s
+        x = (r[2, 1] - r[1, 2]) / s
+        y = (r[0, 2] - r[2, 0]) / s
+        z = (r[1, 0] - r[0, 1]) / s
+    elif r[0, 0] > r[1, 1] and r[0, 0] > r[2, 2]:
+        s = np.sqrt(1.0 + r[0, 0] - r[1, 1] - r[2, 2]) * 2
+        w = (r[2, 1] - r[1, 2]) / s
+        x = 0.25 * s
+        y = (r[0, 1] + r[1, 0]) / s
+        z = (r[0, 2] + r[2, 0]) / s
+    elif r[1, 1] > r[2, 2]:
+        s = np.sqrt(1.0 + r[1, 1] - r[0, 0] - r[2, 2]) * 2
+        w = (r[0, 2] - r[2, 0]) / s
+        x = (r[0, 1] + r[1, 0]) / s
+        y = 0.25 * s
+        z = (r[1, 2] + r[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + r[2, 2] - r[0, 0] - r[1, 1]) * 2
+        w = (r[1, 0] - r[0, 1]) / s
+        x = (r[0, 2] + r[2, 0]) / s
+        y = (r[1, 2] + r[2, 1]) / s
+        z = 0.25 * s
+    return np.array([w, x, y, z], np.float64)
+
 def normal_matrix(model):
     """Inverse-transpose of the upper-left 3x3, padded to (4, 4)."""
     m = np.asarray(model, np.float64)
