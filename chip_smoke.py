@@ -2,14 +2,15 @@
 """Drive the PyTorch port (vulkanhybridrenderer_tpu_torch) once on one CUDA GPU.
 
     python3 chip_smoke.py              # every phase below
-    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-8
+    python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
                 (no CUDA: fail)
   2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d),
                 csrc/bvh8_trace.cu (K2, four lanes a ray, with and without
-                the alpha filter),
+                the alpha filter), csrc/shadow_grid.cu (K3, the shadow
+                grid's trace, a thread a ray),
                 csrc/toy_scale.cu and csrc/gather_probe.cu for sm_90a and g++
                 the host BVH build (native/*.cpp), all at once; ptxas
                 registers / spills per kernel.  The toy library is asked for
@@ -84,7 +85,15 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 and reflection wavefronts (960x540, second frame; the same
                 checks), K1a on the rayquery frame's entry stream (every
                 triangle, masked ones solid) and K2 any-hit on its shadow
-                rays
+                rays.  Then main path 10's inputs: K3 on the second frame's
+                shadow wavefront of cell 1's configuration with
+                shadow_accel="grid": hit masks identical to its plain
+                version's and to K2 any-hit's on the same rays; its time,
+                the plain version's and the bound (59 operations a tested
+                entry, counted by trace_shadow_plain(visits=True), or the
+                grid's tables and the rays' bytes); entries tested a live
+                ray (mean, p99); the grid's entries, num_big and overflow
+                (which must be 0)
   5. gpu-cpu  - SponzaProxy at 320x180 on the GPU and on the CPU (plain
                 versions): the RT-shadows frame within 1e-4 on >= 99.9% of
                 pixels; the full configuration over 3 frames within
@@ -95,10 +104,14 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 512: the CPU's plain raster of a 4096^2 map takes minutes);
                 the raytraced frame with test_alpha (the RT-shadows gate),
                 the rayquery frame, the full frame at rt_scale=2 and
-                realglb's full frame over 3 frames (the full frame's gate).  The stages of the forward
+                realglb's full frame over 3 frames (the full frame's gate);
+                main path 9's brute frame on cornell_box() (the raster
+                gate), path 10's grid frame (the RT-shadows gate) and path
+                11's animated frame over 3 animated frames (the full
+                frame's gate).  The stages of the forward
                 frame: clip-space vertices and triangle setups must agree on
                 every value
-  6. main     - eight paths at 1920x1080, SponzaProxy but path 8, each driven with the
+  6. main     - eleven paths at 1920x1080, SponzaProxy but paths 8, 9 and 11, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
                 slice must rise by >= 1 per frame; finite output; per-pass ms:
@@ -120,7 +133,24 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   closest-hit, its ms/frame beside path 2's;
                   8. bench.py's flagship as written: the full frame on
                   realglb (254,636 triangles): K1a, K1b, K1c, K2 any-hit and
-                  closest-hit, its breakdown, its ms/frame beside path 2's
+                  closest-hit, its breakdown, its ms/frame beside path 2's;
+                  9. path 4's configuration with raster="brute" on
+                  cornell_box() (the 4096^2 brute prepass included): no hand
+                  kernel launches; its visibility against the binned raster
+                  of the same frame (tri id or depth differ on <= 0.2% of
+                  pixels) and a less_equal / clear 1.0 raster nearer
+                  wherever both cover; the brute raster's and prepass's ms;
+                  10. path 1's configuration with shadow_accel="grid": K1a
+                  and K3, no K2 and no BVH resource; its frame equal to
+                  path 1's from the same renderer state (torch.equal);
+                  11. pica_proxy() animated (animate_pica before every
+                  frame), the full configuration with shadow_accel="grid":
+                  K1a, K2 any-hit and closest-hit, K3, BVH Refit and Shadow
+                  Grid Build every frame, consecutive frames differ; on
+                  frame 5, K3's mask equals K2 any-hit on the refit BVH8
+                  and on a fresh host build, closest hits agree (t within
+                  1e-4, the triangle but on equal-t ties), and the refit
+                  rows equal refit8 run again on the card and the CPU
   6b. surface - realglb's full frame at 320x180: list_resources is the set
                 of the graph's outputs, debug_dump's PNG decodes to
                 to_uint8_image, find_nonfinite_pass() is None, stats.table()
@@ -254,7 +284,7 @@ def main() -> int:
     from vulkanhybridrenderer_tpu_torch.models import rayquery as rayquery_path
     from vulkanhybridrenderer_tpu_torch.models import raytraced as raytraced_path
     from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled as rt, rt_shade
-    from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
+    from vulkanhybridrenderer_tpu_torch.ops import rasterizer, shade, shadowgrid, shadowmap, traverse
     from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
     from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, bvh8 as bvh8_ops, geometry
     from vulkanhybridrenderer_tpu_torch.probes import gather as probe
@@ -290,7 +320,7 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    loaders = (rt.load_kernel, traverse.load_kernel, native_bridge.load,
+    loaders = (rt.load_kernel, traverse.load_kernel, shadowgrid.load_kernel, native_bridge.load,
                build.load_toy_kernel, probe.load_kernel)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
@@ -304,6 +334,8 @@ def main() -> int:
                                  {"ILb0ELb0E": "K2 closest-hit", "ILb1ELb0E": "K2 any-hit",
                                   "ILb0ELb1E": "K2 filtered closest-hit",
                                   "ILb1ELb1E": "K2 filtered any-hit"})
+                 + _ptxas_report(build_log("shadow_grid.cu"),
+                                 {"trace_kernelILb0E": "K3", "trace_kernelILb1E": "K3 filtered"})
                  + _ptxas_report(build_log("toy_scale.cu"), {"toy_scale": "toy"})
                  + _ptxas_report(build_log("gather_probe.cu"),
                                  {k: k for k in ("walk_thread_row", "walk_warp_row",
@@ -646,12 +678,12 @@ def main() -> int:
 
     def check_k2(bvh, wavefronts, label, timed, record=True):
         """k2_wave on each wavefront of a hybrid frame; with `timed`, the
-        plain version's time too on the AO (any-hit) and reflection
-        (closest-hit) wavefronts, whose numbers then go to the JSON line
-        unless `record` is false."""
+        plain version's time too, and the AO (any-hit) and reflection
+        (closest-hit) wavefronts' numbers go to the JSON line unless
+        `record` is false."""
         for name, (o, d, tmax, anyhit) in wavefronts.items():
             entry = k2_wave(bvh, f"{label} {name}", o, d, raygen.SHADOW_TMIN, tmax, anyhit,
-                            plain_timed=timed and name != "shadow")
+                            plain_timed=timed)
             if timed and record and name != "shadow":
                 kernels[f"K2 {'any-hit' if anyhit else 'closest-hit'}"] = entry
 
@@ -802,6 +834,24 @@ def main() -> int:
     for name, err in k2_errs.items():
         kernels[name]["max_abs_err"] = err
     torch.cuda.empty_cache()
+
+    # K3 on main path 10's inputs: cell 1's configuration with the shadow
+    # grid, second frame's shadow wavefront, against its plain version and K2
+    grid_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off", shadow_accel="grid")
+    r = Renderer(scene, grid_cfg, device=dev)
+    r.render_frame()
+    res = r.fetch_resources("pfd", "ShadowGrid", hybrid_path.DEPTH, hybrid_path.NORMALS)
+    sg = res["ShadowGrid"]
+    rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
+                             grid_cfg.hybrid, ao_rays=grid_cfg.ao_rays)
+    kernels["K3"] = _k3_wave(r._get_bvh(), sg, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
+                             rays.shadow_tmax, bound, "path 10's second frame's shadow",
+                             timed=True)
+    print(f"K3 grid: {sg.grid}x{sg.grid} cells, {sg.num_entries} entries "
+          f"({sg.num_entries * 48} bytes), num_big {sg.num_big}, overflow {sg.overflow}")
+    _check(sg.overflow == 0, f"the shadow grid overflowed by {sg.overflow} triangles")
+    del r, res, rays, sg
+    torch.cuda.empty_cache()
     _phase("kernels", t0)
 
     # ---- 5. GPU against CPU ------------------------------------------------------
@@ -811,6 +861,7 @@ def main() -> int:
                                        reflection_mode=cfgmod.ReflectionMode.SSR)
     small_full = RenderConfig(width=320, height=180, alpha_raster="brute",
                               alpha_peel_rounds=4, ao_rays=2, hybrid=full)
+    cornell, pica = procedural.cornell_box(), procedural.pica_proxy()
     # (name, path, config, frames, tolerance, share of pixels within it,
     # whether the stages are compared after the last frame)
     for name, path, small_cfg, frames, tol, share, stages in (
@@ -835,11 +886,25 @@ def main() -> int:
              dataclasses.replace(small_full, hybrid=dataclasses.replace(full, rt_scale=2)),
              3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False),
             ("realglb full", "hybrid", small_full, 3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE,
-             False)):
-        frame_scene = realglb if name.startswith("realglb") else scene
+             False),
+            ("path 9, brute raster-mode hybrid", "hybrid",
+             RenderConfig(width=320, height=180, shadow_map_size=512, alpha_raster="off",
+                          raster="brute", hybrid=raster_hs),
+             2, GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE, False),
+            ("path 10, RT shadows through the grid", "hybrid",
+             RenderConfig(width=320, height=180, alpha_raster="off", shadow_accel="grid"),
+             1, 1e-4, 0.999, False),
+            ("path 11, animated pica", "hybrid",
+             RenderConfig(width=320, height=180, animated=True, shadow_accel="grid", hybrid=full),
+             3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False)):
+        frame_scene = {"realglb full": realglb, "path 9, brute raster-mode hybrid": cornell,
+                       "path 11, animated pica": pica}.get(name, scene)
         gr = Renderer(frame_scene, small_cfg, path=path, device=dev)
         cr = Renderer(frame_scene, small_cfg, path=path, device="cpu")
         for f in range(frames):
+            if small_cfg.animated:
+                for rr in (gr, cr):
+                    rr.animate(procedural.animate_pica(frame_scene, f / 60.0))
             g, c = gr.render_frame().cpu(), cr.render_frame()
             d = (g - c).abs().amax(dim=0)
             shares = {t: float((d <= t).float().mean()) for t in (1e-5, 1e-4, 1e-3)}
@@ -861,22 +926,29 @@ def main() -> int:
         "K1d": lambda: rt.raster_tiles_msaa.launches,
         **{f"K2 {mode}": (lambda m=mode: traverse.trace.launches[m])
            for mode in ("any-hit", "closest-hit", "filtered any-hit", "filtered closest-hit")},
+        "K3": lambda: shadowgrid.trace_shadow.launches,
     }
 
-    def drive(r, frames=10):
+    def drive(r, frames=10, before=None):
         """2 warm-up frames, then `frames` timed ones with every launch
-        counter set to 0 just before them; returns (ms/frame, launches)."""
+        counter set to 0 just before them; returns (ms/frame, launches).
+        before(r): called before every frame (the animated path's animate)."""
         for _ in range(2):
+            if before is not None:
+                before(r)
             frame = r.render_frame()
         torch.cuda.synchronize()
         _check(bool(torch.isfinite(frame).all()), "warm-up frame not finite")
         rt.raster_tiles.launches = rt.raster_tiles_peel.launches = 0
         rt.raster_tiles_compact.launches = rt.raster_tiles_msaa.launches = 0
         traverse.trace.launches.clear()
+        shadowgrid.trace_shadow.launches = 0
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(frames):
+            if before is not None:
+                before(r)
             frame = r.render_frame()
         end.record()
         torch.cuda.synchronize()
@@ -888,6 +960,7 @@ def main() -> int:
     t0 = time.perf_counter()
     r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off"), device=dev)
     ms_frame, launches = drive(r)
+    ms_rt_shadows = ms_frame
     for name in ("K1a", "K2 any-hit"):
         _check(launches[name] >= 10, f"{name} launched {launches[name]} times in 10 frames")
     passes = r.time_passes(iters=5)
@@ -902,7 +975,7 @@ def main() -> int:
     ms_frame, launches = drive(r)
     ms_full = ms_frame
     for name, count in launches.items():
-        _check(name == "K1d" or "filtered" in name or count >= 10,
+        _check(name in ("K1d", "K3") or "filtered" in name or count >= 10,
                f"{name} launched {count} times in the full frame's 10 frames")
     passes = r.time_passes(iters=5)
     print(f"main path 2: {scene.name} {WIDTH}x{HEIGHT} full hybrid (RT shadows + RT AO + "
@@ -1002,6 +1075,102 @@ def main() -> int:
     if profile:
         _profile(r, "realglb full")
     del r
+
+    # main path 9: cell 4's configuration (rasterized shadows + SSAO, alpha
+    # off) with the brute reference rasterizer, its 4096^2 brute prepass
+    # included, on cornell_box(): plain PyTorch, no hand kernel
+    brute_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off", raster="brute",
+                             hybrid=raster_hs)
+    r = Renderer(cornell, brute_cfg, device=dev)
+    ms_frame, launches9 = drive(r)
+    _check(not any(launches9.values()), f"the brute path launched a hand kernel: {launches9}")
+    passes = r.time_passes(iters=3)
+    print(f"main path 9: {cornell.name} ({r.buffers.num_triangles} triangles) {WIDTH}x{HEIGHT} "
+          f"raster-mode hybrid with raster=brute (rasterized shadows + SSAO, alpha off, "
+          f"{brute_cfg.shadow_map_size}^2 brute prepass): {ms_frame:.3f} ms/frame over 10 frames "
+          f"| launches {launches9}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "brute raster-mode hybrid")
+    res = r.fetch_resources("Clip", "LightClip", hybrid_path.DEPTH)
+    setup = triangle_setup(res["Clip"], r.buffers.tri_vertex, WIDTH, HEIGHT)
+    vb = rasterizer.rasterize(setup, WIDTH, HEIGHT)
+    vk = rt.rasterize_scene(r.buffers, res["Clip"], WIDTH, HEIGHT, alpha=False)
+    mism = float(((vb.tri_id != vk.tri_id) | ((vb.depth - vk.depth).abs() > 1e-6)).float().mean())
+    le = rasterizer.rasterize(setup, WIDTH, HEIGHT, depth_compare="less_equal", depth_clear=1.0)
+    both = (le.tri_id >= 0) & (vb.tri_id >= 0)
+    nearer = bool(both.any()) and bool((le.depth[both] <= vb.depth[both] + 1e-6).all())
+    brute_ms = _cuda_ms(lambda: rasterizer.rasterize(setup, WIDTH, HEIGHT), 3)
+    prepass_ms = _cuda_ms(lambda: shadowmap.render_shadow_map(
+        res["LightClip"], r.buffers.tri_vertex, brute_cfg.shadow_map_size, chunk=256), 3)
+    print(f"path 9 brute visibility against the binned raster (K1a) of the same frame: tri id "
+          f"or depth (> 1e-6) differ on {mism:.6f} of pixels (limit 0.002); the G-buffer's depth "
+          f"is the brute raster's: {torch.equal(res[hybrid_path.DEPTH], vb.depth)}; less_equal / "
+          f"clear 1.0 depth <= greater_equal depth wherever both cover ({int(both.sum())} "
+          f"pixels): {nearer}; brute raster {WIDTH}x{HEIGHT} {brute_ms:.3f} ms, brute prepass "
+          f"{brute_cfg.shadow_map_size}^2 {prepass_ms:.3f} ms")
+    _check(mism <= 0.002 and nearer and torch.equal(res[hybrid_path.DEPTH], vb.depth),
+           f"path 9's brute visibility: mismatch share {mism}, less_equal nearer {nearer}")
+    del r, res, setup, vb, vk, le
+
+    # main path 10: cell 1's configuration with shadow_accel="grid": the
+    # shadow rays through K3, no BVH in the graph
+    r = Renderer(scene, grid_cfg, device=dev)
+    ms_frame, launches10 = drive(r)
+    _check(launches10["K3"] >= 10 and launches10["K1a"] >= 10,
+           f"K3 / K1a launched {launches10['K3']} / {launches10['K1a']} times in path 10's frames")
+    _check(not any(v for k, v in launches10.items() if k.startswith("K2")),
+           f"path 10 launched K2: {launches10}")
+    names = r.list_resources()
+    _check("BVH" not in names and "ShadowGrid" in names, f"path 10's resources {names}")
+    passes = r.time_passes(iters=5)
+    print(f"main path 10: {scene.name} {WIDTH}x{HEIGHT} RT shadows through the shadow grid "
+          f"(alpha off, shadow_accel=grid): {ms_frame:.3f} ms/frame over 10 frames, path 1 "
+          f"{ms_rt_shadows:.3f} | launches {launches10}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    if profile:
+        _profile(r, "RT shadows through the grid")
+    idx = r.frame_index
+    grid_frame = r.render_frame()
+    r.frame_index = idx
+    r.set_config(dataclasses.replace(grid_cfg, shadow_accel="bvh8"))
+    bvh_frame = r.render_frame()
+    print(f"path 10's frame equals path 1's of the same renderer state: "
+          f"{torch.equal(grid_frame, bvh_frame)}")
+    _check(torch.equal(grid_frame, bvh_frame), "path 10's frame differs from path 1's")
+    del r, grid_frame, bvh_frame
+
+    # main path 11: pica_proxy() animated, the full hybrid configuration with
+    # shadow_accel="grid": BVH Refit and Shadow Grid Build every frame
+    pica_cfg = RenderConfig(width=WIDTH, height=HEIGHT, animated=True, shadow_accel="grid",
+                            hybrid=full)
+    r = Renderer(pica, pica_cfg, device=dev)
+    clock = iter(range(1 << 30))
+
+    def animate(rr):
+        rr.animate(procedural.animate_pica(pica, next(clock) / 60.0))
+
+    ms_frame, launches11 = drive(r, before=animate)
+    for name in ("K1a", "K2 any-hit", "K2 closest-hit", "K3"):
+        _check(launches11[name] >= 10,
+               f"{name} launched {launches11[name]} times in the animated frame's 10 frames")
+    order = r.graph.find_execution_order()
+    _check("BVH Refit" in order and "Shadow Grid Build" in order, f"path 11's passes {order}")
+    passes = r.time_passes(iters=3)
+    animate(r)
+    a = r.render_frame()
+    animate(r)
+    moved = float((r.render_frame() - a).abs().max())
+    print(f"main path 11: {pica.name} ({r.buffers.num_triangles} triangles) {WIDTH}x{HEIGHT} "
+          f"animated full hybrid (RT shadows through the grid + RT AO + RT reflections + SVGF, "
+          f"BVH Refit and Shadow Grid Build every frame): {ms_frame:.3f} ms/frame over 10 "
+          f"frames | launches {launches11} | consecutive frames differ by up to {moved:.4f}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    _check(moved > 1e-3, "path 11's consecutive frames are equal")
+    if profile:
+        _profile(r, "animated pica", before=animate)
+    del r, a
+    _animated_wavefronts(pica, pica_cfg, dev, bound)
     print(f"card: {smi}")
     _phase("main", t0)
 
@@ -1045,8 +1214,9 @@ def main() -> int:
 
     # each kernel's launches from the path that introduced it: the full
     # frame's for K1a, K1b, K1c and K2, the forward frame's for K1d, the
-    # raytraced frame's for the filtered K2
+    # raytraced frame's for the filtered K2, the grid frame's (path 10) for K3
     launches["K1d"] = launches3["K1d"]
+    launches["K3"] = launches10["K3"]
     # the shadow map's K1a: the forward frame's only K1a launch is its depth
     # prepass.  The raster-mode frame's K1a count holds its G-buffer's and
     # its prepass's together; the counters do not tell them apart.
@@ -1057,15 +1227,16 @@ def main() -> int:
         launches[name] = launches5[name]
 
     entries = []
+    sources = {"K1": ("raster_tile.cu", "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567"),
+               "K2": ("bvh8_trace.cu", "vulkanhybridrenderer_tpu/ops/traverse.py:135"),
+               "K3": ("shadow_grid.cu", "vulkanhybridrenderer_tpu/ops/shadowgrid.py:229")}
     for name, k in kernels.items():
-        k2 = name.startswith("K2")
+        src, replaces = sources[name[:2]]
         entries.append(dict(
-            name=name, route="cuda",
-            source=f"vulkanhybridrenderer_tpu_torch/csrc/{'bvh8_trace' if k2 else 'raster_tile'}.cu",
-            replaces=("vulkanhybridrenderer_tpu/ops/traverse.py:135" if k2 else
-                      "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567"),
-            launches=launches[name], **k,
-            # no single PyTorch call rasters binned triangles or walks a BVH
+            name=name, route="cuda", source=f"vulkanhybridrenderer_tpu_torch/csrc/{src}",
+            replaces=replaces, launches=launches[name], **k,
+            # no single PyTorch call rasters binned triangles, walks a BVH
+            # or a grid of triangles
             library_ms=None))
     entries.append(dict(name="toy x * 2", route="cuda",
                         source="vulkanhybridrenderer_tpu_torch/csrc/toy_scale.cu",
@@ -1081,6 +1252,109 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _animated_wavefronts(pica, cfg, dev, bound):
+    """Path 11's frame 5 (animate_pica(pica, i / 60) before frame i): K3's
+    shadow mask against its plain version, K2 any-hit on the refit BVH8 and
+    K2 any-hit on a fresh host BVH8 of the moved triangles; AO any-hit and
+    reflection closest-hit through the refit tree against the fresh one
+    (closest hits: t within 1e-4, the triangle equal but where two hits tie
+    in t); the refit rows against refit8 run again on the card and on the
+    CPU."""
+    from vulkanhybridrenderer_tpu_torch.models import hybrid as hybrid_path
+    from vulkanhybridrenderer_tpu_torch.ops import bvh8 as bvh8_ops, raygen, shadowgrid, traverse
+    from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from vulkanhybridrenderer_tpu_torch.scene import procedural
+
+    r = Renderer(pica, cfg, device=dev)
+    for i in range(5):
+        r.animate(procedural.animate_pica(pica, i / 60.0))
+        r.render_frame()
+    r.animate(procedural.animate_pica(pica, 5 / 60.0))
+    res = r.fetch_resources("pfd", "BVH", "ShadowGrid", "WorldTris", hybrid_path.DEPTH,
+                            hybrid_path.NORMALS)
+    refit, tris = res["BVH"], res["WorldTris"]
+    fresh = bvh8_ops.build_bvh8_host(tris.cpu().numpy()).to(dev)
+    rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
+                             cfg.hybrid, ao_rays=cfg.ao_rays)
+    _k3_wave(refit, res["ShadowGrid"], rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
+             rays.shadow_tmax, bound, "path 11's frame 5 shadow (refit BVH8)")
+    k3 = shadowgrid.trace_shadow(res["ShadowGrid"], rays.origin, rays.shadow_dir,
+                                 raygen.SHADOW_TMIN, rays.shadow_tmax)
+    fresh_hit = traverse.trace(fresh, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
+                               rays.shadow_tmax, anyhit=True).hit
+    fresh_diff = int((k3 != fresh_hit).sum())
+    o_ao = rays.origin.repeat(cfg.ao_rays, 1)
+    t_ao = rays.ao_tmax.repeat(cfg.ao_rays)
+    ao_diff = int((traverse.trace(refit, o_ao, rays.ao_dir, raygen.SHADOW_TMIN, t_ao,
+                                  anyhit=True).hit
+                   != traverse.trace(fresh, o_ao, rays.ao_dir, raygen.SHADOW_TMIN, t_ao,
+                                     anyhit=True).hit).sum())
+    a = traverse.trace(refit, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN, rays.refl_tmax)
+    f = traverse.trace(fresh, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN, rays.refl_tmax)
+    t_err = _max_abs(a.t - f.t)
+    tri_diff = a.tri != f.tri
+    ties = tri_diff & a.hit & f.hit & (a.t == f.t)
+    on_card = torch.equal(refit.rows, bvh8_ops.refit8(r._get_bvh(), tris).rows)
+    on_cpu = torch.equal(refit.rows.cpu(), bvh8_ops.refit8(r._get_bvh().to("cpu"), tris.cpu()).rows)
+    print(f"path 11 frame 5: K3 against K2 any-hit on a fresh host BVH8 of the moved triangles: "
+          f"{fresh_diff} mismatched hit flags; AO any-hit refit against fresh: {ao_diff}; "
+          f"reflection closest-hit refit against fresh: {int(a.hit.sum())} hits, tri differs on "
+          f"{int(tri_diff.sum())} rays ({int(ties.sum())} of them equal-t ties), max |t diff| "
+          f"{t_err:.3g} (limit 1e-4); refit rows equal refit8 on the card {on_card}, on the "
+          f"CPU {on_cpu}; BVH8 {refit.num_rows} rows, depth bound {refit.depth}")
+    _check(fresh_diff == 0 and ao_diff == 0, "the refit BVH8's any-hit masks differ from a "
+           f"fresh build's: shadow {fresh_diff}, AO {ao_diff}")
+    _check(t_err <= 1e-4 and bool((tri_diff == ties).all()),
+           f"closest hits through the refit BVH8 differ from a fresh build's: t {t_err}, "
+           f"tri {int(tri_diff.sum())} ({int(ties.sum())} ties)")
+    _check(on_card and on_cpu, "the BVH Refit pass's rows differ from refit8's")
+
+
+def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, timed=False):
+    """K3 on one shadow wavefront against its plain version and K2 any-hit
+    on the same rays: identical hit masks.  Prints the rays, the live ones,
+    the entries each live ray tests (mean, p99) and, with `timed`, the
+    kernel's, the plain version's and K2 any-hit's ms on the same rays
+    beside the bound: operations at
+    K2_OPS_TRI a tested entry, counted by trace_shadow_plain(visits=True),
+    or bytes (the grid's entry table, offsets and big rows once, each ray's
+    origin, direction, tmin, tmax in and its hit flag out), the larger.
+    Returns the JSON line's fields."""
+    from vulkanhybridrenderer_tpu_torch.ops import shadowgrid, traverse
+
+    n = o.shape[0]
+    tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=o.device).expand(n).contiguous()
+    k = shadowgrid.trace_shadow(sg, o, d, tmin_a, tmax)
+    p, tested = shadowgrid.trace_shadow_plain(sg, o, d, tmin_a, tmax, visits=True)
+    k2 = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=True).hit
+    err, k2_diff = float((k != p).sum()), int((k != k2).sum())
+    _check(err == 0.0, f"K3 hit masks differ from its plain version on {int(err)} {label} rays")
+    _check(k2_diff == 0, f"K3 hit masks differ from K2 any-hit on {k2_diff} {label} rays")
+    live = tmax >= tmin_a
+    per = tested[live].double()
+    total = int(tested.sum())
+    ops = total * K2_OPS_TRI
+    nbytes = (sg.num_entries * 48 + sg.offsets.numel() * 4 + sg.num_big * 48
+              + n * (12 + 12 + 4 + 4 + 1))
+    b_ms, b_by = bound(ops, nbytes)
+    ms = plain_ms = k2_ms = None
+    if timed:
+        ms = _cuda_ms(lambda: shadowgrid.trace_shadow(sg, o, d, tmin_a, tmax), 20)
+        plain_ms = _cuda_ms(lambda: shadowgrid.trace_shadow_plain(sg, o, d, tmin_a, tmax), 1)
+        k2_ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=True), 20)
+    print(f"K3 shadow_grid_trace, {label} rays: {n} ({int(live.sum())} live), hits "
+          f"{int(k.sum())}; mismatched hit flags against its plain version {int(err)}, against "
+          f"K2 any-hit {k2_diff}; entries tested {total} (a live ray: mean "
+          f"{float(per.mean()) if per.numel() else 0.0:.2f}, p99 "
+          f"{float(torch.quantile(per, 0.99)) if per.numel() else 0.0:.0f}, max "
+          f"{int(per.max()) if per.numel() else 0})"
+          + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2 any-hit on the same rays "
+             f"{k2_ms:.4f} ms" if timed else "")
+          + f", bound {b_ms:.4f} ms (set by {b_by})"
+          + (f", share of the bound {b_ms / ms:.4f}" if timed else ""))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def _stage_agreement(gr, cr, path):
@@ -1187,9 +1461,10 @@ def _breakdown(r, settings):
     print("breakdown ms: " + ", ".join(f"{k} {_cuda_ms(fn, 5):.3f}" for k, fn in steps.items()))
 
 
-def _profile(r, label: str, frames: int = 5) -> None:
-    """torch.profiler over `frames` frames of renderer `r`: device busy share
-    of the window and the largest kernels."""
+def _profile(r, label: str, frames: int = 5, before=None) -> None:
+    """torch.profiler over `frames` frames of renderer `r` (before(r) ahead
+    of each, as drive's): device busy share of the window and the largest
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     r.render_frame()
@@ -1197,6 +1472,8 @@ def _profile(r, label: str, frames: int = 5) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(frames):
+            if before is not None:
+                before(r)
             r.render_frame()
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3

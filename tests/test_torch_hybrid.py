@@ -91,29 +91,51 @@ def test_shadows_off_and_srgb8():
         "Geometry", "G-Buffer Pass", "BVH", "Raytrace Pass", "Composition Pass"}
 
 
-@pytest.mark.parametrize("change", [
-    dict(shadow_accel="grid"),
-    dict(raster="brute"),
-    dict(animated=True),
+@pytest.mark.parametrize("change, brings", [
+    (dict(shadow_accel="grid"), "Shadow Grid Build"),
+    (dict(raster="brute"), "G-Buffer Pass"),
+    (dict(animated=True), "BVH Refit"),
 ])
-def test_unported_modes_raise(change):
-    cfg = dataclasses.replace(pcfg.RenderConfig(width=W, height=H, alpha_raster="off"), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prenderer.Renderer(pproc.cornell_box(), cfg, device="cpu")
+def test_unported_modes_raise(change, brings):
+    """The modes that raised NotImplementedError until they were ported
+    (the shadow grid, the brute rasterizer, animation) build their graph and
+    render; what still raises is the reference's own NotImplementedError:
+    the binned raster with a depth preset other than reverse-Z
+    greater_equal.  test_torch_hybrid_grid.py, test_torch_brute.py and
+    test_torch_animated.py hold them against the JAX package."""
+    cfg = dataclasses.replace(pcfg.RenderConfig(width=W, height=H, alpha_raster="off",
+                                                shadow_map_size=128), **change)
+    r = prenderer.Renderer(pproc.cornell_box(), cfg, device="cpu")
+    assert brings in r.graph.find_execution_order()
+    assert bool(torch.isfinite(r.render_frame()).all())
+    preset = pcfg.RasterState(depth_compare="less_equal", depth_clear=1.0)
+    binned = prenderer.Renderer(pproc.cornell_box(), dataclasses.replace(
+        cfg, raster="binned", raster_state=preset), device="cpu")
+    with pytest.raises(NotImplementedError, match="greater_equal"):
+        binned.render_frame()
 
 
 def test_unported_paths_and_options_raise():
-    """The raytraced and rayquery paths render (test_ported_paths_render);
-    what they do not carry yet raises: animation (BVH8 refit) on both, the
-    brute rasterizer on the rayquery path."""
+    """The raytraced and rayquery paths render (test_ported_paths_render),
+    animated too (a BVH Refit pass), and the rayquery path with the brute
+    rasterizer; the binned raster with another depth preset raises the
+    reference's NotImplementedError, and the TPU-only BVH options raise
+    ValueError."""
     for path in ("raytraced", "rayquery"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 15"):
-            prenderer.Renderer(pproc.cornell_box(),
-                               pcfg.RenderConfig(alpha_raster="off", animated=True),
+        r = prenderer.Renderer(pproc.cornell_box(),
+                               pcfg.RenderConfig(width=W, height=H, alpha_raster="off",
+                                                 animated=True),
                                path=path, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
-        prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(raster="brute"),
-                           path="rayquery", device="cpu")
+        assert "BVH Refit" in r.graph.find_execution_order()
+        assert bool(torch.isfinite(r.render_frame()).all())
+    rq = prenderer.Renderer(pproc.cornell_box(),
+                            pcfg.RenderConfig(width=W, height=H, raster="brute"),
+                            path="rayquery", device="cpu")
+    assert bool(torch.isfinite(rq.render_frame()).all())
+    with pytest.raises(NotImplementedError, match="greater_equal"):
+        prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(
+            width=W, height=H, raster_state=pcfg.RasterState(depth_clear=1.0)),
+            path="rayquery", device="cpu").render_frame()
     with pytest.raises(ValueError):
         pcfg.RenderConfig(bvh_dtype="bf16")
     with pytest.raises(ValueError):

@@ -52,11 +52,12 @@ def scene_from_numpy(name: str, buffers: Mapping[str, Any],
 
 
 def bvh8_from_numpy(rows, depth: int, leaf_max: int) -> BVH8:
-    """A BVH8 over an (N, 128) float32 row table built elsewhere."""
+    """A BVH8 over an (N, 128) float32 row table built elsewhere, with its
+    refit metadata read from the rows."""
     if leaf_max != 8:
         raise ValueError("the port traces 8-triangle leaf rows only")
     rows = torch.from_numpy(np.array(rows, np.float32))  # a writable copy
-    return BVH8(rows=rows, depth=int(depth), leaf_max=int(leaf_max))
+    return BVH8.from_rows(rows, int(depth), int(leaf_max))
 
 
 def temporal_state_from_numpy(shadow_ao_history, moments_history,

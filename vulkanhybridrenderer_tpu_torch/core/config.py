@@ -3,7 +3,9 @@
 Same enums, dataclasses and field names as the reference, so one set of knobs
 reads the same in both packages.  The bf16 BVH table and the VMEM-budget leaf
 auto-select are TPU residency levers and are not ported: the port accepts
-only ``bvh_dtype="f32"`` and ``bvh_leaf_max`` 0 or 8 (0 means 8).
+only ``bvh_dtype="f32"`` and ``bvh_leaf_max`` 0 or 8 (0 means 8).  So the
+reference's one check on ``animated`` (a bf16 table cannot be refit) is
+always met: every table the port traces is f32 and can be refit.
 """
 from __future__ import annotations
 
@@ -85,14 +87,19 @@ class RenderConfig:
 
     width: int = 1920
     height: int = 1080
+    #: animated scenes refit the BVH8 (and rebuild the shadow grid) every frame
     animated: bool = False
+    #: "binned": the tile raster (K1); "brute": the O(T * P) reference
+    #: rasterizer (small scenes, validation, depth-compare presets)
     raster: str = "binned"
     #: "brute": alpha-masked triangles get the per-fragment alpha kill,
-    #: through the binned depth peel of `alpha_peel_rounds` rounds; "off":
-    #: they raster solid
+    #: through the binned depth peel of `alpha_peel_rounds` rounds, or with
+    #: raster="brute" at every fragment; "off": they raster solid
     alpha_raster: str = "brute"
     alpha_peel_rounds: int = 4
     shadow_map_size: int = 4096
+    #: RT shadow rays through "bvh8" (K2) or "grid", the light-space shadow
+    #: grid (K3): the same hit / miss answers
     shadow_accel: str = "bvh8"
     #: triangles per BVH8 leaf row: 0 (= 8) or 8
     bvh_leaf_max: int = 0

@@ -18,9 +18,10 @@
 //   * at most max_steps rows per ray; a miss returns tri = -1, t = tmax and
 //     u = v = 0; a ray with tmax < tmin misses at once.
 //
-// The alpha any-hit filter (kFilter; the reference's make_alpha_hit_filter,
-// traverse.py:922-951, applied at _trace8:264-270) rejects a leaf candidate
-// whose base-color alpha at the hit uv is below its material's cutoff, as
+// The alpha any-hit filter (kFilter; alpha_accept in alpha_filter.cuh, which
+// K3 shares: the reference's make_alpha_hit_filter, traverse.py:922-951,
+// applied at _trace8:264-270) rejects a leaf candidate whose base-color alpha
+// at the hit uv is below its material's cutoff, as
 // shadetab.fetch_tri_static / interpolate3 / sample_atlas4 compute it: one
 // tri_static row (uv0, alpha_mask, base_tex, base_scale, base_offset,
 // alpha_cutoff) and one quad row of the atlas.  It is evaluated only for
@@ -77,56 +78,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "alpha_filter.cuh"
+
 namespace {
 
 constexpr int kMaxDepth = 64;  // stack entries per ray (BVH8.depth bound)
 constexpr int kGroup = 4;  // lanes per ray
 constexpr int kSpl = 2;  // adjacent slots per lane: one 8-byte load a plane
 constexpr int kThreads = 128;  // threads per block: 32 rays
-constexpr int kTriStaticW = 60;  // ShadeTables.tri_static columns
-// tri_static columns (shadetab.py: TriRow [12:72), PrimRow folded in at 28)
-constexpr int kUv0 = 21, kBaseTex = 32, kBaseScale = 33, kBaseOffset = 35,
-              kAlphaMask = 49, kAlphaCutoff = 50;
-
-struct AlphaTables {
-    const float* tri_static;  // (T, 60)
-    const float* atlas_q;     // (AH * AW, 16) quad rows
-    int atlas_rows, atlas_w;
-};
-
-__device__ __forceinline__ float remainder_torch(float a, float b) {
-    // torch.remainder / jnp.remainder: the sign of the divisor
-    float m = fmodf(a, b);
-    if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) m += b;
-    return m;
-}
-
-__device__ bool alpha_accept(const AlphaTables& at, int tri, float u, float v) {
-    const float* row = at.tri_static + (size_t)tri * kTriStaticW;
-    const int tex = (int)row[kBaseTex];
-    if (!(row[kAlphaMask] == 1.0f) || tex < 0) return true;
-    // interpolate3(uv0, (1 - u - v, u, v)): (a0 w0 + a1 w1) + a2 w2
-    const float w0 = (1.0f - u) - v;
-    const float uvx = (row[kUv0] * w0 + row[kUv0 + 2] * u) + row[kUv0 + 4] * v;
-    const float uvy = (row[kUv0 + 1] * w0 + row[kUv0 + 3] * u) + row[kUv0 + 5] * v;
-    // sample_atlas4: REPEAT wrap, half-texel centres, clamped address
-    const float sx = row[kBaseScale], sy = row[kBaseScale + 1];
-    const float tx = (uvx - floorf(uvx)) * sx - 0.5f;
-    const float ty = (uvy - floorf(uvy)) * sy - 0.5f;
-    const float t0x = floorf(tx), t0y = floorf(ty);
-    const float fx = tx - t0x, fy = ty - t0y;
-    const float x0 = remainder_torch(t0x, fmaxf(sx, 1.0f));
-    const float y0 = remainder_torch(t0y, fmaxf(sy, 1.0f));
-    long long lin = (long long)(row[kBaseOffset + 1] + y0) * at.atlas_w +
-                    (long long)(row[kBaseOffset] + x0);
-    lin = lin < 0 ? 0 : (lin >= at.atlas_rows ? at.atlas_rows - 1 : lin);
-    const float* q = at.atlas_q + lin * 16;  // c00 c10 c01 c11, alpha at 3
-    const float gx = 1.0f - fx, gy = 1.0f - fy;
-    const float alpha = ((q[3] * gx * gy + q[7] * fx * gy) + q[11] * gx * fy) +
-                        q[15] * fx * fy;
-    return !(alpha < row[kAlphaCutoff]);
-}
-
 template <bool kAnyHit, bool kFilter>
 __global__ void __launch_bounds__(kThreads)
 bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,

@@ -15,7 +15,8 @@ MSAA (forward_raster_render_path.cpp:59, the max-sample-count attachments):
     averages the samples' colors: a sample on sample 0's triangle takes its
     color, one on another triangle the second fragment's, an uncovered one
     the clear color 0;
-  * "supersample": raster and shade at isqrt(k) times the resolution per
+  * "supersample" (and every sample count with ``raster="brute"``, as in
+    the reference): raster and shade at isqrt(k) times the resolution per
     axis, then a box filter (k = 2 gives 1x, 4 and 8 give 2x);
   * one sample: the plain raster.
 """
@@ -30,7 +31,6 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_geometry_pass,
     add_shadow_map_pass,
-    check_raster_supported,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled, shade
@@ -40,14 +40,10 @@ from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer
 class ForwardRasterPath(RenderPath):
     name = "forward"
 
-    def __init__(self, config):
-        super().__init__(config)
-        check_raster_supported(config)
-
     def register(self, graph: RenderGraph) -> None:
         cfg = self.config
         k = max(1, cfg.forward.msaa_samples)
-        coverage = cfg.forward.msaa_mode == "coverage" and k > 1
+        coverage = cfg.forward.msaa_mode == "coverage" and k > 1 and cfg.raster == "binned"
         ss = 1 if coverage else max(1, math.isqrt(k))
         w, h = cfg.width * ss, cfg.height * ss
 

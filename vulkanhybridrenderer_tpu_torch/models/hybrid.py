@@ -1,14 +1,18 @@
 """Hybrid render path (port of ``models/hybrid.py``).
 
-  Geometry -> G-Buffer Pass -> [Depth Prepass] -> [BVH -> Raytrace Pass]
+  Geometry -> G-Buffer Pass -> [Depth Prepass]
+           -> [BVH | Shadow Grid Build -> Raytrace Pass]
            -> [SSAO Pass -> SSAO Blur Pass] -> [SSR Pass]
            -> [SVGF Denoise Pass] -> Composition Pass
 
 The Depth Prepass (the shadow map) is registered when shadows are
-RASTERIZED; the BVH and the Raytrace Pass when any of shadows, AO or
-reflections is RAYTRACED; the SSAO passes when AO is SSAO; the SSR Pass when
-reflections are SSR; the SVGF Denoise Pass when denoise is on and something
-is traced.  SVGF reads and returns the temporal state ("temporal_state" in,
+RASTERIZED; the Raytrace Pass when any of shadows, AO or reflections is
+RAYTRACED, and the BVH pass ("BVH Refit" when animated) with it unless only
+the shadows are traced and ``shadow_accel="grid"``: the Shadow Grid Build
+pass then brings the light-space grid instead (the renderer's prebuilt one,
+or rebuilt from this frame's world triangles when animated); the SSAO
+passes when AO is SSAO; the SSR Pass when reflections are SSR; the SVGF
+Denoise Pass when denoise is on and something is traced.  SVGF reads and returns the temporal state ("temporal_state" in,
 "TemporalStateOut" out), which the renderer carries to the next frame.
 
 With ``rt_scale = s > 1`` the RT Downsample Pass point-samples depth, normals
@@ -31,13 +35,13 @@ from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
     add_shadow_map_pass,
-    check_raster_supported,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import (
     composition,
     gbuffer,
     raygen,
+    shadowgrid,
     ssao,
     ssr,
     svgf,
@@ -60,16 +64,11 @@ RT_NORMALS = "RT Normals"
 RT_MOTION = "RT Motion"
 UP_SHADOW_AO = "Upsampled Raytraced Shadows and Ambient Occlusion"
 UP_REFLECTIONS = "Upsampled Raytraced Reflections"
+SHADOW_GRID = "ShadowGrid"
 
 
 class HybridPath(RenderPath):
     name = "hybrid"
-
-    def __init__(self, config):
-        super().__init__(config)
-        check_raster_supported(config)
-        if config.shadow_accel != "bvh8":
-            raise NotImplementedError("the shadow grid: ROADMAP item 16")
 
     def _rt_needed(self) -> bool:
         s = self.config.hybrid
@@ -123,19 +122,43 @@ class HybridPath(RenderPath):
                                            else (DEPTH, NORMALS, MOTION_MR))
 
         if self._rt_needed():
-            add_bvh_pass(graph, cfg.animated)
+            # grid-only RT shadows need no BVH: then the graph has no BVH pass
+            use_grid = cfg.shadow_accel == "grid" and s.shadow_mode == ShadowMode.RAYTRACED
+            bvh_needed = (s.ao_mode == AmbientOcclusionMode.RAYTRACED
+                          or s.reflection_mode == ReflectionMode.RAYTRACED
+                          or (s.shadow_mode == ShadowMode.RAYTRACED and not use_grid))
+            rt_inputs = ["scene", "shade_tables", "TriRows", "pfd", rt_depth, rt_normals]
+            if bvh_needed:
+                add_bvh_pass(graph, cfg.animated)
+                rt_inputs.append("BVH")
+            if use_grid:
+                # prebuilt on the host for static scenes (the renderer's
+                # "shadow_grid"), rebuilt in-frame from this frame's world
+                # triangles at the same resolution for animated ones
+                if cfg.animated:
+                    def grid_pass(res):
+                        return {SHADOW_GRID: shadowgrid.build_shadow_grid(
+                            res["WorldTris"], res["pfd"].directional_light.direction[:3],
+                            grid=res["shadow_grid"].grid)}
+                else:
+                    def grid_pass(res):
+                        return {SHADOW_GRID: res["shadow_grid"]}
+
+                graph.add_pass("Shadow Grid Build", grid_pass,
+                               inputs=("WorldTris", "pfd", "shadow_grid"),
+                               outputs=(SHADOW_GRID,))
+                rt_inputs.append(SHADOW_GRID)
 
             def raytrace_pass(res):
                 shadow_ao, refl = raygen.hybrid_raytrace(
-                    res["scene"], res["shade_tables"], res["TriRows"], res["BVH"],
+                    res["scene"], res["shade_tables"], res["TriRows"], res.get("BVH"),
                     res["pfd"], res[rt_depth], res[rt_normals], ao_rays=cfg.ao_rays,
-                    settings=s,
+                    settings=s, shadow_grid=res.get(SHADOW_GRID),
                 )
                 return {RT_SHADOW_AO: shadow_ao, RT_REFLECTIONS: refl}
 
             graph.add_pass(
-                "Raytrace Pass", raytrace_pass,
-                inputs=("scene", "shade_tables", "TriRows", "pfd", "BVH", rt_depth, rt_normals),
+                "Raytrace Pass", raytrace_pass, inputs=tuple(rt_inputs),
                 outputs=(RT_SHADOW_AO, RT_REFLECTIONS),
             )
 

@@ -5,8 +5,9 @@ A forward raster pass whose per-pixel shading casts an inline shadow ray
 (rayquery default.frag:36-44): origin the world position, direction toward
 the light, tmin 0.1, tmax 10000, terminate on first hit, opaque only (the
 BLAS is opaque-flagged and the empty rayQueryProceed loop confirms no
-non-opaque candidate, so no alpha test anywhere).  The raster is K1a through
-``rasterize_for_path(alpha=False)``, the shadow rays K2 any-hit.  Shading:
+non-opaque candidate, so no alpha test anywhere).  The raster is
+``rasterize_for_path(alpha=False)`` (K1a, or the brute rasterizer with
+``raster="brute"``), the shadow rays K2 any-hit.  Shading:
 0.2 * albedo ambient + N.L * albedo * light color * visibility.
 """
 from __future__ import annotations
@@ -18,7 +19,6 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
-    check_raster_supported,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
@@ -29,10 +29,6 @@ SHADOW_TMAX = 10000.0
 
 class RayqueryPath(RenderPath):
     name = "rayquery"
-
-    def __init__(self, config):
-        super().__init__(config)
-        check_raster_supported(config)
 
     def register(self, graph: RenderGraph) -> None:
         cfg = self.config

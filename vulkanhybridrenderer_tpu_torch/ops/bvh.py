@@ -1,7 +1,10 @@
 """World-space triangle gather (port of ``ops/bvh.py:world_triangles``).
 
-The device LBVH build/refit of the reference is not ported yet (animated
-scenes, ROADMAP item 15); static scenes build on the host (ops/bvh8.py).
+Every Renderer path traces the BVH8: static scenes build it on the host
+(ops/bvh8.py) and animated ones refit it every frame (ops/bvh8.refit8).  The
+reference's device LBVH (``build``, ``refit``, ``with_octant_links``), which
+its renderer reaches only when the native SAH builder is missing, and the
+binary-tree walk it feeds are not ported yet (ROADMAP).
 """
 from __future__ import annotations
 

@@ -22,6 +22,29 @@ from vulkanhybridrenderer_tpu_torch.utils.math3d import (
 )
 
 
+def make_alpha_frag_mask(scene, clip=None, tables=None):
+    """The per-fragment alpha kill of the brute rasterizer (gbuf.frag:27-32,
+    the reference's make_alpha_frag_mask): a fragment of an alpha-masked,
+    textured material whose base-color alpha is below the cutoff is
+    discarded during the depth test.  Returns frag_mask(tri_ids (...),
+    wts (..., 3)) -> keep (...), where `wts` are perspective-correct vertex
+    weights; one tri_static row and one atlas quad row a fragment.  `clip`
+    is unused (the reference's signature); `tables=None` builds the shade
+    tables here."""
+    if tables is None:
+        tables = shadetab.build_shade_tables(scene)
+
+    def frag_mask(tri_ids, wts):
+        pm = shadetab.fetch_tri_static(tables, tri_ids)
+        needs_test = (pm["alpha_mask"] == 1.0) & (pm["base_tex"] >= 0)
+        uv = shadetab.interpolate3(pm["uv0"], wts)
+        alpha = shadetab.sample_atlas4(
+            tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], uv)[..., 3]
+        return ~(needs_test & (alpha < pm["alpha_cutoff"]))
+
+    return frag_mask
+
+
 def apply_normal_map(n_obj, tan_obj, nm_tex, ts_rgb):
     """Object-space normal mapping (gbuf.frag:35-41).  ts_rgb: the sampled
     normal-map texel rgb."""

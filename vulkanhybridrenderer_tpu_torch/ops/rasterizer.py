@@ -9,13 +9,15 @@ plane lies in [0, 1], which doubles as the near / behind-camera clip.  The
 visibility buffer keeps the winner's (l1, l2, l0+l1+l2); perspective-correct
 weights are l / sum (weights_from_bary).
 
-The brute reference rasterizer is not ported; the binned one
-(ops/rasterizer_tiled.py) is the port's only raster path.
+``rasterize`` is the brute reference rasterizer (``config.raster="brute"``):
+every triangle against every pixel, in chunks of triangles and bands of
+rows, with the depth-compare presets of RasterState.  The binned raster
+(ops/rasterizer_tiled.py) is the production path.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -127,3 +129,89 @@ def triangle_setup(clip, tri_vertex, width: int, height: int) -> TriangleSetup:
         planes=planes.contiguous(), sx=sx, sy=sy, bbox=bbox, w_any=w_any,
         front=det < 0, valid=valid,
     )
+
+
+#: elements of one (triangles, rows, width) block of the brute rasterizer,
+#: which bounds its memory (each float32 plane of a block takes 4 bytes an
+#: element) and changes no value
+BRUTE_BLOCK_ELEMENTS = 1 << 26
+DEPTH_COMPARES = ("greater_equal", "less_equal", "always")
+
+
+def rasterize(setup: TriangleSetup, width: int, height: int, chunk: int = 64,
+              cull_backface: bool = True, frag_mask_fn: Callable | None = None,
+              depth_compare: str = "greater_equal", depth_clear: float = 0.0
+              ) -> VisibilityBuffer:
+    """The brute reference rasterizer (the reference's ``rasterize``,
+    rasterizer.py:195-280): every kept triangle is tested at every pixel
+    centre, and the depth compare merges the fragments in submission order,
+    ties going to the later triangle.
+
+    The reference merges one triangle at a time.  The merge here is one step
+    a block, with the same result: with greater_equal the last fragment to
+    pass is the lexicographic maximum of (z, triangle) over the covering
+    fragments with z >= the clear depth, with less_equal the minimum z with
+    the largest triangle, with always the last covering triangle.  A block
+    is `chunk` triangles by as many rows as keep it near
+    BRUTE_BLOCK_ELEMENTS elements, so memory stays bounded at any size (a
+    4096^2 shadow map never holds a (chunk, 4096, 4096) plane); `chunk`
+    changes no value.  Culled and degenerate triangles are dropped before
+    the loop.
+
+    frag_mask_fn(tri_ids (N,), wts (N, 3)) -> keep (N,) bool: the optional
+    per-fragment kill (the alpha mask discard, gbuffer.make_alpha_frag_mask),
+    asked only about fragments that cover their pixel, with the
+    perspective-correct weights (l0, l1, l2) / (l0 + l1 + l2)."""
+    if depth_compare not in DEPTH_COMPARES:
+        raise ValueError(f"unknown depth_compare {depth_compare!r}")
+    dev = setup.planes.device
+    keep = setup.valid & setup.front if cull_backface else setup.valid
+    ids = torch.nonzero(keep).squeeze(1).to(torch.int32)
+    best_z = torch.full((height, width), float(depth_clear), dtype=torch.float32, device=dev)
+    best_tri = torch.full((height, width), -1, dtype=torch.int32, device=dev)
+    best_b1 = torch.zeros((height, width), dtype=torch.float32, device=dev)
+    best_b2 = torch.zeros((height, width), dtype=torch.float32, device=dev)
+    best_s = torch.ones((height, width), dtype=torch.float32, device=dev)
+    px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
+    n = ids.shape[0]
+    for c0 in range(0, n, chunk):
+        cids = ids[c0:c0 + chunk]
+        p = setup.planes[cids.long()][:, :, None, None]  # (C, 12, 1, 1)
+        band = max(1, BRUTE_BLOCK_ELEMENTS // (cids.shape[0] * width))
+        for y0 in range(0, height, band):
+            y1 = min(height, y0 + band)
+            py = (torch.arange(y0, y1, dtype=torch.float32, device=dev) + 0.5)[:, None]
+
+            def ev(k):  # (a * px + b * py) + c, the reference's order
+                return (p[:, k] * px + p[:, k + 1] * py) + p[:, k + 2]
+
+            l0, l1, l2, z = ev(0), ev(3), ev(6), ev(9)  # (C, rows, W)
+            inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0.0) & (z <= 1.0)
+            if frag_mask_fn is not None:
+                ci, yi, xi = torch.nonzero(inside, as_tuple=True)
+                f0, f1, f2 = l0[ci, yi, xi], l1[ci, yi, xi], l2[ci, yi, xi]
+                s = (f0 + f1) + f2
+                inv = 1.0 / torch.where(torch.abs(s) > 1e-12, s, torch.ones_like(s))
+                wts = torch.stack([f0 * inv, f1 * inv, f2 * inv], dim=-1)
+                inside[ci, yi, xi] = frag_mask_fn(cids[ci], wts)
+            any_in = inside.any(dim=0)
+            if depth_compare == "greater_equal":
+                zw = torch.where(inside, z, -torch.inf).amax(dim=0)
+                cand = inside & (z == zw)
+                better = any_in & (zw >= best_z[y0:y1])
+            elif depth_compare == "less_equal":
+                zw = torch.where(inside, z, torch.inf).amin(dim=0)
+                cand = inside & (z == zw)
+                better = any_in & (zw <= best_z[y0:y1])
+            else:
+                cand, better = inside, any_in
+            # the last candidate of the block in submission order
+            order = torch.arange(1, cids.shape[0] + 1, dtype=torch.int32, device=dev)
+            j = (torch.where(cand, order[:, None, None], 0).amax(dim=0) - 1).clamp(min=0)
+            pick = lambda a: a.gather(0, j[None].long())[0]  # noqa: E731
+            w0, w1, w2 = pick(l0), pick(l1), pick(l2)
+            for best, new in ((best_z, pick(z)), (best_tri, cids[j.long()]), (best_b1, w1),
+                              (best_b2, w2), (best_s, (w0 + w1) + w2)):
+                best[y0:y1] = torch.where(better, new, best[y0:y1])
+    return VisibilityBuffer(tri_id=best_tri, depth=best_z,
+                            bary=torch.stack([best_b1, best_b2, best_s], dim=-1))

@@ -5,7 +5,8 @@ and the miss shaders).
 - RNG: seed_thread((y * H + x) * frame_index), xorshift draws in the
   reference's order: shadow rnd1, rnd2, then rnd1, rnd2 of each AO ray.
 - Shadow: one direction in the cone around the light (cos_theta_max
-  0.999995), traced any-hit; a miss is lit.
+  0.999995), traced any-hit through the BVH8 (K2) or, with
+  ``shadow_accel="grid"``, the light-space shadow grid (K3); a miss is lit.
 - AO: `ao_rays` cosine-hemisphere rays around N, tmax 5, traced any-hit as
   ONE wavefront of ao_rays * H * W rays; the result is the mean of misses.
 - Reflection: the mirror reflect() of the camera ray, traced closest-hit and
@@ -34,7 +35,7 @@ from vulkanhybridrenderer_tpu_torch.core.config import (
     ShadowMode,
 )
 from vulkanhybridrenderer_tpu_torch.core.types import PerFrameData
-from vulkanhybridrenderer_tpu_torch.ops import rt_shade, screen, traverse
+from vulkanhybridrenderer_tpu_torch.ops import rt_shade, screen, shadowgrid, traverse
 from vulkanhybridrenderer_tpu_torch.ops.bvh8 import BVH8
 from vulkanhybridrenderer_tpu_torch.ops.sampling import (
     to_basis,
@@ -105,19 +106,27 @@ class Wavefronts:
             self.refl_tmax = torch.where(sky_flat, -1.0, SHADOW_TMAX).contiguous()
 
 
-def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8, pfd: PerFrameData,
-                    depth, normal_oid, settings: HybridSettings, ao_rays: int = 2):
+def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8 | None, pfd: PerFrameData,
+                    depth, normal_oid, settings: HybridSettings, ao_rays: int = 2,
+                    shadow_grid: shadowgrid.ShadowGrid | None = None):
     """depth (H, W), normal_oid (4, H, W) -> ("Raytraced Shadows and Ambient
-    Occlusion" (4, H, W), "Raytraced Reflections" (4, H, W))."""
+    Occlusion" (4, H, W), "Raytraced Reflections" (4, H, W)).  With
+    `shadow_grid` (``shadow_accel="grid"``) the shadow rays go through the
+    light-space grid (K3) instead of the BVH8, with the same hit / miss
+    answers; `bvh` may then be None when nothing else is traced."""
     h, w = depth.shape
     dev = depth.device
     rays = Wavefronts(pfd, depth, normal_oid, settings, ao_rays)
     ones = torch.ones((h, w), dtype=torch.float32, device=dev)
 
     if settings.shadow_mode == ShadowMode.RAYTRACED:
-        rec = traverse.trace(bvh, rays.origin, rays.shadow_dir, SHADOW_TMIN,
-                             rays.shadow_tmax, anyhit=True)
-        shadow = torch.where(rec.hit, 0.0, 1.0).reshape(h, w)
+        if shadow_grid is not None:
+            hit = shadowgrid.trace_shadow(shadow_grid, rays.origin, rays.shadow_dir,
+                                          SHADOW_TMIN, rays.shadow_tmax)
+        else:
+            hit = traverse.trace(bvh, rays.origin, rays.shadow_dir, SHADOW_TMIN,
+                                 rays.shadow_tmax, anyhit=True).hit
+        shadow = torch.where(hit, 0.0, 1.0).reshape(h, w)
     else:
         shadow = ones
 

@@ -1,8 +1,9 @@
 """Shadow-map lookups (port of ``ops/shadowmap.py``).
 
 The map itself is the Depth Prepass (models/passes.add_shadow_map_pass):
-every triangle rastered binned through K1a from the light's clip space,
-depth only.  Lookups: shadow_coord = SHADOW_BIAS_MATRIX @ projview @ P; uv =
+every triangle rastered from the light's clip space, depth only, binned
+through K1a, or with ``config.raster="brute"`` by the brute reference
+rasterizer (render_shadow_map).  Lookups: shadow_coord = SHADOW_BIAS_MATRIX @ projview @ P; uv =
 coord.xy, and the fragment is lit when coord.z >= stored - bias (reverse-Z:
 the stored depth is the surface closest to the light).  Every tap is a hard
 compare, so one ulp in shadow_coords can flip it; the products are written
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from vulkanhybridrenderer_tpu_torch.ops import rasterizer
 from vulkanhybridrenderer_tpu_torch.ops.filters import quad4_rows
 from vulkanhybridrenderer_tpu_torch.utils.math3d import (
     SHADOW_BIAS_MATRIX,
@@ -21,6 +23,15 @@ from vulkanhybridrenderer_tpu_torch.utils.math3d import (
 )
 
 PCF_OFFSETS = (-1.5, -0.5, 0.5, 1.5)
+
+
+def render_shadow_map(clip_light, tri_vertex, size: int, chunk: int = 64):
+    """The brute depth prepass (the reference's render_shadow_map,
+    shadowmap.py:22-31): (V, 4) light clip-space vertices -> the (size,
+    size) reverse-Z depth map, back faces culled (RASTERIZATION_STATE_DEFAULT
+    keeps culling on for the prepass) and no alpha test."""
+    setup = rasterizer.triangle_setup(clip_light, tri_vertex, size, size)
+    return rasterizer.rasterize(setup, size, size, chunk=chunk).depth
 
 
 def _sample_nearest(shadow_map, uv):

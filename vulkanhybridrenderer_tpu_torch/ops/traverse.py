@@ -73,6 +73,31 @@ def _first_slot(mask, oct_):
     return slot, mask & ~(1 << slot)
 
 
+def moller_trumbore(v0, v1, v2, o, d):
+    """Moller-Trumbore without culling (the reference's moller_trumbore,
+    traverse.py:679), each product rounded, in the operation order of K2's
+    and K3's kernels.  v0, v1, v2 (the triangle), o and d (the ray) are
+    (x, y, z) triples of broadcastable tensors; returns (t, u, v, ok), ok
+    the geometric hit before any t test."""
+    (v0x, v0y, v0z), (ox, oy, oz), (dx, dy, dz) = v0, o, d
+    e1x, e1y, e1z = v1[0] - v0x, v1[1] - v0y, v1[2] - v0z
+    e2x, e2y, e2z = v2[0] - v0x, v2[1] - v0y, v2[2] - v0z
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    okd = torch.abs(det) > 1e-9
+    invdet = 1.0 / torch.where(okd, det, torch.ones_like(det))
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * px + tvy * py + tvz * pz) * invdet
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    v = (dx * qx + dy * qy + dz * qz) * invdet
+    t = (e2x * qx + e2y * qy + e2z * qz) * invdet
+    return t, u, v, okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+
+
 def make_alpha_hit_filter(tables: shadetab.ShadeTables):
     """The non-opaque any-hit alpha test (shadow_anyhit.rahit:10-26):
     hit_filter(tri, u, v) -> accept mask, rejecting a hit whose base-color
@@ -170,28 +195,12 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
 
         # leaf: 8-wide Moller-Trumbore
         g = lambda k: row[:, 8 * k:8 * (k + 1)]  # noqa: E731
-        v0x, v0y, v0z = g(0), g(1), g(2)
-        e1x, e1y, e1z = g(3) - v0x, g(4) - v0y, g(5) - v0z
-        e2x, e2y, e2z = g(6) - v0x, g(7) - v0y, g(8) - v0z
         tri8 = row[:, 72:80].to(torch.int32)
-        dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        okd = torch.abs(det) > 1e-9
-        invdet = 1.0 / torch.where(okd, det, torch.ones_like(det))
-        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
-        u8 = (tvx * px + tvy * py + tvz * pz) * invdet
-        qx = tvy * e1z - tvz * e1y
-        qy = tvz * e1x - tvx * e1z
-        qz = tvx * e1y - tvy * e1x
-        v8 = (dx * qx + dy * qy + dz * qz) * invdet
-        t8 = (e2x * qx + e2y * qy + e2z * qz) * invdet
-        ok8 = (
-            okd & (u8 >= 0.0) & (v8 >= 0.0) & (u8 + v8 <= 1.0) & (tri8 >= 0)
-            & (t8 >= tn_[:, None]) & (t8 < tb[:, None]) & is_leaf[:, None]
-        )
+        t8, u8, v8, ok8 = moller_trumbore(
+            (g(0), g(1), g(2)), (g(3), g(4), g(5)), (g(6), g(7), g(8)), (ox, oy, oz),
+            (d[:, 0:1], d[:, 1:2], d[:, 2:3]))
+        ok8 &= ((tri8 >= 0) & (t8 >= tn_[:, None]) & (t8 < tb[:, None])
+                & is_leaf[:, None])
         if visits:
             counts[:, 0] += ~is_leaf
             counts[:, 1] += is_leaf

@@ -5,7 +5,8 @@ A CLI driving the renderer's capabilities:
 
   * scene loading: a .glb / .gltf file, ``realglb`` (the sponza-class GLB
     that ``scene/sample_asset.py`` writes into the package's ignored
-    ``_build/`` directory on first use) or a procedural scene
+    ``_build/`` directory on first use) or a procedural scene; ``--animate
+    --scene pica`` moves pica's boxes every frame (BVH8 refit)
   * render-path selection and per-path settings (the ImGui menus,
     user_interface.cpp:100-159) through flags
   * a frame loop with scripted camera motion (WASD equivalent)
@@ -55,6 +56,7 @@ PROCEDURAL_SCENES = {
     "checker": procedural.checker_quad,
     "sponza": procedural.sponza_proxy,
     "bistro": procedural.bistro_proxy,
+    "pica": procedural.pica_proxy,
 }
 #: the flagship asset bench.py calls "realglb"
 REALGLB_PATH = BUILD_DIR / "sponza_class.glb"
@@ -64,8 +66,6 @@ def load_any_scene(name: str) -> gltf.Scene:
     """A procedural scene by name, ``realglb``, or a .glb / .gltf path."""
     if name in PROCEDURAL_SCENES:
         return PROCEDURAL_SCENES[name]()
-    if name == "pica":
-        raise NotImplementedError("the animated pica scene: ROADMAP item 15")
     if name == "realglb":
         if not REALGLB_PATH.exists():
             REALGLB_PATH.parent.mkdir(parents=True, exist_ok=True)
@@ -77,11 +77,6 @@ def load_any_scene(name: str) -> gltf.Scene:
 
 
 def config_from_args(args) -> RenderConfig:
-    if args.raster != "binned":
-        raise NotImplementedError(
-            f"--raster {args.raster}: the brute reference rasterizer is ROADMAP item 14")
-    if args.animate:
-        raise NotImplementedError("--animate (animated scenes, BVH8 refit): ROADMAP item 15")
     hybrid = HybridSettings(
         shadow_mode=ShadowMode[args.shadows.upper()],
         ao_mode=AmbientOcclusionMode[args.ao.upper()],
@@ -94,6 +89,8 @@ def config_from_args(args) -> RenderConfig:
         width=args.width,
         height=args.height,
         shadow_map_size=args.shadow_map_size,
+        animated=args.animate,
+        raster=args.raster,
         hybrid=hybrid,
         forward=ForwardSettings(msaa_samples=args.msaa),
         raytraced=RaytracedSettings(test_alpha=args.test_alpha),
@@ -221,7 +218,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scene", default="cornell",
-                    help="cornell, checker, sponza, bistro, realglb or a .glb / .gltf path")
+                    help="cornell, checker, sponza, bistro, pica, realglb or a .glb / .gltf "
+                    "path")
     ap.add_argument("--path", default="hybrid",
                     choices=["forward", "hybrid", "raytraced", "rayquery"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -238,9 +236,9 @@ def main(argv=None) -> int:
     ap.add_argument("--test-alpha", action="store_true")
     ap.add_argument("--shadow-map-size", type=int, default=4096)
     ap.add_argument("--raster", default="binned", choices=["binned", "brute"],
-                    help="brute: not ported (ROADMAP item 14)")
+                    help="brute: the reference rasterizer (small scenes, validation)")
     ap.add_argument("--animate", action="store_true",
-                    help="per-frame transforms + BVH refit: not ported (ROADMAP item 15)")
+                    help="per-frame transforms + BVH refit (pica scene)")
     ap.add_argument("--orbit", type=float, default=0.0,
                     help="orbit the camera by this many rad/s")
     ap.add_argument("--out", default=None, help="PNG path for the final frame")
@@ -258,8 +256,8 @@ def main(argv=None) -> int:
         ap.error("--device cuda: no CUDA device is available (use --device cpu)")
 
     config = config_from_args(args)
-    renderer = Renderer(load_any_scene(args.scene), config, path=args.path,
-                        device=args.device)
+    scene = load_any_scene(args.scene)
+    renderer = Renderer(scene, config, path=args.path, device=args.device)
     if args.load_checkpoint:
         load_checkpoint(args.load_checkpoint, renderer)
 
@@ -277,7 +275,9 @@ def main(argv=None) -> int:
         return 0
 
     t_start = time.perf_counter()
-    for _ in range(args.frames):
+    for i in range(args.frames):
+        if args.animate and args.scene == "pica":
+            renderer.animate(procedural.animate_pica(scene, i / 60.0))
         if args.orbit:
             renderer.update_camera(1.0 / 60.0, mouse_delta=(args.orbit * 60.0, 0.0),
                                    mouse_down=True)

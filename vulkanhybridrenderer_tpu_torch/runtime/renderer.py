@@ -1,7 +1,11 @@
 """Frame driver (port of ``runtime/renderer.py``, the parts the slice runs).
 
 Owns the device copy of the scene, the render graphs, the previous-frame
-matrices, the BVH8, the shade tables and the SVGF temporal state.
+matrices, the BVH8, the shadow grid, the shade tables and the SVGF temporal
+state.  ``animate`` sets the primitive transforms of the next frames; a
+configuration with ``animated=True`` refits the BVH8 (and rebuilds the
+shadow grid) every frame, and its graph is kept apart from the static one,
+since graphs are keyed on the whole configuration.
 ``render_frame`` runs the active graph eagerly on ``device``; nothing is
 compiled ahead of time.  A graph is built once per (path, config), as the
 reference caches its compiled frame functions, so switching back with
@@ -66,6 +70,7 @@ class Renderer:
         self._prev_view: np.ndarray | None = None
         self._prev_proj: np.ndarray | None = None
         self._bvh = None
+        self._shadow_grid = None  # (light direction, ShadowGrid)
         self._shade_tables = None
         self._blue_noise = None
         self._stats = PassStats()
@@ -134,6 +139,40 @@ class Renderer:
             self._bvh = bvh8_ops.build_bvh8_host(tris.cpu().numpy()).to(self.device)
         return self._bvh
 
+    def _get_shadow_grid(self):
+        """The light-space shadow grid of ``shadow_accel="grid"``
+        (ops/shadowgrid.py), sized on the host from the scene's world
+        triangles and built on the device.  Its frame follows the light, so it
+        is kept per light direction and rebuilt when the light turns; animated
+        scenes rebuild it in-frame at the same resolution (models/hybrid.py,
+        Shadow Grid Build)."""
+        light = tuple(np.asarray(self.scene.light.direction[:3], np.float32).tolist())
+        if self._shadow_grid is None or self._shadow_grid[0] != light:
+            from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops
+            from vulkanhybridrenderer_tpu_torch.ops import shadowgrid
+            from vulkanhybridrenderer_tpu_torch.ops.geometry import to_world
+
+            world = to_world(self.buffers, self.prim_transform)
+            tris = bvh_ops.world_triangles(world.position, self.buffers.tri_vertex)
+            self._shadow_grid = (light, shadowgrid.build_shadow_grid(tris, light))
+        return self._shadow_grid[1]
+
+    def _uses_shadow_grid(self) -> bool:
+        """Whether the active graph reads the grid (models/hybrid.py's
+        use_grid): the "shadow_grid" resource exists only then."""
+        from vulkanhybridrenderer_tpu_torch.core.config import ShadowMode
+
+        return (self.config.shadow_accel == "grid" and self.path_name == "hybrid"
+                and self.config.hybrid.shadow_mode == ShadowMode.RAYTRACED)
+
+    def animate(self, prim_transform):
+        """Set this frame's primitive transforms (P, 4, 4), numpy or a tensor,
+        moved to the renderer's device (animated scenes: with
+        ``config.animated`` the BVH8 is refit, and the shadow grid rebuilt,
+        every frame from the moved triangles)."""
+        self.prim_transform = torch.as_tensor(prim_transform, dtype=torch.float32,
+                                              device=self.device)
+
     def _get_shade_tables(self):
         if self._shade_tables is None:
             from vulkanhybridrenderer_tpu_torch.ops import shadetab
@@ -142,7 +181,7 @@ class Renderer:
         return self._shade_tables
 
     def _resources(self, pfd):
-        return {
+        res = {
             "scene": self.buffers,
             "pfd": pfd,
             "prim_transform": self.prim_transform,
@@ -150,6 +189,9 @@ class Renderer:
             "shade_tables": self._get_shade_tables(),
             "temporal_state": self.temporal_state,
         }
+        if self._uses_shadow_grid():
+            res["shadow_grid"] = self._get_shadow_grid()
+        return res
 
     @property
     def blue_noise(self):

@@ -335,7 +335,8 @@ def serve(scene=None, config=None, path="hybrid", port=8321, block=True,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", default="cornell",
-                    help="cornell, checker, sponza, bistro, realglb or a .glb / .gltf path")
+                    help="cornell, checker, sponza, bistro, pica, realglb or a .glb / .gltf "
+                    "path")
     ap.add_argument("--path", default="hybrid")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--width", type=int, default=480)

@@ -3,7 +3,7 @@
 The mesh and texture builders are the reference's numpy code unchanged; only
 SceneBuilder.build differs, returning the port's host Scene.  The default
 ``sponza_proxy()`` (108,732 triangles) is the benchmark scene of the hybrid
-frame.
+frame; ``pica_proxy`` with ``animate_pica`` is the animated one.
 """
 from __future__ import annotations
 
@@ -396,3 +396,37 @@ def bistro_proxy() -> Scene:
     dense colonnades and high-res displaced surfaces, 434,460 triangles."""
     return sponza_proxy(columns=28, segments=96, extra_boxes=2400, grid_res=256, seed=11,
                         name="BistroProxy")
+
+
+def pica_proxy(grid=6) -> Scene:
+    """The animated scene: a floor and a grid x grid field of boxes; call
+    `animate_pica(scene, t)` for each frame's transforms."""
+    b = SceneBuilder()
+    b.add(quad_mesh((1, 1)), scale_mat([8, 1, 8]),
+          base_color=(0.8, 0.8, 0.8, 1.0), metallic_factor=0.0, roughness_factor=0.9)
+    box = box_mesh((0.3, 0.3, 0.3))
+    for i in range(grid):
+        for j in range(grid):
+            x = -4 + (i + 0.5) * 8 / grid
+            z = -4 + (j + 0.5) * 8 / grid
+            b.add(box, translate([x, 0.5, z]),
+                  base_color=(0.2 + 0.6 * i / grid, 0.3, 0.2 + 0.6 * j / grid, 1.0),
+                  metallic_factor=0.0, roughness_factor=0.6)
+    cam = Camera(yfov=np.deg2rad(60.0), znear=0.1, aspect=16 / 9, pitch=np.deg2rad(-35.0),
+                 position=np.array([0.0, 7.0, 9.0], np.float32))
+    light = make_directional_light([0.2, -0.9, 0.3], intensity=2.0)
+    return b.build("PicaProxy", cam, light)
+
+
+def animate_pica(scene: Scene, t: float) -> np.ndarray:
+    """The (P, 4, 4) float32 primitive transforms of time t: every box bobs
+    and spins about its own axis (the floor, primitive 0, stays), a
+    per-frame geometry update that exercises the BVH8 refit.  Pass them to
+    ``Renderer.animate``."""
+    base = np.asarray(scene.buffers.prim_transform)
+    out = base.copy()
+    for p in range(1, base.shape[0]):
+        ph = p * 0.7
+        bob = translate([0.0, 0.35 * np.sin(2.0 * t + ph), 0.0])
+        out[p] = bob @ base[p] @ rotate_y(t * (0.5 + 0.05 * p))
+    return out

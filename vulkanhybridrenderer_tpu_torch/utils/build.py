@@ -54,14 +54,15 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build_library(name: str, compiler: list[str], sources: list[Path]) -> Path:
+def build_library(name: str, compiler: list[str], sources: list[Path],
+                  headers: list[Path] = ()) -> Path:
     """Compile `sources` with `compiler` (a command line without -o) into
     ``BUILD_DIR/<name>-<digest>.so``; return its path.  The digest covers
-    the command line and each source's name and bytes.  The compiler's
-    stderr (nvcc's -Xptxas=-v register report) is kept beside it as
-    ``.log``; ``build_library.compiles`` counts the compiler runs."""
+    the command line and each source's and header's name and bytes.  The
+    compiler's stderr (nvcc's -Xptxas=-v register report) is kept beside it
+    as ``.log``; ``build_library.compiles`` counts the compiler runs."""
     h = hashlib.sha256(" ".join(compiler).encode())
-    for src in sources:
+    for src in [*sources, *headers]:
         src = Path(src)
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -91,8 +92,10 @@ build_library.compiles = 0
 
 
 def cuda_library_path(source: str) -> Path:
-    """Build ``csrc/<source>`` with nvcc (sm_90a) if needed; its path."""
-    return build_library(Path(source).stem, [nvcc_path()] + NVCC_FLAGS, [CSRC_DIR / source])
+    """Build ``csrc/<source>`` with nvcc (sm_90a) if needed; its path.  The
+    headers of ``csrc/`` are part of its key."""
+    return build_library(Path(source).stem, [nvcc_path()] + NVCC_FLAGS, [CSRC_DIR / source],
+                         headers=sorted(CSRC_DIR.glob("*.cuh")))
 
 
 def load_cuda_library(source: str) -> ctypes.CDLL:
