@@ -10,7 +10,8 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
   2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d),
                 csrc/bvh8_trace.cu (K2, four lanes a ray, with and without
                 the alpha filter), csrc/shadow_grid.cu (K3, the shadow
-                grid's trace, a thread a ray),
+                grid's trace, a thread a ray), csrc/bvh_flat_trace.cu (K4,
+                the threaded walk of a binary LBVH, a thread a ray),
                 csrc/toy_scale.cu and csrc/gather_probe.cu for sm_90a and g++
                 the host BVH build (native/*.cpp), all at once; ptxas
                 registers / spills per kernel.  The toy library is asked for
@@ -71,7 +72,23 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 version, and at 4 and 8 against as many K1a launches on
                 offset_planes; the same K1a, K1b, K1c and K2 instances on
                 realglb's full frame (main path 8's shapes; printed, not in
-                the JSON line); K1a at the shadow map's shape (4096^2, every
+                the JSON line); on that frame the device LBVH
+                (ops/bvh.build of the Geometry pass's WorldTris): its build
+                time by CUDA events, its true depth (<= 64, the build's
+                sweeps), the native host LBVH's time, order / left / right /
+                escape equal to the native tree's and boxes within 1e-6,
+                validate_host; K4 on the shadow, AO and reflection
+                wavefronts against trace_flat_plain (t, tri, u and v equal
+                on every ray), its time, the plain version's, K2's on the
+                same rays, the bound (26 operations a visited internal
+                node, 59 a tested triangle) and nodes / triangles a live ray
+                (mean, p99); K4 against K2 on the SAH BVH8, the oracle (hit
+                flags; closest hits t within 1e-4 and the same triangle
+                unless the two t are equal) on >= 99.99% of live rays, every
+                disagreement printed; the LBVH refit for a rigid move against
+                a fresh build (K4's hit masks equal); and K2 over the
+                LBVH's BVH8 (main path 12's tree) against its plain version
+                with its rows a live ray; K1a at the shadow map's shape (4096^2, every
                 triangle, light clip) against its plain version, with its
                 bound and launches.  K1d's time beside the four K1a
                 launches it replaces.  Then on the raytraced path's second
@@ -108,10 +125,12 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 main path 9's brute frame on cornell_box() (the raster
                 gate), path 10's grid frame (the RT-shadows gate) and path
                 11's animated frame over 3 animated frames (the full
-                frame's gate).  The stages of the forward
+                frame's gate), path 12's (realglb through the LBVH's BVH8,
+                each renderer's tree built on its own device, the two BVH8s
+                equal; the full frame's gate).  The stages of the forward
                 frame: clip-space vertices and triangle setups must agree on
                 every value
-  6. main     - eleven paths at 1920x1080, SponzaProxy but paths 8, 9 and 11, each driven with the
+  6. main     - twelve paths at 1920x1080, SponzaProxy but paths 8, 9, 11 and 12, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
                 slice must rise by >= 1 per frame; finite output; per-pass ms:
@@ -150,7 +169,17 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   frame 5, K3's mask equals K2 any-hit on the refit BVH8
                   and on a fresh host build, closest hits agree (t within
                   1e-4, the triangle but on equal-t ties), and the refit
-                  rows equal refit8 run again on the card and the CPU
+                  rows equal refit8 run again on the card and the CPU;
+                  12. path 8's frame traced through K2 over the BVH8
+                  collapsed from the device LBVH (the reference's _get_bvh
+                  without its native builder), handed to the renderer
+                  before its first frame: K1a, K1b, K1c, K2 any-hit and
+                  closest-hit, its ms/frame beside path 8's, K2's rows a
+                  live ray on the two trees, a 3-frame profile (device
+                  ms/frame, busy share); then K4's path: the frame's three
+                  wavefronts through trace(LBVH, tri_verts=WorldTris) with
+                  the counters set to 0 just before, hit flags against K2
+                  over the LBVH's BVH8
   6b. surface - realglb's full frame at 320x180: list_resources is the set
                 of the graph's outputs, debug_dump's PNG decodes to
                 to_uint8_image, find_nonfinite_pass() is None, stats.table()
@@ -320,8 +349,8 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
-    loaders = (rt.load_kernel, traverse.load_kernel, shadowgrid.load_kernel, native_bridge.load,
-               build.load_toy_kernel, probe.load_kernel)
+    loaders = (rt.load_kernel, traverse.load_kernel, traverse.load_flat_kernel,
+               shadowgrid.load_kernel, native_bridge.load, build.load_toy_kernel, probe.load_kernel)
     with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
@@ -334,6 +363,10 @@ def main() -> int:
                                  {"ILb0ELb0E": "K2 closest-hit", "ILb1ELb0E": "K2 any-hit",
                                   "ILb0ELb1E": "K2 filtered closest-hit",
                                   "ILb1ELb1E": "K2 filtered any-hit"})
+                 + _ptxas_report(build_log("bvh_flat_trace.cu"),
+                                 {"ILb0ELb0E": "K4 closest-hit", "ILb1ELb0E": "K4 any-hit",
+                                  "ILb0ELb1E": "K4 filtered closest-hit",
+                                  "ILb1ELb1E": "K4 filtered any-hit"})
                  + _ptxas_report(build_log("shadow_grid.cu"),
                                  {"trace_kernelILb0E": "K3", "trace_kernelILb1E": "K3 filtered"})
                  + _ptxas_report(build_log("toy_scale.cu"), {"toy_scale": "toy"})
@@ -617,6 +650,7 @@ def main() -> int:
         }
 
     k2_errs = {}  # K2 entry of the JSON line -> max_abs_err over every wavefront
+    rows_live = {}  # k2_wave's label -> rows K2 visits a live ray
 
     def k2_wave(bvh, label, o, d, tmin, tmax, anyhit, tables=None, plain_timed=False,
                 extra_bytes=0):
@@ -660,6 +694,7 @@ def main() -> int:
         nbytes = n * (12 + 12 + 4 + 4) + n * 16 + bvh.num_rows * 512 + extra_bytes
         b_ms, b_by = bound(ops, nbytes)
         live = int((tmax >= tmin_a).sum())
+        rows_live[label] = (internal + leaf) / max(live, 1)
         # a warp walks its 8 rays until the longest ends: the share of its
         # ray-steps that visit a row
         walk = (vis.internal + vis.leaf).float()
@@ -696,7 +731,7 @@ def main() -> int:
     # flagship asset, second frame
     r = Renderer(realglb, full_cfg, device=dev)
     r.render_frame()
-    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables", hybrid_path.DEPTH,
+    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables", "WorldTris", hybrid_path.DEPTH,
                             hybrid_path.NORMALS)
     print(f"scene {realglb.name}: {r.buffers.num_triangles} triangles "
           f"({r.buffers.alpha_tri_idx.shape[0]} alpha-masked), BVH8 {res['BVH'].num_rows} rows, "
@@ -706,7 +741,17 @@ def main() -> int:
                              ao_rays=2)
     check_k2(res["BVH"], hybrid_wavefronts(rays, 2), "realglb full frame's", timed=True,
              record=False)
-    del r, res, rays
+    # the device LBVH and K4, the threaded walk, on the same frame: K4
+    # against its plain version on every ray, against K2 on the SAH BVH8 (the
+    # oracle), the refit; then K2 over the LBVH's BVH8 (main path 12's tree)
+    lbvh, k4_entries = _lbvh_oracle(res["WorldTris"], res["BVH"], hybrid_wavefronts(rays, 2),
+                                    bound)
+    kernels.update(k4_entries)
+    lbvh8 = bvh8_ops.collapse_host(lbvh, res["WorldTris"].cpu().numpy()).to(dev)
+    print(f"realglb: the device LBVH's BVH8 {lbvh8.num_rows} rows, depth bound {lbvh8.depth}; "
+          f"the SAH BVH8 {res['BVH'].num_rows} rows, depth bound {res['BVH'].depth}")
+    check_k2(lbvh8, hybrid_wavefronts(rays, 2), "realglb full frame's (LBVH BVH8)", timed=False)
+    del r, res, rays, lbvh, lbvh8
     torch.cuda.empty_cache()
 
     # K1d and the shadow map's K1a, on the forward configuration's second frame
@@ -896,11 +941,20 @@ def main() -> int:
              1, 1e-4, 0.999, False),
             ("path 11, animated pica", "hybrid",
              RenderConfig(width=320, height=180, animated=True, shadow_accel="grid", hybrid=full),
-             3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False)):
+             3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False),
+            ("path 12, realglb full through the device LBVH", "hybrid", small_full, 3,
+             GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False)):
         frame_scene = {"realglb full": realglb, "path 9, brute raster-mode hybrid": cornell,
-                       "path 11, animated pica": pica}.get(name, scene)
+                       "path 11, animated pica": pica,
+                       "path 12, realglb full through the device LBVH": realglb}.get(name, scene)
         gr = Renderer(frame_scene, small_cfg, path=path, device=dev)
         cr = Renderer(frame_scene, small_cfg, path=path, device="cpu")
+        if name.startswith("path 12"):
+            # each renderer traces the BVH8 of the LBVH built on its own device
+            gr._bvh, cr._bvh = _lbvh8(gr)[2], _lbvh8(cr)[2]
+            same_rows = torch.equal(gr._bvh.rows.cpu(), cr._bvh.rows)
+            print(f"path 12: the LBVH's BVH8 built on the card equals the CPU's: {same_rows}")
+            _check(same_rows, "the device LBVH's BVH8 differs between the card and the CPU")
         for f in range(frames):
             if small_cfg.animated:
                 for rr in (gr, cr):
@@ -927,6 +981,8 @@ def main() -> int:
         **{f"K2 {mode}": (lambda m=mode: traverse.trace.launches[m])
            for mode in ("any-hit", "closest-hit", "filtered any-hit", "filtered closest-hit")},
         "K3": lambda: shadowgrid.trace_shadow.launches,
+        **{f"K4 {mode}": (lambda m=mode: traverse.trace_flat.launches[m])
+           for mode in ("any-hit", "closest-hit")},
     }
 
     def drive(r, frames=10, before=None):
@@ -942,6 +998,7 @@ def main() -> int:
         rt.raster_tiles.launches = rt.raster_tiles_peel.launches = 0
         rt.raster_tiles_compact.launches = rt.raster_tiles_msaa.launches = 0
         traverse.trace.launches.clear()
+        traverse.trace_flat.launches.clear()
         shadowgrid.trace_shadow.launches = 0
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -975,7 +1032,8 @@ def main() -> int:
     ms_frame, launches = drive(r)
     ms_full = ms_frame
     for name, count in launches.items():
-        _check(name in ("K1d", "K3") or "filtered" in name or count >= 10,
+        _check(name in ("K1d", "K3") or name.startswith("K4") or "filtered" in name
+               or count >= 10,
                f"{name} launched {count} times in the full frame's 10 frames")
     passes = r.time_passes(iters=5)
     print(f"main path 2: {scene.name} {WIDTH}x{HEIGHT} full hybrid (RT shadows + RT AO + "
@@ -1062,6 +1120,7 @@ def main() -> int:
     # main path 8: bench.py's flagship as written, on realglb
     r = Renderer(realglb, full_cfg, device=dev)
     ms_frame, launches8 = drive(r)
+    ms_flagship = ms_frame
     for name in ("K1a", "K1b", "K1c", "K2 any-hit", "K2 closest-hit"):
         _check(launches8[name] >= 10,
                f"{name} launched {launches8[name]} times in the realglb frame's 10 frames")
@@ -1171,6 +1230,49 @@ def main() -> int:
         _profile(r, "animated pica", before=animate)
     del r, a
     _animated_wavefronts(pica, pica_cfg, dev, bound)
+
+    # main path 12: path 8's flagship frame traced through K2 over the BVH8
+    # collapsed from the device LBVH (the reference's _get_bvh without its
+    # native builder), handed to the renderer before its first frame
+    r = Renderer(realglb, full_cfg, device=dev)
+    lbvh, world_tris, lbvh8 = _lbvh8(r)
+    r._bvh = lbvh8
+    ms_frame, launches12 = drive(r)
+    for name in ("K1a", "K1b", "K1c", "K2 any-hit", "K2 closest-hit"):
+        _check(launches12[name] >= 10,
+               f"{name} launched {launches12[name]} times in path 12's 10 frames")
+    _check(r._get_bvh() is lbvh8, "path 12 did not trace the LBVH's BVH8")
+    passes = r.time_passes(iters=5)
+    print(f"main path 12: {realglb.name} {WIDTH}x{HEIGHT} full hybrid through K2 over the device "
+          f"LBVH's BVH8 ({r._bvh.num_rows} rows, depth bound {r._bvh.depth}): {ms_frame:.3f} "
+          f"ms/frame over 10 frames, path 8 (SAH BVH8) {ms_flagship:.3f} | launches {launches12}")
+    print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    lb, sa = "realglb full frame's (LBVH BVH8) ", "realglb full frame's "
+    print("K2 rows a live ray on realglb's second frame (phase 4), the LBVH's BVH8 / path 8's "
+          "SAH BVH8: " + ", ".join(f"{w} {rows_live[lb + w]:.2f} / {rows_live[sa + w]:.2f}"
+                                   for w in ("shadow", "AO", "reflection")))
+    _profile(r, "path 12", frames=3)
+    # K4's path: the frame's wavefronts through trace() with the binary
+    # LBVH and its triangles, counters set to 0 just before, read just after;
+    # K2 over the LBVH's own BVH8 on the same rays beside it
+    r.render_frame()
+    res = r.fetch_resources("pfd", hybrid_path.DEPTH, hybrid_path.NORMALS)
+    rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS], full,
+                             ao_rays=full_cfg.ao_rays)
+    waves = hybrid_wavefronts(rays, full_cfg.ao_rays)
+    traverse.trace_flat.launches.clear()
+    flat = {w: traverse.trace(lbvh, o, d, raygen.SHADOW_TMIN, tmax, anyhit=ah,
+                              tri_verts=world_tris) for w, (o, d, tmax, ah) in waves.items()}
+    torch.cuda.synchronize()
+    k4_launches = dict(traverse.trace_flat.launches)
+    same_tree = {w: int((flat[w].hit != traverse.trace(r._bvh, o, d, raygen.SHADOW_TMIN, tmax,
+                                                       anyhit=ah).hit).sum())
+                 for w, (o, d, tmax, ah) in waves.items()}
+    print(f"K4 path: path 12's frame's wavefronts through trace(LBVH, tri_verts=...): launches "
+          f"{k4_launches}; hit flags differing from K2 over the LBVH's BVH8 {same_tree}")
+    _check(k4_launches.get("any-hit", 0) >= 2 and k4_launches.get("closest-hit", 0) >= 1,
+           f"K4's path launched it {k4_launches}")
+    del r, res, rays, waves, flat, lbvh, world_tris, lbvh8
     print(f"card: {smi}")
     _phase("main", t0)
 
@@ -1214,7 +1316,8 @@ def main() -> int:
 
     # each kernel's launches from the path that introduced it: the full
     # frame's for K1a, K1b, K1c and K2, the forward frame's for K1d, the
-    # raytraced frame's for the filtered K2, the grid frame's (path 10) for K3
+    # raytraced frame's for the filtered K2, the grid frame's (path 10) for
+    # K3, K4's path (path 12's wavefronts through the LBVH) for K4
     launches["K1d"] = launches3["K1d"]
     launches["K3"] = launches10["K3"]
     # the shadow map's K1a: the forward frame's only K1a launch is its depth
@@ -1225,11 +1328,14 @@ def main() -> int:
           f"launches K1a {launches4['K1a']} times, G-buffer and prepass together")
     for name in ("K2 filtered closest-hit", "K2 filtered any-hit"):
         launches[name] = launches5[name]
+    for mode in ("any-hit", "closest-hit"):
+        launches[f"K4 {mode}"] = k4_launches[mode]
 
     entries = []
     sources = {"K1": ("raster_tile.cu", "vulkanhybridrenderer_tpu/ops/rasterizer_tiled.py:567"),
                "K2": ("bvh8_trace.cu", "vulkanhybridrenderer_tpu/ops/traverse.py:135"),
-               "K3": ("shadow_grid.cu", "vulkanhybridrenderer_tpu/ops/shadowgrid.py:229")}
+               "K3": ("shadow_grid.cu", "vulkanhybridrenderer_tpu/ops/shadowgrid.py:229"),
+               "K4": ("bvh_flat_trace.cu", "vulkanhybridrenderer_tpu/ops/traverse.py:697")}
     for name, k in kernels.items():
         src, replaces = sources[name[:2]]
         entries.append(dict(
@@ -1310,6 +1416,137 @@ def _animated_wavefronts(pica, cfg, dev, bound):
            f"closest hits through the refit BVH8 differ from a fresh build's: t {t_err}, "
            f"tri {int(tri_diff.sum())} ({int(ties.sum())} ties)")
     _check(on_card and on_cpu, "the BVH Refit pass's rows differ from refit8's")
+
+
+def _lbvh8(r):
+    """Main path 12's tree for renderer `r`: the device LBVH of its world
+    triangles (ops/bvh.build on r's device), collapsed on the host to a
+    BVH8 as the reference's _get_bvh does without its native builder
+    (runtime/renderer.py:200-203).  Returns (LBVH, triangles, BVH8 on r's
+    device)."""
+    from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, bvh8 as bvh8_ops, geometry
+
+    world = geometry.to_world(r.buffers, r.prim_transform)
+    tris = bvh_ops.world_triangles(world.position, r.buffers.tri_vertex)
+    lbvh = bvh_ops.build(tris)
+    return lbvh, tris, bvh8_ops.collapse_host(lbvh, tris.cpu().numpy()).to(r.device)
+
+
+def _lbvh_oracle(tris, sah, wavefronts, bound):
+    """The device LBVH and K4 on one frame (`tris` its world triangles on
+    the card, `sah` its SAH BVH8, `wavefronts` name -> (origin, dir, tmax,
+    any-hit)): the build's time by CUDA events, its true depth, the native
+    host LBVH's time and equality, validate_host; per wavefront K4 against
+    trace_flat_plain (t, tri, u, v equal on every ray), its time, the plain
+    version's and K2's on the same rays, the bound (K2_OPS_BOX a visited
+    internal node, K2_OPS_TRI a tested triangle; or the node rows, triangles,
+    order and rays' bytes), nodes and triangles a live ray; K4 against K2 on
+    the SAH BVH8 (the oracle: hit flags, and for closest hits t within 1e-4
+    and the same triangle unless the two t are equal) on >= 99.99% of live
+    rays; the refit for a rigid move against a fresh build of the moved
+    triangles (K4's hit masks equal).  Returns (the LBVH, the JSON line's
+    K4 entries: AO any-hit and reflection closest-hit)."""
+    from vulkanhybridrenderer_tpu_torch import native_bridge
+    from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, raygen, traverse
+
+    dev = tris.device
+    build_ms = _cuda_ms(lambda: bvh_ops.build(tris), 3)
+    lbvh = bvh_ops.build(tris)
+    depth = bvh_ops.tree_depth(lbvh)
+    t = time.perf_counter()
+    native = native_bridge.build_bvh_host(tris.cpu().numpy())
+    native_s = time.perf_counter() - t
+    same = {f: torch.equal(getattr(lbvh, f).cpu(), getattr(native, f))
+            for f in ("order", "left", "right", "escape")}
+    box = max(_max_abs(lbvh.aabb_min.cpu() - native.aabb_min),
+              _max_abs(lbvh.aabb_max.cpu() - native.aabb_max))
+    t = time.perf_counter()
+    bvh_ops.validate_host(lbvh)
+    validate_s = time.perf_counter() - t
+    print(f"device LBVH of {tris.shape[0]} triangles: build {build_ms:.3f} ms on the card (CUDA "
+          f"events, mean of 3), {lbvh.left.shape[0]} nodes, true depth {depth} (the build's "
+          f"sweeps: 64); native host LBVH (native/lbvh.cpp) {native_s * 1e3:.3f} ms; order / "
+          f"left / right / escape equal {same}, boxes within {box:.3g} (limit 1e-6); "
+          f"validate_host passed in {validate_s:.3f} s")
+    _check(all(same.values()) and box <= 1e-6,
+           f"the device LBVH differs from the native one: {same}, boxes {box}")
+    _check(depth <= 64, f"realglb's LBVH is {depth} deep: the build's 64 sweeps leave it stale")
+
+    nodes, tris9 = traverse.pack_nodes(lbvh), traverse.pack_tris(tris)
+    steps = traverse.default_flat_max_steps(nodes)
+    entries = {}
+
+    def stat(x):
+        return (f"mean {float(x.mean()) if x.numel() else 0.0:.2f}, p99 "
+                f"{float(torch.quantile(x, 0.99)) if x.numel() else 0.0:.0f}")
+
+    for name, (o, d, tmax, anyhit) in wavefronts.items():
+        n = o.shape[0]
+        mode = "any-hit" if anyhit else "closest-hit"
+        tmin = torch.full((n,), raygen.SHADOW_TMIN, device=dev)
+        args = (nodes, tris9, lbvh.order, lbvh.leaf_size, lbvh.root, o, d, tmin, tmax)
+        k = traverse.trace_flat(*args, anyhit=anyhit)
+        p, vis = traverse.trace_flat_plain(*args, anyhit, steps, visits=True)
+        diff = {f: int((getattr(k, f) != getattr(p, f)).sum()) for f in ("t", "tri", "u", "v")}
+        err = max(_max_abs(k.t - p.t), _max_abs(k.u - p.u), _max_abs(k.v - p.v),
+                  float(diff["tri"]))
+        _check(not any(diff.values()),
+               f"K4 {mode} differs from its plain version on the {name} rays: {diff}")
+        ms = _cuda_ms(lambda: traverse.trace_flat(*args, anyhit=anyhit), 10)
+        plain_ms = _cuda_ms(lambda: traverse.trace_flat_plain(*args, anyhit, steps), 1)
+        k2_ms = _cuda_ms(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit), 10)
+        internal, tested = int(vis.internal.sum()), int(vis.triangles.sum())
+        ops = internal * K2_OPS_BOX + tested * K2_OPS_TRI
+        # bytes: the node rows, triangles and order once, the rays in, the hits out
+        nbytes = (nodes.numel() + tris9.numel() + lbvh.order.numel()) * 4 + n * (32 + 16)
+        b_ms, b_by = bound(ops, nbytes)
+        live = tmax >= tmin
+        walk = (vis.internal + vis.leaf)[live].double()
+        per_tri = vis.triangles[live].double()
+        # the oracle: K2 over the SAH BVH8 on the same rays
+        k2 = traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit)
+        if anyhit:
+            agree = k.hit == k2.hit
+        else:
+            agree = ((k.hit == k2.hit) & ((k.t - k2.t).abs() <= 1e-4)
+                     & ((k.tri == k2.tri) | (k.t == k2.t)))
+        bad = torch.nonzero(live & ~agree).squeeze(1)
+        share = 1.0 - bad.numel() / max(int(live.sum()), 1)
+        print(f"K4 {mode} bvh_flat_trace, realglb {name} rays: {n} ({int(live.sum())} live), "
+              f"hits {int(k.hit.sum())}, rays whose t / tri / u / v differ from its plain version "
+              f"{' / '.join(map(str, diff.values()))}; nodes a live ray {stat(walk)}, triangles "
+              f"{stat(per_tri)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2 on the SAH BVH8 "
+              f"{k2_ms:.4f} ms, bound {b_ms:.4f} ms (set by {b_by}; operations "
+              f"{bound(ops, 0)[0]:.4f} ms, bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of the bound {b_ms / ms:.4f}")
+        print(f"oracle, K4 on the LBVH against K2 on the SAH BVH8, realglb {name} rays: agree on "
+              f"{share:.6f} of live rays (limit 0.9999), {bad.numel()} disagree"
+              + "".join(f"; ray {int(i)}: K4 t {float(k.t[i]):.6g} tri {int(k.tri[i])}, K2 t "
+                        f"{float(k2.t[i]):.6g} tri {int(k2.tri[i])}" for i in bad[:8]))
+        _check(share >= 0.9999, f"K4 and K2 agree on {share} of the live {name} rays")
+        if name != "shadow":
+            entries[f"K4 {mode}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                         bound_by=b_by)
+
+    # the refit for a rigid move, against a fresh build of the moved triangles
+    offset = torch.tensor([3.0, -2.0, 5.0], device=dev)
+    moved = tris + offset
+    refit = bvh_ops.refit(lbvh, moved)
+    refit_ms = _cuda_ms(lambda: bvh_ops.refit(lbvh, moved), 3)
+    fresh = bvh_ops.build(moved)
+    topo = all(torch.equal(getattr(refit, f), getattr(fresh, f)) for f in ("order", "left"))
+    mism = {}
+    for name, (o, d, tmax, anyhit) in wavefronts.items():
+        om = o + offset
+        mism[name] = int((traverse.trace(refit, om, d, raygen.SHADOW_TMIN, tmax, anyhit=anyhit,
+                                         tri_verts=moved).hit
+                          != traverse.trace(fresh, om, d, raygen.SHADOW_TMIN, tmax,
+                                            anyhit=anyhit, tri_verts=moved).hit).sum())
+    print(f"LBVH refit for the triangles moved by {offset.tolist()}: {refit_ms:.3f} ms on the "
+          f"card; the fresh build's topology is the same: {topo}; K4 hit masks refit against "
+          f"fresh, mismatched rays {mism}")
+    _check(not any(mism.values()), f"K4 through the refit LBVH differs from a fresh build: {mism}")
+    return lbvh, entries
 
 
 def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, timed=False):

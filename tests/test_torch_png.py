@@ -8,7 +8,8 @@ row there), and on PNGs this file builds with each filter type 0-4 forced,
 per image or drawn per row by hypothesis, in every colour type and bit depth
 the decoder takes, with tRNS and with the image data split over several
 IDAT chunks.  PIL must read the port's encoded PNGs back equal to their
-source.  Unsupported files raise ValueError.
+source.  Unsupported files raise ValueError; 16-bit and Adam7 PNGs, which
+tests/test_torch_textures.py covers in full, decode as PIL does.
 """
 import io
 import struct
@@ -65,13 +66,26 @@ def pack(samples: np.ndarray, depth: int) -> np.ndarray:
     return (s << np.arange(8 - depth, -1, -depth)).sum(-1).astype(np.uint8)
 
 
+#: Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
 def build_png(samples, ctype, depth, ftypes, extra=b"", n_idat=1,
               interlace=0) -> bytes:
     """A PNG of (H, W, channels) samples with row filters `ftypes`; `extra`
-    chunks go before the image data, split over `n_idat` IDAT chunks."""
+    chunks go before the image data, split over `n_idat` IDAT chunks.  With
+    `interlace` the data is Adam7's seven passes, each filtered on its own
+    (row y of every pass with ftypes[y]; an empty pass writes nothing)."""
     h, w, c = samples.shape
-    rows = pack(samples.reshape(h, w * c), depth)
-    raw = filter_rows(rows, ftypes, max(1, c * depth // 8)).tobytes()
+    raw = b""
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        ph, pw = sub.shape[:2]
+        rows = pack(sub.reshape(ph, pw * c), depth)
+        raw += filter_rows(rows, ftypes[:ph], max(1, c * depth // 8)).tobytes()
     z = np.frombuffer(zlib.compress(raw), np.uint8)
     parts = np.array_split(z, n_idat)
     header = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace)
@@ -214,12 +228,17 @@ def _corrupt(data: bytes) -> bytes:
     ("crc", "CRC"),
 ])
 def test_unsupported_raise(case, what):
+    """What the decoder does not read raises ValueError naming it (a JPEG
+    given to decode_png, which scene/gltf sends to utils/jpeg instead); the
+    16-bit and Adam7-interlaced cases, once unsupported, decode to PIL's
+    convert("RGBA")."""
     img = np.zeros((4, 4, 3), np.uint8)
     if case == "16-bit":
         header = struct.pack(">IIBBBBB", 4, 4, 16, 2, 0, 0, 0)
         data = (png.SIGNATURE + chunk(b"IHDR", header)
                 + chunk(b"IDAT", zlib.compress(bytes(4 * 25))) + chunk(b"IEND", b""))
     elif case == "interlaced":
+        img = np.random.default_rng(4).integers(0, 256, (4, 4, 3)).astype(np.uint8)
         data = build_png(img, 2, 8, [0] * 4, interlace=1)
     elif case == "jpeg":
         buf = io.BytesIO()
@@ -229,5 +248,8 @@ def test_unsupported_raise(case, what):
         data = b"GIF89a" + bytes(32)
     else:
         data = _corrupt(png.encode_png(img))
+    if case in ("16-bit", "interlaced"):
+        np.testing.assert_array_equal(png.decode_png(data), pil_rgba(data))
+        return
     with pytest.raises(ValueError, match=what):
         png.decode_png(data)

@@ -1,9 +1,10 @@
 """Carry scenes and BVH tables over from plain numpy arrays.
 
-The reference package's scene, BVH8 and SVGF history are pytrees of arrays;
-converted to numpy (for instance with ``dataclasses.asdict`` and
-``np.asarray``) they build the port's host objects here, so both packages can
-render from exactly the same arrays.  Nothing in this module imports JAX.
+The reference package's scene, binary BVH, BVH8 and SVGF history are
+pytrees of arrays; converted to numpy (for instance with
+``dataclasses.asdict`` and ``np.asarray``) they build the port's host
+objects here, so both packages can render and trace from exactly the same
+arrays.  Nothing in this module imports JAX.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from vulkanhybridrenderer_tpu_torch.core.types import (
     TemporalState,
     TextureAtlas,
 )
+from vulkanhybridrenderer_tpu_torch.ops.bvh import BVH
 from vulkanhybridrenderer_tpu_torch.ops.bvh8 import BVH8
 from vulkanhybridrenderer_tpu_torch.scene.gltf import Camera, Scene
 
@@ -49,6 +51,19 @@ def scene_from_numpy(name: str, buffers: Mapping[str, Any],
     })
     return Scene(name=name, buffers=sb, camera=cam,
                  light=_arrays(DirectionalLight, light))
+
+
+def bvh_from_numpy(fields: Mapping[str, Any], leaf_size: int) -> BVH:
+    """A binary BVH from its fields by name (aabb_min, aabb_max, left,
+    right, escape, leaf_tri, order and, where present and not None, next8
+    and esc8) as CPU tensors of the reference's dtypes."""
+    def t(name):
+        a = fields.get(name)
+        return None if a is None else torch.from_numpy(np.array(a))  # a writable copy
+
+    return BVH(**{f: t(f) for f in ("aabb_min", "aabb_max", "left", "right", "escape",
+                                    "leaf_tri", "order", "next8", "esc8")},
+               leaf_size=int(leaf_size))
 
 
 def bvh8_from_numpy(rows, depth: int, leaf_max: int) -> BVH8:

@@ -1,4 +1,5 @@
-"""ctypes loader for the host BVH builder in ``native/`` (sah.cpp, bvh8.cpp).
+"""ctypes loader for the host BVH builders in ``native/`` (lbvh.cpp, sah.cpp,
+bvh8.cpp): the LBVH, the binned-SAH tree and the 8-wide collapse.
 
 The port compiles the repository's ``native/*.cpp`` with g++ into its own
 ignored build directory (utils/build.py) and never rebuilds the reference's
@@ -12,7 +13,9 @@ import ctypes
 import functools
 
 import numpy as np
+import torch
 
+from vulkanhybridrenderer_tpu_torch.ops.bvh import BVH
 from vulkanhybridrenderer_tpu_torch.utils.build import GXX_FLAGS, REPO_DIR, build_library
 
 NATIVE_DIR = REPO_DIR / "native"
@@ -27,8 +30,9 @@ def load() -> ctypes.CDLL:
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
     u8p = ctypes.POINTER(ctypes.c_uint8)
-    lib.sah_build.restype = ctypes.c_int
-    lib.sah_build.argtypes = [f32p, ctypes.c_int] + [i32p] * 5 + [f32p] * 2
+    for fn in (lib.lbvh_build, lib.sah_build):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [f32p, ctypes.c_int] + [i32p] * 5 + [f32p] * 2
     lib.bvh8_collapse.restype = ctypes.c_int
     lib.bvh8_collapse.argtypes = [
         f32p, ctypes.c_int, i32p, i32p, i32p, i32p, f32p, f32p,
@@ -46,10 +50,9 @@ def _i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
 
 
-def build_sah_host(tri_verts: np.ndarray) -> dict:
-    """Binned-SAH binary BVH over (T, 3, 3) triangles (native/sah.cpp).
-    Returns the node arrays; the root is node 0, leaves index `order`."""
-    lib = load()
+def _binary_build(fn, tri_verts: np.ndarray):
+    """Run a native binary builder (lbvh_build or sah_build) over (T, 3, 3)
+    triangles; its seven arrays as numpy."""
     tris = np.ascontiguousarray(np.asarray(tri_verts, np.float32)).reshape(-1, 9)
     n = tris.shape[0]
     if n == 0:
@@ -64,24 +67,48 @@ def build_sah_host(tri_verts: np.ndarray) -> dict:
         aabb_min=np.empty((total, 3), np.float32),
         aabb_max=np.empty((total, 3), np.float32),
     )
-    rc = lib.sah_build(
+    rc = fn(
         _f32p(tris), n, _i32p(out["left"]), _i32p(out["right"]),
         _i32p(out["escape"]), _i32p(out["leaf_tri"]), _i32p(out["order"]),
         _f32p(out["aabb_min"]), _f32p(out["aabb_max"]),
     )
     if rc != 0:
-        raise RuntimeError(f"sah_build failed with code {rc}")
+        raise RuntimeError(f"{fn.__name__} failed with code {rc}")
     return out
 
 
-def bvh8_collapse_host(binary: dict, tri_verts: np.ndarray, leaf_max: int = 8):
-    """Collapse a binary BVH (build_sah_host's arrays, one triangle per leaf)
-    into BVH8 rows (native/bvh8.cpp).  Returns ((N, 128) f32 rows, depth)."""
+def _bvh(arrays: dict) -> BVH:
+    return BVH(**{k: torch.from_numpy(v) for k, v in arrays.items()}, leaf_size=1)
+
+
+def build_bvh_host(tri_verts: np.ndarray) -> BVH:
+    """The LBVH of (T, 3, 3) triangles on the host (native/lbvh.cpp), equal
+    to ops/bvh.build's tree (same algorithm, same tie-breaks), on the CPU,
+    without octant links (ops/bvh.with_octant_links adds them)."""
+    out = _binary_build(load().lbvh_build, tri_verts)
+    # the builder gives a leaf its triangle id; BVH.leaf_tri is the leaf's
+    # start index into `order`, its sorted position (leaf_size 1)
+    num_internal = out["order"].shape[0] - 1
+    node = np.arange(out["leaf_tri"].shape[0], dtype=np.int32)
+    out["leaf_tri"] = np.where(out["leaf_tri"] >= 0, node - num_internal, -1).astype(np.int32)
+    return _bvh(out)
+
+
+def build_sah_host(tri_verts: np.ndarray) -> BVH:
+    """Binned-SAH binary BVH over (T, 3, 3) triangles (native/sah.cpp), on
+    the CPU, without octant links.  The root is node 0; leaves index
+    `order`."""
+    return _bvh(_binary_build(load().sah_build, tri_verts))
+
+
+def bvh8_collapse_host(bvh: BVH, tri_verts: np.ndarray, leaf_max: int = 8):
+    """Collapse any binary BVH (its own leaf_size and root) into BVH8 rows
+    (native/bvh8.cpp).  Returns ((N, 128) f32 rows, depth)."""
     lib = load()
     tris = np.ascontiguousarray(np.asarray(tri_verts, np.float32)).reshape(-1, 9)
     t = tris.shape[0]
     arrays = {
-        k: np.ascontiguousarray(binary[k])
+        k: np.ascontiguousarray(getattr(bvh, k).cpu().numpy())
         for k in ("left", "right", "leaf_tri", "order", "aabb_min", "aabb_max")
     }
     cap = 2 * max(t, 8) + 16
@@ -94,8 +121,8 @@ def bvh8_collapse_host(binary: dict, tri_verts: np.ndarray, leaf_max: int = 8):
         _f32p(tris), t, _i32p(arrays["left"]), _i32p(arrays["right"]),
         _i32p(arrays["leaf_tri"]), _i32p(arrays["order"]),
         _f32p(arrays["aabb_min"]), _f32p(arrays["aabb_max"]),
-        arrays["left"].shape[0], 1, 0, leaf_max, _f32p(rows), _i32p(child8),
-        valid8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), _i32p(tri8),
+        arrays["left"].shape[0], bvh.leaf_size, bvh.root, leaf_max, _f32p(rows),
+        _i32p(child8), valid8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), _i32p(tri8),
         cap, _i32p(out),
     )
     if rc != 0:

@@ -9,7 +9,9 @@ Row layout ((N, 128) float32, slot-major SoA groups of 8):
             [72:80] = original triangle ids (-1 = empty slot); [127]=1
 
 Static scenes build it once on the host: native binned-SAH binary tree,
-collapsed to 8-wide rows with 8-triangle leaves (native_bridge.py).  The
+collapsed to 8-wide rows with 8-triangle leaves (native_bridge.py); any
+other binary tree, such as the device LBVH (ops/bvh.py), collapses the same
+way (``collapse_host``).  The
 per-slot refit metadata (child8 / valid8 / tri8) is read back from the rows
 (``BVH8.from_rows``), and ``refit8`` recomputes the leaf triangles and every
 box for moved vertices with the topology kept: animated scenes refit every
@@ -76,11 +78,18 @@ class BVH8:
 def build_bvh8_host(tri_verts, leaf_max: int = LEAF_MAX) -> BVH8:
     """SAH build + BVH8 collapse of (T, 3, 3) world triangles on the host.
     Returns a BVH8 whose rows live on the CPU."""
+    tris = np.asarray(tri_verts, np.float32)
+    return collapse_host(native_bridge.build_sah_host(tris), tris, leaf_max)
+
+
+def collapse_host(bvh, tri_verts, leaf_max: int = LEAF_MAX) -> BVH8:
+    """The BVH8 of any binary tree (ops/bvh.BVH: the SAH tree, the native or
+    the device LBVH, any leaf_size) over its (T, 3, 3) triangles, collapsed
+    on the host (the reference's build_bvh8_host(bvh, tri_verts)).  Returns
+    a BVH8 whose rows live on the CPU."""
     if leaf_max != LEAF_MAX:
         raise ValueError("the port builds 8-triangle leaf rows only")
-    tris = np.asarray(tri_verts, np.float32)
-    binary = native_bridge.build_sah_host(tris)
-    rows, depth = native_bridge.bvh8_collapse_host(binary, tris, leaf_max)
+    rows, depth = native_bridge.bvh8_collapse_host(bvh, tri_verts, leaf_max)
     return BVH8.from_rows(torch.from_numpy(rows), depth, leaf_max)
 
 

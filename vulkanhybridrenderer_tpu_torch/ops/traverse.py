@@ -14,6 +14,13 @@ its row as whole 32-byte sectors; on CPU tensors it runs ``trace_plain``, a
 lockstep port of ``_trace8`` that drops finished rays between steps and can
 count the rows and slots each ray visits.  The reference's TPU schedules (strips,
 packets, compaction, ray sorting, unrolling) have no counterpart.
+
+Given a binary ``BVH`` (ops/bvh.py) and the triangles, ``trace`` runs the
+reference's other walk, ``_trace_flat``: kernel K4 (``trace_flat``), the
+stackless skip-pointer walk over the threaded tree, a thread a ray on CUDA
+tensors (csrc/bvh_flat_trace.cu), ``trace_flat_plain`` on CPU tensors.  It
+is the independent oracle the BVH8 walk is checked against, not a render
+path.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from typing import Any
 import torch
 
 from vulkanhybridrenderer_tpu_torch.ops import shadetab
+from vulkanhybridrenderer_tpu_torch.ops.bvh import BVH
 from vulkanhybridrenderer_tpu_torch.ops.bvh8 import BVH8
 
 
@@ -280,17 +288,61 @@ def load_kernel():
     return fn, lib.bvh8_trace_max_depth()
 
 
-def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
+def _ray_bounds(origin, tmin, tmax):
+    """tmin / tmax (scalars or (R,)) as contiguous float32 (R,) tensors on
+    the rays' device."""
+    dev, r = origin.device, origin.shape[0]
+    return (torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r).contiguous(),
+            torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r).contiguous())
+
+
+def _check_tensors(fn: str, checks) -> None:
+    """Raise unless every (name, tensor, shape, dtype) is contiguous, of its
+    dtype and shape, on the first tensor's device."""
+    dev = checks[0][1].device
+    for name, t, shape, dtype in checks:
+        if (t.device != dev or t.dtype != dtype or not t.is_contiguous()
+                or tuple(t.shape) != shape):
+            raise ValueError(
+                f"{fn}: {name} must be a contiguous {dtype} {shape} tensor on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+
+
+def _table_checks(alpha_tables):
+    if alpha_tables is None:
+        return []
+    ts, aq = alpha_tables.tri_static, alpha_tables.atlas_q
+    return [("tri_static", ts, (ts.shape[0], shadetab._N_STATIC), torch.float32),
+            ("atlas_q", aq, (aq.shape[0], 16), torch.float32)]
+
+
+def _table_args(alpha_tables):
+    if alpha_tables is None:
+        return (None, None, 0, 0)
+    return (alpha_tables.tri_static.data_ptr(), alpha_tables.atlas_q.data_ptr(),
+            alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
+
+
+def trace(bvh: BVH8 | BVH, origin, direction, tmin, tmax, anyhit: bool = False,
           max_steps: int | None = None,
-          alpha_tables: shadetab.ShadeTables | None = None) -> HitRecord:
+          alpha_tables: shadetab.ShadeTables | None = None,
+          tri_verts=None) -> HitRecord:
     """Trace rays through `bvh`.  origin / direction: (R, 3) float32;
-    tmin / tmax: scalars or (R,).  Rays with tmax < tmin miss at once.
-    alpha_tables: the scene's shade tables, to apply the alpha any-hit
-    filter (None: every geometric hit counts)."""
+    tmin / tmax: scalars or (R,).  alpha_tables: the scene's shade tables,
+    to apply the alpha any-hit filter (None: every geometric hit counts).
+    A BVH8 goes to K2, where rays with tmax < tmin miss at once; a binary
+    BVH goes to the threaded walk, K4 (``trace_flat``), which needs the
+    (T, 3, 3) triangles `tri_verts` (ignored for a BVH8)."""
+    if isinstance(bvh, BVH):
+        if tri_verts is None:
+            raise ValueError("trace: a binary BVH needs tri_verts, the (T, 3, 3) triangles")
+        return trace_flat(pack_nodes(bvh), pack_tris(tri_verts), bvh.order, bvh.leaf_size,
+                          bvh.root, origin, direction, tmin, tmax, anyhit=anyhit,
+                          max_steps=max_steps, alpha_tables=alpha_tables)
     dev = origin.device
     r = origin.shape[0]
-    tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r).contiguous()
-    tmax_a = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r).contiguous()
+    tmin_a, tmax_a = _ray_bounds(origin, tmin, tmax)
     if max_steps is None:
         max_steps = default_max_steps(bvh)
     if bvh.leaf_max != 8:
@@ -301,29 +353,16 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
             None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
-    checks = [("rows", bvh.rows, (bvh.num_rows, 128)), ("origin", origin, (r, 3)),
-              ("direction", direction, (r, 3))]
-    if alpha_tables is not None:
-        ts, aq = alpha_tables.tri_static, alpha_tables.atlas_q
-        checks += [("tri_static", ts, (ts.shape[0], shadetab._N_STATIC)),
-                   ("atlas_q", aq, (aq.shape[0], 16))]
-    for name, t, shape in checks:
-        if (t.device != dev or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(
-                f"trace: {name} must be a contiguous float32 {shape} tensor on "
-                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    f32 = torch.float32
+    _check_tensors("trace", [("origin", origin, (r, 3), f32),
+                             ("rows", bvh.rows, (bvh.num_rows, 128), f32),
+                             ("direction", direction, (r, 3), f32)]
+                   + _table_checks(alpha_tables))
     fn, max_depth = load_kernel()
     if bvh.depth > max_depth:
         raise ValueError(
             f"trace: BVH depth {bvh.depth} exceeds the kernel's stack of {max_depth}"
         )
-    if alpha_tables is None:
-        tables = (None, None, 0, 0)
-    else:
-        tables = (alpha_tables.tri_static.data_ptr(), alpha_tables.atlas_q.data_ptr(),
-                  alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
     out_t = torch.empty(r, dtype=torch.float32, device=dev)
     out_tri = torch.empty(r, dtype=torch.int32, device=dev)
     out_u = torch.empty(r, dtype=torch.float32, device=dev)
@@ -333,7 +372,7 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
         err = fn(
             bvh.rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
             tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit),
-            max(bvh.depth, 1), *tables,
+            max(bvh.depth, 1), *_table_args(alpha_tables),
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
             out_v.data_ptr(), stream,
         )
@@ -347,3 +386,197 @@ def trace(bvh: BVH8, origin, direction, tmin, tmax, anyhit: bool = False,
 #: launches of the kernel by mode: "any-hit", "closest-hit", "filtered
 #: any-hit", "filtered closest-hit"
 trace.launches = collections.Counter()
+
+
+# ---- K4: the threaded walk of a binary BVH (the reference's _trace_flat) ----
+
+
+def pack_nodes(bvh: BVH):
+    """(2L-1, 8) float32 node rows [lo.xyz, hi.xyz, next, escape]: next is
+    an internal node's left child, -(start + 2) for a leaf whose triangles
+    start at order[start]; escape -1 ends the walk.  Ids stay exact as
+    floats below 2^24."""
+    is_leaf = bvh.leaf_tri >= 0
+    nxt = torch.where(is_leaf, -(bvh.leaf_tri + 2), bvh.left).to(torch.float32)
+    return torch.cat([bvh.aabb_min, bvh.aabb_max, nxt[:, None],
+                      bvh.escape.to(torch.float32)[:, None]], dim=1).contiguous()
+
+
+def pack_tris(tri_verts):
+    """(T, 3, 3) -> (T, 9) float32 rows [v0.xyz v1.xyz v2.xyz]."""
+    return tri_verts.reshape(tri_verts.shape[0], 9).to(torch.float32).contiguous()
+
+
+def default_flat_max_steps(nodes) -> int:
+    """The reference's cap for the threaded walk (traverse.py:841)."""
+    return min(4 * nodes.shape[0] + 4, 32768)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatVisits:
+    """What each ray's threaded walk did, counted by
+    ``trace_flat_plain(visits=True)``: the work K4 does for the same rays,
+    which prices a launch."""
+    internal: Any  # (R,) int64 internal nodes visited (a slab test each)
+    leaf: Any  # (R,) int64 leaves visited
+    triangles: Any  # (R,) int64 triangles tested (ids >= 0 of those leaves)
+    filtered: Any  # (R,) int64 alpha filter evaluations (geometric candidates)
+
+
+def trace_flat_plain(nodes, tris9, order, leaf_size: int, root: int, origin, direction,
+                     tmin, tmax, anyhit: bool, max_steps: int, hit_filter=None,
+                     visits: bool = False):
+    """Plain PyTorch K4: ``_trace_flat`` stepped in lockstep over the live
+    rays.  nodes (2L-1, 8) and tris9 (T, 9) float32 (pack_nodes,
+    pack_tris), order (L * leaf_size,) int32; origin / direction (R, 3);
+    tmin / tmax (R,).  Every ray starts at `root`; an internal node is
+    entered when its slab interval meets [tmin, t_best], a leaf's triangles
+    are tested in order (each against the t_best the one before left) and
+    its box is not; any-hit ends after the whole leaf.  hit_filter(tri, u,
+    v) -> accept mask is asked about geometric candidates only.  Returns a
+    HitRecord, or with ``visits`` (HitRecord, FlatVisits)."""
+    dev = origin.device
+    r = origin.shape[0]
+    t_out = tmax.clone()
+    tri_out = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros(r, dtype=torch.float32, device=dev)
+    v_out = torch.zeros(r, dtype=torch.float32, device=dev)
+    counts_out = torch.zeros((r, 4), dtype=torch.int64, device=dev)
+
+    ids = torch.arange(r, device=dev)
+    o, d, tn_ = origin, direction, tmin
+    inv = 1.0 / torch.where(torch.abs(d) < 1e-12, torch.where(d >= 0, 1e-12, -1e-12), d)
+    node = torch.full((r,), root, dtype=torch.int64, device=dev)
+    tb, trb, ub, vb = t_out.clone(), tri_out.clone(), u_out.clone(), v_out.clone()
+    counts = torch.zeros((r, 4), dtype=torch.int64, device=dev)
+    order = order.long()
+    n, steps = r, 0
+    while n > 0 and steps < max_steps:
+        row = nodes[node]
+        nxt = row[:, 6]
+        esc = row[:, 7].to(torch.int64)
+        is_leaf = nxt < -1.5
+
+        t0 = (row[:, 0:3] - o) * inv
+        t1 = (row[:, 3:6] - o) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tnear = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+        tfar = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
+        box_hit = torch.maximum(tnear, tn_) <= torch.minimum(tfar, tb)
+
+        # the leaves' triangles, in order, each against the t_best before it
+        li = torch.nonzero(is_leaf).squeeze(1)
+        any_ok = torch.zeros(n, dtype=torch.bool, device=dev)
+        if visits:
+            counts[:, 0] += ~is_leaf
+            counts[:, 1] += is_leaf
+        if li.numel():
+            start = (-nxt[li] - 2.0).to(torch.int64)
+            ol, dl = o[li], d[li]
+            for j in range(leaf_size):
+                tri = order[start + j]
+                tv = tris9[torch.clamp(tri, min=0)]
+                t, u, v, ok = moller_trumbore(
+                    (tv[:, 0], tv[:, 1], tv[:, 2]), (tv[:, 3], tv[:, 4], tv[:, 5]),
+                    (tv[:, 6], tv[:, 7], tv[:, 8]), (ol[:, 0], ol[:, 1], ol[:, 2]),
+                    (dl[:, 0], dl[:, 1], dl[:, 2]))
+                ok &= (tri >= 0) & (t >= tn_[li]) & (t < tb[li])
+                if visits:
+                    counts[li, 2] += tri >= 0
+                if hit_filter is not None:
+                    cand = torch.nonzero(ok).squeeze(1)
+                    if visits:
+                        counts[li, 3] += ok
+                    ok[cand[~hit_filter(tri[cand].to(torch.int32), u[cand], v[cand])]] = False
+                hit = li[ok]
+                tb[hit], trb[hit] = t[ok], tri[ok].to(torch.int32)
+                ub[hit], vb[hit] = u[ok], v[ok]
+                any_ok[hit] = True
+
+        node = torch.where(is_leaf | ~box_hit, esc, nxt.to(torch.int64))
+        if anyhit:
+            node = torch.where(any_ok, -1, node)
+        steps += 1
+
+        keep = node >= 0
+        if not bool(keep.all()):
+            gone = ids[~keep]
+            t_out[gone], tri_out[gone] = tb[~keep], trb[~keep]
+            u_out[gone], v_out[gone] = ub[~keep], vb[~keep]
+            counts_out[gone] = counts[~keep]
+            ids, o, d, inv, tn_, node = ids[keep], o[keep], d[keep], inv[keep], tn_[keep], node[keep]
+            tb, trb, ub, vb, counts = tb[keep], trb[keep], ub[keep], vb[keep], counts[keep]
+            n = ids.shape[0]
+    # rays still walking at the step cap keep what they found
+    t_out[ids], tri_out[ids], u_out[ids], v_out[ids] = tb, trb, ub, vb
+    counts_out[ids] = counts
+    rec = HitRecord(t=t_out, tri=tri_out, u=u_out, v=v_out)
+    if not visits:
+        return rec
+    return rec, FlatVisits(*counts_out.unbind(1))
+
+
+@functools.cache
+def load_flat_kernel():
+    """Build K4 (on first use) and load it; returns its launch function."""
+    from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
+
+    fn = load_cuda_library("bvh_flat_trace.cu").bvh_flat_trace_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 5)
+    return fn
+
+
+def trace_flat(nodes, tris9, order, leaf_size: int, root: int, origin, direction, tmin,
+               tmax, anyhit: bool = False, max_steps: int | None = None,
+               alpha_tables: shadetab.ShadeTables | None = None) -> HitRecord:
+    """K4: the threaded walk of a packed binary BVH (pack_nodes, pack_tris,
+    its order, leaf_size and root).  origin / direction: (R, 3) float32;
+    tmin / tmax: scalars or (R,); max_steps defaults to the reference's
+    min(4 * nodes + 4, 32768).  CPU tensors run trace_flat_plain; CUDA
+    tensors launch csrc/bvh_flat_trace.cu; any other device raises."""
+    dev = origin.device
+    r = origin.shape[0]
+    tmin_a, tmax_a = _ray_bounds(origin, tmin, tmax)
+    if max_steps is None:
+        max_steps = default_flat_max_steps(nodes)
+    if dev.type == "cpu":
+        return trace_flat_plain(
+            nodes, tris9, order, leaf_size, root, origin, direction, tmin_a, tmax_a, anyhit,
+            max_steps, None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
+    if dev.type != "cuda":
+        raise ValueError(f"trace_flat: unsupported device {dev}")
+    n_nodes = nodes.shape[0]
+    if n_nodes >= 1 << 24:
+        raise ValueError(f"trace_flat: {n_nodes} nodes; ids are exact as floats below 2^24")
+    f32 = torch.float32
+    _check_tensors("trace_flat", [
+        ("origin", origin, (r, 3), f32), ("direction", direction, (r, 3), f32),
+        ("nodes", nodes, (n_nodes, 8), f32), ("tris9", tris9, (tris9.shape[0], 9), f32),
+        ("order", order, (order.shape[0],), torch.int32)] + _table_checks(alpha_tables))
+    if order.shape[0] != (n_nodes + 1) // 2 * leaf_size:
+        raise ValueError(f"trace_flat: order has {order.shape[0]} entries, not "
+                         f"{(n_nodes + 1) // 2} leaves of {leaf_size}")
+    fn = load_flat_kernel()
+    out_t = torch.empty(r, dtype=torch.float32, device=dev)
+    out_tri = torch.empty(r, dtype=torch.int32, device=dev)
+    out_u = torch.empty(r, dtype=torch.float32, device=dev)
+    out_v = torch.empty(r, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(nodes.data_ptr(), tris9.data_ptr(), order.data_ptr(), leaf_size, root,
+                 origin.data_ptr(), direction.data_ptr(), tmin_a.data_ptr(), tmax_a.data_ptr(),
+                 r, max_steps, int(anyhit), *_table_args(alpha_tables),
+                 out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"bvh_flat_trace kernel launch failed: CUDA error {err}")
+    mode = "any-hit" if anyhit else "closest-hit"
+    trace_flat.launches[mode if alpha_tables is None else f"filtered {mode}"] += 1
+    return HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
+
+
+#: launches of K4 by mode, as trace.launches
+trace_flat.launches = collections.Counter()

@@ -7,7 +7,8 @@ TEXCOORD_0 / TEXCOORD_1, indexed geometry (interleaved, sparse and normalized
 accessors too), PBR metallic-roughness materials (base color, metallic-
 roughness and normal textures, MASK alpha mode), perspective cameras and
 KHR_lights_punctual directional lights.  Embedded and external images are
-decoded by ``utils/png`` (PNG only; a JPEG texture raises).  Camera, light and
+decoded by ``utils/png`` or ``utils/jpeg``, chosen by the file's signature
+as PIL chooses (not by the URI or mime type).  Camera, light and
 SceneBuffers construction is shared with the procedural scenes.  Arrays stay
 numpy until the renderer uploads the scene with one
 ``Scene.buffers.to(device)``.
@@ -37,6 +38,7 @@ from vulkanhybridrenderer_tpu_torch.core.types import (
 )
 from vulkanhybridrenderer_tpu_torch.scene.atlas import build_atlas
 from vulkanhybridrenderer_tpu_torch.utils import math3d as m3
+from vulkanhybridrenderer_tpu_torch.utils.jpeg import decode_jpeg
 from vulkanhybridrenderer_tpu_torch.utils.png import decode_png
 
 
@@ -305,7 +307,7 @@ class _Gltf:
             blob = base64.b64decode(img["uri"].split(",", 1)[1])
         else:
             blob = self.buffer_view_bytes(img["bufferView"])
-        return decode_png(blob)
+        return decode_jpeg(blob) if blob[:3] == b"\xff\xd8\xff" else decode_png(blob)
 
 
 def _node_world_transforms(doc: dict) -> list[np.ndarray]:

@@ -1,10 +1,14 @@
 """PNG codec in numpy and zlib (what the reference package gets from PIL).
 
 ``decode_png`` returns (H, W, 4) uint8 RGBA, as ``PIL.Image.open(...)
-.convert("RGBA")`` does: 8-bit grayscale, RGB, gray + alpha and RGBA, palette
-and grayscale at 1, 2, 4 and 8 bits, filter types 0-4 per row, any number of
-IDAT chunks and a tRNS chunk.  Anything else (16-bit samples, Adam7
-interlacing, a JPEG or other non-PNG file) raises ``ValueError`` naming it.
+.convert("RGBA")`` does: grayscale, RGB, gray + alpha and RGBA at 8 and 16
+bits, palette and grayscale at 1, 2, 4 and 8 bits, filter types 0-4 per row,
+Adam7 interlacing, any number of IDAT chunks and a tRNS chunk.  16-bit
+samples go to 8 bits as Pillow takes them: grayscale (mode I;16) clipped at
+255, every other colour type by its high byte; a 16-bit tRNS key is held
+against those 8-bit values by its low byte.  A JPEG or other non-PNG file
+raises ``ValueError`` naming it (``scene/gltf`` sends JPEGs to
+``utils/jpeg``).
 
 The Average and Paeth filters predict a byte from its left neighbour, so a
 row cannot be undone with one vector operation.  The unfilter walks the
@@ -14,7 +18,9 @@ H + W - 1 steps undoes one whole diagonal of every row at once.  A 1024x1024
 RGBA image whose rows cycle through every filter type decodes in ~0.5 s of
 host time (0.51-0.54 s measured on an x86 CPU;
 ``tests/test_torch_png.py::test_decode_1024_rgba_every_filter`` prints it),
-against minutes for a loop over bytes.
+against minutes for a loop over bytes.  An Adam7 image is seven such
+images, the passes, each filtered on its own (a pass with no pixels has no
+scanlines), whose pixels interleave.
 
 ``encode_png`` writes 8-bit RGB or RGBA with filter type 0 on every row.
 """
@@ -28,14 +34,17 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: channels per pixel of each colour type
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_BIT_DEPTHS = {0: (1, 2, 4, 8), 2: (8,), 3: (1, 2, 4, 8), 4: (8,), 6: (8,)}
+_BIT_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+#: Adam7's passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
 
 
 def _chunks(data: bytes):
     """(type, payload) of each chunk, CRCs checked."""
     if data[:8] != SIGNATURE:
         if data[:3] == b"\xff\xd8\xff":
-            raise ValueError("JPEG images are not supported, only PNG")
+            raise ValueError("a JPEG file is not a PNG (utils/jpeg decodes JPEG)")
         raise ValueError("not a PNG file (bad signature)")
     pos = 8
     while pos + 12 <= len(data):
@@ -84,13 +93,39 @@ def _unfilter(raw: np.ndarray, height: int, rowbytes: int, bpp: int) -> np.ndarr
 
 
 def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
-    """(H, rowbytes) packed samples of `depth` bits -> (H, width) uint8."""
+    """(H, rowbytes) packed samples of `depth` bits -> (H, width) samples
+    (uint16 at 16 bits, uint8 below)."""
+    if depth == 16:  # big-endian byte pairs
+        pairs = rows[:, :2 * width].reshape(rows.shape[0], width, 2).astype(np.uint16)
+        return (pairs[..., 0] << 8) | pairs[..., 1]
     if depth == 8:
         return rows[:, :width]
     per = 8 // depth
     shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)  # MSB first
     vals = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
     return vals.reshape(rows.shape[0], rows.shape[1] * per)[:, :width]
+
+
+def _samples(raw: np.ndarray, width: int, height: int, channels: int, depth: int,
+             interlace: int) -> np.ndarray:
+    """The (H, W, channels) samples of the decompressed image data `raw`,
+    plain or Adam7-interlaced."""
+    bpp = max(1, channels * depth // 8)
+    passes = [(0, 0, 1, 1)] if not interlace else _ADAM7
+    out = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        w, h = -(-(width - x0) // dx), -(-(height - y0) // dy)
+        if w <= 0 or h <= 0:
+            continue  # an empty pass has no scanlines
+        rowbytes = (w * channels * depth + 7) // 8
+        size = h * (1 + rowbytes)
+        if raw.size < pos + size:
+            raise ValueError("PNG image data is shorter than its header says")
+        rows = _unfilter(raw[pos:pos + size], h, rowbytes, bpp)
+        pos += size
+        out[y0::dy, x0::dx] = _unpack(rows, w * channels, depth).reshape(h, w, channels)
+    return out
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -111,20 +146,18 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, ctype_, _, _, interlace = header
     if ctype_ not in _CHANNELS:
         raise ValueError(f"PNG colour type {ctype_} does not exist")
-    if depth == 16:
-        raise ValueError("16-bit PNG samples are not supported")
     if depth not in _BIT_DEPTHS[ctype_]:
         raise ValueError(f"PNG colour type {ctype_} at bit depth {depth} is not valid")
-    if interlace:
-        raise ValueError("Adam7-interlaced PNGs are not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {interlace} does not exist")
     channels = _CHANNELS[ctype_]
-    rowbytes = (width * channels * depth + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < height * (1 + rowbytes):
-        raise ValueError("PNG image data is shorter than its header says")
-    rows = _unfilter(raw[: height * (1 + rowbytes)], height, rowbytes,
-                     max(1, channels * depth // 8))
-    samples = _unpack(rows, width * channels, depth).reshape(height, width, channels)
+    samples = _samples(raw, width, height, channels, depth, interlace)
+    if depth == 16:
+        # Pillow: grayscale (I;16) clips at 255, the other types keep the
+        # high byte; a tRNS key matches those values by its low byte
+        eight = np.minimum(samples, 255) if ctype_ == 0 else samples >> 8
+        samples = eight.astype(np.uint8)
 
     out = np.empty((height, width, 4), np.uint8)
     if ctype_ == 3:
@@ -149,13 +182,16 @@ def decode_png(data: bytes) -> np.ndarray:
             # PIL holds the key against the samples it scaled to 8 bits:
             # a 1-bit key is scaled with them, a 2- or 4-bit key is not
             (key,) = struct.unpack(">H", trns[:2])
-            out[..., 3] = np.where(scaled == (key * 255 if depth == 1 else key), 0, 255)
+            key = key * 255 if depth == 1 else (key & 0xFF if depth == 16 else key)
+            out[..., 3] = np.where(scaled == key, 0, 255)
         return out
     out[..., :channels] = samples
     if ctype_ == 2:
         out[..., 3] = 255
         if trns is not None:
             key = np.array(struct.unpack(">HHH", trns[:6]))
+            if depth == 16:
+                key &= 0xFF
             out[..., 3] = np.where((samples == key).all(axis=-1), 0, 255)
     return out
 
