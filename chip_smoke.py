@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
+    python3 chip_smoke.py --parent DIR # and K3 and the toy against DIR's (another
+                                       # checkout's) kernels, in turns
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
@@ -10,14 +12,20 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
   2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d),
                 csrc/bvh8_trace.cu (K2, four lanes a ray, with and without
                 the alpha filter), csrc/shadow_grid.cu (K3, the shadow
-                grid's trace, a thread a ray), csrc/bvh_flat_trace.cu (K4,
+                grid's trace: a block's live rays queued in shared memory,
+                its cells' lists staged there, the big tier first),
+                csrc/bvh_flat_trace.cu (K4,
                 the threaded walk of a binary LBVH, a thread a ray),
                 csrc/toy_scale.cu and csrc/gather_probe.cu for sm_90a and g++
                 the host BVH build (native/*.cpp), all at once; ptxas
                 registers / spills per kernel.  The toy library is asked for
                 again by a subprocess in another working directory: the same
                 _build/ file, no second compile; the toy kernel's output
-                equals x * 2 exactly (its launch is the toy's path)
+                equals x * 2 exactly (its launch is the toy's path); the toy
+                at 256x256 and 4096x4096 (wrapper, kernel alone, x * 2.0,
+                torch.mul, bit equality), on an odd length and a misaligned
+                view; the launch path the other wrappers take (a Stream
+                object inside torch.cuda.device) against the toy's
   2b. asset   - the flagship asset, realglb: scene/sample_asset writes the
                 sponza-class GLB into the package's _build/, runtime/app's
                 load_any_scene("realglb") reads it (PNG textures through
@@ -104,13 +112,24 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 triangle, masked ones solid) and K2 any-hit on its shadow
                 rays.  Then main path 10's inputs: K3 on the second frame's
                 shadow wavefront of cell 1's configuration with
-                shadow_accel="grid": hit masks identical to its plain
-                version's and to K2 any-hit's on the same rays; its time,
-                the plain version's and the bound (59 operations a tested
-                entry, counted by trace_shadow_plain(visits=True), or the
-                grid's tables and the rays' bytes); entries tested a live
-                ray (mean, p99); the grid's entries, num_big and overflow
-                (which must be 0)
+                shadow_accel="grid", and on realglb's in the same
+                configuration with a grid built on realglb, each unfiltered
+                and filtered (the scene's alpha tables): hit masks identical
+                to its plain version's in both orders and to K2 any-hit's on
+                every ray, also without the width, with an (R,) tmin and
+                with a staging capacity (stage_rows 16, and 0) below the
+                longest cell list; tests a live ray (mean, p99) and the bound
+                (K3_OPS_STAGE operations a test by the stage at which it
+                ends, counted by trace_shadow_plain(visits=True,
+                stages=True), or the bytes its walks need) in
+                the reference's order and in K3's (the big tier first); the
+                lane share of 32 rays in pixel order in both orders and of
+                K3's queue (counted by the kernel); the kernel alone's time
+                (also at stage_rows 0 and 512), the wrapper's, the
+                filtered kernel's, the plain version's and K2 any-hit's
+                (unfiltered and filtered), and the (R,) tmin copy the
+                earlier wrapper made; the grid's entries, num_big and
+                overflow (which must be 0)
   5. gpu-cpu  - SponzaProxy at 320x180 on the GPU and on the CPU (plain
                 versions): the RT-shadows frame within 1e-4 on >= 99.9% of
                 pixels; the full configuration over 3 frames within
@@ -192,6 +211,7 @@ Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import dataclasses
 import functools
 import json
@@ -228,6 +248,13 @@ FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clo
 #: 1 compare.  trace_plain(visits=True) counts the rows, slots and
 #: evaluations of each run.
 K2_OPS_BOX, K2_OPS_TRI, K2_OPS_EMPTY, K2_OPS_FILTER = 26, 59, 1, 53
+#: K3's FP32 operations per test, by the test at which its early-returning
+#: Moller-Trumbore (csrc/shadow_grid.cu row_hit) ends, from K2's 59: at det
+#: 21 (the edges 6, p 9, det 5, its compare 1), at u 33 (+ 1/det 1, tv 3,
+#: u 6, two compares 2), at v 51 (+ q 9, v 6, u + v 1, two compares 2), in
+#: full 59 (+ t 6, two compares 2).  trace_shadow_plain(stages=True) counts
+#: the tests that end at each.
+K3_OPS_STAGE = (21, 33, 51, 59)
 #: the full frame on the GPU against the CPU: measured >= 0.999792 of pixels
 #: within 1e-3 by frame 2 (NVIDIA H100 80GB HBM3, 700 W).  A grazing AO ray
 #: flips between the two devices' sin / cos, and SVGF spreads the flip.
@@ -299,12 +326,75 @@ def _ptxas_report(log: str, names: dict[str, str]) -> list[str]:
     return out
 
 
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float, "long long": ctypes.c_longlong}
+_C_INTS = (ctypes.c_int, ctypes.c_longlong)
+
+
+def _c_params(source: Path, symbol: str) -> list:
+    """[(name, ctypes type)] of the launch function `symbol`, read from its
+    prototype in the CUDA source `source`."""
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", source.read_text())
+    _check(m is not None, f"{source} has no launch function {symbol}")
+    params = []
+    for decl in m.group(1).split(","):
+        decl = " ".join(decl.split())
+        name = re.search(r"(\w+)$", decl).group(1)
+        base = decl[:-len(name)].replace("const ", "").strip()
+        _check(base.endswith("*") or base in _C_TYPES, f"{symbol}: a parameter {decl!r}")
+        params.append((name, ctypes.c_void_p if base.endswith("*") else _C_TYPES[base]))
+    return params
+
+
+def _other_launch(csrc: Path, source: str, symbol: str):
+    """(launch function, its parameters) of another checkout's
+    csrc/<source>, built beside this checkout's from that csrc/'s source
+    and headers, its prototype read from the source."""
+    from vulkanhybridrenderer_tpu_torch.utils import build
+
+    params = _c_params(csrc / source, symbol)
+    lib = build.build_library(f"other_{Path(source).stem}", [build.nvcc_path()] + build.NVCC_FLAGS,
+                              [csrc / source], headers=sorted(csrc.glob("*.cuh")))
+    fn = getattr(ctypes.CDLL(str(lib)), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [t for _, t in params]
+    return fn, params
+
+
+def _bind(params, own_params, own_args, extra=None) -> list:
+    """Another launch function's arguments, by name: this checkout's value of
+    the same name and kind (own_params beside own_args), else `extra`'s
+    (name -> a pointer) for a pointer only the other takes.  A name neither
+    gives fails the run."""
+    own = {name: (t, a) for (name, t), a in zip(own_params, own_args)}
+    out = []
+    for name, t in params:
+        mine = own.get(name)
+        if mine is not None and (mine[0] is t or (mine[0] in _C_INTS and t in _C_INTS)):
+            out.append(mine[1])
+        else:
+            _check(t is ctypes.c_void_p and name in (extra or {}),
+                   f"no value for the other launch function's argument {name}")
+            out.append(extra[name])
+    return out
+
+
+def _in_turns(label: str, other, mine, iters: int) -> str:
+    """Milliseconds of two launches (functions of no argument) timed in
+    turns: other, mine, mine, other."""
+    t = [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
+    return f"{label} in turns (other, this, this, other): {t[0]:.4f} / {t[3]:.4f} ms against " \
+           f"{t[1]:.4f} / {t[2]:.4f} ms"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "smoke test needs a CUDA GPU", file=sys.stderr)
         return 1
-    profile = "--profile" in sys.argv[1:]
+    argv = sys.argv[1:]
+    profile = "--profile" in argv
+    other_csrc = (Path(argv[argv.index("--parent") + 1]) / "vulkanhybridrenderer_tpu_torch"
+                  / "csrc" if "--parent" in argv else None)
 
     from vulkanhybridrenderer_tpu_torch import native_bridge
     from vulkanhybridrenderer_tpu_torch.core import config as cfgmod
@@ -355,6 +445,11 @@ def main() -> int:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     compiles = build.build_library.compiles
+    other_k3 = other_toy = None
+    if other_csrc is not None:
+        other_k3 = _other_launch(other_csrc, "shadow_grid.cu", "shadow_grid_trace_launch")
+        other_toy = _other_launch(other_csrc, "toy_scale.cu", "toy_scale_launch")
+        compiles = build.build_library.compiles
     for line in (_ptxas_report(build_log("raster_tile.cu"),
                                {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c",
                                 "msaa_kernelILi2E": "K1d 2 samples",
@@ -398,13 +493,63 @@ def main() -> int:
     y = build.toy_scale(x)
     toy_launches = build.toy_scale.launches
     _check(toy_launches == 1 and torch.equal(y, x * 2.0), "the toy kernel differs from x * 2")
-    kernels_toy = dict(max_abs_err=0.0, ms=_cuda_ms(lambda: build.toy_scale(x), 50),
-                       plain_ms=_cuda_ms(lambda: x * 2.0, 50),
-                       library_ms=_cuda_ms(lambda: torch.mul(x, 2.0), 50),
-                       **dict(zip(("bound_ms", "bound_by"), bound(x.numel(), x.numel() * 8))))
-    print(f"toy_scale (256x256): equal to x * 2 bit for bit; kernel {kernels_toy['ms']:.4f} ms, "
-          f"plain (x * 2.0) {kernels_toy['plain_ms']:.4f} ms, library (torch.mul) "
-          f"{kernels_toy['library_ms']:.4f} ms, bound {kernels_toy['bound_ms']:.6f} ms")
+    # the toy at the reference's shape and at 4096^2 (64 MiB each way): the
+    # wrapper, the kernel alone (the C launch on prepared pointers), x * 2.0
+    # and torch.mul, each equal to x * 2 bit for bit; then an odd length and
+    # a misaligned view (x[1:]), which takes the scalar body
+    toy_fn = build.load_toy_kernel()
+    for side in (256, 4096):
+        xs = x if side == 256 else torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (side, side), np.float32)).to(dev)
+        _check(torch.equal(build.toy_scale(xs), xs * 2.0), f"the toy kernel differs at {side}^2")
+        out, stream = torch.empty_like(xs), build.current_stream(dev.index)
+        row = dict(max_abs_err=0.0, ms=_cuda_ms(lambda: build.toy_scale(xs), 50),
+                   plain_ms=_cuda_ms(lambda: xs * 2.0, 50),
+                   library_ms=_cuda_ms(lambda: torch.mul(xs, 2.0), 50),
+                   **dict(zip(("bound_ms", "bound_by"), bound(xs.numel(), xs.numel() * 8))))
+        alone = _cuda_ms(lambda: toy_fn(xs.data_ptr(), out.data_ptr(), xs.numel(), dev.index,
+                                        stream), 50)
+        _check(torch.equal(out, xs * 2.0), f"the toy kernel alone differs at {side}^2")
+        if other_toy is not None:
+            args = (xs.data_ptr(), out.data_ptr(), xs.numel(), dev.index, stream)
+            pfn, pparams = other_toy
+            pargs = _bind(pparams, _c_params(build.CSRC_DIR / "toy_scale.cu",
+                                             "toy_scale_launch"), args)
+            out.zero_()
+            _check(pfn(*pargs) == 0 and torch.equal(out, xs * 2.0),
+                   f"the other checkout's toy kernel differs at {side}^2")
+            print(_in_turns(f"toy_scale ({side}x{side}), the other checkout's kernel alone "
+                            f"against this one's", lambda: pfn(*pargs),
+                            lambda: toy_fn(*args), 50))
+        print(f"toy_scale ({side}x{side}): equal to x * 2 bit for bit; wrapper {row['ms']:.4f} "
+              f"ms, kernel alone {alone:.4f} ms, plain (x * 2.0) {row['plain_ms']:.4f} ms, "
+              f"library (torch.mul) {row['library_ms']:.4f} ms, bound {row['bound_ms']:.6f} ms "
+              f"(share of the wrapper's time {row['bound_ms'] / row['ms']:.4f}, of the kernel "
+              f"alone's {row['bound_ms'] / alone:.4f})")
+        if side == 256:
+            kernels_toy = row
+            # the launch path the other wrappers (K1, K2, K4, the probes) take
+            # on every call: a Stream object for the stream's handle, inside
+            # torch.cuda.device; the toy's: the raw handle, no switch
+            def via_stream():
+                return toy_fn(xs.data_ptr(), out.data_ptr(), xs.numel(), dev.index,
+                              torch.cuda.current_stream(dev).cuda_stream)
+
+            def via_switch():
+                with torch.cuda.device(dev):
+                    return via_stream()
+
+            print(f"launch path at {side}x{side}: the toy kernel with its stream read by "
+                  f"torch.cuda.current_stream(dev).cuda_stream {_cuda_ms(via_stream, 50):.4f} ms, "
+                  f"and inside torch.cuda.device(dev) {_cuda_ms(via_switch, 50):.4f} ms, against "
+                  f"{alone:.4f} ms alone and {row['ms']:.4f} ms through the wrapper")
+        del xs, out
+    base = torch.randn(65_540, device=dev)
+    for what, view in (("an odd length (65,539)", base[:65_539]),
+                       ("a misaligned view (x[1:])", base[1:])):
+        _check(torch.equal(build.toy_scale(view), view * 2.0),
+               f"the toy kernel differs from x * 2 on {what}")
+    print("toy_scale: equal to x * 2 on an odd length (65,539) and a misaligned view (x[1:])")
     _phase("build", t0)
 
     # ---- 2b. asset: the flagship GLB through the port's own writer and reader ----
@@ -885,18 +1030,28 @@ def main() -> int:
     grid_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off", shadow_accel="grid")
     r = Renderer(scene, grid_cfg, device=dev)
     r.render_frame()
-    res = r.fetch_resources("pfd", "ShadowGrid", hybrid_path.DEPTH, hybrid_path.NORMALS)
-    sg = res["ShadowGrid"]
-    rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
-                             grid_cfg.hybrid, ao_rays=grid_cfg.ao_rays)
-    kernels["K3"] = _k3_wave(r._get_bvh(), sg, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
-                             rays.shadow_tmax, bound, "path 10's second frame's shadow",
-                             timed=True)
-    print(f"K3 grid: {sg.grid}x{sg.grid} cells, {sg.num_entries} entries "
-          f"({sg.num_entries * 48} bytes), num_big {sg.num_big}, overflow {sg.overflow}")
-    _check(sg.overflow == 0, f"the shadow grid overflowed by {sg.overflow} triangles")
-    del r, res, rays, sg
-    torch.cuda.empty_cache()
+    # and on realglb's frame in the same configuration, with a grid built on
+    # realglb; each unfiltered and filtered with the scene's alpha tables
+    for wave_scene, label in ((scene, "path 10's second frame's shadow"),
+                              (realglb, "realglb's grid frame's shadow")):
+        r = Renderer(wave_scene, grid_cfg, device=dev)
+        r.render_frame()
+        res = r.fetch_resources("pfd", "ShadowGrid", "shade_tables", hybrid_path.DEPTH,
+                                hybrid_path.NORMALS)
+        sg = res["ShadowGrid"]
+        rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
+                                 grid_cfg.hybrid, ao_rays=grid_cfg.ao_rays)
+        entry = _k3_wave(r._get_bvh(), sg, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
+                         rays.shadow_tmax, bound, label, tables=res["shade_tables"],
+                         width=WIDTH, timed=True, other_k3=other_k3)
+        if wave_scene is scene:
+            kernels["K3"] = entry
+        print(f"K3 grid of {wave_scene.name}: {sg.grid}x{sg.grid} cells, {sg.num_entries} "
+              f"entries ({sg.num_entries * 48} bytes), num_big {sg.num_big}, overflow "
+              f"{sg.overflow}")
+        _check(sg.overflow == 0, f"the shadow grid overflowed by {sg.overflow} triangles")
+        del r, res, rays, sg
+        torch.cuda.empty_cache()
     _phase("kernels", t0)
 
     # ---- 5. GPU against CPU ------------------------------------------------------
@@ -1385,9 +1540,9 @@ def _animated_wavefronts(pica, cfg, dev, bound):
     rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
                              cfg.hybrid, ao_rays=cfg.ao_rays)
     _k3_wave(refit, res["ShadowGrid"], rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
-             rays.shadow_tmax, bound, "path 11's frame 5 shadow (refit BVH8)")
+             rays.shadow_tmax, bound, "path 11's frame 5 shadow (refit BVH8)", width=cfg.width)
     k3 = shadowgrid.trace_shadow(res["ShadowGrid"], rays.origin, rays.shadow_dir,
-                                 raygen.SHADOW_TMIN, rays.shadow_tmax)
+                                 raygen.SHADOW_TMIN, rays.shadow_tmax, width=cfg.width)
     fresh_hit = traverse.trace(fresh, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
                                rays.shadow_tmax, anyhit=True).hit
     fresh_diff = int((k3 != fresh_hit).sum())
@@ -1549,49 +1704,156 @@ def _lbvh_oracle(tris, sah, wavefronts, bound):
     return lbvh, entries
 
 
-def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, timed=False):
-    """K3 on one shadow wavefront against its plain version and K2 any-hit
-    on the same rays: identical hit masks.  Prints the rays, the live ones,
-    the entries each live ray tests (mean, p99) and, with `timed`, the
-    kernel's, the plain version's and K2 any-hit's ms on the same rays
-    beside the bound: operations at
-    K2_OPS_TRI a tested entry, counted by trace_shadow_plain(visits=True),
-    or bytes (the grid's entry table, offsets and big rows once, each ray's
-    origin, direction, tmin, tmax in and its hit flag out), the larger.
-    Returns the JSON line's fields."""
+def _pixel_lane_share(tested, live) -> float:
+    """The share of lane-steps that test a row when each group of 32
+    consecutive rays (pixel order: the warps of a thread-a-ray walk) walks
+    until its longest walk ends: the live rays' (R,) `tested` counts over 32
+    lanes times each group's longest walk."""
+    t = torch.where(live, tested, 0)
+    groups = torch.cat([t, t.new_zeros((-t.numel()) % 32)]).view(-1, 32)
+    return float(t.sum()) / max(float(groups.amax(1).sum()) * 32, 1.0)
+
+
+def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, timed=False,
+             other_k3=None):
+    """K3 on one shadow wavefront (`tmin` a float, `tmax` (R,); `width` the
+    image's, as the render path passes it) against its plain version and K2
+    any-hit on the same rays, unfiltered and, with the scene's shade
+    `tables`, filtered: identical hit masks on every ray, else the run
+    fails; also without the width, with an (R,) tmin and with a staging
+    capacity below the longest cell list (the global-memory path).  Prints
+    the rays, the live ones, the tests a live ray (mean, p99) in the
+    reference's order and in K3's (the big tier first), the share of
+    lane-steps that test a row for 32 rays in pixel order in both orders and
+    for K3's queue (counted by the kernel), and both orders' bounds:
+    operations at K3_OPS_STAGE a test by the stage at which it ends, counted
+    by trace_shadow_plain(visits=True, stages=True), or bytes (each ray's
+    tmax in and hit flag out, each live ray's origin and direction, the
+    offsets of the cells they use and the rows their walks reach, once), the
+    larger.  With `timed`: the
+    kernel alone (the C launch on prepared arguments; also at stage_rows 0
+    and 512), the wrapper, the filtered kernel, the plain version and K2
+    any-hit, by CUDA events; `other_k3` (another checkout's K3, _other_launch)
+    is checked and timed in turns with it.  Returns the JSON line's fields
+    (the kernel alone's time, the bound of K3's order)."""
     from vulkanhybridrenderer_tpu_torch.ops import shadowgrid, traverse
+    from vulkanhybridrenderer_tpu_torch.utils import build
 
     n = o.shape[0]
-    tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=o.device).expand(n).contiguous()
-    k = shadowgrid.trace_shadow(sg, o, d, tmin_a, tmax)
-    p, tested = shadowgrid.trace_shadow_plain(sg, o, d, tmin_a, tmax, visits=True)
-    k2 = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=True).hit
-    err, k2_diff = float((k != p).sum()), int((k != k2).sum())
-    _check(err == 0.0, f"K3 hit masks differ from its plain version on {int(err)} {label} rays")
-    _check(k2_diff == 0, f"K3 hit masks differ from K2 any-hit on {k2_diff} {label} rays")
+    tmin_a = torch.full((n,), tmin, dtype=torch.float32, device=o.device)
     live = tmax >= tmin_a
-    per = tested[live].double()
-    total = int(tested.sum())
-    ops = total * K2_OPS_TRI
-    nbytes = (sg.num_entries * 48 + sg.offsets.numel() * 4 + sg.num_big * 48
-              + n * (12 + 12 + 4 + 4 + 1))
-    b_ms, b_by = bound(ops, nbytes)
-    ms = plain_ms = k2_ms = None
+    cell = shadowgrid.origin_cells(sg, o[live])
+    longest = int((sg.offsets[cell + 1] - sg.offsets[cell]).max()) if cell.numel() else 0
+    # a staging capacity below the longest list of the timed wavefronts: the
+    # rest of a list is read from device memory (at 0, every row is)
+    small = 16
+    _check(longest > small or not timed, f"{label}: the longest cell list ({longest} rows) "
+           f"fits the forced staging capacity of {small} rows")
+    counts, ended, err = {}, {}, 0
+    for filtered in (False, True) if tables is not None else (False,):
+        tab = tables if filtered else None
+        filt = traverse.make_alpha_hit_filter(tab) if filtered else None
+        what = f"{'filtered ' if filtered else ''}{label}"
+        k = shadowgrid.trace_shadow(sg, o, d, tmin, tmax, alpha_tables=tab, width=width)
+        for big_first in (False, True):
+            p, counts[filtered, big_first], ended[filtered, big_first] = (
+                shadowgrid.trace_shadow_plain(sg, o, d, tmin_a, tmax, hit_filter=filt,
+                                              visits=True, big_first=big_first, stages=True))
+            diff = int((k != p).sum())
+            err = max(err, diff)
+            _check(diff == 0, f"K3 hit masks differ from its plain version on {diff} {what} "
+                   f"rays (big_first={big_first})")
+        k2 = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=True, alpha_tables=tab).hit
+        k2_diff = int((k != k2).sum())
+        _check(k2_diff == 0, f"K3 hit masks differ from K2 any-hit on {k2_diff} {what} rays")
+        other = {form: int((shadowgrid.trace_shadow(sg, o, d, t0, tmax, alpha_tables=tab,
+                                                     width=w, stage_rows=rows) != k).sum())
+                 for form, t0, w, rows in (
+                     ("without the width", tmin, None, shadowgrid.STAGE_ROWS),
+                     ("an (R,) tmin", tmin_a, width, shadowgrid.STAGE_ROWS),
+                     (f"stage_rows {small}", tmin, width, small),
+                     ("stage_rows 0", tmin, width, 0))}
+        _check(not any(other.values()), f"K3's other launch forms differ on {what}: {other}")
+        print(f"K3 shadow_grid_trace, {what} rays: {n} ({int(live.sum())} live), hits "
+              f"{int(k.sum())}; mismatched hit flags against its plain version (both orders) "
+              f"0, against K2 any-hit {k2_diff}, in K3's other forms {other} (longest cell "
+              f"list of a live ray {longest} rows)")
+    bounds = {}
+    lists = torch.clamp(sg.offsets[cell + 1] - sg.offsets[cell], max=shadowgrid.MAX_STEPS).long()
+    for big_first, order in ((False, "the reference's order"), (True, "K3's order")):
+        tested, at = counts[False, big_first], ended[False, big_first]
+        per = tested[live].double()
+        ops = sum(int(c) * price for c, price in zip(at.tolist(), K3_OPS_STAGE))
+        # the bytes this order needs: tmax in and the flag out a ray, a live
+        # ray's origin and direction, its cell's two offsets, and each row the
+        # walks reach (a cell's longest walk, the big rows a walk reaches) once
+        cell_rows = (per.long() - sg.num_big).clamp(min=0) if big_first else torch.minimum(
+            per.long(), lists)
+        big_rows = (per.long() if big_first else per.long() - cell_rows).clamp(0, sg.num_big)
+        reach = torch.zeros(sg.grid * sg.grid, dtype=torch.int64, device=o.device)
+        reach.scatter_reduce_(0, cell, cell_rows, reduce="amax")
+        nbytes = (n * 5 + int(live.sum()) * 24 + int(torch.unique(cell).numel()) * 8
+                  + (int(reach.sum()) + int(big_rows.max()) if per.numel() else 0) * 48)
+        b_ms, b_by = bounds[big_first] = bound(ops, nbytes)
+        print(f"K3 {label} rays, {order}: tests a live ray mean "
+              f"{float(per.mean()) if per.numel() else 0.0:.2f}, p99 "
+              f"{float(torch.quantile(per, 0.99)) if per.numel() else 0.0:.0f}, max "
+              f"{int(per.max()) if per.numel() else 0}, total {int(tested.sum())}, ending at "
+              f"det / u / v / in full {at.tolist()}; lane share of 32 rays in pixel order "
+              f"{_pixel_lane_share(tested, live):.4f}; bound {b_ms:.4f} ms (set by {b_by}; "
+              f"{ops} operations, {nbytes} bytes; "
+              f"{bound(int(tested.sum()) * K2_OPS_TRI, nbytes)[0]:.4f} ms at {K2_OPS_TRI} a "
+              f"test)")
+    fn = shadowgrid.load_kernel()
+    out = torch.empty(n, dtype=torch.bool, device=o.device)
+    stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+    _check(fn(*shadowgrid.launch_args(sg, o, d, tmin, tmax, out, width=width, stats=stats)) == 0,
+           "the K3 launch with its lane counters failed")
+    busy, steps = stats.tolist()
+    print(f"K3 {label} rays: lane share of K3's queue {busy / max(steps, 1):.4f} ({busy} of "
+          f"{steps} lane-steps tested a row)")
+    line = dict(max_abs_err=float(err), ms=None, plain_ms=None,
+                **dict(zip(("bound_ms", "bound_by"), bounds[True])))
     if timed:
-        ms = _cuda_ms(lambda: shadowgrid.trace_shadow(sg, o, d, tmin_a, tmax), 20)
-        plain_ms = _cuda_ms(lambda: shadowgrid.trace_shadow_plain(sg, o, d, tmin_a, tmax), 1)
-        k2_ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=True), 20)
-    print(f"K3 shadow_grid_trace, {label} rays: {n} ({int(live.sum())} live), hits "
-          f"{int(k.sum())}; mismatched hit flags against its plain version {int(err)}, against "
-          f"K2 any-hit {k2_diff}; entries tested {total} (a live ray: mean "
-          f"{float(per.mean()) if per.numel() else 0.0:.2f}, p99 "
-          f"{float(torch.quantile(per, 0.99)) if per.numel() else 0.0:.0f}, max "
-          f"{int(per.max()) if per.numel() else 0})"
-          + (f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2 any-hit on the same rays "
-             f"{k2_ms:.4f} ms" if timed else "")
-          + f", bound {b_ms:.4f} ms (set by {b_by})"
-          + (f", share of the bound {b_ms / ms:.4f}" if timed else ""))
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+        args = shadowgrid.launch_args(sg, o, d, tmin, tmax, out, width=width)
+        line["ms"] = _cuda_ms(lambda: fn(*args), 20)
+        staged = {rows: _cuda_ms(lambda a=shadowgrid.launch_args(
+            sg, o, d, tmin, tmax, out, width=width, stage_rows=rows): fn(*a), 20)
+            for rows in (0, 512)}
+        wrapper_ms = _cuda_ms(lambda: shadowgrid.trace_shadow(sg, o, d, tmin, tmax, width=width),
+                              20)
+        k2_ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=True), 20)
+        # what the earlier wrapper added to every call: tmin as an (R,) copy
+        copy_ms = _cuda_ms(lambda: torch.as_tensor(tmin, dtype=torch.float32, device=o.device)
+                           .expand(n).contiguous(), 20)
+        line["plain_ms"] = _cuda_ms(lambda: shadowgrid.trace_shadow_plain(
+            sg, o, d, tmin_a, tmax, big_first=True), 1)
+        extra = ""
+        if tables is not None:
+            fargs = shadowgrid.launch_args(sg, o, d, tmin, tmax, out, alpha_tables=tables,
+                                           width=width)
+            k2f_ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=True,
+                                                     alpha_tables=tables), 20)
+            extra = (f", filtered kernel {_cuda_ms(lambda: fn(*fargs), 20):.4f} ms, filtered "
+                     f"K2 any-hit {k2f_ms:.4f} ms")
+        if other_k3 is not None:
+            pfn, pparams = other_k3
+            pout = torch.empty_like(out)
+            pargs = _bind(pparams, _c_params(build.CSRC_DIR / "shadow_grid.cu",
+                                             "shadow_grid_trace_launch"), args[:-4]
+                          + (pout.data_ptr(),) + args[-3:],
+                          {"tmin": tmin_a.data_ptr(), "tmax": tmax.data_ptr()})
+            _check(fn(*args) == 0 and pfn(*pargs) == 0 and torch.equal(pout, out),
+                   f"the other checkout's K3 differs on {label}")
+            print(_in_turns(f"K3 {label} rays, the other checkout's kernel alone against "
+                            f"this one's", lambda: pfn(*pargs), lambda: fn(*args), 20))
+        print(f"K3 {label} rays: kernel alone {line['ms']:.4f} ms (stage_rows "
+              f"{shadowgrid.STAGE_ROWS}; 0: {staged[0]:.4f} ms, 512: {staged[512]:.4f} ms), "
+              f"wrapper {wrapper_ms:.4f} ms (the earlier wrapper also copied tmin to an (R,) "
+              f"tensor: {copy_ms:.4f} ms), plain {line['plain_ms']:.4f} ms, K2 any-hit on the "
+              f"same rays {k2_ms:.4f} ms{extra}; share of K3's bound "
+              f"{line['bound_ms'] / line['ms']:.4f}")
+    return line
 
 
 def _stage_agreement(gr, cr, path):

@@ -117,3 +117,29 @@ def test_toy_scale_plain_on_cpu():
     assert build.toy_scale.launches == before
     with pytest.raises(ValueError):
         build.toy_scale(x.to(torch.float64).to("meta"))
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 5, 65_539])
+@pytest.mark.parametrize("view", ["fresh", "misaligned"])
+def test_toy_scale_lengths_and_views(n, view):
+    """toy_scale on the CPU equals x * 2 bit for bit at the kernel's edge
+    lengths (no float4, a scalar tail, an odd length) and on a contiguous
+    view whose data is not 16-byte aligned (x[1:])."""
+    base = torch.from_numpy(np.random.default_rng(n).standard_normal(n + 1, np.float32))
+    x = base[1:] if view == "misaligned" else base[:n].clone()
+    assert x.is_contiguous() and x.numel() == n
+    assert torch.equal(build.toy_scale(x), x * 2.0)
+
+
+@pytest.mark.parametrize("bad", ["float64", "non-contiguous", "another device"])
+def test_toy_scale_raises(bad):
+    """What the kernel does not take raises before either version runs: a
+    float64 or a non-contiguous CPU tensor (the checks the CUDA path makes
+    too), a float32 contiguous tensor on a device that is neither the CPU
+    nor CUDA."""
+    x = torch.zeros((8, 8))
+    x = {"float64": x.double(), "non-contiguous": x.t(), "another device": x.to("meta")}[bad]
+    before = build.toy_scale.launches
+    with pytest.raises(ValueError, match="contiguous float32 CPU or CUDA tensor"):
+        build.toy_scale(x)
+    assert build.toy_scale.launches == before

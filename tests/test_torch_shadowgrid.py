@@ -192,3 +192,154 @@ def test_shared_header_is_part_of_the_build_key(tmp_path, monkeypatch):
     with open(csrc / "alpha_filter.cuh", "a") as f:
         f.write("// edited\n")
     assert build.cuda_library_path("shadow_grid.cu") != first
+
+
+# ---- K3's order (the big tier first) on a hybrid frame's shadow rays ----------
+# The rays of the port's RT-shadows frame at 96x64 (the grid configuration,
+# frame 0) on cornell_box() and the small SponzaProxy of the port's hybrid
+# tests; the JAX grid is built from the frame's world triangles.  Masks are
+# compared exactly: both orders test the same rows.
+FRAME_SCENES = {
+    "cornell": jproc.cornell_box,
+    "sponza": lambda: jproc.sponza_proxy(columns=3, segments=6, extra_boxes=12, grid_res=8),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(FRAME_SCENES))
+def frame_case(request):
+    from vulkanhybridrenderer_tpu_torch.core.config import RenderConfig
+    from vulkanhybridrenderer_tpu_torch.models import hybrid as phybrid
+    from vulkanhybridrenderer_tpu_torch.ops import raygen
+    from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    js = FRAME_SCENES[request.param]()
+    ps = bridge.scene_from_numpy(js.name, dataclasses.asdict(js.buffers),
+                                 dataclasses.asdict(js.camera), dataclasses.asdict(js.light))
+    cfg = RenderConfig(width=96, height=64, alpha_raster="off", shadow_map_size=128,
+                       shadow_accel="grid")
+    r = Renderer(ps, cfg, device="cpu")
+    r.render_frame()
+    res = r.fetch_resources("pfd", "ShadowGrid", "WorldTris", "shade_tables", phybrid.DEPTH,
+                            phybrid.NORMALS)
+    rays = raygen.Wavefronts(res["pfd"], res[phybrid.DEPTH], res[phybrid.NORMALS], cfg.hybrid,
+                             ao_rays=cfg.ao_rays)
+    light = np.asarray(js.light.direction[:3], np.float32)
+    with jax.disable_jit():
+        jg = jsg.build_shadow_grid(jnp.asarray(res["WorldTris"].numpy()), jnp.asarray(light))
+    sg = res["ShadowGrid"]
+    np.testing.assert_array_equal(sg.offsets.numpy(), np.asarray(jg.offsets))
+    return dict(js=js, sg=sg, jg=jg, o=rays.origin, d=rays.shadow_dir, tmax=rays.shadow_tmax,
+                tables=res["shade_tables"], tmin=raygen.SHADOW_TMIN)
+
+
+@pytest.mark.parametrize("max_steps", [psg.MAX_STEPS, 2])
+def test_big_first_matches_reference(frame_case, max_steps):
+    """trace_shadow_plain in K3's order (big tier first) equals the JAX
+    trace_shadow and the reference-order plain version, also with cells cut
+    by a small max_steps.  Visit counts: a ray that misses tests
+    min(count, max_steps) + num_big rows in either order, a ray that hits no
+    more than that; the dead rays nothing.  The stages at which the tests
+    end add up to the tests, and every hit is a full test."""
+    c = frame_case
+    sg, o, d, tmax = c["sg"], c["o"], c["d"], c["tmax"]
+    n = o.shape[0]
+    tmin = torch.full((n,), c["tmin"])
+    ref, ref_n = psg.trace_shadow_plain(sg, o, d, tmin, tmax, max_steps, visits=True)
+    big, big_n = psg.trace_shadow_plain(sg, o, d, tmin, tmax, max_steps, visits=True,
+                                        big_first=True)
+    jref = jsg.trace_shadow(c["jg"], jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), c["tmin"],
+                            jnp.asarray(tmax.numpy()), max_steps=max_steps)
+    np.testing.assert_array_equal(big.numpy(), np.asarray(jref))
+    assert torch.equal(big, ref)
+    live = tmax >= tmin
+    assert 0 < int(live.sum()) < n and int(big.sum()) > 0
+    cell = psg.origin_cells(sg, o)
+    full = torch.clamp(sg.offsets[cell + 1] - sg.offsets[cell], max=max_steps).long() + sg.num_big
+    for counts, big_first in ((ref_n, False), (big_n, True)):
+        hit, tested, ended = psg.trace_shadow_plain(sg, o, d, tmin, tmax, max_steps,
+                                                    visits=True, big_first=big_first,
+                                                    stages=True)
+        assert torch.equal(hit, big) and torch.equal(tested, counts)
+        assert int(ended.sum()) == int(counts.sum()) and int(ended[3]) >= int(big.sum())
+        assert torch.equal(counts[live & ~big], full[live & ~big])
+        assert bool((counts[live & big] <= full[live & big]).all())
+        assert bool((counts[live & big] >= 1).all()) and not counts[~live].any()
+    if max_steps == 2:
+        assert bool((full[live] <= 2 + sg.num_big).all())
+
+
+@pytest.mark.parametrize("filtered", [False, True], ids=["unfiltered", "filtered"])
+@pytest.mark.parametrize("form", ["scalar", "tensor"])
+def test_orders_filter_and_tmin_forms(frame_case, filtered, form):
+    """The plain version in K3's order and the CPU wrapper (which runs it),
+    with and without the alpha filter, with Python-float or (R,) tmin /
+    tmax: the mask of the reference-order plain version with the same filter
+    and, for the filtered frame rays, the JAX trace with its alpha filter."""
+    c = frame_case
+    sg, o, d = c["sg"], c["o"], c["d"]
+    n = o.shape[0]
+    if form == "scalar":
+        tmin, tmax = c["tmin"], 1e4
+        tmin_a, tmax_a = torch.full((n,), c["tmin"]), torch.full((n,), 1e4)
+    else:
+        tmin = tmin_a = torch.full((n,), c["tmin"])
+        tmax = tmax_a = c["tmax"]
+    tables = c["tables"] if filtered else None
+    filt = ptrav.make_alpha_hit_filter(tables) if filtered else None
+    want = psg.trace_shadow_plain(sg, o, d, tmin_a, tmax_a, hit_filter=filt)
+    assert torch.equal(psg.trace_shadow_plain(sg, o, d, tmin_a, tmax_a, hit_filter=filt,
+                                              big_first=True), want)
+    assert torch.equal(psg.trace_shadow(sg, o, d, tmin, tmax, alpha_tables=tables, width=96),
+                       want)
+    if filtered:
+        jref = jsg.trace_shadow(c["jg"], jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                                c["tmin"], jnp.asarray(tmax_a.numpy()),
+                                hit_filter=jtrav.make_alpha_hit_filter(c["js"].buffers))
+        np.testing.assert_array_equal(want.numpy(), np.asarray(jref))
+    assert int(want.sum()) > 0
+
+
+# ---- the test at which K3's early-returning Moller-Trumbore ends ------------
+# One triangle spanning the whole grid window (so the big tier's one row,
+# which every ray tests) in the plane y = 0, v0 at the origin, e1 along x,
+# e2 along z; the light shines down, so the rays go up from y = -1 and a
+# ray's (u, v) is its origin's (x, z).  Stages: 0 det, 1 u, 2 v, 3 full.
+STAGE_RAYS = {
+    "det": ((0.2, -1.0, 0.2), (1.0, 0.0, 0.0), 1e4, 0, False),
+    "u above 1": ((2.0, -1.0, 0.1), (0.0, 1.0, 0.0), 1e4, 1, False),
+    "u below 0": ((-1.0, -1.0, 0.1), (0.0, 1.0, 0.0), 1e4, 1, False),
+    "v": ((0.5, -1.0, 0.7), (0.0, 1.0, 0.0), 1e4, 2, False),
+    "full, a hit": ((0.2, -1.0, 0.2), (0.0, 1.0, 0.0), 1e4, 3, True),
+    "full, t past tmax": ((0.2, -1.0, 0.2), (0.0, 1.0, 0.0), 0.5, 3, False),
+}
+
+
+@pytest.mark.parametrize("name", list(STAGE_RAYS))
+def test_rejection_stage(name):
+    """trace_shadow_plain(stages=True) counts each test at the stage where
+    K3's early return ends it, in either order; the mask equals the JAX
+    trace's and the CPU wrapper's."""
+    o, d, tmax, stage, want = STAGE_RAYS[name]
+    tri = np.array([[[0, 0, 0], [1, 0, 0], [0, 0, 1]]], np.float32)
+    light = np.array([0, -1, 0], np.float32)
+    with jax.disable_jit():
+        jg = jsg.build_shadow_grid(jnp.asarray(tri), jnp.asarray(light))
+    pg = psg.build_shadow_grid(_t(tri), _t(light))
+    assert pg.num_big == 1 and pg.num_entries == 0
+    o, d = torch.tensor([o]), torch.tensor([d])
+    tmin_a, tmax_a = torch.tensor([0.01]), torch.tensor([tmax])
+    for big_first in (False, True):
+        hit, tested, ended = psg.trace_shadow_plain(pg, o, d, tmin_a, tmax_a, visits=True,
+                                                    big_first=big_first, stages=True)
+        assert hit.tolist() == [want] and tested.tolist() == [1]
+        assert ended.tolist() == [int(k == stage) for k in range(4)]
+    assert psg.trace_shadow(pg, o, d, 0.01, tmax).tolist() == [want]
+    jref = jsg.trace_shadow(jg, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), 0.01, tmax)
+    assert np.asarray(jref).tolist() == [want]
+
+
+def test_negative_stage_rows_raises(case):
+    """K3's staging capacity cannot be negative, on any device."""
+    o = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="stage_rows"):
+        psg.trace_shadow(case["pg"], o, o, 0.01, 1e4, stage_rows=-1)

@@ -122,7 +122,7 @@ def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8 | None, pfd: PerFrameData
     if settings.shadow_mode == ShadowMode.RAYTRACED:
         if shadow_grid is not None:
             hit = shadowgrid.trace_shadow(shadow_grid, rays.origin, rays.shadow_dir,
-                                          SHADOW_TMIN, rays.shadow_tmax)
+                                          SHADOW_TMIN, rays.shadow_tmax, width=w)
         else:
             hit = traverse.trace(bvh, rays.origin, rays.shadow_dir, SHADOW_TMIN,
                                  rays.shadow_tmax, anyhit=True).hit

@@ -19,16 +19,22 @@ queries from that grid instead of the BVH8:
      scenes rebuild at the same resolution every frame.
   2. ``trace_shadow``: a ray looks up its origin's cell and runs
      Moller-Trumbore (no culling) over the cell's entries, at most
-     `max_steps` of them, then over the big rows, stopping at the first hit
+     `max_steps` of them, and over the big rows, stopping at the first hit
      with tmin <= t <= tmax that the alpha filter (``alpha_tables``)
      accepts.  The grid only culls and the dilation keeps the culling
      conservative, so the hit mask equals any-hit traversal of the BVH8.
 
 On CUDA tensors ``trace_shadow`` launches the hand-written kernel
 csrc/shadow_grid.cu (the reference runs an XLA while_loop over the entries,
-which as eager PyTorch would be a round of launches a step); on CPU tensors
-it runs ``trace_shadow_plain``, the same tests stepped in lockstep over the
-live rays, which can count the entries each ray tests.
+which as eager PyTorch would be a round of launches a step): a block takes
+a pixel tile, queues its live rays in shared memory and stages the heads of
+their cells' entry lists there (`stage_rows` rows a block); a lane walks a
+ray, the big tier before the cell's entries (the reference tests it after
+them, and both orders test the same rows), and takes the next queued ray
+as soon as its ray ends.  On CPU tensors it runs ``trace_shadow_plain``,
+the same tests stepped in lockstep over the live rays in either order,
+which can count the entries each ray tests and the test at which each
+ends: the counts that price K3's bound.
 
 The reference computes its light-frame projections with a multiply-add
 chain; the build repeats that rounding (``_dot3``), so cells and offsets
@@ -47,6 +53,7 @@ import torch
 
 from vulkanhybridrenderer_tpu_torch.ops import shadetab
 from vulkanhybridrenderer_tpu_torch.ops.traverse import make_alpha_hit_filter, moller_trumbore
+from vulkanhybridrenderer_tpu_torch.utils.build import current_stream, load_cuda_library
 from vulkanhybridrenderer_tpu_torch.utils.math3d import cross, normalize
 
 BIG_CAP = 128  # global big-tier capacity (huge occluders)
@@ -56,6 +63,7 @@ MED2_SPAN = 256  # medium tier 2; beyond it -> the global big list
 CONE_TAN = 3.163e-3
 MAX_STEPS = 4096  # cell entries a ray tests at most
 ROW_W = 12  # entry row: [v0.xyz v1.xyz v2.xyz tri_id 0 0]
+STAGE_ROWS = 128  # cell rows a K3 block stages in shared memory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,83 +231,135 @@ def origin_cells(sg: ShadowGrid, origin):
 
 
 def trace_shadow_plain(sg: ShadowGrid, origin, direction, tmin, tmax,
-                       max_steps: int = MAX_STEPS, hit_filter=None, visits: bool = False):
+                       max_steps: int = MAX_STEPS, hit_filter=None, visits: bool = False,
+                       big_first: bool = False, stages: bool = False):
     """Plain PyTorch K3: (R,) bool hit mask; with `visits` also (R,) int64
-    entries (cell and big rows) each ray tested.  Rays with tmax < tmin test
-    nothing and miss.  hit_filter(tri, u, v) -> accept is asked only about
-    geometric hits in [tmin, tmax]."""
+    entries (cell and big rows) each ray tested, and with `stages` too the
+    (4,) int64 tests that an early-returning Moller-Trumbore (K3's) ends at
+    det, at u, at v and in full (traverse.moller_trumbore's stage).  Rays
+    with tmax < tmin test nothing and miss.  hit_filter(tri, u, v) -> accept
+    is asked only about geometric hits in [tmin, tmax].  `big_first` walks
+    the big tier before the cell's entries (K3's order) instead of after
+    them (the reference's): the same rows either way, so the same mask, but
+    a ray that hits stops after other counts."""
     dev = origin.device
     r = origin.shape[0]
     hit = torch.zeros(r, dtype=torch.bool, device=dev)
     tested = torch.zeros(r, dtype=torch.int64, device=dev)
+    ended = torch.zeros(4, dtype=torch.int64, device=dev)
     ids = torch.nonzero(~(tmax < tmin)).squeeze(1)
     cell = origin_cells(sg, origin[ids])
-    start = sg.offsets[cell].long()
-    n_test = torch.clamp(sg.offsets[cell + 1].long() - start, max=max_steps)
+    first = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    count = torch.zeros(r, dtype=torch.int64, device=dev)
+    first[ids] = sg.offsets[cell].long()
+    count[ids] = torch.clamp(sg.offsets[cell + 1].long() - first[ids], max=max_steps)
 
     def test(rows, idx):
         """Hits of rays idx against one row each."""
         o, d = origin[idx], direction[idx]
         col = lambda k: rows[:, k]  # noqa: E731
-        t, u, v, ok = moller_trumbore((col(0), col(1), col(2)), (col(3), col(4), col(5)),
-                                      (col(6), col(7), col(8)), (o[:, 0], o[:, 1], o[:, 2]),
-                                      (d[:, 0], d[:, 1], d[:, 2]))
+        t, u, v, ok, at = moller_trumbore((col(0), col(1), col(2)), (col(3), col(4), col(5)),
+                                          (col(6), col(7), col(8)), (o[:, 0], o[:, 1], o[:, 2]),
+                                          (d[:, 0], d[:, 1], d[:, 2]), stage=True)
+        if stages:
+            ended.add_(torch.bincount(at, minlength=4))
         ok &= (rows[:, 9] >= 0) & (t >= tmin[idx]) & (t <= tmax[idx])
         if hit_filter is not None and bool(ok.any()):
             cand = torch.nonzero(ok).squeeze(1)
             ok[cand] = hit_filter(rows[cand, 9].to(torch.int32), u[cand], v[cand])
         return ok
 
-    k = 0
-    live = ids
-    while live.shape[0]:
-        sel = n_test > k
-        live, start, n_test = live[sel], start[sel], n_test[sel]
-        if not live.shape[0]:
-            break
-        tested[live] += 1
-        ok = test(sg.entries[start + k], live)
-        hit[live[ok]] = True
-        live, start, n_test = live[~ok], start[~ok], n_test[~ok]
-        k += 1
-    # the big tier, for the rays that found no hit in their cell
-    rest = ids[~hit[ids]]
-    for i in range(sg.num_big):
-        if not rest.shape[0]:
-            break
-        tested[rest] += 1
-        ok = test(sg.big[i].expand(rest.shape[0], ROW_W), rest)
-        hit[rest[ok]] = True
-        rest = rest[~ok]
-    return (hit, tested) if visits else hit
+    def cells(live):
+        """Each ray of `live` over its cell's entries, in lockstep."""
+        start, n_test = first[live], count[live]
+        k = 0
+        while live.shape[0]:
+            sel = n_test > k
+            live, start, n_test = live[sel], start[sel], n_test[sel]
+            if not live.shape[0]:
+                break
+            tested[live] += 1
+            ok = test(sg.entries[start + k], live)
+            hit[live[ok]] = True
+            live, start, n_test = live[~ok], start[~ok], n_test[~ok]
+            k += 1
+
+    def big(rest):
+        for i in range(sg.num_big):
+            if not rest.shape[0]:
+                break
+            tested[rest] += 1
+            ok = test(sg.big[i].expand(rest.shape[0], ROW_W), rest)
+            hit[rest[ok]] = True
+            rest = rest[~ok]
+
+    for walk in ((big, cells) if big_first else (cells, big)):
+        walk(ids[~hit[ids]])
+    if not visits:
+        return hit
+    return (hit, tested, ended) if stages else (hit, tested)
 
 
 @functools.cache
 def load_kernel():
     """Build K3 (on first use) and load it; returns its launch function."""
-    from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
-
     fn = load_cuda_library("shadow_grid.cu").shadow_grid_trace_launch
     fn.restype = ctypes.c_int
-    ptr, num = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr] * 3 + [num] * 2 + [ptr] * 5 + [num] * 2 + [ptr] * 2 + [num] * 2 + [ptr] * 2
+    ptr, num, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([ptr] * 3 + [num] * 2 + [ptr] * 3 + [ptr, flt, ptr, flt] + [num] * 4
+                   + [ptr] * 2 + [num] * 2 + [ptr] * 2 + [num, ptr])
     return fn
 
 
+def launch_args(sg: ShadowGrid, origin, direction, tmin, tmax, out,
+                max_steps: int = MAX_STEPS, alpha_tables: shadetab.ShadeTables | None = None,
+                width: int | None = None, stage_rows: int = STAGE_ROWS, stats=None):
+    """The arguments of one K3 launch (load_kernel()(*args)) writing the
+    (R,) bool `out`, on tensors trace_shadow has checked.  A Python float
+    tmin / tmax goes by value, a tensor by pointer.  `stats`: None, or a
+    (2,) int64 CUDA tensor the kernel adds its lane-steps that tested a row
+    and all its lane-steps to."""
+    def scalar(t):
+        return (t.data_ptr(), 0.0) if torch.is_tensor(t) else (None, float(t))
+
+    if alpha_tables is None:
+        tables = (None, None, 0, 0)
+    else:
+        tables = (alpha_tables.tri_static.data_ptr(), alpha_tables.atlas_q.data_ptr(),
+                  alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
+    dev = origin.device
+    return (sg.entries.data_ptr(), sg.offsets.data_ptr(), sg.big.data_ptr(), sg.num_big,
+            sg.grid, sg.frame.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            *scalar(tmin), *scalar(tmax), origin.shape[0], width or 0, max_steps, stage_rows,
+            *tables, out.data_ptr(), None if stats is None else stats.data_ptr(), dev.index,
+            current_stream(dev.index))
+
+
 def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, max_steps: int = MAX_STEPS,
-                 alpha_tables: shadetab.ShadeTables | None = None):
+                 alpha_tables: shadetab.ShadeTables | None = None, width: int | None = None,
+                 stage_rows: int = STAGE_ROWS):
     """Any-hit occlusion of near-parallel rays through the grid: (R,) bool.
-    origin / direction (R, 3) float32; tmin / tmax scalars or (R,).
-    alpha_tables: the scene's shade tables, for the alpha any-hit filter
-    (None: every geometric hit counts)."""
+    origin / direction (R, 3) float32; tmin / tmax Python floats (passed to
+    K3 by value) or (R,) float32 tensors.  alpha_tables: the scene's shade
+    tables, for the alpha any-hit filter (None: every geometric hit counts).
+    width: the rays are an image's pixels, row-major, `width` a row, and a
+    K3 block takes a pixel tile of them, as the render path passes them
+    (raygen); None, for callers of the reference's API that hold no image,
+    a block takes consecutive rays.  stage_rows: the cell rows a K3 block
+    stages in shared memory; the rest of a list is read from device
+    memory.  The mask is the same for every width and stage_rows."""
     dev = origin.device
     r = origin.shape[0]
-    tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r).contiguous()
-    tmax_a = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r).contiguous()
+    if stage_rows < 0:
+        raise ValueError(f"trace_shadow: stage_rows must be >= 0, got {stage_rows}")
     if dev.type == "cpu":
+        def full(t):
+            return torch.as_tensor(t, dtype=torch.float32).expand(r)
+
         return trace_shadow_plain(
-            sg, origin, direction, tmin_a, tmax_a, max_steps,
-            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
+            sg, origin, direction, full(tmin), full(tmax), max_steps,
+            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables),
+            big_first=True)
     if dev.type != "cuda":
         raise ValueError(f"trace_shadow: unsupported device {dev}")
     checks = [("entries", sg.entries, (sg.num_entries, ROW_W), torch.float32),
@@ -308,6 +368,8 @@ def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, max_steps: int =
               ("frame", sg.frame, (10,), torch.float32),
               ("origin", origin, (r, 3), torch.float32),
               ("direction", direction, (r, 3), torch.float32)]
+    checks += [(name, t, (r,), torch.float32) for name, t in (("tmin", tmin), ("tmax", tmax))
+               if torch.is_tensor(t)]
     if alpha_tables is not None:
         ts, aq = alpha_tables.tri_static, alpha_tables.atlas_q
         checks += [("tri_static", ts, (ts.shape[0], shadetab._N_STATIC), torch.float32),
@@ -318,18 +380,9 @@ def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, max_steps: int =
             raise ValueError(
                 f"trace_shadow: {name} must be a contiguous {dtype} {shape} tensor on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if alpha_tables is None:
-        tables = (None, None, 0, 0)
-    else:
-        tables = (alpha_tables.tri_static.data_ptr(), alpha_tables.atlas_q.data_ptr(),
-                  alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
     out = torch.empty(r, dtype=torch.bool, device=dev)
-    fn = load_kernel()
-    with torch.cuda.device(dev):
-        err = fn(sg.entries.data_ptr(), sg.offsets.data_ptr(), sg.big.data_ptr(), sg.num_big,
-                 sg.grid, sg.frame.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-                 tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, *tables, out.data_ptr(),
-                 torch.cuda.current_stream(dev).cuda_stream)
+    err = load_kernel()(*launch_args(sg, origin, direction, tmin, tmax, out, max_steps,
+                                     alpha_tables, width, stage_rows))
     if err != 0:
         raise RuntimeError(f"shadow_grid kernel launch failed: CUDA error {err}")
     trace_shadow.launches += 1

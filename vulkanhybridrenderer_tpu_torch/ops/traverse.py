@@ -81,12 +81,14 @@ def _first_slot(mask, oct_):
     return slot, mask & ~(1 << slot)
 
 
-def moller_trumbore(v0, v1, v2, o, d):
+def moller_trumbore(v0, v1, v2, o, d, stage: bool = False):
     """Moller-Trumbore without culling (the reference's moller_trumbore,
     traverse.py:679), each product rounded, in the operation order of K2's
     and K3's kernels.  v0, v1, v2 (the triangle), o and d (the ray) are
     (x, y, z) triples of broadcastable tensors; returns (t, u, v, ok), ok
-    the geometric hit before any t test."""
+    the geometric hit before any t test.  With `stage` also the int64 test
+    at which an early-returning walk (K3's) rejects the pair: 0 at det, 1 at
+    u, 2 at v, 3 past them all (a full test)."""
     (v0x, v0y, v0z), (ox, oy, oz), (dx, dy, dz) = v0, o, d
     e1x, e1y, e1z = v1[0] - v0x, v1[1] - v0y, v1[2] - v0z
     e2x, e2y, e2z = v2[0] - v0x, v2[1] - v0y, v2[2] - v0z
@@ -103,7 +105,12 @@ def moller_trumbore(v0, v1, v2, o, d):
     qz = tvx * e1y - tvy * e1x
     v = (dx * qx + dy * qy + dz * qz) * invdet
     t = (e2x * qx + e2y * qy + e2z * qz) * invdet
-    return t, u, v, okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    ok = okd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    if not stage:
+        return t, u, v, ok
+    ok_u = (u >= 0.0) & (u <= 1.0)
+    at = torch.where(~okd, 0, torch.where(~ok_u, 1, torch.where(ok, 3, 2)))
+    return t, u, v, ok, at
 
 
 def make_alpha_hit_filter(tables: shadetab.ShadeTables):

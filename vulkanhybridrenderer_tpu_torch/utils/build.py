@@ -110,26 +110,38 @@ def build_log(source: str) -> str:
     return logs[-1].read_text() if logs else ""
 
 
+def current_stream(index: int) -> int:
+    """The raw handle of CUDA device `index`'s current PyTorch stream, read
+    without building a torch.cuda.Stream object."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 @functools.cache
 def load_toy_kernel():
     fn = load_cuda_library("toy_scale.cu").toy_scale_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
     return fn
 
 
 def toy_scale(x):
     """o = x * 2 (float32): csrc/toy_scale.cu on a CUDA tensor, its plain
-    version on a CPU tensor."""
-    if x.device.type == "cpu":
+    version on a CPU tensor; both take what the kernel takes, and anything
+    else raises.  The launch path is kept short: the checks, one output, one
+    read of the stream, and the device switch inside the launch function
+    (csrc/device_guard.cuh), a no-op when x's card is current."""
+    if (x.dtype != torch.float32 or not x.is_contiguous()
+            or not (x.is_cuda or x.device.type == "cpu")):
+        raise ValueError(f"toy_scale: a contiguous float32 CPU or CUDA tensor, got "
+                         f"{'a contiguous' if x.is_contiguous() else 'a non-contiguous'} "
+                         f"{x.dtype} tensor on {x.device}")
+    if not x.is_cuda:
         return x * 2.0
-    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"toy_scale: a contiguous float32 CUDA tensor, got {x.dtype} "
-                         f"on {x.device}")
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = load_toy_kernel()(x.data_ptr(), out.data_ptr(), x.numel(),
-                                torch.cuda.current_stream(x.device).cuda_stream)
+    index = x.get_device()
+    err = load_toy_kernel()(x.data_ptr(), out.data_ptr(), x.numel(), index,
+                            current_stream(index))
     if err != 0:
         raise RuntimeError(f"toy_scale kernel launch failed: CUDA error {err}")
     toy_scale.launches += 1
