@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
-    python3 chip_smoke.py --parent DIR # and K3 and the toy against DIR's (another
+    python3 chip_smoke.py --parent DIR # and K3, K4 and the toy against DIR's (another
                                        # checkout's) kernels, in turns
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
@@ -15,7 +15,8 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 grid's trace: a block's live rays queued in shared memory,
                 its cells' lists staged there, the big tier first),
                 csrc/bvh_flat_trace.cu (K4,
-                the threaded walk of a binary LBVH, a thread a ray),
+                the threaded walk of a binary BVH, a thread a ray, a wait at
+                a leaf of at most six internal steps),
                 csrc/toy_scale.cu and csrc/gather_probe.cu for sm_90a and g++
                 the host BVH build (native/*.cpp), all at once; ptxas
                 registers / spills per kernel.  The toy library is asked for
@@ -85,15 +86,22 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 time by CUDA events, its true depth (<= 64, the build's
                 sweeps), the native host LBVH's time, order / left / right /
                 escape equal to the native tree's and boxes within 1e-6,
-                validate_host; K4 on the shadow, AO and reflection
-                wavefronts against trace_flat_plain (t, tri, u and v equal
-                on every ray), its time, the plain version's, K2's on the
-                same rays, the bound (26 operations a visited internal
-                node, 59 a tested triangle) and nodes / triangles a live ray
-                (mean, p99); K4 against K2 on the SAH BVH8, the oracle (hit
-                flags; closest hits t within 1e-4 and the same triangle
-                unless the two t are equal) on >= 99.99% of live rays, every
-                disagreement printed; the LBVH refit for a rigid move against
+                validate_host; pack_flat's tables (once per tree); K4 on the
+                shadow, AO and reflection wavefronts against
+                trace_flat_plain (t, tri, u and v equal on every ray),
+                unfiltered and filtered, its time (wrapper, kernel alone,
+                filtered), the plain version's, K2's on the same rays, the
+                bound (26 operations a visited internal node, 59 a tested
+                triangle), nodes / triangles a live ray (mean, p99), the
+                lane share of 32 rays in pixel order and the kernel's own
+                count; with --parent, DIR's K4 in turns with this one; K4
+                against K2
+                on the SAH BVH8, the oracle (hit flags; closest hits t
+                within 1e-4 and the same triangle unless the two t are
+                equal) on >= 99.99% of live rays, every disagreement
+                printed; K4 over the SAH binary tree against its plain
+                version and K2, timed in turns with K2; the LBVH refit for a
+                rigid move against
                 a fresh build (K4's hit masks equal); and K2 over the
                 LBVH's BVH8 (main path 12's tree) against its plain version
                 with its rows a live ray; K1a at the shadow map's shape (4096^2, every
@@ -196,7 +204,7 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   closest-hit, its ms/frame beside path 8's, K2's rows a
                   live ray on the two trees, a 3-frame profile (device
                   ms/frame, busy share); then K4's path: the frame's three
-                  wavefronts through trace(LBVH, tri_verts=WorldTris) with
+                  wavefronts through trace(pack_flat(LBVH, WorldTris)) with
                   the counters set to 0 just before, hit flags against K2
                   over the LBVH's BVH8
   6b. surface - realglb's full frame at 320x180: list_resources is the set
@@ -378,10 +386,14 @@ def _bind(params, own_params, own_args, extra=None) -> list:
     return out
 
 
-def _in_turns(label: str, other, mine, iters: int) -> str:
+def _turns(other, mine, iters: int) -> list[float]:
     """Milliseconds of two launches (functions of no argument) timed in
     turns: other, mine, mine, other."""
-    t = [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
+    return [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
+
+
+def _in_turns(label: str, other, mine, iters: int) -> str:
+    t = _turns(other, mine, iters)
     return f"{label} in turns (other, this, this, other): {t[0]:.4f} / {t[3]:.4f} ms against " \
            f"{t[1]:.4f} / {t[2]:.4f} ms"
 
@@ -445,10 +457,11 @@ def main() -> int:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     compiles = build.build_library.compiles
-    other_k3 = other_toy = None
+    other_k3 = other_toy = other_k4 = None
     if other_csrc is not None:
         other_k3 = _other_launch(other_csrc, "shadow_grid.cu", "shadow_grid_trace_launch")
         other_toy = _other_launch(other_csrc, "toy_scale.cu", "toy_scale_launch")
+        other_k4 = _other_launch(other_csrc, "bvh_flat_trace.cu", "bvh_flat_trace_launch")
         compiles = build.build_library.compiles
     for line in (_ptxas_report(build_log("raster_tile.cu"),
                                {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c",
@@ -458,10 +471,10 @@ def main() -> int:
                                  {"ILb0ELb0E": "K2 closest-hit", "ILb1ELb0E": "K2 any-hit",
                                   "ILb0ELb1E": "K2 filtered closest-hit",
                                   "ILb1ELb1E": "K2 filtered any-hit"})
-                 + _ptxas_report(build_log("bvh_flat_trace.cu"),
-                                 {"ILb0ELb0E": "K4 closest-hit", "ILb1ELb0E": "K4 any-hit",
-                                  "ILb0ELb1E": "K4 filtered closest-hit",
-                                  "ILb1ELb1E": "K4 filtered any-hit"})
+                 + _ptxas_report(build_log("bvh_flat_trace.cu"), {
+                     f"ILb{a}ELb{f}ELb{c}E": f"K4 {'filtered ' * f}"
+                     f"{'any-hit' if a else 'closest-hit'}{', counted' * c}"
+                     for c in (0, 1) for f in (0, 1) for a in (0, 1)})
                  + _ptxas_report(build_log("shadow_grid.cu"),
                                  {"trace_kernelILb0E": "K3", "trace_kernelILb1E": "K3 filtered"})
                  + _ptxas_report(build_log("toy_scale.cu"), {"toy_scale": "toy"})
@@ -528,7 +541,7 @@ def main() -> int:
               f"alone's {row['bound_ms'] / alone:.4f})")
         if side == 256:
             kernels_toy = row
-            # the launch path the other wrappers (K1, K2, K4, the probes) take
+            # the launch path the other wrappers (K1, K2, the probes) take
             # on every call: a Stream object for the stream's handle, inside
             # torch.cuda.device; the toy's: the raw handle, no switch
             def via_stream():
@@ -890,7 +903,7 @@ def main() -> int:
     # against its plain version on every ray, against K2 on the SAH BVH8 (the
     # oracle), the refit; then K2 over the LBVH's BVH8 (main path 12's tree)
     lbvh, k4_entries = _lbvh_oracle(res["WorldTris"], res["BVH"], hybrid_wavefronts(rays, 2),
-                                    bound)
+                                    bound, res["shade_tables"], other_k4)
     kernels.update(k4_entries)
     lbvh8 = bvh8_ops.collapse_host(lbvh, res["WorldTris"].cpu().numpy()).to(dev)
     print(f"realglb: the device LBVH's BVH8 {lbvh8.num_rows} rows, depth bound {lbvh8.depth}; "
@@ -1415,19 +1428,20 @@ def main() -> int:
     rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS], full,
                              ao_rays=full_cfg.ao_rays)
     waves = hybrid_wavefronts(rays, full_cfg.ao_rays)
+    lbvh_tables = traverse.pack_flat(lbvh, world_tris)  # once per tree
     traverse.trace_flat.launches.clear()
-    flat = {w: traverse.trace(lbvh, o, d, raygen.SHADOW_TMIN, tmax, anyhit=ah,
-                              tri_verts=world_tris) for w, (o, d, tmax, ah) in waves.items()}
+    flat = {w: traverse.trace(lbvh_tables, o, d, raygen.SHADOW_TMIN, tmax, anyhit=ah)
+            for w, (o, d, tmax, ah) in waves.items()}
     torch.cuda.synchronize()
     k4_launches = dict(traverse.trace_flat.launches)
     same_tree = {w: int((flat[w].hit != traverse.trace(r._bvh, o, d, raygen.SHADOW_TMIN, tmax,
                                                        anyhit=ah).hit).sum())
                  for w, (o, d, tmax, ah) in waves.items()}
-    print(f"K4 path: path 12's frame's wavefronts through trace(LBVH, tri_verts=...): launches "
+    print(f"K4 path: path 12's frame's wavefronts through trace(pack_flat(LBVH, ...)): launches "
           f"{k4_launches}; hit flags differing from K2 over the LBVH's BVH8 {same_tree}")
     _check(k4_launches.get("any-hit", 0) >= 2 and k4_launches.get("closest-hit", 0) >= 1,
            f"K4's path launched it {k4_launches}")
-    del r, res, rays, waves, flat, lbvh, world_tris, lbvh8
+    del r, res, rays, waves, flat, lbvh, lbvh_tables, world_tris, lbvh8
     print(f"card: {smi}")
     _phase("main", t0)
 
@@ -1587,22 +1601,31 @@ def _lbvh8(r):
     return lbvh, tris, bvh8_ops.collapse_host(lbvh, tris.cpu().numpy()).to(r.device)
 
 
-def _lbvh_oracle(tris, sah, wavefronts, bound):
+def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
     """The device LBVH and K4 on one frame (`tris` its world triangles on
     the card, `sah` its SAH BVH8, `wavefronts` name -> (origin, dir, tmax,
-    any-hit)): the build's time by CUDA events, its true depth, the native
-    host LBVH's time and equality, validate_host; per wavefront K4 against
-    trace_flat_plain (t, tri, u, v equal on every ray), its time, the plain
-    version's and K2's on the same rays, the bound (K2_OPS_BOX a visited
-    internal node, K2_OPS_TRI a tested triangle; or the node rows, triangles,
-    order and rays' bytes), nodes and triangles a live ray; K4 against K2 on
-    the SAH BVH8 (the oracle: hit flags, and for closest hits t within 1e-4
-    and the same triangle unless the two t are equal) on >= 99.99% of live
-    rays; the refit for a rigid move against a fresh build of the moved
-    triangles (K4's hit masks equal).  Returns (the LBVH, the JSON line's
-    K4 entries: AO any-hit and reflection closest-hit)."""
+    any-hit), `tables` its shade tables): the build's time by CUDA events,
+    its true depth, the native host LBVH's time and equality, validate_host;
+    pack_flat's time (once per tree).  Per wavefront, K4 over the LBVH's
+    tables against trace_flat_plain (t, tri, u, v equal on every ray),
+    unfiltered and filtered; the wrapper's time, the kernel alone's (the C
+    launch on prepared arguments), the plain version's and K2's on the same
+    rays; the bound (K2_OPS_BOX a visited internal node, K2_OPS_TRI a tested
+    triangle; or the tables' and rays' bytes); nodes and triangles a live
+    ray; the lane share of 32 rays in pixel order (the parent's thread-a-ray
+    schedule) and the kernel's own count (its stats); `other_k4` (another checkout's K4, _other_launch, given pack_nodes' rows,
+    pack_tris' and the order) checked equal and timed in turns.  K4 against
+    K2 on the SAH BVH8 (the oracle: hit flags, and for closest hits t within
+    1e-4 and the same triangle unless the two t are equal) on >= 99.99% of
+    live rays.  K4 over the SAH binary tree (native_bridge.build_sah_host,
+    leaves of one) against its plain version and K2, timed in turns with K2
+    on the SAH BVH8 collapsed from it.  The refit for a rigid move against a
+    fresh build of the moved triangles (K4's hit masks equal).  Returns (the
+    LBVH, the JSON line's K4 entries: AO any-hit and reflection
+    closest-hit)."""
     from vulkanhybridrenderer_tpu_torch import native_bridge
     from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, raygen, traverse
+    from vulkanhybridrenderer_tpu_torch.utils import build
 
     dev = tris.device
     build_ms = _cuda_ms(lambda: bvh_ops.build(tris), 3)
@@ -1627,58 +1650,153 @@ def _lbvh_oracle(tris, sah, wavefronts, bound):
            f"the device LBVH differs from the native one: {same}, boxes {box}")
     _check(depth <= 64, f"realglb's LBVH is {depth} deep: the build's 64 sweeps leave it stale")
 
-    nodes, tris9 = traverse.pack_nodes(lbvh), traverse.pack_tris(tris)
-    steps = traverse.default_flat_max_steps(nodes)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    flat = traverse.pack_flat(lbvh, tris)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t
+    sah_bin = native_bridge.build_sah_host(tris.cpu().numpy()).to(dev)
+    flat_sah = traverse.pack_flat(sah_bin, tris)
+    # the parent's inputs: pack_nodes' rows in build order, pack_tris', the order
+    nodes_p, tris9 = traverse.pack_nodes(lbvh), traverse.pack_tris(tris)
+    steps = traverse.default_flat_max_steps(flat)
+    _check(steps == traverse.default_flat_max_steps(flat_sah), "the trees' step caps differ")
+    print(f"pack_flat (once per tree): {pack_s * 1e3:.3f} ms host wall time (internal node "
+          f"rows {flat.nodes.numel() * 4} bytes, leaf slots "
+          f"{flat.leaf_tris.numel() * 4} bytes); the SAH binary tree (native/sah.cpp): "
+          f"{sah_bin.left.shape[0]} nodes, leaves of {sah_bin.leaf_size}")
+    fn = traverse.load_flat_kernel()
+    own_params = _c_params(build.CSRC_DIR / "bvh_flat_trace.cu", "bvh_flat_trace_launch")
+    filt = traverse.make_alpha_hit_filter(tables)
     entries = {}
 
     def stat(x):
         return (f"mean {float(x.mean()) if x.numel() else 0.0:.2f}, p99 "
                 f"{float(torch.quantile(x, 0.99)) if x.numel() else 0.0:.0f}")
 
-    for name, (o, d, tmax, anyhit) in wavefronts.items():
-        n = o.shape[0]
-        mode = "any-hit" if anyhit else "closest-hit"
-        tmin = torch.full((n,), raygen.SHADOW_TMIN, device=dev)
-        args = (nodes, tris9, lbvh.order, lbvh.leaf_size, lbvh.root, o, d, tmin, tmax)
-        k = traverse.trace_flat(*args, anyhit=anyhit)
-        p, vis = traverse.trace_flat_plain(*args, anyhit, steps, visits=True)
-        diff = {f: int((getattr(k, f) != getattr(p, f)).sum()) for f in ("t", "tri", "u", "v")}
-        err = max(_max_abs(k.t - p.t), _max_abs(k.u - p.u), _max_abs(k.v - p.v),
-                  float(diff["tri"]))
-        _check(not any(diff.values()),
-               f"K4 {mode} differs from its plain version on the {name} rays: {diff}")
-        ms = _cuda_ms(lambda: traverse.trace_flat(*args, anyhit=anyhit), 10)
-        plain_ms = _cuda_ms(lambda: traverse.trace_flat_plain(*args, anyhit, steps), 1)
-        k2_ms = _cuda_ms(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit), 10)
-        internal, tested = int(vis.internal.sum()), int(vis.triangles.sum())
-        ops = internal * K2_OPS_BOX + tested * K2_OPS_TRI
-        # bytes: the node rows, triangles and order once, the rays in, the hits out
-        nbytes = (nodes.numel() + tris9.numel() + lbvh.order.numel()) * 4 + n * (32 + 16)
-        b_ms, b_by = bound(ops, nbytes)
-        live = tmax >= tmin
-        walk = (vis.internal + vis.leaf)[live].double()
-        per_tri = vis.triangles[live].double()
-        # the oracle: K2 over the SAH BVH8 on the same rays
-        k2 = traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit)
+    def empty_hits(n):
+        return traverse.HitRecord(
+            t=torch.empty(n, device=dev), tri=torch.empty(n, dtype=torch.int32, device=dev),
+            u=torch.empty(n, device=dev), v=torch.empty(n, device=dev))
+
+    def differ(a, b):
+        return {f: int((getattr(a, f) != getattr(b, f)).sum()) for f in ("t", "tri", "u", "v")}
+
+    def oracle(k, k2, live, anyhit):
         if anyhit:
             agree = k.hit == k2.hit
         else:
             agree = ((k.hit == k2.hit) & ((k.t - k2.t).abs() <= 1e-4)
                      & ((k.tri == k2.tri) | (k.t == k2.t)))
         bad = torch.nonzero(live & ~agree).squeeze(1)
-        share = 1.0 - bad.numel() / max(int(live.sum()), 1)
+        return 1.0 - bad.numel() / max(int(live.sum()), 1), bad
+
+    def turns_line(label, t):
+        other, mine = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        return (f"{label} in turns (other, this, this, other): {t[0]:.4f} / {t[3]:.4f} ms "
+                f"against {t[1]:.4f} / {t[2]:.4f} ms: this one {other / mine:.4f}x as fast")
+
+    for name, (o, d, tmax, anyhit) in wavefronts.items():
+        n = o.shape[0]
+        mode = "any-hit" if anyhit else "closest-hit"
+        tmin = torch.full((n,), raygen.SHADOW_TMIN, device=dev)
+        live = tmax >= tmin
+        k = traverse.trace_flat(flat, o, d, tmin, tmax, anyhit=anyhit)
+        p, vis = traverse.trace_flat_plain(flat, o, d, tmin, tmax, anyhit, steps, visits=True)
+        diff = differ(k, p)
+        err = max(_max_abs(k.t - p.t), _max_abs(k.u - p.u), _max_abs(k.v - p.v),
+                  float(diff["tri"]))
+        _check(not any(diff.values()),
+               f"K4 {mode} differs from its plain version on the {name} rays: {diff}")
+        kf = traverse.trace_flat(flat, o, d, tmin, tmax, anyhit=anyhit, alpha_tables=tables)
+        pf = traverse.trace_flat_plain(flat, o, d, tmin, tmax, anyhit, steps, filt)
+        fdiff = differ(kf, pf)
+        _check(not any(fdiff.values()),
+               f"the filtered K4 {mode} differs from its plain version on the {name} rays: {fdiff}")
+        out = empty_hits(n)
+        args = traverse.flat_launch_args(flat, o, d, tmin, tmax, anyhit, steps, None, out)
+        ms = _cuda_ms(lambda: traverse.trace_flat(flat, o, d, tmin, tmax, anyhit=anyhit), 20)
+        alone_ms = _cuda_ms(lambda: fn(*args), 20)
+        filtered_ms = _cuda_ms(lambda: traverse.trace_flat(flat, o, d, tmin, tmax, anyhit=anyhit,
+                                                           alpha_tables=tables), 20)
+        plain_ms = _cuda_ms(lambda: traverse.trace_flat_plain(flat, o, d, tmin, tmax, anyhit,
+                                                              steps), 1)
+        k2_ms = _cuda_ms(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit), 20)
+        internal, tested = int(vis.internal.sum()), int(vis.triangles.sum())
+        ops = internal * K2_OPS_BOX + tested * K2_OPS_TRI
+        # bytes: the node rows and leaf slots once, the rays in (origin,
+        # direction, tmin, tmax), the hits out
+        nbytes = (flat.nodes.numel() + flat.leaf_tris.numel()) * 4 + n * (32 + 16)
+        b_ms, b_by = bound(ops, nbytes)
+        walk = (vis.internal + vis.leaf)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        _check(fn(*traverse.flat_launch_args(flat, o, d, tmin, tmax, anyhit, steps, None,
+                                             empty_hits(n), stats)) == 0,
+               "the K4 launch with its lane counters failed")
+        busy, total = stats.tolist()
         print(f"K4 {mode} bvh_flat_trace, realglb {name} rays: {n} ({int(live.sum())} live), "
-              f"hits {int(k.hit.sum())}, rays whose t / tri / u / v differ from its plain version "
-              f"{' / '.join(map(str, diff.values()))}; nodes a live ray {stat(walk)}, triangles "
-              f"{stat(per_tri)}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K2 on the SAH BVH8 "
-              f"{k2_ms:.4f} ms, bound {b_ms:.4f} ms (set by {b_by}; operations "
-              f"{bound(ops, 0)[0]:.4f} ms, bytes "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of the bound {b_ms / ms:.4f}")
+              f"hits {int(k.hit.sum())} ({int(kf.hit.sum())} filtered), rays whose t / tri / u / v "
+              f"differ from its plain version {' / '.join(map(str, diff.values()))}, filtered "
+              f"{' / '.join(map(str, fdiff.values()))}, filtered against unfiltered "
+              f"{int((kf.tri != k.tri).sum())}; nodes a live ray "
+              f"{stat(walk[live].double())}, triangles {stat(vis.triangles[live].double())}; "
+              f"wrapper {ms:.4f} ms, kernel alone {alone_ms:.4f} ms, filtered {filtered_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, K2 on the SAH BVH8 {k2_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms (set by {b_by}; operations {bound(ops, 0)[0]:.4f} ms, bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), share of the bound {b_ms / ms:.4f} "
+              f"(kernel alone {b_ms / alone_ms:.4f})")
+        print(f"K4 realglb {name} rays: lane share of 32 rays in pixel order (the parent's "
+              f"schedule) {_pixel_lane_share(walk, live):.4f}; the kernel's own count "
+              f"{busy / max(total, 1):.4f} ({busy} of {total} lane-steps busy)")
+
+        if other_k4 is not None:
+            pfn, pparams = other_k4
+            pout = empty_hits(n)
+            pargs = _bind(pparams, own_params, traverse.flat_launch_args(
+                traverse.FlatTables(nodes_p, flat.leaf_tris, lbvh.leaf_size, lbvh.root), o, d,
+                tmin, tmax, anyhit, steps, None, pout),
+                {"tris9": tris9.data_ptr(), "order": lbvh.order.data_ptr()})
+            _check(pfn(*pargs) == 0 and not any(differ(pout, k).values()),
+                   f"the other checkout's K4 differs on the {name} rays")
+            print(turns_line(f"K4 realglb {name} rays, the other checkout's kernel alone "
+                             f"against this one's", _turns(lambda: pfn(*pargs),
+                                                           lambda: fn(*args), 20)))
+
+        # the oracle: K2 over the SAH BVH8 on the same rays
+        k2 = traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit)
+        share, bad = oracle(k, k2, live, anyhit)
         print(f"oracle, K4 on the LBVH against K2 on the SAH BVH8, realglb {name} rays: agree on "
               f"{share:.6f} of live rays (limit 0.9999), {bad.numel()} disagree"
               + "".join(f"; ray {int(i)}: K4 t {float(k.t[i]):.6g} tri {int(k.tri[i])}, K2 t "
                         f"{float(k2.t[i]):.6g} tri {int(k2.tri[i])}" for i in bad[:8]))
         _check(share >= 0.9999, f"K4 and K2 agree on {share} of the live {name} rays")
+
+        # K4 over the SAH binary tree, in turns with K2 over its BVH8
+        ks = traverse.trace_flat(flat_sah, o, d, tmin, tmax, anyhit=anyhit)
+        ps, vis_s = traverse.trace_flat_plain(flat_sah, o, d, tmin, tmax, anyhit, steps,
+                                              visits=True)
+        sdiff = differ(ks, ps)
+        _check(not any(sdiff.values()),
+               f"K4 {mode} over the SAH binary tree differs from its plain version on the "
+               f"{name} rays: {sdiff}")
+        s_share, s_bad = oracle(ks, k2, live, anyhit)
+        _check(s_share >= 0.9999, f"K4 on the SAH binary tree and K2 agree on {s_share} of "
+               f"the live {name} rays")
+        sargs = traverse.flat_launch_args(flat_sah, o, d, tmin, tmax, anyhit, steps, None,
+                                          empty_hits(n))
+        s_ops = int(vis_s.internal.sum()) * K2_OPS_BOX + int(vis_s.triangles.sum()) * K2_OPS_TRI
+        s_bound = bound(s_ops, (flat_sah.nodes.numel() + flat_sah.leaf_tris.numel()) * 4
+                        + n * (32 + 16))[0]
+        t = _turns(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit),
+                   lambda: traverse.trace_flat(flat_sah, o, d, tmin, tmax, anyhit=anyhit), 20)
+        s_alone = _cuda_ms(lambda: fn(*sargs), 20)
+        print(f"K4 {mode} over the SAH binary tree, realglb {name} rays: equal to its plain "
+              f"version, agrees with K2 on {s_share:.6f} of live rays ({s_bad.numel()} "
+              f"disagree); nodes a live ray {stat((vis_s.internal + vis_s.leaf)[live].double())}, "
+              f"triangles {stat(vis_s.triangles[live].double())}; kernel alone {s_alone:.4f} ms, "
+              f"bound {s_bound:.4f} ms (share {s_bound / s_alone:.4f}); "
+              + turns_line("K2 on the SAH BVH8 (wrapper) against K4 on the SAH binary tree "
+                           "(wrapper)", t))
         if name != "shadow":
             entries[f"K4 {mode}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                          bound_by=b_by)

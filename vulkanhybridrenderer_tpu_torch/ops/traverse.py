@@ -15,12 +15,12 @@ lockstep port of ``_trace8`` that drops finished rays between steps and can
 count the rows and slots each ray visits.  The reference's TPU schedules (strips,
 packets, compaction, ray sorting, unrolling) have no counterpart.
 
-Given a binary ``BVH`` (ops/bvh.py) and the triangles, ``trace`` runs the
-reference's other walk, ``_trace_flat``: kernel K4 (``trace_flat``), the
-stackless skip-pointer walk over the threaded tree, a thread a ray on CUDA
-tensors (csrc/bvh_flat_trace.cu), ``trace_flat_plain`` on CPU tensors.  It
-is the independent oracle the BVH8 walk is checked against, not a render
-path.
+Given a binary ``BVH`` (ops/bvh.py) and the triangles, or the tables
+``pack_flat`` packs from them once per tree, ``trace`` runs the reference's
+other walk, ``_trace_flat``: kernel K4 (``trace_flat``), the stackless
+skip-pointer walk over the threaded tree, a thread a ray on CUDA tensors
+(csrc/bvh_flat_trace.cu), ``trace_flat_plain`` on CPU tensors.  It is the
+independent oracle the BVH8 walk is checked against, not a render path.
 """
 from __future__ import annotations
 
@@ -331,7 +331,7 @@ def _table_args(alpha_tables):
             alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
 
 
-def trace(bvh: BVH8 | BVH, origin, direction, tmin, tmax, anyhit: bool = False,
+def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: bool = False,
           max_steps: int | None = None,
           alpha_tables: shadetab.ShadeTables | None = None,
           tri_verts=None) -> HitRecord:
@@ -340,12 +340,15 @@ def trace(bvh: BVH8 | BVH, origin, direction, tmin, tmax, anyhit: bool = False,
     to apply the alpha any-hit filter (None: every geometric hit counts).
     A BVH8 goes to K2, where rays with tmax < tmin miss at once; a binary
     BVH goes to the threaded walk, K4 (``trace_flat``), which needs the
-    (T, 3, 3) triangles `tri_verts` (ignored for a BVH8)."""
+    (T, 3, 3) triangles `tri_verts` (ignored otherwise) and packs them with
+    the tree on every call; pack_flat's tables, packed once per tree, go to
+    K4 as they are."""
     if isinstance(bvh, BVH):
         if tri_verts is None:
             raise ValueError("trace: a binary BVH needs tri_verts, the (T, 3, 3) triangles")
-        return trace_flat(pack_nodes(bvh), pack_tris(tri_verts), bvh.order, bvh.leaf_size,
-                          bvh.root, origin, direction, tmin, tmax, anyhit=anyhit,
+        bvh = pack_flat(bvh, tri_verts)
+    if isinstance(bvh, FlatTables):
+        return trace_flat(bvh, origin, direction, tmin, tmax, anyhit=anyhit,
                           max_steps=max_steps, alpha_tables=alpha_tables)
     dev = origin.device
     r = origin.shape[0]
@@ -414,9 +417,111 @@ def pack_tris(tri_verts):
     return tri_verts.reshape(tri_verts.shape[0], 9).to(torch.float32).contiguous()
 
 
-def default_flat_max_steps(nodes) -> int:
-    """The reference's cap for the threaded walk (traverse.py:841)."""
-    return min(4 * nodes.shape[0] + 4, 32768)
+@dataclasses.dataclass(frozen=True)
+class FlatTables:
+    """A binary BVH packed for K4 once per tree (``pack_flat``), on one
+    device.  A link is an internal node's row (>= 0), a leaf as -(start + 2)
+    (its first slot), or -1 (the walk's end).  nodes: the internal nodes'
+    rows [lo.xyz, hi.xyz, next, escape], next the left child's link and
+    escape the link after the node's subtree.  leaf_tris: slot k holds
+    triangle order[k] as three 16-byte rows [v0.xyz, id], [v1.xyz, escape],
+    [v2.xyz, 0]: the id (-1 and zero vertices in a padded slot) and the link
+    after its leaf.  Links and ids are stored as their int32 bits
+    (``table_ints``).  So the walk reads an internal node's row and a
+    leaf's slots, never a leaf's row or `order`."""
+    nodes: Any  # (L - 1, 8) float32
+    leaf_tris: Any  # (L * leaf_size, 12) float32
+    leaf_size: int
+    root: int  # the root's link
+
+    @property
+    def num_nodes(self) -> int:
+        """The tree's 2L - 1 nodes, leaves included."""
+        return 2 * (self.leaf_tris.shape[0] // self.leaf_size) - 1
+
+
+def flat_tables(nodes, tris9, order, leaf_size: int, root: int) -> FlatTables:
+    """FlatTables from pack_nodes' rows of a tree, pack_tris' triangles,
+    its order, leaf_size and root.  The rows hold their links as floats,
+    exact up to 2^24, so a tree whose ids go past that raises: pack_flat
+    packs any tree from its integer links."""
+    if max(nodes.shape[0], order.shape[0] + 2) > 1 << 24:
+        raise ValueError(f"flat_tables: {nodes.shape[0]} nodes and {order.shape[0]} slots; "
+                         f"ids are exact as floats up to 2^24 (pack_flat takes any tree)")
+    host = nodes.cpu()
+    return _pack_links(host[:, :6], host[:, 6].to(torch.int64), host[:, 7].to(torch.int64),
+                       tris9, order, leaf_size, root)
+
+
+def pack_flat(bvh: BVH, tri_verts) -> FlatTables:
+    """Pack `bvh` over the (T, 3, 3) triangles for trace / trace_flat,
+    once per tree, from its integer links: no id goes through a float."""
+    is_leaf = bvh.leaf_tri >= 0
+    nxt = torch.where(is_leaf, -(bvh.leaf_tri.to(torch.int64) + 2), bvh.left.to(torch.int64))
+    return _pack_links(torch.cat([bvh.aabb_min, bvh.aabb_max], dim=1).to(torch.float32),
+                       nxt, bvh.escape.to(torch.int64), pack_tris(tri_verts), bvh.order,
+                       bvh.leaf_size, bvh.root)
+
+
+def _pack_links(boxes, nxt, esc, tris9, order, leaf_size: int, root: int) -> FlatTables:
+    """FlatTables from a tree's (2L-1, 6) boxes [lo.xyz, hi.xyz] and int64
+    node links (pack_nodes' next and escape), its (T, 9) triangles, order,
+    leaf_size and root.  The internal nodes keep their order of ids.  Reads
+    the links on the host once."""
+    dev = tris9.device
+    boxes, nxt, esc = boxes.cpu(), nxt.cpu(), esc.cpu()
+    is_leaf = nxt <= -2
+    inner = torch.nonzero(~is_leaf).squeeze(1)
+    new_id = torch.full((nxt.shape[0],), -1, dtype=torch.int64)
+    new_id[inner] = torch.arange(inner.shape[0])
+
+    def link(ids):  # node ids (-1: the end) -> links
+        i = ids.clamp(min=0)
+        return torch.where(ids < 0, -1, torch.where(is_leaf[i], nxt[i], new_id[i]))
+
+    rows = torch.empty((inner.shape[0], 8), dtype=torch.float32)
+    rows[:, :6] = boxes[inner]
+    rows[:, 6] = link(nxt[inner]).to(torch.int32).view(torch.float32)
+    rows[:, 7] = link(esc[inner]).to(torch.int32).view(torch.float32)
+    # each slot carries its leaf's escape link
+    leaf_esc = torch.full((order.shape[0] // leaf_size,), -1, dtype=torch.int64)
+    leaves = torch.nonzero(is_leaf).squeeze(1)
+    leaf_esc[(-nxt[leaves] - 2) // leaf_size] = link(esc[leaves])
+    ids = order.to(torch.int32)
+    v = torch.where((ids >= 0)[:, None], tris9[ids.long().clamp(min=0)], 0.0)
+    slots = torch.zeros((ids.shape[0], 3, 4), dtype=torch.float32, device=tris9.device)
+    slots[:, :, :3] = v.reshape(-1, 3, 3)
+    slots[:, 0, 3] = ids.view(torch.float32)
+    slots[:, 1, 3] = leaf_esc.repeat_interleave(leaf_size).to(
+        slots.device, torch.int32).view(torch.float32)
+    return FlatTables(rows.to(dev), slots.reshape(-1, 12).to(dev), leaf_size,
+                      int(link(torch.tensor([root]))[0]))
+
+
+def table_ints(table, col: int):
+    """Column `col` of a FlatTables table read as the int32 its bits hold:
+    nodes' 6 and 7 (next and escape links), leaf_tris' 3 (the triangle id)
+    and 7 (the leaf's escape link)."""
+    return table[:, col].contiguous().view(torch.int32)
+
+
+def _flat_tables(fn: str, nodes, args):
+    """(FlatTables, the other arguments) of a trace_flat / trace_flat_plain
+    call that passes pack_flat's tables first, or the packed (nodes, tris9,
+    order, leaf_size, root) they are made from (packed anew)."""
+    if isinstance(nodes, FlatTables):
+        return nodes, args
+    if len(args) < 4:
+        raise TypeError(f"{fn}: pass FlatTables, or nodes, tris9, order, leaf_size and root")
+    tris9, order, leaf_size, root, *rest = args
+    return flat_tables(nodes, tris9, order, leaf_size, root), rest
+
+
+def default_flat_max_steps(tree) -> int:
+    """The reference's cap for the threaded walk (traverse.py:841), from
+    pack_nodes' rows or a FlatTables."""
+    n = tree.num_nodes if isinstance(tree, FlatTables) else tree.shape[0]
+    return min(4 * n + 4, 32768)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -430,18 +535,31 @@ class FlatVisits:
     filtered: Any  # (R,) int64 alpha filter evaluations (geometric candidates)
 
 
-def trace_flat_plain(nodes, tris9, order, leaf_size: int, root: int, origin, direction,
-                     tmin, tmax, anyhit: bool, max_steps: int, hit_filter=None,
-                     visits: bool = False):
+def trace_flat_plain(nodes, *args, **kwargs):
     """Plain PyTorch K4: ``_trace_flat`` stepped in lockstep over the live
-    rays.  nodes (2L-1, 8) and tris9 (T, 9) float32 (pack_nodes,
-    pack_tris), order (L * leaf_size,) int32; origin / direction (R, 3);
-    tmin / tmax (R,).  Every ray starts at `root`; an internal node is
-    entered when its slab interval meets [tmin, t_best], a leaf's triangles
-    are tested in order (each against the t_best the one before left) and
-    its box is not; any-hit ends after the whole leaf.  hit_filter(tri, u,
-    v) -> accept mask is asked about geometric candidates only.  Returns a
+    rays.  trace_flat_plain(tables, origin, direction, tmin, tmax, anyhit,
+    max_steps, hit_filter=None, visits=False) with pack_flat's tables, or
+    with nodes, tris9, order, leaf_size, root (pack_nodes, pack_tris, the
+    tree's order) in the tables' place; origin / direction (R, 3), tmin /
+    tmax (R,).  Every ray starts at the root; an internal node is entered
+    when its slab interval meets [tmin, t_best], a leaf's triangles are
+    tested in order (each against the t_best the one before left) and its
+    box is not; any-hit ends after the whole leaf.  hit_filter(tri, u, v)
+    -> accept mask is asked about geometric candidates only.  Returns a
     HitRecord, or with ``visits`` (HitRecord, FlatVisits)."""
+    tables, rest = _flat_tables("trace_flat_plain", nodes, args)
+    return _walk_flat_plain(tables, *rest, **kwargs)
+
+
+def _walk_flat_plain(tables: FlatTables, origin, direction, tmin, tmax, anyhit: bool,
+                     max_steps: int, hit_filter=None, visits: bool = False):
+    nodes, leaf_tris, leaf_size = tables.nodes, tables.leaf_tris, tables.leaf_size
+    ids_all = table_ints(leaf_tris, 3).long()
+    leaf_esc = table_ints(leaf_tris, 7).long()
+    links = torch.cat([torch.stack([table_ints(nodes, 6), table_ints(nodes, 7)], dim=1),
+                       nodes.new_zeros((1, 2), dtype=torch.int32)]).long()
+    # a row for links that are no internal node (a tree of one leaf has none)
+    rows_all = torch.cat([nodes, nodes.new_zeros((1, 8))])
     dev = origin.device
     r = origin.shape[0]
     t_out = tmax.clone()
@@ -453,23 +571,21 @@ def trace_flat_plain(nodes, tris9, order, leaf_size: int, root: int, origin, dir
     ids = torch.arange(r, device=dev)
     o, d, tn_ = origin, direction, tmin
     inv = 1.0 / torch.where(torch.abs(d) < 1e-12, torch.where(d >= 0, 1e-12, -1e-12), d)
-    node = torch.full((r,), root, dtype=torch.int64, device=dev)
+    node = torch.full((r,), tables.root, dtype=torch.int64, device=dev)  # links
     tb, trb, ub, vb = t_out.clone(), tri_out.clone(), u_out.clone(), v_out.clone()
     counts = torch.zeros((r, 4), dtype=torch.int64, device=dev)
-    order = order.long()
     n, steps = r, 0
     while n > 0 and steps < max_steps:
-        row = nodes[node]
-        nxt = row[:, 6]
-        esc = row[:, 7].to(torch.int64)
-        is_leaf = nxt < -1.5
-
+        is_leaf = node <= -2
+        row = rows_all[torch.where(is_leaf, nodes.shape[0], node)]
         t0 = (row[:, 0:3] - o) * inv
         t1 = (row[:, 3:6] - o) * inv
         lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
         tnear = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
         tfar = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
         box_hit = torch.maximum(tnear, tn_) <= torch.minimum(tfar, tb)
+        link = links[torch.where(is_leaf, nodes.shape[0], node)]
+        nxt = torch.where(box_hit, link[:, 0], link[:, 1])
 
         # the leaves' triangles, in order, each against the t_best before it
         li = torch.nonzero(is_leaf).squeeze(1)
@@ -478,14 +594,15 @@ def trace_flat_plain(nodes, tris9, order, leaf_size: int, root: int, origin, dir
             counts[:, 0] += ~is_leaf
             counts[:, 1] += is_leaf
         if li.numel():
-            start = (-nxt[li] - 2.0).to(torch.int64)
+            start = -node[li] - 2
+            nxt[li] = leaf_esc[start]
             ol, dl = o[li], d[li]
             for j in range(leaf_size):
-                tri = order[start + j]
-                tv = tris9[torch.clamp(tri, min=0)]
+                tri = ids_all[start + j]
+                tv = leaf_tris[start + j]  # [v0.xyz id v1.xyz escape v2.xyz 0]
                 t, u, v, ok = moller_trumbore(
-                    (tv[:, 0], tv[:, 1], tv[:, 2]), (tv[:, 3], tv[:, 4], tv[:, 5]),
-                    (tv[:, 6], tv[:, 7], tv[:, 8]), (ol[:, 0], ol[:, 1], ol[:, 2]),
+                    (tv[:, 0], tv[:, 1], tv[:, 2]), (tv[:, 4], tv[:, 5], tv[:, 6]),
+                    (tv[:, 8], tv[:, 9], tv[:, 10]), (ol[:, 0], ol[:, 1], ol[:, 2]),
                     (dl[:, 0], dl[:, 1], dl[:, 2]))
                 ok &= (tri >= 0) & (t >= tn_[li]) & (t < tb[li])
                 if visits:
@@ -500,12 +617,10 @@ def trace_flat_plain(nodes, tris9, order, leaf_size: int, root: int, origin, dir
                 ub[hit], vb[hit] = u[ok], v[ok]
                 any_ok[hit] = True
 
-        node = torch.where(is_leaf | ~box_hit, esc, nxt.to(torch.int64))
-        if anyhit:
-            node = torch.where(any_ok, -1, node)
+        node = torch.where(any_ok, -1, nxt) if anyhit else nxt
         steps += 1
 
-        keep = node >= 0
+        keep = node != -1
         if not bool(keep.all()):
             gone = ids[~keep]
             t_out[gone], tri_out[gone] = tb[~keep], trb[~keep]
@@ -528,61 +643,90 @@ def load_flat_kernel():
     """Build K4 (on first use) and load it; returns its launch function."""
     from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
 
-    fn = load_cuda_library("bvh_flat_trace.cu").bvh_flat_trace_launch
+    return bind_flat_launch(load_cuda_library("bvh_flat_trace.cu"))
+
+
+def bind_flat_launch(lib):
+    """K4's launch function in the loaded library `lib`, its types set."""
+    fn = lib.bvh_flat_trace_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                   + [ctypes.c_void_p] * 5)
+    ptr, num, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = ([ptr] * 2 + [num] * 2 + [ptr] * 2 + [ptr, flt, ptr, flt] + [num] * 3
+                   + [ptr] * 2 + [num] * 2 + [ptr] * 5 + [num, ptr])
     return fn
 
 
-def trace_flat(nodes, tris9, order, leaf_size: int, root: int, origin, direction, tmin,
-               tmax, anyhit: bool = False, max_steps: int | None = None,
-               alpha_tables: shadetab.ShadeTables | None = None) -> HitRecord:
-    """K4: the threaded walk of a packed binary BVH (pack_nodes, pack_tris,
-    its order, leaf_size and root).  origin / direction: (R, 3) float32;
-    tmin / tmax: scalars or (R,); max_steps defaults to the reference's
-    min(4 * nodes + 4, 32768).  CPU tensors run trace_flat_plain; CUDA
-    tensors launch csrc/bvh_flat_trace.cu; any other device raises."""
+def flat_launch_args(tables: FlatTables, origin, direction, tmin, tmax, anyhit: bool,
+                     max_steps: int, alpha_tables, out: HitRecord, stats=None):
+    """The arguments of one K4 launch (load_flat_kernel()(*args)) writing
+    `out`'s tensors, on tensors trace_flat has checked.  A Python float
+    tmin / tmax goes by value, an (R,) float32 tensor by pointer.  `stats`:
+    None, or a (2,) int64 CUDA tensor the kernel adds its busy lane-steps
+    and all its lane-steps to."""
+    from vulkanhybridrenderer_tpu_torch.utils.build import current_stream
+
+    def scalar(t):
+        return (t.data_ptr(), 0.0) if torch.is_tensor(t) else (None, float(t))
+
+    index = origin.get_device()
+    return (tables.nodes.data_ptr(), tables.leaf_tris.data_ptr(), tables.leaf_size,
+            tables.root, origin.data_ptr(), direction.data_ptr(), *scalar(tmin), *scalar(tmax),
+            origin.shape[0], max_steps, int(anyhit), *_table_args(alpha_tables),
+            out.t.data_ptr(), out.tri.data_ptr(), out.u.data_ptr(), out.v.data_ptr(),
+            None if stats is None else stats.data_ptr(), index, current_stream(index))
+
+
+def trace_flat(nodes, *args, **kwargs) -> HitRecord:
+    """K4: the threaded walk of a packed binary BVH.  trace_flat(tables,
+    origin, direction, tmin, tmax, anyhit=False, max_steps=None,
+    alpha_tables=None) with pack_flat's tables (packed once per tree), or
+    with nodes, tris9, order, leaf_size, root (pack_nodes, pack_tris, the
+    tree's order; packed anew on every call) in the tables' place.
+    origin / direction: (R, 3) float32; tmin / tmax: scalars or (R,);
+    max_steps defaults to the reference's min(4 * nodes + 4, 32768).  CPU
+    tensors run trace_flat_plain; CUDA tensors launch csrc/bvh_flat_trace.cu;
+    any other device raises."""
+    origin = args[0] if isinstance(nodes, FlatTables) else args[4] if len(args) > 4 else None
+    if origin is not None and origin.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trace_flat: unsupported device {origin.device}")  # before packing
+    tables, rest = _flat_tables("trace_flat", nodes, args)
+    return _trace_tables(tables, *rest, **kwargs)
+
+
+def _trace_tables(tables: FlatTables, origin, direction, tmin, tmax, anyhit: bool = False,
+                  max_steps: int | None = None,
+                  alpha_tables: shadetab.ShadeTables | None = None) -> HitRecord:
     dev = origin.device
     r = origin.shape[0]
-    tmin_a, tmax_a = _ray_bounds(origin, tmin, tmax)
+    nodes, leaf_tris = tables.nodes, tables.leaf_tris
     if max_steps is None:
-        max_steps = default_flat_max_steps(nodes)
+        max_steps = default_flat_max_steps(tables)
     if dev.type == "cpu":
-        return trace_flat_plain(
-            nodes, tris9, order, leaf_size, root, origin, direction, tmin_a, tmax_a, anyhit,
-            max_steps, None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
+        return _walk_flat_plain(
+            tables, origin, direction, *_ray_bounds(origin, tmin, tmax), anyhit, max_steps,
+            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
     if dev.type != "cuda":
         raise ValueError(f"trace_flat: unsupported device {dev}")
-    n_nodes = nodes.shape[0]
-    if n_nodes >= 1 << 24:
-        raise ValueError(f"trace_flat: {n_nodes} nodes; ids are exact as floats below 2^24")
+    slots = leaf_tris.shape[0]
     f32 = torch.float32
     _check_tensors("trace_flat", [
         ("origin", origin, (r, 3), f32), ("direction", direction, (r, 3), f32),
-        ("nodes", nodes, (n_nodes, 8), f32), ("tris9", tris9, (tris9.shape[0], 9), f32),
-        ("order", order, (order.shape[0],), torch.int32)] + _table_checks(alpha_tables))
-    if order.shape[0] != (n_nodes + 1) // 2 * leaf_size:
-        raise ValueError(f"trace_flat: order has {order.shape[0]} entries, not "
-                         f"{(n_nodes + 1) // 2} leaves of {leaf_size}")
-    fn = load_flat_kernel()
-    out_t = torch.empty(r, dtype=torch.float32, device=dev)
-    out_tri = torch.empty(r, dtype=torch.int32, device=dev)
-    out_u = torch.empty(r, dtype=torch.float32, device=dev)
-    out_v = torch.empty(r, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(nodes.data_ptr(), tris9.data_ptr(), order.data_ptr(), leaf_size, root,
-                 origin.data_ptr(), direction.data_ptr(), tmin_a.data_ptr(), tmax_a.data_ptr(),
-                 r, max_steps, int(anyhit), *_table_args(alpha_tables),
-                 out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(), out_v.data_ptr(),
-                 stream)
+        ("nodes", nodes, (slots // tables.leaf_size - 1, 8), f32),
+        ("leaf_tris", leaf_tris, (slots, 12), f32)]
+        + _table_checks(alpha_tables))
+    out = HitRecord(t=torch.empty(r, dtype=f32, device=dev),
+                    tri=torch.empty(r, dtype=torch.int32, device=dev),
+                    u=torch.empty(r, dtype=f32, device=dev), v=torch.empty(r, dtype=f32, device=dev))
+    # a number goes to the kernel by value, a tensor as an (R,) float32 one
+    tmin, tmax = (torch.as_tensor(t, dtype=f32, device=dev).expand(r).contiguous()
+                  if torch.is_tensor(t) else float(t) for t in (tmin, tmax))
+    err = load_flat_kernel()(*flat_launch_args(tables, origin, direction, tmin, tmax, anyhit,
+                                               max_steps, alpha_tables, out))
     if err != 0:
         raise RuntimeError(f"bvh_flat_trace kernel launch failed: CUDA error {err}")
     mode = "any-hit" if anyhit else "closest-hit"
     trace_flat.launches[mode if alpha_tables is None else f"filtered {mode}"] += 1
-    return HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
+    return out
 
 
 #: launches of K4 by mode, as trace.launches

@@ -10,7 +10,12 @@ TPU probe's: column 48 of a row holds the next row id, made from --seed with
 numpy; a walker starts at a random row, reads its row, adds row[0] to its own
 float32 sum and moves to row[48].  Each case checks the kernel against its
 plain version bit for bit (final ids and sums) and prints ns per index, GB/s
-of gathered bytes and the bounds:
+of gathered bytes, the bound (each distinct row read once at the HBM rate)
+and the walk's price in 32-byte sectors at the L2 read rate it measures (16
+a step for a whole row, 2 for the chase, 1 for a lane's word or a 16-byte
+row).  That rate is one library reduction over the table, a read short
+enough for its launch to set it, so the price is no bound of a walk: the
+probes still want a yardstick they cannot beat.  The cases:
   walk         the plain version and the library call: ``tab[idx]`` per step;
   thread-row   (row 3) a thread per walker reading the whole 512-byte row;
   warp-row     (row 3) a warp per walker reading the row coalesced;
@@ -230,16 +235,18 @@ def run(seed: int = 0, out=print) -> dict[str, dict]:
     dev = torch.device("cuda", torch.cuda.current_device())
     tab_np = make_table(N_ROWS, seed)
     tab = torch.from_numpy(tab_np).to(dev)
-    # the L2 read rate, measured on the resident 10.5 MB table (a library
-    # reduction, so a lower bound of the L2's peak)
+    # the L2 read rate, measured on the resident 10.5 MB table: one library
+    # reduction, short enough for its launch to set its time, so it is below
+    # the L2's peak and prices no walk from below
     l2_ms = _cuda_ms(lambda: tab.sum(), 50)
     l2_rate = tab.numel() * 4 / (l2_ms * 1e-3)
     out(f"probe: table ({N_ROWS}, 128) float32, {tab.numel() * 4} bytes; L2 read rate "
         f"{l2_rate / 1e12:.3f} TB/s (torch.sum over the resident table, {l2_ms:.4f} ms; "
-        f"a lower bound of the L2's peak); HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet)")
+        f"set by the launch at this size: no bound of a walk); HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet)")
     results = {}
 
-    def case(label, table, idx0, steps, step_bytes, kernel, plain, read_bytes, out_bytes):
+    def case(label, table, idx0, steps, step_bytes, kernel, plain, read_bytes, out_bytes,
+             sectors):
         w = idx0.shape[0]
         got, ref = kernel(), plain()
         _check_equal(label, got, ref)
@@ -253,26 +260,34 @@ def run(seed: int = 0, out=print) -> dict[str, dict]:
         bound_ms = (read_bytes + idx0.numel() * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
         rate = l2_rate if table_bytes <= L2_BYTES else HBM_BYTES_PER_S
         gathered_ms = gathered / rate * 1e3
+        # the walk's price in 32-byte sectors: `sectors` a step (16 for a
+        # whole row, 2 for the chase's two words, 1 for a lane's word or a
+        # 16-byte row), each at the measured rate
+        sector_ms = n_idx * sectors * 32 / rate * 1e3
+        where = "L2" if rate == l2_rate else "HBM"
         out(f"  {label}: kernel {ms:.4f} ms, {ms * 1e6 / n_idx:.3f} ns/index, "
             f"{gathered / (ms * 1e-3) / 1e9:.1f} GB/s gathered; plain (PyTorch indexing) "
             f"{plain_ms:.4f} ms, {plain_ms * 1e6 / n_idx:.3f} ns/index; bound {bound_ms:.4f} ms "
             f"({read_bytes} table bytes read, ids and outputs once, at the HBM rate), "
-            f"gathered bytes at the "
-            f"{'L2' if rate == l2_rate else 'HBM'} rate {gathered_ms:.4f} ms; equal bit for bit")
+            f"gathered bytes at the {where} rate {gathered_ms:.4f} ms; {sectors} sectors a step "
+            f"at the {where} rate {sector_ms:.4f} ms (share of the kernel's time "
+            f"{sector_ms / ms:.4f}"
+            + (": the kernel beats it" if ms < sector_ms else "")
+            + "; not a bound); equal bit for bit")
         return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                     bound_by="bytes", library_ms=plain_ms)
 
     for w, steps in ((W_PROBE, STEPS_PROBE), (W_FRAME, STEPS_FRAME)):
         idx0 = torch.from_numpy(start_rows(N_ROWS, w, seed)).to(dev)
         out(f"walks, W = {w} walkers x {steps} steps, N = {N_ROWS}:")
-        for kind, step_bytes in (("thread-row", 512), ("warp-row", 512), ("chase", 8),
-                                 ("lane", 4)):
+        for kind, step_bytes, sectors in (("thread-row", 512, 16), ("warp-row", 512, 16),
+                                          ("chase", 8, 2), ("lane", 4, 1)):
             plain = lane_plain if kind == "lane" else walk_plain
             res = case(f"{kind} (row {3 if 'row' in kind else 4 if kind == 'chase' else 5})",
                        tab, idx0, steps, step_bytes,
                        lambda k=kind: walk(k, tab, idx0, steps),
                        lambda p=plain: p(tab, idx0, steps),
-                       table_bytes_read(kind, tab, idx0, steps), w * 8)
+                       table_bytes_read(kind, tab, idx0, steps), w * 8, sectors)
             if w == W_FRAME:
                 results[kind] = res
     out(f"rows-acc (row 6), S = {ROWS_ACC_S} warp walkers x {STEPS_PROBE} steps:")
@@ -283,14 +298,14 @@ def run(seed: int = 0, out=print) -> dict[str, dict]:
             f"N = {n} ({n * 512} bytes)", t, idx0, STEPS_PROBE, 512,
             lambda: walk("rows-acc", t, idx0, STEPS_PROBE),
             lambda: rows_acc_plain(t, idx0, STEPS_PROBE),
-            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512))
+            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512), 16)
     rng = np.random.default_rng(seed + 2)
     img = torch.from_numpy(rng.standard_normal((1080, 1920, 4), dtype=np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 1080 * 1920, 1080 * 1920).astype(np.int32)).to(dev)
     out("gather16: 2,073,600 random 16-byte rows of a 1920x1080x4 float32 image:")
     results["gather16"] = case("gather16 (img[idx])", img, idx, 1, 16,
                                lambda: gather16(img, idx), lambda: gather16_plain(img, idx),
-                               int(torch.unique(idx).numel()) * 16, idx.numel() * 16)
+                               int(torch.unique(idx).numel()) * 16, idx.numel() * 16, 1)
     return results
 
 

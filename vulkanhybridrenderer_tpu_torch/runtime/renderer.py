@@ -247,19 +247,18 @@ class Renderer:
 
     def fetch_resources(self, *names: str) -> dict:
         """Render one frame and return the named graph resources (the
-        reference's debug-texture view).  Like the reference's, it leaves the
-        temporal state as it was."""
+        reference's debug-texture view).  Like the reference's, it renders
+        at the current frame index and leaves it, and the temporal state,
+        as they were; the previous view becomes the current camera's."""
         res = self.graph.run(self._resources(self._make_pfd()))
-        self.frame_index += 1
         return {n: res[n] for n in names}
 
     def time_passes(self, iters: int = 5) -> dict[str, float]:
         """Per-pass milliseconds (device time between synchronizations on a
         GPU).  Uses one frame's PerFrameData and advances neither the frame
-        nor the temporal state."""
-        prev = (self._prev_view, self._prev_proj)
+        nor the temporal state; as the reference's, the previous view
+        becomes the current camera's."""
         pfd = self._make_pfd()
-        self._prev_view, self._prev_proj = prev
         timings = self.graph.time_passes(self._resources(pfd), self.device, iters=iters)
         self._stats.update(timings)
         return timings
