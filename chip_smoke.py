@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
-    python3 chip_smoke.py --parent DIR # and K3, K4 and the toy against DIR's (another
-                                       # checkout's) kernels, in turns
+    python3 chip_smoke.py --parent DIR # and K3, K4, the toy and row 3's probe walks against
+                                       # DIR's (another checkout's) kernels, in turns
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
@@ -212,8 +212,18 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 to_uint8_image, find_nonfinite_pass() is None, stats.table()
                 printed, profile() writes a Chrome trace under _build/
   7. probe    - the row-gather probe (probes/gather.py), printed in full:
+                the yardstick (the delivered L1 and L2 read rates in TB/s
+                and bytes a clock an SM, their bit sums equal to a plain
+                sum; one warp's dependent-load latency in L1 and in L2; the
+                rows the frame-width walkers share, step by step), then
                 every probe kernel against its plain version bit for bit,
-                with the launch counts of its run
+                each with its bound and share and the walks' L1 ceiling
+                (gathered bytes at the delivered L1 rate) and share;
+                thread-row and warp-row against walk_guarded on a table
+                whose ids leave it and whose rows hold +inf; with
+                --parent, DIR's thread-row and warp-row checked and timed in
+                turns with this checkout's at both widths; the launch
+                counts of its run
 Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 """
 from __future__ import annotations
@@ -386,14 +396,10 @@ def _bind(params, own_params, own_args, extra=None) -> list:
     return out
 
 
-def _turns(other, mine, iters: int) -> list[float]:
-    """Milliseconds of two launches (functions of no argument) timed in
-    turns: other, mine, mine, other."""
-    return [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
-
-
 def _in_turns(label: str, other, mine, iters: int) -> str:
-    t = _turns(other, mine, iters)
+    from vulkanhybridrenderer_tpu_torch.probes.gather import turns
+
+    t = turns(other, mine, iters)
     return f"{label} in turns (other, this, this, other): {t[0]:.4f} / {t[3]:.4f} ms against " \
            f"{t[1]:.4f} / {t[2]:.4f} ms"
 
@@ -457,11 +463,12 @@ def main() -> int:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     compiles = build.build_library.compiles
-    other_k3 = other_toy = other_k4 = None
+    other_k3 = other_toy = other_k4 = other_probe = None
     if other_csrc is not None:
         other_k3 = _other_launch(other_csrc, "shadow_grid.cu", "shadow_grid_trace_launch")
         other_toy = _other_launch(other_csrc, "toy_scale.cu", "toy_scale_launch")
         other_k4 = _other_launch(other_csrc, "bvh_flat_trace.cu", "bvh_flat_trace_launch")
+        other_probe = _other_launch(other_csrc, "gather_probe.cu", "probe_walk_launch")
         compiles = build.build_library.compiles
     for line in (_ptxas_report(build_log("raster_tile.cu"),
                                {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c",
@@ -481,7 +488,7 @@ def main() -> int:
                  + _ptxas_report(build_log("gather_probe.cu"),
                                  {k: k for k in ("walk_thread_row", "walk_warp_row",
                                                  "walk_chase", "walk_lane", "walk_rows_acc",
-                                                 "gather16")})):
+                                                 "gather16", "read_rate", "chase_ring")})):
         print(line)
     print(f"build: {compiles} compiler runs")
 
@@ -1174,7 +1181,7 @@ def main() -> int:
         for _ in range(frames):
             if before is not None:
                 before(r)
-            frame = r.render_frame()
+            frame = r.render_frame(sync=False)
         end.record()
         torch.cuda.synchronize()
         launches = {k: v() for k, v in counters.items()}
@@ -1477,9 +1484,10 @@ def main() -> int:
     # ---- 7. the row-gather probe ---------------------------------------------------
     t0 = time.perf_counter()
     probe.launches.clear()
-    probe_res = probe.run()
+    probe_res = probe.run(parent=None if other_probe is None
+                          else _parent_walk(other_probe, build, dev))
     print(f"probe launches: {dict(probe.launches)}")
-    for name in probe.REPLACES:
+    for name in [*probe.REPLACES, "read-rate", "latency"]:
         _check(probe.launches[name] >= 1, f"probe kernel {name} never launched")
     _phase("probe", t0)
 
@@ -1517,8 +1525,10 @@ def main() -> int:
                         source="vulkanhybridrenderer_tpu_torch/csrc/toy_scale.cu",
                         replaces="tests/test_compile_cache.py:33", launches=toy_launches,
                         **kernels_toy))
-    for name, k in probe_res.items():
-        # the library call is the plain version itself: tab[idx] / img[idx]
+    for name in probe.REPLACES:
+        # no single PyTorch call walks a chain; gather16's is img[idx]
+        k = {key: probe_res[name][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")}
         entries.append(dict(name=f"probe {name}", route="cuda",
                             source="vulkanhybridrenderer_tpu_torch/csrc/gather_probe.cu",
                             replaces=probe.REPLACES[name], launches=probe.launches[name], **k))
@@ -1527,6 +1537,28 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _parent_walk(other, build, dev):
+    """walk(kind, tab, idx0, steps) -> (ids, sums) through another
+    checkout's probe_walk_launch, bound by the names of its prototype's
+    parameters."""
+    fn, params = other
+    own = _c_params(build.CSRC_DIR / "gather_probe.cu", "probe_walk_launch")
+    stream = build.current_stream(dev.index)
+
+    def walk(kind, tab, idx0, steps):
+        w = idx0.shape[0]
+        out_idx = torch.empty(w, dtype=torch.int32, device=dev)
+        out_acc = torch.empty(w, dtype=torch.float32, device=dev)
+        values = dict(kind=kind, tab=tab.data_ptr(), idx0=idx0.data_ptr(),
+                      w=w, steps=steps, n=tab.shape[0], out_idx=out_idx.data_ptr(),
+                      out_acc=out_acc.data_ptr(), device=dev.index, stream=stream)
+        err = fn(*_bind(params, own, [values[name] for name, _ in own]))
+        _check(err == 0, f"the other checkout's probe walk {kind}: CUDA error {err}")
+        return out_idx, out_acc
+
+    return walk
 
 
 def _animated_wavefronts(pica, cfg, dev, bound):
@@ -1613,8 +1645,10 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
     rays; the bound (K2_OPS_BOX a visited internal node, K2_OPS_TRI a tested
     triangle; or the tables' and rays' bytes); nodes and triangles a live
     ray; the lane share of 32 rays in pixel order (the parent's thread-a-ray
-    schedule) and the kernel's own count (its stats); `other_k4` (another checkout's K4, _other_launch, given pack_nodes' rows,
-    pack_tris' and the order) checked equal and timed in turns.  K4 against
+    schedule) and the kernel's own count (its stats); `other_k4` (another
+    checkout's K4, _other_launch: given this one's tables when it has this
+    one's prototype, else pack_nodes' rows, pack_tris' and the order)
+    checked equal and timed in turns.  K4 against
     K2 on the SAH BVH8 (the oracle: hit flags, and for closest hits t within
     1e-4 and the same triangle unless the two t are equal) on >= 99.99% of
     live rays.  K4 over the SAH binary tree (native_bridge.build_sah_host,
@@ -1625,6 +1659,7 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
     closest-hit)."""
     from vulkanhybridrenderer_tpu_torch import native_bridge
     from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, raygen, traverse
+    from vulkanhybridrenderer_tpu_torch.probes.gather import turns
     from vulkanhybridrenderer_tpu_torch.utils import build
 
     dev = tris.device
@@ -1752,14 +1787,19 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
         if other_k4 is not None:
             pfn, pparams = other_k4
             pout = empty_hits(n)
+            # a K4 with this one's prototype walks pack_flat's tables; the
+            # earlier one (tris9 and order among its parameters) pack_nodes'
+            # rows in build order, pack_tris' and the order
+            same = [name for name, _ in pparams] == [name for name, _ in own_params]
             pargs = _bind(pparams, own_params, traverse.flat_launch_args(
-                traverse.FlatTables(nodes_p, flat.leaf_tris, lbvh.leaf_size, lbvh.root), o, d,
-                tmin, tmax, anyhit, steps, None, pout),
+                flat if same else traverse.FlatTables(nodes_p, flat.leaf_tris, lbvh.leaf_size,
+                                                      lbvh.root),
+                o, d, tmin, tmax, anyhit, steps, None, pout),
                 {"tris9": tris9.data_ptr(), "order": lbvh.order.data_ptr()})
             _check(pfn(*pargs) == 0 and not any(differ(pout, k).values()),
                    f"the other checkout's K4 differs on the {name} rays")
             print(turns_line(f"K4 realglb {name} rays, the other checkout's kernel alone "
-                             f"against this one's", _turns(lambda: pfn(*pargs),
+                             f"against this one's", turns(lambda: pfn(*pargs),
                                                            lambda: fn(*args), 20)))
 
         # the oracle: K2 over the SAH BVH8 on the same rays
@@ -1787,7 +1827,7 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
         s_ops = int(vis_s.internal.sum()) * K2_OPS_BOX + int(vis_s.triangles.sum()) * K2_OPS_TRI
         s_bound = bound(s_ops, (flat_sah.nodes.numel() + flat_sah.leaf_tris.numel()) * 4
                         + n * (32 + 16))[0]
-        t = _turns(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit),
+        t = turns(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit),
                    lambda: traverse.trace_flat(flat_sah, o, d, tmin, tmax, anyhit=anyhit), 20)
         s_alone = _cuda_ms(lambda: fn(*sargs), 20)
         print(f"K4 {mode} over the SAH binary tree, realglb {name} rays: equal to its plain "
@@ -2091,7 +2131,7 @@ def _profile(r, label: str, frames: int = 5, before=None) -> None:
         for _ in range(frames):
             if before is not None:
                 before(r)
-            r.render_frame()
+            r.render_frame(sync=False)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     # device time: only the kernels' own events, not the aten ops above them

@@ -11,22 +11,32 @@ numpy; a walker starts at a random row, reads its row, adds row[0] to its own
 float32 sum and moves to row[48].  Each case checks the kernel against its
 plain version bit for bit (final ids and sums) and prints ns per index, GB/s
 of gathered bytes, the bound (each distinct row read once at the HBM rate)
-and the walk's price in 32-byte sectors at the L2 read rate it measures (16
-a step for a whole row, 2 for the chase, 1 for a lane's word or a 16-byte
-row).  That rate is one library reduction over the table, a read short
-enough for its launch to set it, so the price is no bound of a walk: the
-probes still want a yardstick they cannot beat.  The cases:
-  walk         the plain version and the library call: ``tab[idx]`` per step;
-  thread-row   (row 3) a thread per walker reading the whole 512-byte row;
-  warp-row     (row 3) a warp per walker reading the row coalesced;
+and its share, and beside them the L1 ceiling: the gathered bytes at the
+rate the card's L1 delivers, a rate the yardstick measures, not the bound.
+The yardstick (``yardstick``): coalesced 16-byte reads, many passes in one
+launch, of a 32 KB slice a block keeps in L1 and of the whole table from L2
+(their bits summed and checked against a plain sum), in TB/s and bytes a
+clock an SM at the SM clock nvidia-smi reports under that load; one warp's
+dependent-load latency through a pointer ring resident in L1 and in L2; and
+what the frame-width walkers share (``sharing``): the distinct rows all of
+them read at each step, and the mean distinct rows a 128-walker block reads.
+The cases:
+  walk         the plain version: ``tab[idx]`` per step;
+  thread-row   (row 3) a thread owns its walker (K4's layout), 32 walkers
+               a warp, their rows moved by the warp one coalesced row a load;
+  warp-row     (row 3) 16 lanes own a walker (K2's layout is 4 lanes a
+               ray), two walkers a warp;
   chase        (row 4) a thread per walker reading row[0] and row[48] only;
   lane         (row 5) out[i] = tab[idx_i, i % 128], idx = (idx + v*7 + s) mod N;
   rows-acc     (row 6) S = 8 warp walkers adding whole rows, N = 256, 2048,
                20480 (128 KB, 1 MB, 10.5 MB: L1, L2, L2);
   gather16     2,073,600 random 16-byte rows of a 1920x1080x4 image.
 Rows 3-5 run at the TPU probe's W = 1024 walkers x 512 steps and at the
-frame's width, W = 2,073,600 x 32 steps, the occupancy K2 runs at.  On CPU
-tensors every wrapper runs its plain version; ``run`` needs the card.
+frame's width, W = 2,073,600 x 32 steps, the occupancy K2 runs at; row 3's
+walks also on ``guard_table``, whose ids leave the table and whose rows hold
++inf, against ``walk_guarded``.  Every wrapper checks its arguments on any
+device; on CPU tensors it runs its plain version, on CUDA tensors its
+kernel.  ``run`` needs the card.
 """
 from __future__ import annotations
 
@@ -34,9 +44,12 @@ import argparse
 import collections
 import ctypes
 import functools
+import subprocess
 
 import numpy as np
 import torch
+
+from vulkanhybridrenderer_tpu_torch.utils.build import current_stream, load_cuda_library
 
 N_ROWS = 20480  # the TPU probe's table: 10.5 MB, SponzaProxy's BVH8 size
 W_PROBE, STEPS_PROBE = 1024, 512
@@ -44,7 +57,7 @@ W_FRAME, STEPS_FRAME = 1920 * 1080, 32
 ROWS_ACC_S, ROWS_ACC_N = 8, (256, 2048, 20480)
 NEXT = 48  # the column holding the next row id
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-L2_BYTES = 50 * 2**20  # H100 L2 (NVIDIA data sheet)
+SHARE_BLOCK = 128  # walkers a block, in start order, for sharing()
 
 #: walk kernel -> its kind in csrc/gather_probe.cu's probe_walk_launch
 KINDS = {"thread-row": 0, "warp-row": 1, "chase": 2, "lane": 3, "rows-acc": 4}
@@ -58,6 +71,15 @@ REPLACES = {
     "rows-acc": "scripts/probe_dyngather.py:63",
     "gather16": None,
 }
+#: the yardstick: 16-byte words a read-rate round covers (csrc's
+#: kRateThreads * kRateLoads), a block's L1 slice, blocks an SM, passes
+RATE_CHUNK = 512 * 4
+RATE_SPAN = RATE_CHUNK  # 32 KB
+RATE_BLOCKS_PER_SM = 2
+RATE_PASSES = {1: 4000, 2: 500}
+#: the latency rings: 128-byte lines (L1: 32 KB; L2: 4 MB), laps to warm, steps
+RING_LINES = {1: 256, 2: 32768}
+RING_STEPS = 20000
 #: kernel launches by kernel name
 launches = collections.Counter()
 
@@ -84,6 +106,36 @@ def walk_plain(tab, idx0, steps: int):
         acc = acc + rows[:, 0]
         idx = rows[:, NEXT].long()
     return idx.int(), acc
+
+
+def walk_guarded(tab, idx0, steps: int):
+    """walk_plain under the whole-row kernels' rules, on any table: a walker
+    stops at a row id outside [0, N) before reading that row (its final id
+    is that id), and a row holding +inf sends it to row 0 after it adds
+    row[0].  Equal to walk_plain where every id is in range and every value
+    finite."""
+    n = tab.shape[0]
+    idx = idx0.long()
+    acc = torch.zeros(idx.shape[0], dtype=torch.float32, device=tab.device)
+    alive = (idx >= 0) & (idx < n)
+    for _ in range(steps):
+        rows = tab[torch.where(alive, idx, 0)]
+        acc = torch.where(alive, acc + rows[:, 0], acc)
+        nxt = torch.where(rows.amax(1) == torch.inf, 0, rows[:, NEXT].long())
+        idx = torch.where(alive, nxt, idx)
+        alive = alive & (idx >= 0) & (idx < n)
+    return idx.int(), acc
+
+
+def guard_table(tab: np.ndarray, seed: int = 0) -> np.ndarray:
+    """A copy of `tab` with 16 rows whose next id lies below the table, 16
+    above it, and 32 holding +inf in column 77: walk_guarded's cases."""
+    out = tab.copy()
+    rows = np.random.default_rng(seed + 4).choice(tab.shape[0], 64, replace=False)
+    out[rows[:16], NEXT] = -1
+    out[rows[16:32], NEXT] = tab.shape[0] + 7
+    out[rows[32:], 77] = np.inf
+    return out
 
 
 def lane_plain(tab, idx0, steps: int):
@@ -140,53 +192,114 @@ def table_bytes_read(kind: str, tab, idx0, steps: int) -> int:
     return int(seen.sum()) * (8 if kind == "chase" else 512)
 
 
+def sharing(tab, idx0, steps: int, block: int = SHARE_BLOCK):
+    """What walk_plain's walkers share, step by step: ([distinct rows all
+    walkers read at step s], [mean distinct rows a block of `block`
+    consecutive walkers (start order; the last block may be short) reads at
+    step s]).  Exact counts by a replay of the walk."""
+    n = tab.shape[0]
+    idx = idx0.long()
+    blk = torch.arange(idx.shape[0], device=tab.device) // block
+    n_blocks = -(-idx.shape[0] // block)
+    distinct, per_block = [], []
+    for _ in range(steps):
+        distinct.append(int(torch.unique(idx).numel()))
+        per_block.append(int(torch.unique(blk * n + idx).numel()) / n_blocks)
+        idx = tab[idx, NEXT].long()
+    return distinct, per_block
+
+
+def read_rate_plain(tab, level: int, blocks: int, passes: int):
+    """Each read-rate block's uint32 sum of the bits it reads (as int64 in
+    [0, 2^32)): level 1, block b's RATE_SPAN words at (b % slices) * span,
+    `passes` times; level 2, the words x with (x % (blocks * 512)) // 512 ==
+    b, `passes` times."""
+    words = tab.reshape(-1).view(torch.int32).long() & 0xFFFFFFFF
+    per16 = words.reshape(-1, 4).sum(1)
+    if level == 1:
+        slices = per16.reshape(-1, RATE_SPAN).sum(1)
+        b = torch.arange(blocks, device=tab.device) % slices.shape[0]
+        sums = slices[b]
+    else:
+        owner = (torch.arange(per16.shape[0], device=tab.device) % (blocks * 512)) // 512
+        sums = torch.zeros(blocks, dtype=torch.int64, device=tab.device).index_add_(
+            0, owner, per16)
+    return (sums * passes) & 0xFFFFFFFF
+
+
+def make_ring(lines: int, seed: int = 0):
+    """A pointer ring over `lines` 128-byte lines in a random order: (ring
+    int32 (lines * 32,), the line order); ring[32 * order[i]] = 32 *
+    order[i + 1], so k steps from 32 * order[0] end at 32 * order[k % lines]."""
+    order = np.random.default_rng(seed + 3).permutation(lines)
+    ring = np.zeros(lines * 32, np.int32)
+    ring[order * 32] = np.roll(order, -1) * 32
+    return ring, order
+
+
 # ---- kernels -------------------------------------------------------------------
 @functools.cache
 def load_kernel():
-    from vulkanhybridrenderer_tpu_torch.utils.build import load_cuda_library
-
     lib = load_cuda_library("gather_probe.cu")
     walk = lib.probe_walk_launch
     walk.restype = ctypes.c_int
     walk.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                     + [ctypes.c_void_p] * 3)
+                     + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
     g16 = lib.probe_gather16_launch
     g16.restype = ctypes.c_int
     g16.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-                    + [ctypes.c_void_p] * 2)
-    return walk, g16
+                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    rate = lib.probe_read_rate_launch
+    rate.restype = ctypes.c_int
+    rate.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    chase = lib.probe_latency_launch
+    chase.restype = ctypes.c_int
+    chase.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    return walk, g16, rate, chase
 
 
-def _check_cuda(name, *tensors):
+def _check_args(name: str, *tensors):
+    """Contiguous tensors on one CPU or CUDA device; returns whether it is
+    CUDA."""
+    dev = tensors[0].device
     for t in tensors:
-        if t.device.type != "cuda" or not t.is_contiguous():
-            raise ValueError(f"{name}: contiguous CUDA tensors, got {t.device}")
+        if t.device != dev or not t.is_contiguous() or dev.type not in ("cpu", "cuda"):
+            raise ValueError(f"{name}: contiguous tensors on one CPU or CUDA device, got "
+                             f"{'a contiguous' if t.is_contiguous() else 'a non-contiguous'} "
+                             f"tensor on {t.device} beside {dev}")
+    return dev.type == "cuda"
+
+
+def _stream(t):
+    index = t.get_device()
+    return index, current_stream(index)
 
 
 def walk(kind: str, tab, idx0, steps: int):
     """Kernel `kind` (thread-row, warp-row, chase, lane or rows-acc) over the
-    (N, 128) float32 table from the int32 start rows idx0; its plain version
-    on CPU tensors.  Row ids (idx0 and the table's column 48) lie in [0, N):
-    the kernel stops a walker at one that does not, the plain version
-    raises."""
+    (N, 128) float32 table from the int32 start rows idx0.  Its plain
+    version on CPU tensors, its kernel on CUDA tensors; the checks hold on
+    both.  Row ids (idx0 and the table's column 48) lie in [0, N): the
+    kernel stops a walker at one that does not, the plain version raises."""
     if kind not in KINDS:
         raise ValueError(f"unknown walk kind {kind!r}; kinds: {sorted(KINDS)}")
-    if tab.device.type == "cpu":
-        plain = {"lane": lane_plain, "rows-acc": rows_acc_plain}.get(kind, walk_plain)
-        return plain(tab, idx0, steps)
-    _check_cuda(kind, tab, idx0)
+    cuda = _check_args(kind, tab, idx0)
     if (tab.dtype != torch.float32 or tab.dim() != 2 or tab.shape[1] != 128
             or idx0.dtype != torch.int32 or idx0.dim() != 1):
-        raise ValueError(f"{kind}: a float32 (N, 128) table and (W,) int32 rows")
+        raise ValueError(f"{kind}: a float32 (N, 128) table and (W,) int32 rows, got "
+                         f"{tab.dtype} {tuple(tab.shape)} and {idx0.dtype} {tuple(idx0.shape)}")
+    if not cuda:
+        plain = {"lane": lane_plain, "rows-acc": rows_acc_plain}.get(kind, walk_plain)
+        return plain(tab, idx0, steps)
     w = idx0.shape[0]
     out_idx = torch.empty(w, dtype=torch.int32, device=tab.device)
     out_acc = torch.empty((w, 128) if kind == "rows-acc" else (w,), dtype=torch.float32,
                           device=tab.device)
-    fn, _ = load_kernel()
-    with torch.cuda.device(tab.device):
-        err = fn(KINDS[kind], tab.data_ptr(), idx0.data_ptr(), w, steps, tab.shape[0],
-                 out_idx.data_ptr(), out_acc.data_ptr(),
-                 torch.cuda.current_stream(tab.device).cuda_stream)
+    index, stream = _stream(tab)
+    err = load_kernel()[0](KINDS[kind], tab.data_ptr(), idx0.data_ptr(), w, steps,
+                           tab.shape[0], out_idx.data_ptr(), out_acc.data_ptr(), index, stream)
     if err != 0:
         raise RuntimeError(f"gather probe {kind} launch failed: CUDA error {err}")
     launches[kind] += 1
@@ -196,21 +309,53 @@ def walk(kind: str, tab, idx0, steps: int):
 def gather16(img, idx):
     """Rows idx (int32) of an (H, W, 4) float32 image: (R, 4).  A row id out
     of range gives NaN from the kernel; the plain version raises."""
-    if img.device.type == "cpu":
-        return gather16_plain(img, idx)
-    _check_cuda("gather16", img, idx)
+    cuda = _check_args("gather16", img, idx)
     if (img.dtype != torch.float32 or img.shape[-1] != 4 or idx.dtype != torch.int32
             or idx.dim() != 1):
         raise ValueError("gather16: a float32 (..., 4) image and (R,) int32 rows")
+    if not cuda:
+        return gather16_plain(img, idx)
     out = torch.empty((idx.shape[0], 4), dtype=torch.float32, device=img.device)
-    _, fn = load_kernel()
-    with torch.cuda.device(img.device):
-        err = fn(img.data_ptr(), img.numel() // 4, idx.data_ptr(), idx.shape[0],
-                 out.data_ptr(), torch.cuda.current_stream(img.device).cuda_stream)
+    index, stream = _stream(img)
+    err = load_kernel()[1](img.data_ptr(), img.numel() // 4, idx.data_ptr(), idx.shape[0],
+                           out.data_ptr(), index, stream)
     if err != 0:
         raise RuntimeError(f"gather probe gather16 launch failed: CUDA error {err}")
     launches["gather16"] += 1
     return out
+
+
+def read_rate(tab, level: int, blocks: int, passes: int):
+    """The yardstick's coalesced read (level 1: L1, level 2: L2) of the
+    table on the card: each block's uint32 bit sum, as int64 (blocks,)."""
+    _check_args("read rate", tab)
+    if not tab.is_cuda or tab.dtype != torch.float32 or tab.numel() % (RATE_CHUNK * 4):
+        raise ValueError("read rate: a CUDA float32 table of whole 32 KB chunks")
+    out = torch.empty(blocks, dtype=torch.int32, device=tab.device)
+    index, stream = _stream(tab)
+    err = load_kernel()[2](level, tab.data_ptr(), tab.numel() // 4, RATE_SPAN, passes, blocks,
+                           out.data_ptr(), index, stream)
+    if err != 0:
+        raise RuntimeError(f"gather probe read rate launch failed: CUDA error {err}")
+    launches["read-rate"] += 1
+    return out.long() & 0xFFFFFFFF
+
+
+def chase_ring(ring, level: int, start: int, warm: int, steps: int):
+    """One warp follows the int32 pointer ring on the card (level 1 through
+    L1, level 2 from L2): (final position, ns of the timed steps)."""
+    _check_args("chase ring", ring)
+    if not ring.is_cuda or ring.dtype != torch.int32:
+        raise ValueError("chase ring: a CUDA int32 ring")
+    out = torch.zeros(2, dtype=torch.int64, device=ring.device)
+    index, stream = _stream(ring)
+    err = load_kernel()[3](level, ring.data_ptr(), start, warm, steps, out.data_ptr(), index,
+                           stream)
+    if err != 0:
+        raise RuntimeError(f"gather probe latency launch failed: CUDA error {err}")
+    launches["latency"] += 1
+    pos, ns = out.tolist()
+    return pos, ns
 
 
 # ---- the probe -----------------------------------------------------------------
@@ -226,27 +371,104 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def run(seed: int = 0, out=print) -> dict[str, dict]:
+def _smi(query: str) -> str:
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _clock_under_load(launch, ms: float, seconds: float = 2.0) -> list[float]:
+    """The SM clocks (MHz) nvidia-smi reports while `launch` (one launch of
+    `ms` milliseconds) runs: about `seconds` of launches are queued and the
+    clock is read again and again; a reading counts only if the queue was
+    still busy when it returned."""
+    for _ in range(3):
+        for _ in range(max(1, int(seconds * 1e3 / ms))):
+            launch()
+        done = torch.cuda.Event()
+        done.record()
+        clocks = []
+        while True:
+            mhz = float(_smi("clocks.sm").split()[0])
+            if done.query():
+                break
+            clocks.append(mhz)
+        if clocks:
+            return clocks
+        seconds *= 2
+    raise RuntimeError("gather probe: the queued reads drained before nvidia-smi read the SM clock")
+
+
+def yardstick(tab, out=print) -> dict:
+    """The delivered L1 and L2 read rates over `tab` (checked against
+    read_rate_plain), the SM clock nvidia-smi reports under the L1 read, the
+    dependent-load latency in L1 and in L2; printed, and returned."""
+    dev = tab.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = RATE_BLOCKS_PER_SM * n_sm
+    rates = {}
+    for level in (1, 2):
+        passes = RATE_PASSES[level]
+        got = read_rate(tab, level, blocks, passes)
+        if not torch.equal(got, read_rate_plain(tab, level, blocks, passes)):
+            raise RuntimeError(f"gather probe read rate L{level}: kernel and plain sum differ")
+        ms = _cuda_ms(lambda: read_rate(tab, level, blocks, passes), 5)
+        read = blocks * RATE_SPAN * 16 if level == 1 else tab.numel() * 4
+        rates[level] = (read * passes / (ms * 1e-3), ms)
+    clocks = _clock_under_load(lambda: read_rate(tab, 1, blocks, RATE_PASSES[1]), rates[1][1])
+    clock_mhz = min(clocks)
+    max_mhz = float(_smi("clocks.max.sm").split()[0])
+    per_clk = {lv: r / (n_sm * clock_mhz * 1e6) for lv, (r, _) in rates.items()}
+    out(f"yardstick: coalesced 16-byte reads, {blocks} blocks of 512 threads, bit sums equal "
+        f"to the plain sum; SM clock under the L1 read {clock_mhz:.0f} MHz (the least of "
+        f"{len(clocks)} readings taken while the reads ran; max {max_mhz:.0f}), {n_sm} SMs")
+    out(f"  L1-resident read: each block {RATE_PASSES[1]} passes over its own "
+        f"{RATE_SPAN * 16} bytes: {rates[1][1]:.4f} ms, {rates[1][0] / 1e12:.3f} TB/s, "
+        f"{per_clk[1]:.2f} bytes a clock an SM")
+    out(f"  L2-resident read: all blocks {RATE_PASSES[2]} passes over the {tab.numel() * 4}-byte "
+        f"table (ld.cg): {rates[2][1]:.4f} ms, {rates[2][0] / 1e12:.3f} TB/s, "
+        f"{per_clk[2]:.2f} bytes a clock an SM")
+    lat = {}
+    for level in (1, 2):
+        lines = RING_LINES[level]
+        ring_np, order = make_ring(lines)
+        ring = torch.from_numpy(ring_np).to(dev)
+        pos, ns = chase_ring(ring, level, int(order[0]) * 32, lines, RING_STEPS)
+        if pos != int(order[(lines + RING_STEPS) % lines]) * 32:
+            raise RuntimeError(f"gather probe latency L{level}: the chase ended at {pos}")
+        lat[level] = ns / RING_STEPS
+    out(f"  dependent-load latency, one warp, {RING_STEPS} steps after a lap: L1 ring "
+        f"({RING_LINES[1] * 128} bytes, ld.ca) {lat[1]:.2f} ns a step, L2 ring "
+        f"({RING_LINES[2] * 128} bytes, ld.cg) {lat[2]:.2f} ns a step; ends as the replay's")
+    return dict(l1_rate=rates[1][0], l2_rate=rates[2][0], l1_per_clk=per_clk[1],
+                l2_per_clk=per_clk[2], clock_mhz=clock_mhz, l1_ns=lat[1], l2_ns=lat[2])
+
+
+def turns(other, mine, iters: int) -> list[float]:
+    """Milliseconds of two launches (functions of no argument) timed in
+    turns: other, mine, mine, other."""
+    return [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
+
+
+def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
     """Every case on the current CUDA device; raises if a kernel and its
     plain version differ.  Returns, per kernel, its numbers at the case
-    that stands for it (rows 3-5 at the frame's width, row 6 at N = 20480)."""
+    that stands for it (rows 3-5 at the frame's width, row 6 at N = 20480).
+    parent(kind, tab, idx0, steps) -> (ids, sums): another build's walk
+    launch; its thread-row and warp-row are checked against the plain
+    version and timed in turns with this build's."""
     if not torch.cuda.is_available():
         raise RuntimeError("the gather probe measures the card: no CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
     tab_np = make_table(N_ROWS, seed)
     tab = torch.from_numpy(tab_np).to(dev)
-    # the L2 read rate, measured on the resident 10.5 MB table: one library
-    # reduction, short enough for its launch to set its time, so it is below
-    # the L2's peak and prices no walk from below
-    l2_ms = _cuda_ms(lambda: tab.sum(), 50)
-    l2_rate = tab.numel() * 4 / (l2_ms * 1e-3)
-    out(f"probe: table ({N_ROWS}, 128) float32, {tab.numel() * 4} bytes; L2 read rate "
-        f"{l2_rate / 1e12:.3f} TB/s (torch.sum over the resident table, {l2_ms:.4f} ms; "
-        f"set by the launch at this size: no bound of a walk); HBM {HBM_BYTES_PER_S / 1e12:.2f} TB/s (data sheet)")
+    l1_rate = yardstick(tab, out)["l1_rate"]
+    out(f"bound: each distinct row a walk reads once at the HBM rate "
+        f"({HBM_BYTES_PER_S / 1e12:.2f} TB/s, data sheet); L1 ceiling: the gathered bytes at "
+        f"the delivered L1 rate, {l1_rate / 1e12:.3f} TB/s (a delivered rate, not the bound)")
     results = {}
 
     def case(label, table, idx0, steps, step_bytes, kernel, plain, read_bytes, out_bytes,
-             sectors):
+             library=False):
         w = idx0.shape[0]
         got, ref = kernel(), plain()
         _check_equal(label, got, ref)
@@ -254,42 +476,60 @@ def run(seed: int = 0, out=print) -> dict[str, dict]:
         plain_ms = _cuda_ms(plain, 1 if w > W_PROBE else 3)
         n_idx = w * steps
         gathered = n_idx * step_bytes
-        table_bytes = table.numel() * 4
         # the bound: the table bytes this run's walk reads (read_bytes, each
         # once), the start ids read once, the outputs written once
         bound_ms = (read_bytes + idx0.numel() * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
-        rate = l2_rate if table_bytes <= L2_BYTES else HBM_BYTES_PER_S
-        gathered_ms = gathered / rate * 1e3
-        # the walk's price in 32-byte sectors: `sectors` a step (16 for a
-        # whole row, 2 for the chase's two words, 1 for a lane's word or a
-        # 16-byte row), each at the measured rate
-        sector_ms = n_idx * sectors * 32 / rate * 1e3
-        where = "L2" if rate == l2_rate else "HBM"
+        ceiling_ms = gathered / l1_rate * 1e3
         out(f"  {label}: kernel {ms:.4f} ms, {ms * 1e6 / n_idx:.3f} ns/index, "
             f"{gathered / (ms * 1e-3) / 1e9:.1f} GB/s gathered; plain (PyTorch indexing) "
-            f"{plain_ms:.4f} ms, {plain_ms * 1e6 / n_idx:.3f} ns/index; bound {bound_ms:.4f} ms "
-            f"({read_bytes} table bytes read, ids and outputs once, at the HBM rate), "
-            f"gathered bytes at the {where} rate {gathered_ms:.4f} ms; {sectors} sectors a step "
-            f"at the {where} rate {sector_ms:.4f} ms (share of the kernel's time "
-            f"{sector_ms / ms:.4f}"
-            + (": the kernel beats it" if ms < sector_ms else "")
-            + "; not a bound); equal bit for bit")
+            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({read_bytes} table bytes read, ids and "
+            f"outputs once, at the HBM rate; share {bound_ms / ms:.4f}); L1 ceiling "
+            f"{ceiling_ms:.4f} ms ({gathered} gathered bytes at the delivered L1 rate; share "
+            f"{ceiling_ms / ms:.4f}, of a delivered rate, not the bound); equal bit for bit")
         return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by="bytes", library_ms=plain_ms)
+                    bound_by="bytes", library_ms=plain_ms if library else None)
 
     for w, steps in ((W_PROBE, STEPS_PROBE), (W_FRAME, STEPS_FRAME)):
         idx0 = torch.from_numpy(start_rows(N_ROWS, w, seed)).to(dev)
         out(f"walks, W = {w} walkers x {steps} steps, N = {N_ROWS}:")
-        for kind, step_bytes, sectors in (("thread-row", 512, 16), ("warp-row", 512, 16),
-                                          ("chase", 8, 2), ("lane", 4, 1)):
+        if w == W_FRAME:
+            distinct, per_block = sharing(tab, idx0, steps)
+            out(f"  shared rows (replay): distinct rows all walkers read, step 0..{steps - 1}: "
+                f"{distinct}; mean distinct rows a {SHARE_BLOCK}-walker block reads (start "
+                f"order): {[round(x, 2) for x in per_block]}")
+        for kind, step_bytes in (("thread-row", 512), ("warp-row", 512), ("chase", 8),
+                                 ("lane", 4)):
             plain = lane_plain if kind == "lane" else walk_plain
-            res = case(f"{kind} (row {3 if 'row' in kind else 4 if kind == 'chase' else 5})",
+            res = case(f"{kind} (row {3 if 'row' in kind else 4 if kind == 'chase' else 5})"
+                       + (", 16 lanes a walker" if kind == "warp-row" else ""),
                        tab, idx0, steps, step_bytes,
                        lambda k=kind: walk(k, tab, idx0, steps),
                        lambda p=plain: p(tab, idx0, steps),
-                       table_bytes_read(kind, tab, idx0, steps), w * 8, sectors)
+                       table_bytes_read(kind, tab, idx0, steps), w * 8)
             if w == W_FRAME:
                 results[kind] = res
+        if parent is not None:
+            ref = walk_plain(tab, idx0, steps)
+            for kind in ("thread-row", "warp-row"):
+                _check_equal(f"the parent's {kind}, W = {w}",
+                             parent(KINDS[kind], tab, idx0, steps), ref)
+                t = turns(lambda k=kind: parent(KINDS[k], tab, idx0, steps),
+                           lambda k=kind: walk(k, tab, idx0, steps), 5 if w > W_PROBE else 20)
+                out(f"  {kind} against the parent's, in turns (parent, this, this, parent): "
+                    f"{t[0]:.4f} / {t[3]:.4f} ms against {t[1]:.4f} / {t[2]:.4f} ms: "
+                    f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}x; both equal to the plain walk")
+    # row 3's walks where ids leave the table and rows hold +inf
+    guarded = torch.from_numpy(guard_table(tab_np, seed)).to(dev)
+    idx0 = torch.from_numpy(start_rows(N_ROWS, W_PROBE, seed)).to(dev)
+    ref = walk_guarded(guarded, idx0, STEPS_PROBE)
+    stopped = int(((ref[0] < 0) | (ref[0] >= N_ROWS)).sum())
+    if stopped == 0:
+        raise RuntimeError("gather probe: no walker left the guard table")
+    for kind in ("thread-row", "warp-row"):
+        _check_equal(f"{kind} on the guard table", walk(kind, guarded, idx0, STEPS_PROBE), ref)
+    out(f"guard table (ids outside the table, rows holding +inf), W = {W_PROBE} x "
+        f"{STEPS_PROBE}: thread-row and warp-row equal to walk_guarded bit for bit; {stopped} "
+        f"walkers stopped at an id outside the table")
     out(f"rows-acc (row 6), S = {ROWS_ACC_S} warp walkers x {STEPS_PROBE} steps:")
     for n in ROWS_ACC_N:
         t = torch.from_numpy(make_table(n, seed)).to(dev)
@@ -298,14 +538,15 @@ def run(seed: int = 0, out=print) -> dict[str, dict]:
             f"N = {n} ({n * 512} bytes)", t, idx0, STEPS_PROBE, 512,
             lambda: walk("rows-acc", t, idx0, STEPS_PROBE),
             lambda: rows_acc_plain(t, idx0, STEPS_PROBE),
-            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512), 16)
+            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512))
     rng = np.random.default_rng(seed + 2)
     img = torch.from_numpy(rng.standard_normal((1080, 1920, 4), dtype=np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 1080 * 1920, 1080 * 1920).astype(np.int32)).to(dev)
     out("gather16: 2,073,600 random 16-byte rows of a 1920x1080x4 float32 image:")
     results["gather16"] = case("gather16 (img[idx])", img, idx, 1, 16,
                                lambda: gather16(img, idx), lambda: gather16_plain(img, idx),
-                               int(torch.unique(idx).numel()) * 16, idx.numel() * 16, 1)
+                               int(torch.unique(idx).numel()) * 16, idx.numel() * 16,
+                               library=True)
     return results
 
 

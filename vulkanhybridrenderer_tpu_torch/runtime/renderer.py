@@ -6,10 +6,11 @@ state.  ``animate`` sets the primitive transforms of the next frames; a
 configuration with ``animated=True`` refits the BVH8 (and rebuilds the
 shadow grid) every frame, and its graph is kept apart from the static one,
 since graphs are keyed on the whole configuration.
-``render_frame`` runs the active graph eagerly on ``device``; nothing is
-compiled ahead of time.  A graph is built once per (path, config), as the
-reference caches its compiled frame functions, so switching back with
-``set_path`` / ``set_config`` reuses it.  The temporal state lives at trace
+``render_frame(sync=True, srgb8=False)``, the reference's signature, runs the
+active graph eagerly on ``device``; nothing is compiled ahead of time.  A
+graph is built once per (path, config), as the reference caches its compiled
+frame functions, so switching back with ``set_path`` / ``set_config`` reuses
+it.  The temporal state lives at trace
 resolution (1/rt_scale of the frame on the hybrid path): it is made at
 construction, passed into the graph as "temporal_state", replaced by the
 graph's "TemporalStateOut" after each rendered frame, and made anew when
@@ -219,10 +220,13 @@ class Renderer:
             start, end = self._frame_events.popleft()
             self._stats.update_frame(start.elapsed_time(end))
 
-    def render_frame(self, srgb8: bool = False):
+    def render_frame(self, sync: bool = True, srgb8: bool = False):
         """Render one frame; returns the (4, H, W) linear RENDER_OUTPUT on the
         device, or with srgb8=True the (H, W, 4) uint8 sRGB image.  The work
-        is queued on the current stream; the caller synchronizes."""
+        is queued on the device's current stream; with sync=True (the
+        reference's jax.block_until_ready) it returns once the frame has
+        finished there, with sync=False once it is queued.  Both give the same
+        frame."""
         cuda = self.device.type == "cuda"
         if cuda:
             self._read_frame_times()
@@ -241,6 +245,8 @@ class Renderer:
             end = torch.cuda.Event(enable_timing=True)
             end.record(stream)
             self._frame_events.append((start, end))
+            if sync:
+                stream.synchronize()
         else:
             self._stats.update_frame((time.perf_counter() - t0) * 1e3)
         return out
@@ -295,7 +301,7 @@ class Renderer:
         activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
         with profile(activities=activities) as prof:
             for _ in range(frames):
-                self.render_frame()
+                self.render_frame(sync=False)
             if cuda:
                 torch.cuda.synchronize(self.device)
         trace_dir = Path(trace_dir)
