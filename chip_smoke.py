@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
-    python3 chip_smoke.py --parent DIR # and K3, K4, the toy and row 3's probe walks against
-                                       # DIR's (another checkout's) kernels, in turns
+    python3 chip_smoke.py --parent DIR # and K3, K4, the toy and the probe's thread-row,
+                                       # warp-row and lane walks against DIR's (another
+                                       # checkout's) kernels, in turns
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
@@ -217,13 +218,20 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 sum; one warp's dependent-load latency in L1 and in L2; the
                 rows the frame-width walkers share, step by step), then
                 every probe kernel against its plain version bit for bit,
-                each with its bound and share and the walks' L1 ceiling
-                (gathered bytes at the delivered L1 rate) and share;
+                each with its bound (bytes or float32 adds) and share and
+                the walks' L1 ceiling (gathered bytes at the delivered L1
+                rate) and share, row-loop (row 4) beside its modelled
+                ceiling (a line lookup a clock an SM); lane (row 5) also
+                with 0 steps (its transposes and staging alone) and on a
+                table whose values reach +-1e5 (the modulo's `%` path);
                 thread-row and warp-row against walk_guarded on a table
-                whose ids leave it and whose rows hold +inf; with
-                --parent, DIR's thread-row and warp-row checked and timed in
+                whose ids leave it and whose rows hold +inf, row-loop and
+                lane from start ids outside the table; with --parent,
+                DIR's thread-row, warp-row and lane checked and timed in
                 turns with this checkout's at both widths; the launch
-                counts of its run
+                counts of its run.  Phase 2 also counts the global loads
+                in row-loop's machine code (cuobjdump -sass): every one of
+                a walker's unrolled loads is there
 Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 """
 from __future__ import annotations
@@ -363,6 +371,37 @@ def _c_params(source: Path, symbol: str) -> list:
     return params
 
 
+def _row_loop_sass(build) -> str:
+    """The global loads (LDG) in row-loop's machine code, read by cuobjdump
+    from the built probe library; fails unless one stretch between two
+    branches (the unrolled step loop) holds all kRowLoopUnroll loads of
+    row[0]: a compiler that merged loads of one address would leave one."""
+    src = (build.CSRC_DIR / "gather_probe.cu").read_text()
+    unroll = int(re.search(r"kRowLoopUnroll = (\d+)", src).group(1))
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    lib = build.cuda_library_path("gather_probe.cu")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    body = next((part for part in sass.split("Function : ")[1:]
+                 if part.split(None, 1)[0].find("walk_row_loop") >= 0), None)
+    _check(body is not None, "cuobjdump shows no walk_row_loop")
+    loads, stretches, run = [], [], 0
+    for line in body.splitlines():
+        m = re.search(r"\b(LDG(?:\.[\w.]+)?)\s", line)
+        if m:
+            loads.append(m.group(1))
+            run += 1
+        elif re.search(r"\bBRA\b", line):
+            stretches.append(run)
+            run = 0
+    most = max(stretches + [run])
+    _check(most >= unroll, f"row-loop's machine code holds at most {most} global loads between "
+           f"two branches, fewer than its {unroll} unrolled loads of row[0]")
+    return (f"row-loop SASS (cuobjdump): {len(loads)} global loads in walk_row_loop "
+            f"({', '.join(sorted(set(loads)))}), {most} of them in the unrolled step loop "
+            f"between two branches ({unroll} steps), the rest the id's and the remainder loop's")
+
+
 def _other_launch(csrc: Path, source: str, symbol: str):
     """(launch function, its parameters) of another checkout's
     csrc/<source>, built beside this checkout's from that csrc/'s source
@@ -488,9 +527,11 @@ def main() -> int:
                  + _ptxas_report(build_log("gather_probe.cu"),
                                  {k: k for k in ("walk_thread_row", "walk_warp_row",
                                                  "walk_chase", "walk_lane", "walk_rows_acc",
-                                                 "gather16", "read_rate", "chase_ring")})):
+                                                 "walk_row_loop", "gather16", "read_rate",
+                                                 "chase_ring")})):
         print(line)
     print(f"build: {compiles} compiler runs")
+    print(_row_loop_sass(build))
 
     # the toy library once more, from another working directory and process:
     # the same file, no compiler run

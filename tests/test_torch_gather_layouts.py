@@ -9,8 +9,11 @@ against a Python replay of the read-rate kernel's partition, ``make_ring``
 against stepping its ring, and ``walk_guarded`` (the whole-row kernels'
 rules: a stop at an id outside the table, row 0 after a row holding +inf)
 against ``walk_plain`` on a finite table and against a Python replay on
-``guard_table``'s.  Sizes: the gather-probe
-tests' table, N = 512 rows, W = 256 walkers, 64 steps.
+``guard_table``'s.  The lane walk refuses a table whose column does not fit
+a block's shared memory (``LANE_MAX_ROWS``; the probe's run holds the
+launch to the same limit on the card), and row-loop returns its start ids
+themselves and refuses ids outside the table, on the CPU.  Sizes: the
+gather-probe tests' table, N = 512 rows, W = 256 walkers, 64 steps.
 """
 import numpy as np
 import pytest
@@ -63,6 +66,46 @@ def test_gather16_checks_raise_on_cpu_tensors(what):
            "non-contiguous image": (img[::2], idx)}[what]
     with pytest.raises(ValueError):
         gather.gather16(*bad)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_lane_refuses_a_column_larger_than_shared_memory(extra):
+    tab = torch.zeros((gather.LANE_MAX_ROWS + extra, 128))
+    idx0 = torch.arange(4, dtype=torch.int32)
+    before = dict(gather.launches)
+    if extra:
+        with pytest.raises(ValueError, match="shared memory"):
+            gather.walk("lane", tab, idx0, 1)
+    else:
+        got_idx, got_acc = gather.walk("lane", tab, idx0, 1)
+        assert got_idx.tolist() == [0, 1, 2, 3] and not got_acc.any()
+    assert dict(gather.launches) == before
+
+
+def test_row_loop_returns_its_start_ids(table):
+    """row-loop's ids never change: walk returns idx0 itself (the kernel
+    writes the sums alone), and each sum is row[0] added STEPS times."""
+    tab, idx0 = table
+    t, i = torch.from_numpy(tab), torch.from_numpy(idx0)
+    got_idx, got_acc = gather.walk("row-loop", t, i, STEPS)
+    assert got_idx is i
+    want = np.zeros(W, np.float32)
+    for _ in range(STEPS):
+        want = want + tab[idx0, 0]
+    np.testing.assert_array_equal(got_acc.numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [-1, N, 2**31 - 1])
+def test_row_loop_refuses_ids_outside_the_table(table, bad):
+    """walk's contract: ids lie in [0, N); the plain version raises where
+    the kernel would keep the id with sum 0."""
+    tab, idx0 = table
+    ids = idx0.copy()
+    ids[7] = bad
+    before = dict(gather.launches)
+    with pytest.raises(ValueError, match="start ids"):
+        gather.walk("row-loop", torch.from_numpy(tab), torch.from_numpy(ids), 4)
+    assert dict(gather.launches) == before
 
 
 def test_unknown_kind_raises(table):

@@ -5,20 +5,25 @@
 //   scripts/bench_pallas_gather.py:125 pallas_dyn_slice_loop (row 4),
 //   scripts/bench_pallas_gather.py:157 pallas_take_along_axis (row 5),
 //   scripts/probe_dyngather.py:63 (row 6).
-// Column 48 of a row holds the next row's id, so each step's address depends
-// on the previous step's load, as in K2's walk.  A walker returns its final
-// row id and its own float32 sum of what it read, added in step order, so a
-// kernel and its plain PyTorch version (probes/gather.py) agree bit for bit.
+// In the row walks column 48 of a row holds the next row's id, so each
+// step's address depends on the previous step's load, as in K2's walk.  A
+// walker returns its final row id and its own float32 sum of what it read,
+// added in step order, so a kernel and its plain PyTorch version
+// (probes/gather.py) agree bit for bit.
 //
 //   walk kind 0  thread-row: a thread owns its walker, as K4 (a thread a
 //                ray) does, and needs its whole 512-byte row a step;
 //   walk kind 1  warp-row: a group of kGroup lanes owns its walker, as K2
 //                (four lanes a ray) does, the row read coalesced;
-//   walk kind 2  thread per walker, only row[0] and row[48] (the latency
-//                chase);
-//   walk kind 3  per-lane gather: walker i reads tab[idx, i % 128] and steps
-//                idx = (idx + (int)v * 7 + s) mod N;
+//   walk kind 2  chase: a thread per walker, only row[0] and row[48] (a
+//                latency probe of the card; no TPU kernel computes it);
+//   walk kind 3  lane, the per-lane gather: walker i reads tab[idx, i % 128]
+//                and steps idx = (idx + (int)v * 7 + s) mod N;
 //   walk kind 4  warp per walker, the whole row added into a 128-wide sum;
+//   walk kind 5  row-loop, row 4's function: walker i loads row[0] of row
+//                idx0[i] `steps` times through L1 and adds each load to its
+//                sum in step order; its id never changes, so the kernel
+//                writes only the sums (the final ids are idx0 itself);
 //   gather16     one independent gather of 16-byte rows out[i] = img[idx[i]]
 //                (SSAO's and the PCF's taps);
 //   read_rate    the yardstick: coalesced 16-byte reads of a slice a block
@@ -56,11 +61,39 @@
 // a step.  Every byte of a row that kinds 0 and 1 read feeds the walk: a row
 // holding +inf would end it at row 0.  The probe's tables are finite, so
 // that never happens, but without it the compiler would drop the loads whose
-// values go unused and kind 0 would read what kind 2 reads.  A row id
-// outside [0, N) stops its walker before the read (its final id is that id),
-// and gather16 writes NaN for such an id: no read leaves the table.  The
-// plain versions raise there instead; the two agree on every table whose ids
-// are in range.
+// values go unused and kind 0 would read what kind 2 reads.
+//   row-loop    (row 4) the TPU kernel re-reads its walkers' rows every
+//               step (its ids never change) and adds row[0]: W x steps
+//               dynamic row loads from on-chip memory.  Here each of them
+//               is an L1 load (ld.global.ca in asm volatile, at an address
+//               ptxas cannot prove equal to another's), kRowLoopUnroll of a
+//               walker's loads issued back to back so they arrive close
+//               together, before other walkers' lines evict the row; only
+//               the adds go in order.  So the walk measures scattered L1
+//               hits, one 128-byte line a load.  Blocks are sized so the
+//               walkers spread over every SM.
+//   lane        (row 5) walker i reads only column i % 128: one column,
+//               N x 4 bytes (80 KB at N = 20,480), fits a block's shared
+//               memory, the card's counterpart of the TPU kernel's VMEM
+//               table.  A block owns one column and a chunk of its walkers
+//               and stages the column once with one TMA bulk copy; each step
+//               reads shared memory.  A column's values, start ids and
+//               outputs lie 512 bytes apart (walker i's neighbours belong to
+//               other columns), so the launch transposes the table and the
+//               ids into column-major scratch first and the outputs back
+//               last (32x32 tiles, both sides coalesced): read where they
+//               lie, each value would cost a 32-byte sector.  The floor
+//               modulo takes one compare and one add or subtract while
+//               |(int)v * 7 + s| < N; at the first step where it is not, a
+//               second loop finishes the walk with the `%`.  It equals
+//               torch.remainder on every int32.  The wrapper refuses a table
+//               whose column does not fit (LANE_MAX_ROWS rows).  The launch
+//               takes its scratch stream-ordered from a pool of its own per
+//               card, which keeps the memory across calls.
+// A row id outside [0, N) stops its walker before the read (its final id is
+// that id; row-loop's sum is then 0), and gather16 writes NaN for such an
+// id: no read leaves the table.  The plain versions raise there instead; the
+// two agree on every table whose ids are in range.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -73,6 +106,15 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kRowThreads = 128;  // thread-row: a block's threads, a walker each
 constexpr int kGroup = 16;        // warp-row: lanes a walker
 constexpr int kGroupThreads = 512;  // warp-row: a block's threads
+constexpr int kRowLoopUnroll = 16;  // row-loop: a walker's loads in flight at once
+constexpr int kRowLoopThreads = 128;  // row-loop: the most threads a block
+constexpr int kLaneCols = 128;      // lane: the table's columns, walker i reads i % 128
+constexpr int kLaneThreads = 1024;  // lane: a block's threads
+constexpr int kLaneChunk = 2048;    // lane: a column's walkers a block
+// lane: a block's column in shared memory: Hopper's 227 KB a block less 16
+// bytes for the staging barrier
+constexpr int kLaneMaxSmem = 232448 - 16;
+constexpr int kLaneMaxRows = kLaneMaxSmem / 4;  // 58,108
 
 __device__ __forceinline__ float4 ld_v4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -197,20 +239,140 @@ __global__ void walk_chase(const float* __restrict__ tab, const int* __restrict_
     out_acc[i] = acc;
 }
 
-__global__ void walk_lane(const float* __restrict__ tab, const int* __restrict__ idx0,
-                          int w, int steps, int n, int* out_idx, float* out_acc) {
-    const int i = blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= w) return;
-    const int col = i & 127;
-    int idx = idx0[i];
-    float acc = 0.0f;
-    for (int s = 0; s < steps && !out_of_table(idx, n); ++s) {
-        const float v = tab[(size_t)idx * 128 + col];
-        acc = acc + v;
-        int m = (idx + (int)v * 7 + s) % n;  // floor modulo, as torch.remainder
-        idx = m < 0 ? m + n : m;
+// The lane walk's transposes of 4-byte values, 32x32 tiles through shared
+// memory, both sides coalesced: dst[c * ld + r] = src[r * cols + c] for r <
+// rows, c < cols, where the source index is below src_n and the destination
+// index below dst_n.  blockIdx.z picks one of two (src, dst) pairs.
+__global__ void __launch_bounds__(256)
+transpose32(const unsigned* __restrict__ src0, const unsigned* __restrict__ src1, int rows,
+            int cols, long long src_n, unsigned* __restrict__ dst0, unsigned* __restrict__ dst1,
+            long long ld, long long dst_n) {
+    __shared__ unsigned tile[32][33];
+    const unsigned* src = blockIdx.z ? src1 : src0;
+    unsigned* dst = blockIdx.z ? dst1 : dst0;
+    const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+    const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < 32; j += 8) {
+        const long long r = r0 + ty + j, c = c0 + tx, at = r * cols + c;
+        if (r < rows && c < cols && at < src_n) tile[ty + j][tx] = src[at];
     }
-    out_idx[i] = idx;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 32; j += 8) {
+        const long long r = r0 + tx, c = c0 + ty + j, at = c * ld + r;
+        if (r < rows && c < cols && at < dst_n) dst[at] = tile[tx][ty + j];
+    }
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Block x owns column x and chunk y of its walkers i = x + 128 k, k in
+// [y * kLaneChunk, ..).  It stages its column (ld floats of `cols`, the
+// table's columns as rows) into shared memory with one TMA bulk copy, then
+// a thread walks its walkers one after another, reading start ids from
+// `ids` and writing final ids and sums to `res_idx` / `res_acc` (k-major
+// rows of kc values a column, both coalesced).  The step's floor modulo: a
+// first loop takes one compare and one add or subtract a step while
+// |(int)v * 7 + s| < n and leaves at the first step where it is not; a
+// second loop finishes the walk with the `%`.  Both wrap as PyTorch's int32
+// tensors do.
+__global__ void __launch_bounds__(kLaneThreads, 2)
+walk_lane(const float* __restrict__ cols, int ld, const int* __restrict__ ids, int kc, int w,
+          int steps, int n, int* __restrict__ res_idx, float* __restrict__ res_acc) {
+    extern __shared__ __align__(16) float col[];
+    __shared__ unsigned long long bar;
+    const int c = blockIdx.x;
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&bar)) : "memory");
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                         smem_u32(&bar)),
+                     "r"(ld * 4)
+                     : "memory");
+        if (ld > 0)
+            asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_u32(col)),
+            "l"(cols + (size_t)c * ld), "r"(ld * 4), "r"(smem_u32(&bar))
+            : "memory");
+    }
+    unsigned done = 0;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(smem_u32(&bar))
+            : "memory");
+    } while (!done);
+    const int k0 = blockIdx.y * kLaneChunk;
+    const int k1 = kc < k0 + kLaneChunk ? kc : k0 + kLaneChunk;
+    for (int k = k0 + threadIdx.x; k < k1; k += kLaneThreads) {
+        if (c + (long long)kLaneCols * k >= w) break;
+        const size_t at = (size_t)c * kc + k;
+        int idx = ids[at];
+        float acc = 0.0f;
+        int s = 0;
+        if (!out_of_table(idx, n)) {
+            for (; s < steps; ++s) {
+                const float v = col[idx];
+                // (int)v * 7 + s, wrapped
+                const int d = (int)((unsigned)__float2int_rz(v) * 7u + (unsigned)s);
+                if ((unsigned)d + (unsigned)(n - 1) > 2u * (unsigned)(n - 1)) break;
+                acc = acc + v;
+                const int m = idx + d;  // in (-n, 2n)
+                idx = m >= n ? m - n : (m < 0 ? m + n : m);
+            }
+            for (; s < steps; ++s) {
+                const float v = col[idx];
+                acc = acc + v;
+                const int d = (int)((unsigned)__float2int_rz(v) * 7u + (unsigned)s);
+                const int r = (int)((unsigned)idx + (unsigned)d) % n;
+                idx = r < 0 ? r + n : r;
+            }
+        }
+        res_idx[at] = idx;
+        res_acc[at] = acc;
+    }
+}
+
+// row[0] through L1 (.ca), in asm volatile so the compiler keeps the load
+__device__ __forceinline__ float ld_ca(const float* p) {
+    float v;
+    asm volatile("ld.global.ca.f32 %0, [%1];" : "=f"(v) : "l"(p));
+    return v;
+}
+
+__global__ void __launch_bounds__(kRowLoopThreads)
+walk_row_loop(const float* __restrict__ tab, const int* __restrict__ idx0, int w, int steps,
+              int n, float* out_acc) {
+    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= w) return;
+    const int idx = idx0[i];
+    float acc = 0.0f;
+    if (!out_of_table(idx, n)) {
+        const float* row = tab + (size_t)idx * 128;
+        // gridDim.z is 1: a zero ptxas cannot see, so step s loads from
+        // row + s * zero, an address of its own, and ptxas merges no two of
+        // the loads (with one address it kept one load of every 16)
+        const size_t zero = gridDim.z - 1;
+        int s = 0;
+        for (; s + kRowLoopUnroll <= steps; s += kRowLoopUnroll) {
+            float v[kRowLoopUnroll];
+#pragma unroll
+            for (int k = 0; k < kRowLoopUnroll; ++k) v[k] = ld_ca(row + (s + k) * zero);
+#pragma unroll
+            for (int k = 0; k < kRowLoopUnroll; ++k) acc = acc + v[k];
+        }
+        for (; s < steps; ++s) acc = acc + ld_ca(row + s * zero);
+    }
     out_acc[i] = acc;
 }
 
@@ -331,13 +493,37 @@ __global__ void chase_ring(const int* __restrict__ ring, int start, int warm, in
     }
 }
 
+// lane's scratch comes from a pool per card that keeps its memory (a
+// release threshold of all of it), so a call maps none after the first
+cudaError_t lane_pool(int device, cudaMemPool_t* pool) {
+    static cudaMemPool_t pools[64];
+    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+    if (!pools[device]) {
+        cudaMemPoolProps props = {};
+        props.allocType = cudaMemAllocationTypePinned;
+        props.location.type = cudaMemLocationTypeDevice;
+        props.location.id = device;
+        cudaMemPool_t made;
+        cudaError_t err = cudaMemPoolCreate(&made, &props);
+        if (err != cudaSuccess) return err;
+        unsigned long long keep = ~0ull;
+        err = cudaMemPoolSetAttribute(made, cudaMemPoolAttrReleaseThreshold, &keep);
+        if (err != cudaSuccess) return err;
+        pools[device] = made;
+    }
+    *pool = pools[device];
+    return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" int probe_walk_launch(int kind, const float* tab, const int* idx0, int w,
                                  int steps, int n, int* out_idx, float* out_acc, int device,
                                  void* stream) {
-    // kind: 0 thread-row, 1 warp-row, 2 chase, 3 lane, 4 warp rows-acc.
+    // kind: 0 thread-row, 1 warp-row, 2 chase, 3 lane (n <= kLaneMaxRows),
+    // 4 warp rows-acc, 5 row-loop (writes out_acc only: its ids are idx0).
     // device: the tensors' card.
+    if (kind == 3 && (n < 0 || n > kLaneMaxRows)) return (int)cudaErrorInvalidValue;
     if (w <= 0) return (int)cudaGetLastError();
     const DeviceGuard guard(device);
     cudaStream_t st = (cudaStream_t)stream;
@@ -358,13 +544,68 @@ extern "C" int probe_walk_launch(int kind, const float* tab, const int* idx0, in
         case 2:
             walk_chase<<<blocks, threads, 0, st>>>(tab, idx0, w, steps, n, out_idx, out_acc);
             break;
-        case 3:
-            walk_lane<<<blocks, threads, 0, st>>>(tab, idx0, w, steps, n, out_idx, out_acc);
-            break;
+        case 3: {
+            // scratch, 4-byte values: the table's columns as 128 rows of ld
+            // = n rounded up to 4, then the start ids, final ids and sums as
+            // 128 rows of kc = ceil(w / 128): four launches, the transposes
+            // in and out and the walk
+            static bool opted[64];
+            cudaMemPool_t pool;
+            cudaError_t err = lane_pool(device, &pool);
+            if (err != cudaSuccess) return (int)err;
+            if (!opted[device]) {
+                err = cudaFuncSetAttribute(walk_lane, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kLaneMaxSmem);
+                if (err != cudaSuccess) return (int)err;
+                opted[device] = true;
+            }
+            const int ld = (n + 3) / 4 * 4;
+            const int kc = (int)(((long long)w + kLaneCols - 1) / kLaneCols);
+            void* scratch = nullptr;
+            err = cudaMallocFromPoolAsync(
+                &scratch, ((size_t)kLaneCols * ld + 3ull * kLaneCols * kc) * 4, pool, st);
+            if (err != cudaSuccess) return (int)err;
+            unsigned* cols = reinterpret_cast<unsigned*>(scratch);
+            unsigned* ids = cols + (size_t)kLaneCols * ld;
+            unsigned* res_idx = ids + (size_t)kLaneCols * kc;
+            unsigned* res_acc = res_idx + (size_t)kLaneCols * kc;
+            const long long tab_n = (long long)n * kLaneCols, res_n = (long long)kLaneCols * kc;
+            if (n > 0)
+                transpose32<<<dim3(kLaneCols / 32, (unsigned)((n + 31) / 32), 1), 256, 0, st>>>(
+                    reinterpret_cast<const unsigned*>(tab), nullptr, n, kLaneCols, tab_n, cols,
+                    nullptr, ld, (long long)kLaneCols * ld);
+            transpose32<<<dim3(kLaneCols / 32, (unsigned)((kc + 31) / 32), 1), 256, 0, st>>>(
+                reinterpret_cast<const unsigned*>(idx0), nullptr, kc, kLaneCols, w, ids, nullptr,
+                kc, res_n);
+            const dim3 grid(kLaneCols, (unsigned)((kc + kLaneChunk - 1) / kLaneChunk));
+            walk_lane<<<grid, kLaneThreads, (size_t)ld * 4, st>>>(
+                reinterpret_cast<const float*>(cols), ld, reinterpret_cast<const int*>(ids), kc,
+                w, steps, n, reinterpret_cast<int*>(res_idx), reinterpret_cast<float*>(res_acc));
+            transpose32<<<dim3((unsigned)((kc + 31) / 32), kLaneCols / 32, 2), 256, 0, st>>>(
+                res_idx, res_acc, kLaneCols, kc, res_n, reinterpret_cast<unsigned*>(out_idx),
+                reinterpret_cast<unsigned*>(out_acc), kLaneCols, w);
+            err = cudaGetLastError();
+            const cudaError_t freed = cudaFreeAsync(scratch, st);
+            return (int)(err != cudaSuccess ? err : freed);
+        }
         case 4:
             walk_rows_acc<<<(unsigned)warp_blocks, threads, 0, st>>>(tab, idx0, w, steps, n,
                                                                      out_idx, out_acc);
             break;
+        case 5: {
+            // spread the walkers over every SM: a block of at most
+            // kRowLoopThreads, a multiple of 8 threads
+            int sms = 0;
+            const cudaError_t err =
+                cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+            if (err != cudaSuccess) return (int)err;
+            int per = (int)(((long long)w + sms - 1) / sms);
+            per = (per + 7) / 8 * 8;
+            const int rl_threads = per < kRowLoopThreads ? per : kRowLoopThreads;
+            walk_row_loop<<<(unsigned)(((long long)w + rl_threads - 1) / rl_threads), rl_threads,
+                            0, st>>>(tab, idx0, w, steps, n, out_acc);
+            break;
+        }
         default:
             return (int)cudaErrorInvalidValue;
     }

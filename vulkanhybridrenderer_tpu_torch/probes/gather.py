@@ -10,9 +10,10 @@ TPU probe's: column 48 of a row holds the next row id, made from --seed with
 numpy; a walker starts at a random row, reads its row, adds row[0] to its own
 float32 sum and moves to row[48].  Each case checks the kernel against its
 plain version bit for bit (final ids and sums) and prints ns per index, GB/s
-of gathered bytes, the bound (each distinct row read once at the HBM rate)
-and its share, and beside them the L1 ceiling: the gathered bytes at the
-rate the card's L1 delivers, a rate the yardstick measures, not the bound.
+of gathered bytes, the bound (each distinct value read once at the HBM rate,
+or the walk's float32 adds at the FP32 rate, the larger) and its share, and
+beside them the L1 ceiling: the gathered bytes at the rate the card's L1
+delivers, a rate the yardstick measures, not the bound.
 The yardstick (``yardstick``): coalesced 16-byte reads, many passes in one
 launch, of a 32 KB slice a block keeps in L1 and of the whole table from L2
 (their bits summed and checked against a plain sum), in TB/s and bytes a
@@ -26,17 +27,32 @@ The cases:
                a warp, their rows moved by the warp one coalesced row a load;
   warp-row     (row 3) 16 lanes own a walker (K2's layout is 4 lanes a
                ray), two walkers a warp;
-  chase        (row 4) a thread per walker reading row[0] and row[48] only;
-  lane         (row 5) out[i] = tab[idx_i, i % 128], idx = (idx + v*7 + s) mod N;
+  row-loop     (row 4) pallas_dyn_slice_loop's function: walker i loads
+               row[0] of row idx0[i] every step and adds it; its id never
+               changes (the TPU kernel reads ids nothing writes).  Printed
+               beside a modelled ceiling, W x steps line lookups at one line
+               a clock an SM at the yardstick's clock (a model, not a bound);
+  lane         (row 5) out[i] = tab[idx_i, i % 128], idx = (idx + v*7 + s) mod N,
+               each column staged in a block's shared memory; also with 0
+               steps (the transposes in and out and the staging alone) and
+               on ``lane_table``, whose values reach +-1e5 so the modulo's
+               `%` path runs;
   rows-acc     (row 6) S = 8 warp walkers adding whole rows, N = 256, 2048,
                20480 (128 KB, 1 MB, 10.5 MB: L1, L2, L2);
+  chase        a thread per walker reading row[0] and row[48] only, K2's
+               walk's latency on the card (no TPU kernel computes it);
   gather16     2,073,600 random 16-byte rows of a 1920x1080x4 image.
-Rows 3-5 run at the TPU probe's W = 1024 walkers x 512 steps and at the
-frame's width, W = 2,073,600 x 32 steps, the occupancy K2 runs at; row 3's
-walks also on ``guard_table``, whose ids leave the table and whose rows hold
-+inf, against ``walk_guarded``.  Every wrapper checks its arguments on any
-device; on CPU tensors it runs its plain version, on CUDA tensors its
-kernel.  ``run`` needs the card.
+Rows 3-5 and the chase run at the TPU probe's W = 1024 walkers x 512 steps
+and at the frame's width, W = 2,073,600 x 32 steps, the occupancy K2 runs
+at; row 3's walks also on ``guard_table``, whose ids leave the table and
+whose rows hold +inf, against ``walk_guarded``, and row-loop and lane from
+start ids outside the table (final id that id, sum 0); lane also at N =
+LANE_MAX_ROWS, and its launch's refusal one row above.  Every wrapper checks
+its arguments on any device (lane also that a column fits a block's shared
+memory, N <= LANE_MAX_ROWS); on CPU tensors it runs its plain version, on
+CUDA tensors its kernel.  ``launches`` counts wrapper calls that launched
+(lane's call is four kernels) and the graph replays of them.  ``run`` needs
+the card.
 """
 from __future__ import annotations
 
@@ -60,17 +76,23 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 SHARE_BLOCK = 128  # walkers a block, in start order, for sharing()
 
 #: walk kernel -> its kind in csrc/gather_probe.cu's probe_walk_launch
-KINDS = {"thread-row": 0, "warp-row": 1, "chase": 2, "lane": 3, "rows-acc": 4}
-#: kernel -> the TPU kernel it stands for (gather16, the SSAO / PCF tap
-#: gather, has none)
+KINDS = {"thread-row": 0, "warp-row": 1, "chase": 2, "lane": 3, "rows-acc": 4, "row-loop": 5}
+#: kernel -> the TPU kernel it stands for (the chase, K2's walk's latency,
+#: and gather16, the SSAO / PCF tap gather, have none)
 REPLACES = {
     "thread-row": "scripts/bench_pallas_gather.py:88",
     "warp-row": "scripts/bench_pallas_gather.py:88",
-    "chase": "scripts/bench_pallas_gather.py:125",
+    "row-loop": "scripts/bench_pallas_gather.py:125",
     "lane": "scripts/bench_pallas_gather.py:157",
     "rows-acc": "scripts/probe_dyngather.py:63",
+    "chase": None,
     "gather16": None,
 }
+#: the lane walk stages a column in a block's shared memory: Hopper's 227 KB
+#: a block less 16 bytes for its barrier (csrc's kLaneMaxRows; ``run`` holds
+#: the launch to it on the card)
+LANE_MAX_ROWS = (232448 - 16) // 4
+
 #: the yardstick: 16-byte words a read-rate round covers (csrc's
 #: kRateThreads * kRateLoads), a block's L1 slice, blocks an SM, passes
 RATE_CHUNK = 512 * 4
@@ -151,6 +173,53 @@ def lane_plain(tab, idx0, steps: int):
     return idx, acc
 
 
+def lane_table(n: int, seed: int = 0) -> np.ndarray:
+    """(n, 128) float32 for the lane walk's modulo: half the values uniform
+    in [-1e5, 1e5] (|int(v) * 7 + s| >= N, the `%` path, for most of them),
+    the rest standard normal (the compare-and-add path) but for 1% at the
+    edges: int(v) * 7 near +-N, and +-3.1e8, whose product with 7 wraps in
+    int32."""
+    rng = np.random.default_rng(seed + 5)
+    tab = rng.standard_normal((n, 128), dtype=np.float32)
+    pick = rng.random((n, 128))
+    k = (n - 1) // 7
+    edges = np.array([k, k + 1, k + 0.5, 3.1e8], np.float32)
+    edges = np.concatenate([edges, -edges])
+    tab[pick < 0.5] = rng.uniform(-1e5, 1e5, int((pick < 0.5).sum())).astype(np.float32)
+    tab[pick > 0.99] = rng.choice(edges, int((pick > 0.99).sum()))
+    return tab
+
+
+def lane_slow_steps(tab, idx0, steps: int) -> int:
+    """The lane walk's steps whose |int(v) * 7 + s| >= N: those the kernel's
+    modulo takes through `%`."""
+    n = tab.shape[0]
+    idx = idx0.int()
+    cols = torch.arange(idx.shape[0], device=tab.device) % 128
+    slow = 0
+    for s in range(steps):
+        v = tab[idx.long(), cols]
+        d = v.to(torch.int32) * 7 + s
+        slow += int((d.abs() >= n).sum())
+        idx = torch.remainder(idx + d, n)
+    return slow
+
+
+def row_loop_plain(tab, idx0, steps: int):
+    """pallas_dyn_slice_loop's function per walker: the ids idx0 themselves
+    (they never change) and row[0] of each walker's row added `steps` times
+    to 0.0 in float32, in step order.  Raises on an id outside [0, N)."""
+    n = tab.shape[0]
+    idx = idx0.long()
+    if bool(((idx < 0) | (idx >= n)).any()):
+        raise ValueError(f"row-loop: start ids lie in [0, {n})")
+    v = tab[idx, 0]
+    acc = torch.zeros(idx.shape[0], dtype=torch.float32, device=tab.device)
+    for _ in range(steps):
+        acc = acc + v
+    return idx0, acc
+
+
 def rows_acc_plain(tab, idx0, steps: int):
     """Final row ids (W,) and each walker's elementwise sum of its rows
     (W, 128)."""
@@ -172,8 +241,11 @@ def table_bytes_read(kind: str, tab, idx0, steps: int) -> int:
     """The table bytes walk `kind` must read on this data: the distinct
     rows its walkers visit, 512 bytes each for the whole-row walks (every
     value feeds them), row[0] and row[48] for the chase; the distinct
-    (row, column) values for the lane walk."""
+    (row, column) values for the lane walk; row[0] of each distinct start
+    row for row-loop, whose result reads nothing else."""
     n = tab.shape[0]
+    if kind == "row-loop":
+        return int(torch.unique(idx0).numel()) * 4
     if kind == "lane":
         seen = torch.zeros(n * 128, dtype=torch.bool, device=tab.device)
         idx = idx0.long()
@@ -278,11 +350,13 @@ def _stream(t):
 
 
 def walk(kind: str, tab, idx0, steps: int):
-    """Kernel `kind` (thread-row, warp-row, chase, lane or rows-acc) over the
-    (N, 128) float32 table from the int32 start rows idx0.  Its plain
-    version on CPU tensors, its kernel on CUDA tensors; the checks hold on
-    both.  Row ids (idx0 and the table's column 48) lie in [0, N): the
-    kernel stops a walker at one that does not, the plain version raises."""
+    """Kernel `kind` (thread-row, warp-row, chase, lane, rows-acc or
+    row-loop) over the (N, 128) float32 table from the int32 start rows
+    idx0.  Its plain version on CPU tensors, its kernel on CUDA tensors; the
+    checks hold on both (lane: N <= LANE_MAX_ROWS).  Row ids (idx0 and the
+    table's column 48) lie in [0, N): the kernel stops a walker at one that
+    does not (its final id is that id), the plain version raises.  row-loop
+    returns idx0 itself as its final ids."""
     if kind not in KINDS:
         raise ValueError(f"unknown walk kind {kind!r}; kinds: {sorted(KINDS)}")
     cuda = _check_args(kind, tab, idx0)
@@ -290,16 +364,23 @@ def walk(kind: str, tab, idx0, steps: int):
             or idx0.dtype != torch.int32 or idx0.dim() != 1):
         raise ValueError(f"{kind}: a float32 (N, 128) table and (W,) int32 rows, got "
                          f"{tab.dtype} {tuple(tab.shape)} and {idx0.dtype} {tuple(idx0.shape)}")
+    if kind == "lane" and tab.shape[0] > LANE_MAX_ROWS:
+        raise ValueError(f"lane: a column of {tab.shape[0]} rows does not fit a block's shared "
+                         f"memory (at most {LANE_MAX_ROWS} rows)")
     if not cuda:
-        plain = {"lane": lane_plain, "rows-acc": rows_acc_plain}.get(kind, walk_plain)
+        plain = {"lane": lane_plain, "rows-acc": rows_acc_plain,
+                 "row-loop": row_loop_plain}.get(kind, walk_plain)
         return plain(tab, idx0, steps)
     w = idx0.shape[0]
-    out_idx = torch.empty(w, dtype=torch.int32, device=tab.device)
+    # row-loop's ids never change: its kernel writes the sums alone
+    out_idx = (idx0 if kind == "row-loop"
+               else torch.empty(w, dtype=torch.int32, device=tab.device))
     out_acc = torch.empty((w, 128) if kind == "rows-acc" else (w,), dtype=torch.float32,
                           device=tab.device)
     index, stream = _stream(tab)
     err = load_kernel()[0](KINDS[kind], tab.data_ptr(), idx0.data_ptr(), w, steps,
-                           tab.shape[0], out_idx.data_ptr(), out_acc.data_ptr(), index, stream)
+                           tab.shape[0], None if kind == "row-loop" else out_idx.data_ptr(),
+                           out_acc.data_ptr(), index, stream)
     if err != 0:
         raise RuntimeError(f"gather probe {kind} launch failed: CUDA error {err}")
     launches[kind] += 1
@@ -371,6 +452,27 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Milliseconds of one fn() on the device alone: `calls` calls captured
+    in one CUDA graph, the graph replayed `replays` times (and once before
+    the timing), so the host's launch path (Python, ctypes) is left out.
+    ``launches`` counts what ran: a captured call counts once for each
+    replay, not for its capture."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = launches.copy()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    captured = launches - before
+    ms = _cuda_ms(graph.replay, replays) / calls
+    for name, count in captured.items():
+        launches[name] += count * replays  # the capture counted one replay's
+    del graph
+    return ms
+
+
 def _smi(query: str) -> str:
     return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -440,7 +542,8 @@ def yardstick(tab, out=print) -> dict:
         f"({RING_LINES[1] * 128} bytes, ld.ca) {lat[1]:.2f} ns a step, L2 ring "
         f"({RING_LINES[2] * 128} bytes, ld.cg) {lat[2]:.2f} ns a step; ends as the replay's")
     return dict(l1_rate=rates[1][0], l2_rate=rates[2][0], l1_per_clk=per_clk[1],
-                l2_per_clk=per_clk[2], clock_mhz=clock_mhz, l1_ns=lat[1], l2_ns=lat[2])
+                l2_per_clk=per_clk[2], clock_mhz=clock_mhz, max_mhz=max_mhz, n_sm=n_sm,
+                l1_ns=lat[1], l2_ns=lat[2])
 
 
 def turns(other, mine, iters: int) -> list[float]:
@@ -449,46 +552,85 @@ def turns(other, mine, iters: int) -> list[float]:
     return [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
 
 
+def _out_of_table_starts(idx0, n: int, seed: int):
+    """A copy of idx0 with 16 ids below the table and 16 above it, and the
+    mask of those 32 walkers."""
+    ids = idx0.clone()
+    rows = torch.from_numpy(np.random.default_rng(seed + 6).choice(ids.shape[0], 32,
+                                                                    replace=False)).to(ids.device)
+    ids[rows[:16]] = -1 - rows[:16].int()
+    ids[rows[16:]] = n + rows[16:].int()
+    bad = torch.zeros(ids.shape[0], dtype=torch.bool, device=ids.device)
+    bad[rows] = True
+    return ids, bad
+
+
 def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
     """Every case on the current CUDA device; raises if a kernel and its
     plain version differ.  Returns, per kernel, its numbers at the case
-    that stands for it (rows 3-5 at the frame's width, row 6 at N = 20480).
-    parent(kind, tab, idx0, steps) -> (ids, sums): another build's walk
-    launch; its thread-row and warp-row are checked against the plain
-    version and timed in turns with this build's."""
+    that stands for it (rows 3-5 and the chase at the frame's width, row 6
+    at N = 20480).  parent(kind, tab, idx0, steps) -> (ids, sums): another
+    build's walk launch; its thread-row, warp-row and lane are checked
+    against the plain versions and timed in turns with this build's."""
     if not torch.cuda.is_available():
         raise RuntimeError("the gather probe measures the card: no CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
     tab_np = make_table(N_ROWS, seed)
     tab = torch.from_numpy(tab_np).to(dev)
-    l1_rate = yardstick(tab, out)["l1_rate"]
-    out(f"bound: each distinct row a walk reads once at the HBM rate "
-        f"({HBM_BYTES_PER_S / 1e12:.2f} TB/s, data sheet); L1 ceiling: the gathered bytes at "
-        f"the delivered L1 rate, {l1_rate / 1e12:.3f} TB/s (a delivered rate, not the bound)")
+    ys = yardstick(tab, out)
+    l1_rate = ys["l1_rate"]
+    fp32_per_s = ys["n_sm"] * 128 * ys["max_mhz"] * 1e6
+    lookups_per_s = ys["n_sm"] * ys["clock_mhz"] * 1e6
+    out(f"bound: each distinct value a walk reads once at the HBM rate "
+        f"({HBM_BYTES_PER_S / 1e12:.2f} TB/s, data sheet), or its float32 adds at "
+        f"{fp32_per_s / 1e12:.2f} T FP32 instructions/s ({ys['n_sm']} SMs x 128 lanes x "
+        f"{ys['max_mhz']:.0f} MHz), the larger; L1 ceiling: the gathered bytes at the "
+        f"delivered L1 rate, {l1_rate / 1e12:.3f} TB/s (a delivered rate, not the bound); "
+        f"row-loop's modelled ceiling: one line lookup a clock an SM at {ys['clock_mhz']:.0f} "
+        f"MHz (a model, not the bound)")
     results = {}
 
-    def case(label, table, idx0, steps, step_bytes, kernel, plain, read_bytes, out_bytes,
-             library=False):
+    def case(label, idx0, steps, step_bytes, kernel, plain, read_bytes, out_bytes, adds,
+             library=False, model=False):
         w = idx0.shape[0]
         got, ref = kernel(), plain()
         _check_equal(label, got, ref)
         ms = _cuda_ms(kernel, 5 if w > W_PROBE else 20)
+        graph_ms = _graph_ms(kernel)
         plain_ms = _cuda_ms(plain, 1 if w > W_PROBE else 3)
         n_idx = w * steps
         gathered = n_idx * step_bytes
         # the bound: the table bytes this run's walk reads (read_bytes, each
-        # once), the start ids read once, the outputs written once
-        bound_ms = (read_bytes + idx0.numel() * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
-        ceiling_ms = gathered / l1_rate * 1e3
-        out(f"  {label}: kernel {ms:.4f} ms, {ms * 1e6 / n_idx:.3f} ns/index, "
+        # once), the start ids read once, the outputs written once (row-loop
+        # writes its sums alone); or its
+        # float32 adds at the FP32 rate
+        bytes_ms = (read_bytes + idx0.numel() * 4 + out_bytes) / HBM_BYTES_PER_S * 1e3
+        ops_ms = adds / fp32_per_s * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        if model:
+            ceiling_ms = n_idx / lookups_per_s * 1e3
+            ceiling = (f"modelled ceiling {ceiling_ms:.4f} ms ({n_idx} line lookups at one a "
+                       f"clock an SM; share {ceiling_ms / ms:.4f}, of a model, not the bound"
+                       + ("; the kernel beats it, so the model is wrong" if ms < ceiling_ms
+                          else "") + ")")
+        else:
+            ceiling_ms = gathered / l1_rate * 1e3
+            ceiling = (f"L1 ceiling {ceiling_ms:.4f} ms ({gathered} gathered bytes at the "
+                       f"delivered L1 rate; share {ceiling_ms / ms:.4f}, of a delivered rate, "
+                       f"not the bound)")
+        out(f"  {label}: kernel {ms:.4f} ms (in a CUDA graph {graph_ms:.4f} ms a launch), "
+            f"{ms * 1e6 / n_idx:.3f} ns/index, "
             f"{gathered / (ms * 1e-3) / 1e9:.1f} GB/s gathered; plain (PyTorch indexing) "
-            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms ({read_bytes} table bytes read, ids and "
-            f"outputs once, at the HBM rate; share {bound_ms / ms:.4f}); L1 ceiling "
-            f"{ceiling_ms:.4f} ms ({gathered} gathered bytes at the delivered L1 rate; share "
-            f"{ceiling_ms / ms:.4f}, of a delivered rate, not the bound); equal bit for bit")
-        return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by="bytes", library_ms=plain_ms if library else None)
+            f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms (set by {bound_by}: {read_bytes} table "
+            f"bytes read, ids and outputs once, at the HBM rate {bytes_ms:.6f} ms; {adds} float32 "
+            f"adds {ops_ms:.6f} ms; share {bound_ms / ms:.4f}); {ceiling}; equal bit for bit")
+        return dict(max_abs_err=0.0, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    library_ms=plain_ms if library else None)
 
+    plains = {"lane": lane_plain, "row-loop": row_loop_plain}
+    rows = {"thread-row": 3, "warp-row": 3, "row-loop": 4, "lane": 5}
+    big = torch.from_numpy(lane_table(N_ROWS, seed)).to(dev)
     for w, steps in ((W_PROBE, STEPS_PROBE), (W_FRAME, STEPS_FRAME)):
         idx0 = torch.from_numpy(start_rows(N_ROWS, w, seed)).to(dev)
         out(f"walks, W = {w} walkers x {steps} steps, N = {N_ROWS}:")
@@ -497,24 +639,39 @@ def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
             out(f"  shared rows (replay): distinct rows all walkers read, step 0..{steps - 1}: "
                 f"{distinct}; mean distinct rows a {SHARE_BLOCK}-walker block reads (start "
                 f"order): {[round(x, 2) for x in per_block]}")
-        for kind, step_bytes in (("thread-row", 512), ("warp-row", 512), ("chase", 8),
-                                 ("lane", 4)):
-            plain = lane_plain if kind == "lane" else walk_plain
-            res = case(f"{kind} (row {3 if 'row' in kind else 4 if kind == 'chase' else 5})"
-                       + (", 16 lanes a walker" if kind == "warp-row" else ""),
-                       tab, idx0, steps, step_bytes,
+        for kind, step_bytes in (("thread-row", 512), ("warp-row", 512), ("row-loop", 4),
+                                 ("lane", 4), ("chase", 8)):
+            plain = plains.get(kind, walk_plain)
+            label = (f"{kind} (row {rows[kind]})" if kind in rows else f"{kind} (no TPU row)")
+            res = case(label + (", 16 lanes a walker" if kind == "warp-row" else ""),
+                       idx0, steps, step_bytes,
                        lambda k=kind: walk(k, tab, idx0, steps),
                        lambda p=plain: p(tab, idx0, steps),
-                       table_bytes_read(kind, tab, idx0, steps), w * 8)
+                       table_bytes_read(kind, tab, idx0, steps),
+                       w * (4 if kind == "row-loop" else 8), w * steps,
+                       model=kind == "row-loop")
             if w == W_FRAME:
                 results[kind] = res
+        # the lane walk's fixed part: the columns staged, the ids read and the
+        # outputs written, no step
+        _check_equal(f"lane, 0 steps, W = {w}", walk("lane", tab, idx0, 0),
+                     lane_plain(tab, idx0, 0))
+        fixed = _cuda_ms(lambda: walk("lane", tab, idx0, 0), 5 if w > W_PROBE else 20)
+        fixed_graph = _graph_ms(lambda: walk("lane", tab, idx0, 0))
+        out(f"  lane with 0 steps (the transposes in and out, the columns staged): {fixed:.4f} "
+            f"ms (in a CUDA graph {fixed_graph:.4f} ms); equal bit for bit")
+        # the modulo's `%` path: lane_table's values reach +-1e5
+        _check_equal(f"lane on the large-value table, W = {w}", walk("lane", big, idx0, steps),
+                     lane_plain(big, idx0, steps))
+        out(f"  lane on lane_table (values to +-1e5): equal to lane_plain bit for bit; "
+            f"{lane_slow_steps(big, idx0, steps)} of {w * steps} steps took the `%` path")
         if parent is not None:
-            ref = walk_plain(tab, idx0, steps)
-            for kind in ("thread-row", "warp-row"):
+            for kind in ("thread-row", "warp-row", "lane"):
+                plain = plains.get(kind, walk_plain)
                 _check_equal(f"the parent's {kind}, W = {w}",
-                             parent(KINDS[kind], tab, idx0, steps), ref)
+                             parent(KINDS[kind], tab, idx0, steps), plain(tab, idx0, steps))
                 t = turns(lambda k=kind: parent(KINDS[k], tab, idx0, steps),
-                           lambda k=kind: walk(k, tab, idx0, steps), 5 if w > W_PROBE else 20)
+                          lambda k=kind: walk(k, tab, idx0, steps), 5 if w > W_PROBE else 20)
                 out(f"  {kind} against the parent's, in turns (parent, this, this, parent): "
                     f"{t[0]:.4f} / {t[3]:.4f} ms against {t[1]:.4f} / {t[2]:.4f} ms: "
                     f"{(t[0] + t[3]) / (t[1] + t[2]):.3f}x; both equal to the plain walk")
@@ -530,22 +687,46 @@ def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
     out(f"guard table (ids outside the table, rows holding +inf), W = {W_PROBE} x "
         f"{STEPS_PROBE}: thread-row and warp-row equal to walk_guarded bit for bit; {stopped} "
         f"walkers stopped at an id outside the table")
+    # row-loop and lane from start ids outside the table: that id, sum 0
+    ids, bad = _out_of_table_starts(idx0, N_ROWS, seed)
+    for kind in ("row-loop", "lane"):
+        ref_idx, ref_acc = plains[kind](tab, torch.where(bad, 0, ids), STEPS_PROBE)
+        _check_equal(f"{kind} from ids outside the table", walk(kind, tab, ids, STEPS_PROBE),
+                     (torch.where(bad, ids, ref_idx), torch.where(bad, 0.0, ref_acc)))
+    out(f"row-loop and lane from {int(bad.sum())} start ids outside the table: those walkers "
+        f"keep their ids with sum 0, the others equal the plain walk bit for bit")
+    # lane's column limit is the launch's own: a table of LANE_MAX_ROWS rows
+    # walks, and the launch refuses one row more before it reads anything
+    edge = torch.from_numpy(lane_table(LANE_MAX_ROWS, seed)).to(dev)
+    _check_equal(f"lane at N = {LANE_MAX_ROWS}", walk("lane", edge, idx0, STEPS_PROBE),
+                 lane_plain(edge, idx0, STEPS_PROBE))
+    index, stream = _stream(edge)
+    sink = torch.empty(2, W_PROBE, dtype=torch.int32, device=dev)
+    err = load_kernel()[0](KINDS["lane"], edge.data_ptr(), idx0.data_ptr(), W_PROBE, 1,
+                           LANE_MAX_ROWS + 1, sink[0].data_ptr(), sink[1].data_ptr(), index,
+                           stream)
+    if err != 1:  # cudaErrorInvalidValue
+        raise RuntimeError(f"gather probe: the lane launch gave {err} for a column of "
+                           f"{LANE_MAX_ROWS + 1} rows, not cudaErrorInvalidValue (1)")
+    out(f"lane at N = LANE_MAX_ROWS = {LANE_MAX_ROWS} (lane_table): equal to lane_plain bit for "
+        f"bit; the launch refuses N = {LANE_MAX_ROWS + 1} (cudaErrorInvalidValue)")
     out(f"rows-acc (row 6), S = {ROWS_ACC_S} warp walkers x {STEPS_PROBE} steps:")
     for n in ROWS_ACC_N:
         t = torch.from_numpy(make_table(n, seed)).to(dev)
         idx0 = torch.from_numpy(start_rows(n, ROWS_ACC_S, seed)).to(dev)
         results["rows-acc"] = case(
-            f"N = {n} ({n * 512} bytes)", t, idx0, STEPS_PROBE, 512,
+            f"N = {n} ({n * 512} bytes)", idx0, STEPS_PROBE, 512,
             lambda: walk("rows-acc", t, idx0, STEPS_PROBE),
             lambda: rows_acc_plain(t, idx0, STEPS_PROBE),
-            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512))
+            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512),
+            ROWS_ACC_S * STEPS_PROBE * 128)
     rng = np.random.default_rng(seed + 2)
     img = torch.from_numpy(rng.standard_normal((1080, 1920, 4), dtype=np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 1080 * 1920, 1080 * 1920).astype(np.int32)).to(dev)
     out("gather16: 2,073,600 random 16-byte rows of a 1920x1080x4 float32 image:")
-    results["gather16"] = case("gather16 (img[idx])", img, idx, 1, 16,
+    results["gather16"] = case("gather16 (img[idx])", idx, 1, 16,
                                lambda: gather16(img, idx), lambda: gather16_plain(img, idx),
-                               int(torch.unique(idx).numel()) * 16, idx.numel() * 16,
+                               int(torch.unique(idx).numel()) * 16, idx.numel() * 16, 0,
                                library=True)
     return results
 
