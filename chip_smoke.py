@@ -54,9 +54,10 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 printed with the RMSE over every pixel
   4. kernels  - at the slice's shapes (SponzaProxy, 1920x1080, the full
                 configuration's second frame: frame 0's RNG seed is the same
-                for every pixel, so its AO rays are coherent and fast) each
-                kernel against its plain
-                PyTorch version on the same inputs:
+                for every pixel, so its AO rays are coherent and fast)
+                bvh8.validate_host on the frame's SAH BVH8 (and on
+                realglb's below, with its host seconds), then each kernel
+                against its plain PyTorch version on the same inputs:
                 every K1 instance below must give depth, tri id and bary
                 equal to its plain version on every pixel (both round every
                 product separately): K1a on every triangle and on the full
@@ -153,12 +154,16 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 main path 9's brute frame on cornell_box() (the raster
                 gate), path 10's grid frame (the RT-shadows gate) and path
                 11's animated frame over 3 animated frames (the full
-                frame's gate), path 12's (realglb through the LBVH's BVH8,
-                each renderer's tree built on its own device, the two BVH8s
-                equal; the full frame's gate).  The stages of the forward
+                frame's gate), path 12's (realglb by the renderer's
+                no-native route: both renderers built with the port's
+                native_available() returning False, each BVH8 the LBVH of
+                its own device collapsed in Python, the two equal; the
+                full frame's gate).  The stages of the forward
                 frame: clip-space vertices and triangle setups must agree on
                 every value
-  6. main     - twelve paths at 1920x1080, SponzaProxy but paths 8, 9, 11 and 12, each driven with the
+  6. main     - native_available() must be True (paths 1-11 are the SAH
+                tree's; no silent fallback to the LBVH's), then
+                twelve paths at 1920x1080, SponzaProxy but paths 8, 9, 11 and 12, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
                 slice must rise by >= 1 per frame; finite output; per-pass ms:
@@ -198,11 +203,17 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   and on a fresh host build, closest hits agree (t within
                   1e-4, the triangle but on equal-t ties), and the refit
                   rows equal refit8 run again on the card and the CPU;
-                  12. path 8's frame traced through K2 over the BVH8
-                  collapsed from the device LBVH (the reference's _get_bvh
-                  without its native builder), handed to the renderer
-                  before its first frame: K1a, K1b, K1c, K2 any-hit and
-                  closest-hit, its ms/frame beside path 8's, K2's rows a
+                  validate_host on the BVH Refit pass's output after the
+                  last frame;
+                  12. path 8's frame by the renderer's own route without
+                  a native build (the reference's _get_bvh): the renderer
+                  built with native_available() returning False and the
+                  native library refused, its BVH8 the device LBVH
+                  collapsed in Python, equal (rows, refit metadata, depth)
+                  to the native collapse of the same LBVH; host seconds of
+                  the route, the native and the Python collapse;
+                  validate_host on both BVH8s; then K1a, K1b, K1c, K2
+                  any-hit and closest-hit, its ms/frame beside path 8's, K2's rows a
                   live ray on the two trees, a 3-frame profile (device
                   ms/frame, busy share); then K4's path: the frame's three
                   wavefronts through trace(pack_flat(LBVH, WorldTris)) with
@@ -237,6 +248,7 @@ Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -707,14 +719,14 @@ def main() -> int:
                             alpha_peel_rounds=4, ao_rays=2, hybrid=full)
     r = Renderer(scene, full_cfg, device=dev)
     r.render_frame()
-    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables",
+    res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables", "WorldTris",
                             hybrid_path.DEPTH, hybrid_path.NORMALS)
     pfd, clip, bvh, tables = res["pfd"], res["Clip"], res["BVH"], res["shade_tables"]
     depth, normals = res[hybrid_path.DEPTH], res[hybrid_path.NORMALS]
     buffers = r.buffers
     print(f"scene {scene.name}: {buffers.num_triangles} triangles "
           f"({buffers.alpha_tri_idx.shape[0]} alpha-masked), BVH8 {bvh.num_rows} rows, "
-          f"depth bound {bvh.depth}")
+          f"depth bound {bvh.depth}; " + _validate(bvh8_ops, bvh, res["WorldTris"], "its SAH BVH8"))
     kernels = {}
 
     def k1_bound(mode, planes_, bins, tiles_px, samples=1, listed=None):
@@ -941,7 +953,8 @@ def main() -> int:
                             hybrid_path.NORMALS)
     print(f"scene {realglb.name}: {r.buffers.num_triangles} triangles "
           f"({r.buffers.alpha_tri_idx.shape[0]} alpha-masked), BVH8 {res['BVH'].num_rows} rows, "
-          f"depth bound {res['BVH'].depth}")
+          f"depth bound {res['BVH'].depth}; "
+          + _validate(bvh8_ops, res["BVH"], res["WorldTris"], "its SAH BVH8"))
     k1_flagship("realglb: ", r.buffers, res["Clip"], res["shade_tables"], record=False)
     rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS], full,
                              ao_rays=2)
@@ -1163,14 +1176,18 @@ def main() -> int:
         frame_scene = {"realglb full": realglb, "path 9, brute raster-mode hybrid": cornell,
                        "path 11, animated pica": pica,
                        "path 12, realglb full through the device LBVH": realglb}.get(name, scene)
-        gr = Renderer(frame_scene, small_cfg, path=path, device=dev)
-        cr = Renderer(frame_scene, small_cfg, path=path, device="cpu")
-        if name.startswith("path 12"):
-            # each renderer traces the BVH8 of the LBVH built on its own device
-            gr._bvh, cr._bvh = _lbvh8(gr)[2], _lbvh8(cr)[2]
-            same_rows = torch.equal(gr._bvh.rows.cpu(), cr._bvh.rows)
-            print(f"path 12: the LBVH's BVH8 built on the card equals the CPU's: {same_rows}")
-            _check(same_rows, "the device LBVH's BVH8 differs between the card and the CPU")
+        route = name.startswith("path 12")
+        with _no_native(native_bridge) if route else contextlib.nullcontext():
+            gr = Renderer(frame_scene, small_cfg, path=path, device=dev)
+            cr = Renderer(frame_scene, small_cfg, path=path, device="cpu")
+            if route:
+                # each renderer builds its BVH8 by the no-native route: the
+                # LBVH on its own device, collapsed in Python
+                same_rows = torch.equal(gr._get_bvh().rows.cpu(), cr._get_bvh().rows)
+        if route:
+            print(f"path 12: the no-native route's BVH8 built with the card's LBVH equals the "
+                  f"CPU's: {same_rows}")
+            _check(same_rows, "the no-native route's BVH8 differs between the card and the CPU")
         for f in range(frames):
             if small_cfg.animated:
                 for rr in (gr, cr):
@@ -1231,6 +1248,12 @@ def main() -> int:
         return start.elapsed_time(end) / frames, launches
 
     t0 = time.perf_counter()
+    # paths 1-11 and their recorded numbers are the SAH tree's: without the
+    # native build the renderer would quietly take the LBVH's, so fail
+    available = native_bridge.native_available()
+    print(f"native_bridge.native_available() before main paths 1-11: {available}")
+    _check(available, "the native build is not available: paths 1-11 would trace the LBVH's "
+           "BVH8, not the SAH tree's")
     r = Renderer(scene, RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off"), device=dev)
     ms_frame, launches = drive(r)
     ms_rt_shadows = ms_frame
@@ -1442,25 +1465,30 @@ def main() -> int:
           f"frames | launches {launches11} | consecutive frames differ by up to {moved:.4f}")
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     _check(moved > 1e-3, "path 11's consecutive frames are equal")
+    refit, moved_tris = r.fetch_resource("BVH", "WorldTris")
+    print("path 11: " + _validate(bvh8_ops, refit, moved_tris, "the BVH Refit pass's refit8 "
+                                  "output after its last frame"))
     if profile:
         _profile(r, "animated pica", before=animate)
     del r, a
     _animated_wavefronts(pica, pica_cfg, dev, bound)
 
-    # main path 12: path 8's flagship frame traced through K2 over the BVH8
-    # collapsed from the device LBVH (the reference's _get_bvh without its
-    # native builder), handed to the renderer before its first frame
-    r = Renderer(realglb, full_cfg, device=dev)
-    lbvh, world_tris, lbvh8 = _lbvh8(r)
-    r._bvh = lbvh8
+    # main path 12: path 8's flagship frame through the renderer's own route
+    # without a native build (the reference's _get_bvh, runtime/renderer.py:
+    # 200-203): native_available() returns False (and the native library
+    # cannot be loaded) while the renderer builds its BVH8, the device LBVH
+    # collapsed in Python; its rows against the native collapse of the same
+    # LBVH (_lbvh8, the yardstick)
+    r, route8, lbvh, world_tris, lbvh8 = _route_renderer(realglb, full_cfg, dev)
     ms_frame, launches12 = drive(r)
     for name in ("K1a", "K1b", "K1c", "K2 any-hit", "K2 closest-hit"):
         _check(launches12[name] >= 10,
                f"{name} launched {launches12[name]} times in path 12's 10 frames")
-    _check(r._get_bvh() is lbvh8, "path 12 did not trace the LBVH's BVH8")
+    _check(r._get_bvh() is route8, "path 12 did not trace the route's BVH8")
     passes = r.time_passes(iters=5)
-    print(f"main path 12: {realglb.name} {WIDTH}x{HEIGHT} full hybrid through K2 over the device "
-          f"LBVH's BVH8 ({r._bvh.num_rows} rows, depth bound {r._bvh.depth}): {ms_frame:.3f} "
+    print(f"main path 12: {realglb.name} {WIDTH}x{HEIGHT} full hybrid through the no-native "
+          f"route, K2 over the device LBVH's BVH8 ({r._bvh.num_rows} rows, depth bound "
+          f"{r._bvh.depth}): {ms_frame:.3f} "
           f"ms/frame over 10 frames, path 8 (SAH BVH8) {ms_flagship:.3f} | launches {launches12}")
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     lb, sa = "realglb full frame's (LBVH BVH8) ", "realglb full frame's "
@@ -1489,7 +1517,7 @@ def main() -> int:
           f"{k4_launches}; hit flags differing from K2 over the LBVH's BVH8 {same_tree}")
     _check(k4_launches.get("any-hit", 0) >= 2 and k4_launches.get("closest-hit", 0) >= 1,
            f"K4's path launched it {k4_launches}")
-    del r, res, rays, waves, flat, lbvh, lbvh_tables, world_tris, lbvh8
+    del r, res, rays, waves, flat, lbvh, lbvh_tables, world_tris, lbvh8, route8
     print(f"card: {smi}")
     _phase("main", t0)
 
@@ -1660,18 +1688,84 @@ def _animated_wavefronts(pica, cfg, dev, bound):
     _check(on_card and on_cpu, "the BVH Refit pass's rows differ from refit8's")
 
 
+def _route_renderer(scene, cfg, dev):
+    """Main path 12's renderer: built, and its BVH8 made, by the renderer's
+    own route without a native build (inside _no_native); that BVH8 held
+    equal to the native collapse of the same device LBVH and to an explicit
+    Python collapse, with the host seconds of each; validate_host on the
+    route's and the native BVH8.  Returns (renderer, its BVH8, the LBVH, its
+    triangles, the native BVH8 on dev)."""
+    from vulkanhybridrenderer_tpu_torch import native_bridge
+    from vulkanhybridrenderer_tpu_torch.ops import bvh8 as bvh8_ops
+    from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    with _no_native(native_bridge):
+        r = Renderer(scene, cfg, device=dev)
+        t = time.perf_counter()
+        route8 = r._get_bvh()
+        route_s = time.perf_counter() - t
+    lbvh, world_tris, lbvh8, native_s = _lbvh8(r)
+    tris_np = world_tris.cpu().numpy()
+    t = time.perf_counter()
+    python8 = bvh8_ops.collapse_host(lbvh, tris_np, prefer_native=False)
+    python_s = time.perf_counter() - t
+    same = {f: torch.equal(getattr(route8, f).cpu(), getattr(lbvh8, f).cpu())
+            for f in ("rows", "child8", "valid8", "tri8")}
+    same["depth"] = route8.depth == lbvh8.depth == python8.depth
+    same["python collapse"] = torch.equal(python8.rows, lbvh8.rows.cpu())
+    print(f"path 12: {scene.name}'s BVH8 by the renderer's no-native route (device LBVH + "
+          f"Python collapse + upload) {route_s:.3f} s, {route8.num_rows} rows, depth bound "
+          f"{route8.depth}; equal to the native collapse of the same device LBVH: {same}; host "
+          f"seconds on the LBVH's {tris_np.shape[0]} triangles: native collapse {native_s:.3f} s, "
+          f"Python collapse {python_s:.3f} s")
+    _check(all(same.values()), f"the no-native route's BVH8 differs from the native collapse: "
+           f"{same}")
+    print("path 12: " + _validate(bvh8_ops, route8, world_tris, "the route's BVH8 (Python "
+                                  "collapse)") + "; "
+          + _validate(bvh8_ops, lbvh8, world_tris, "the LBVH's native collapse"))
+    return r, route8, lbvh, world_tris, lbvh8
+
+
 def _lbvh8(r):
-    """Main path 12's tree for renderer `r`: the device LBVH of its world
-    triangles (ops/bvh.build on r's device), collapsed on the host to a
-    BVH8 as the reference's _get_bvh does without its native builder
-    (runtime/renderer.py:200-203).  Returns (LBVH, triangles, BVH8 on r's
-    device)."""
+    """The native collapse of the device LBVH of renderer `r`'s world
+    triangles (ops/bvh.build on r's device): the yardstick main path 12's
+    no-native route is held to.  Returns (LBVH, triangles, BVH8 on r's
+    device, the collapse's host seconds)."""
     from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops, bvh8 as bvh8_ops, geometry
 
     world = geometry.to_world(r.buffers, r.prim_transform)
     tris = bvh_ops.world_triangles(world.position, r.buffers.tri_vertex)
     lbvh = bvh_ops.build(tris)
-    return lbvh, tris, bvh8_ops.collapse_host(lbvh, tris.cpu().numpy()).to(r.device)
+    tris_np = tris.cpu().numpy()
+    t = time.perf_counter()
+    native = bvh8_ops.collapse_host(lbvh, tris_np, prefer_native=True)
+    seconds = time.perf_counter() - t
+    return lbvh, tris, native.to(r.device), seconds
+
+
+@contextlib.contextmanager
+def _no_native(native_bridge):
+    """The port's native_available() returns False, and its native library
+    cannot be loaded, inside the block: renderers that build their BVH8
+    there take the no-native route.  Both are restored afterwards."""
+    saved = native_bridge.native_available, native_bridge.load
+
+    def refuse():
+        raise RuntimeError("the native library was asked for on the no-native route")
+
+    native_bridge.native_available, native_bridge.load = (lambda: False), refuse
+    try:
+        yield
+    finally:
+        native_bridge.native_available, native_bridge.load = saved
+
+
+def _validate(bvh8_ops, b, tris, label: str) -> str:
+    """bvh8.validate_host on `b` over its triangles (raises on a
+    violation); a line with its host seconds."""
+    t = time.perf_counter()
+    bvh8_ops.validate_host(b, tris)
+    return f"validate_host passed on {label} ({b.num_rows} rows) in {time.perf_counter() - t:.3f} s"
 
 
 def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):

@@ -95,6 +95,10 @@ class TextureAtlas(_Movable):
     uv_offset: Any  # (N, 2) f32
     uv_scale: Any  # (N, 2) f32
 
+    @property
+    def num_textures(self) -> int:
+        return self.uv_offset.shape[0]
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneBuffers(_Movable):
@@ -128,6 +132,10 @@ class SceneBuffers(_Movable):
     @property
     def num_triangles(self) -> int:
         return self.tri_vertex.shape[0]
+
+    @property
+    def num_primitives(self) -> int:
+        return self.prim_transform.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,19 +4,24 @@ bvh8.cpp): the LBVH, the binned-SAH tree and the 8-wide collapse.
 The port compiles the repository's ``native/*.cpp`` with g++ into its own
 ignored build directory (utils/build.py) and never rebuilds the reference's
 tracked ``native/libvhr_native.so``.  Argument types follow the reference
-bridge (``vulkanhybridrenderer_tpu/native_bridge.py``).  There is no Python
-builder to fall back on: a failed build raises.
+bridge (``vulkanhybridrenderer_tpu/native_bridge.py``).  ``load`` raises
+where g++ is missing or the build fails; ``native_available`` says so
+without raising, and callers that can do without the library (the
+renderer's BVH, ``ops/bvh8.collapse_host``) take the device LBVH and the
+Python collapse instead, as the reference does.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import shutil
 
 import numpy as np
 import torch
 
 from vulkanhybridrenderer_tpu_torch.ops.bvh import BVH
-from vulkanhybridrenderer_tpu_torch.utils.build import GXX_FLAGS, REPO_DIR, build_library
+from vulkanhybridrenderer_tpu_torch.utils import build
+from vulkanhybridrenderer_tpu_torch.utils.build import GXX_FLAGS, REPO_DIR
 
 NATIVE_DIR = REPO_DIR / "native"
 
@@ -26,7 +31,7 @@ def load() -> ctypes.CDLL:
     srcs = sorted(NATIVE_DIR.glob("*.cpp"))
     if not srcs:
         raise RuntimeError(f"no native sources under {NATIVE_DIR}")
-    lib = ctypes.CDLL(str(build_library("vhr_native", ["g++"] + GXX_FLAGS, srcs)))
+    lib = ctypes.CDLL(str(build.build_library("vhr_native", ["g++"] + GXX_FLAGS, srcs)))
     i32p = ctypes.POINTER(ctypes.c_int32)
     f32p = ctypes.POINTER(ctypes.c_float)
     u8p = ctypes.POINTER(ctypes.c_uint8)
@@ -40,6 +45,20 @@ def load() -> ctypes.CDLL:
         f32p, i32p, u8p, i32p, ctypes.c_int, i32p,
     ]
     return lib
+
+
+@functools.cache
+def native_available() -> bool:
+    """Whether the host builders load: g++ is on PATH and native/ builds and
+    loads (the reference's native_available).  False where any of that
+    fails, without raising; the answer is kept for the process."""
+    if shutil.which("g++") is None:
+        return False
+    try:
+        load()
+    except (OSError, RuntimeError):  # no compiler, a failed build, a bad .so
+        return False
+    return True
 
 
 def _f32p(a):

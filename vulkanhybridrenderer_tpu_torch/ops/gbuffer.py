@@ -22,6 +22,26 @@ from vulkanhybridrenderer_tpu_torch.utils.math3d import (
 )
 
 
+def perspective_weights(bary2, inv_w3):
+    """Screen barycentrics (..., 2) and per-vertex 1/w (..., 3) ->
+    perspective-correct weights (..., 3)."""
+    l1, l2 = bary2[..., 0], bary2[..., 1]
+    pw = torch.stack([1.0 - l1 - l2, l1, l2], dim=-1) * inv_w3
+    return pw / torch.sum(pw, dim=-1, keepdim=True)
+
+
+def interpolate(attr_v, vidx, weights):
+    """attr_v (V, K) vertex attribute, vidx (..., 3) vertex ids, weights
+    (..., 3) -> (..., K), the three terms summed in vertex order.  A
+    reference-path helper: the resolve interpolates from the TriRow tables
+    (ops/shadetab.py)."""
+    out = None
+    for j in range(3):
+        term = attr_v[vidx[..., j].long()] * weights[..., j:j + 1]
+        out = term if out is None else out + term
+    return out
+
+
 def make_alpha_frag_mask(scene, clip=None, tables=None):
     """The per-fragment alpha kill of the brute rasterizer (gbuf.frag:27-32,
     the reference's make_alpha_frag_mask): a fragment of an alpha-masked,

@@ -8,6 +8,7 @@ from typing import Any
 import torch
 
 from vulkanhybridrenderer_tpu_torch.core.types import SceneBuffers
+from vulkanhybridrenderer_tpu_torch.utils.math3d import normalize
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,3 +53,12 @@ def to_clip(world_pos, viewproj):
     """(V, 3) world -> (V, 4) clip: v4 @ viewproj.T as explicit multiply-adds."""
     x, y, z = world_pos[:, 0:1], world_pos[:, 1:2], world_pos[:, 2:3]
     return ((x * viewproj[:, 0] + y * viewproj[:, 1]) + z * viewproj[:, 2]) + viewproj[:, 3]
+
+
+def object_normals_world(scene: SceneBuffers, n_object, prim_ids):
+    """Object-space normals (..., 3) by their primitives' normal matrices,
+    normalized (gbuf.frag:41: normalize(mat3(normal_matrix) * N))."""
+    nm = scene.prim_normal_mat[prim_ids.long()][..., :3, :3]  # (..., 3, 3)
+    n = (nm[..., 0] * n_object[..., 0:1] + nm[..., 1] * n_object[..., 1:2]) + (
+        nm[..., 2] * n_object[..., 2:3])
+    return normalize(n)

@@ -149,6 +149,12 @@ def fetch_tri(tri_rows, tri_ids):
     return out
 
 
+def fetch_prim(prim_rows, prim_ids):
+    """One PrimRow gather -> the material and primitive fields per id, for
+    consumers holding a primitive id without a TriRow."""
+    return _prim_fields(prim_rows[prim_ids.long()], 0)
+
+
 def fetch_tri_static(tables: ShadeTables, tri_ids):
     """One static-row gather -> per-vertex uv0 ((..., 3, 2)) and the owning
     primitive's material fields, for consumers without the per-frame
@@ -159,6 +165,11 @@ def fetch_tri_static(tables: ShadeTables, tri_ids):
     out = dict(uv0=row[..., off:off + 6].reshape(*s, 3, 2))
     out.update(_prim_fields(row, _PMAT - _NRM))
     return out
+
+
+def fetch_tri_uv(tables: ShadeTables, tri_ids):
+    """One static-row gather -> per-vertex uv0 (..., 3, 2)."""
+    return fetch_tri_static(tables, tri_ids)["uv0"]
 
 
 def interpolate3(attr, weights):

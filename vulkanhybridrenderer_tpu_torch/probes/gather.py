@@ -38,7 +38,11 @@ The cases:
                on ``lane_table``, whose values reach +-1e5 so the modulo's
                `%` path runs;
   rows-acc     (row 6) S = 8 warp walkers adding whole rows, N = 256, 2048,
-               20480 (128 KB, 1 MB, 10.5 MB: L1, L2, L2);
+               20480 (128 KB, 1 MB, 10.5 MB tables); each beside its
+               latency floor, steps x the yardstick's dependent-load
+               latency at the level that holds the rows the walk reads
+               (L1 where they fit L1_BYTES, else L2): a walker's steps are
+               one chain of dependent row loads, which no layout overlaps;
   chase        a thread per walker reading row[0] and row[48] only, K2's
                walk's latency on the card (no TPU kernel computes it);
   gather16     2,073,600 random 16-byte rows of a 1920x1080x4 image.
@@ -71,6 +75,10 @@ N_ROWS = 20480  # the TPU probe's table: 10.5 MB, SponzaProxy's BVH8 size
 W_PROBE, STEPS_PROBE = 1024, 512
 W_FRAME, STEPS_FRAME = 1920 * 1080, 32
 ROWS_ACC_S, ROWS_ACC_N = 8, (256, 2048, 20480)
+#: an SM's L1 and shared memory are one 256 KB array: where every row a walk
+#: reads fits it, each block's walkers read their rows from their SM's L1
+#: after the first load
+L1_BYTES = 256 * 1024
 NEXT = 48  # the column holding the next row id
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 SHARE_BLOCK = 128  # walkers a block, in start order, for sharing()
@@ -714,12 +722,20 @@ def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
     for n in ROWS_ACC_N:
         t = torch.from_numpy(make_table(n, seed)).to(dev)
         idx0 = torch.from_numpy(start_rows(n, ROWS_ACC_S, seed)).to(dev)
-        results["rows-acc"] = case(
+        read = table_bytes_read("rows-acc", t, idx0, STEPS_PROBE)
+        res = results["rows-acc"] = case(
             f"N = {n} ({n * 512} bytes)", idx0, STEPS_PROBE, 512,
             lambda: walk("rows-acc", t, idx0, STEPS_PROBE),
             lambda: rows_acc_plain(t, idx0, STEPS_PROBE),
-            table_bytes_read("rows-acc", t, idx0, STEPS_PROBE), ROWS_ACC_S * (4 + 512),
-            ROWS_ACC_S * STEPS_PROBE * 128)
+            read, ROWS_ACC_S * (4 + 512), ROWS_ACC_S * STEPS_PROBE * 128)
+        level = 1 if read <= L1_BYTES else 2
+        ns = ys["l1_ns"] if level == 1 else ys["l2_ns"]
+        floor_ms = STEPS_PROBE * ns * 1e-6
+        out(f"    latency floor: the walk's {read} distinct table bytes "
+            f"{'fit' if level == 1 else 'exceed'} L1 ({L1_BYTES} bytes): {STEPS_PROBE} dependent "
+            f"steps x the L{level} latency {ns:.2f} ns = {floor_ms:.4f} ms; share of it "
+            f"{floor_ms / res['ms']:.4f} (a launch), {floor_ms / res['graph_ms']:.4f} (in a "
+            f"CUDA graph)")
     rng = np.random.default_rng(seed + 2)
     img = torch.from_numpy(rng.standard_normal((1080, 1920, 4), dtype=np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 1080 * 1920, 1080 * 1920).astype(np.int32)).to(dev)

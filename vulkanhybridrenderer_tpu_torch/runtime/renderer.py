@@ -17,7 +17,8 @@ graph's "TemporalStateOut" after each rendered frame, and made anew when
 ``set_config`` changes its size.  ``update_camera`` is the fly camera.
 
 Observability: ``stats`` (per-pass EMA timings fed by ``time_passes``, and
-the frame-time EMA), ``list_resources``, ``debug_dump``, ``save_frame``,
+the frame-time EMA), ``list_resources``, ``fetch_resource`` /
+``fetch_resources``, ``debug_dump``, ``save_frame``,
 ``profile`` (a ``torch.profiler`` Chrome trace) and ``find_nonfinite_pass``.
 """
 from __future__ import annotations
@@ -128,16 +129,24 @@ class Renderer:
         return pfd
 
     def _get_bvh(self):
-        """BVH8 over the world triangles, built once on the host (SAH +
-        8-wide collapse, f32 rows, 8-triangle leaves) and uploaded."""
+        """BVH8 over the world triangles, built once (f32 rows, 8-triangle
+        leaves) and uploaded: the host SAH build and the native collapse
+        where the native build is available, else, as the reference's
+        (runtime/renderer.py:200-203), the LBVH built on the renderer's
+        device and collapsed in Python."""
         if self._bvh is None:
+            from vulkanhybridrenderer_tpu_torch import native_bridge
             from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops
             from vulkanhybridrenderer_tpu_torch.ops import bvh8 as bvh8_ops
             from vulkanhybridrenderer_tpu_torch.ops.geometry import to_world
 
             world = to_world(self.buffers, self.prim_transform)
             tris = bvh_ops.world_triangles(world.position, self.buffers.tri_vertex)
-            self._bvh = bvh8_ops.build_bvh8_host(tris.cpu().numpy()).to(self.device)
+            if native_bridge.native_available():
+                b8 = bvh8_ops.build_bvh8_host(tris.cpu().numpy())
+            else:
+                b8 = bvh8_ops.collapse_host(bvh_ops.build(tris, leaf_size=1), tris.cpu().numpy())
+            self._bvh = b8.to(self.device)
         return self._bvh
 
     def _get_shadow_grid(self):
@@ -259,6 +268,14 @@ class Renderer:
         res = self.graph.run(self._resources(self._make_pfd()))
         return {n: res[n] for n in names}
 
+    def fetch_resource(self, *names: str):
+        """The reference's fetch_resource: the named resources of one frame
+        (one graph run), a tensor for one name, else a tuple in the names'
+        order.  The frame index, temporal state and previous view change as
+        in fetch_resources."""
+        res = self.fetch_resources(*names)
+        return res[names[0]] if len(names) == 1 else tuple(res[n] for n in names)
+
     def time_passes(self, iters: int = 5) -> dict[str, float]:
         """Per-pass milliseconds (device time between synchronizations on a
         GPU).  Uses one frame's PerFrameData and advances neither the frame
@@ -280,7 +297,7 @@ class Renderer:
     def debug_dump(self, resource: str, path, srgb: bool = True) -> np.ndarray:
         """Render one frame and save the named graph resource as a PNG (the
         reference's debug-texture viewer); returns it as numpy."""
-        arr = self.fetch_resources(resource)[resource].cpu().numpy()
+        arr = self.fetch_resource(resource).cpu().numpy()
         save_png(path, arr, srgb=srgb)
         return arr
 

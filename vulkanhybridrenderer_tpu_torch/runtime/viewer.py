@@ -256,7 +256,7 @@ class ViewerState:
                 mouse_delta=(mouse_dx, mouse_dy), mouse_down=dragging,
             )
             if self.resource:
-                arr = self.renderer.fetch_resources(self.resource)[self.resource]
+                arr = self.renderer.fetch_resource(self.resource)
                 png = encode_png(arr.cpu().numpy(), srgb=False)
             else:
                 img = self.renderer.render_frame(srgb8=True).cpu().numpy()

@@ -79,6 +79,13 @@ def transform_directions(m, d):
     return d[..., 0:1] * r[:, 0] + d[..., 1:2] * r[:, 1] + d[..., 2:3] * r[:, 2]
 
 
+def project_points(m, p):
+    """Transform (..., 3) points by a (4, 4) matrix and divide by w ->
+    (..., 3) NDC (x, y, depth)."""
+    h = transform_points(m, p)
+    return h[..., :3] / h[..., 3:4]
+
+
 def infinite_reverse_z_projection(yfov: float, aspect: float, znear: float,
                                   flip_y: bool = True):
     """Infinite far-plane reverse-Z perspective (vulkan_utils.h:494-503)."""
@@ -223,3 +230,24 @@ def onb_from_unit_vector(n):
     b_deg = torch.tensor([-1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
     deg = degenerate[..., None]
     return torch.where(deg, t_deg, t0), torch.where(deg, b_deg, b0), n
+
+
+def _sign_not_zero(v):
+    return torch.where(v >= 0.0, torch.ones_like(v), -torch.ones_like(v))
+
+
+def oct_encode(v):
+    """Octahedral encoding of unit vectors (..., 3) -> (..., 2)
+    (common.glsl:101-104)."""
+    denom = v[..., 0].abs() + v[..., 1].abs() + v[..., 2].abs()
+    p = v[..., :2] / denom[..., None]
+    wrapped = (1.0 - p.flip(-1).abs()) * _sign_not_zero(p)
+    return torch.where((v[..., 2] <= 0.0)[..., None], wrapped, p)
+
+
+def oct_decode(e):
+    """Octahedral decoding (..., 2) -> unit vectors (..., 3)
+    (common.glsl:105-108)."""
+    z = 1.0 - e[..., 0].abs() - e[..., 1].abs()
+    xy = torch.where((z < 0.0)[..., None], (1.0 - e.flip(-1).abs()) * _sign_not_zero(e), e)
+    return normalize(torch.cat([xy, z[..., None]], dim=-1))
