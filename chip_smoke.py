@@ -4,8 +4,8 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
     python3 chip_smoke.py --parent DIR # and K3, K4, the toy and the probe's thread-row,
-                                       # warp-row and lane walks against DIR's (another
-                                       # checkout's) kernels, in turns
+                                       # warp-row, lane and rows-acc walks against DIR's
+                                       # (another checkout's) kernels, in turns
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
@@ -237,12 +237,28 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 table whose values reach +-1e5 (the modulo's `%` path);
                 thread-row and warp-row against walk_guarded on a table
                 whose ids leave it and whose rows hold +inf, row-loop and
-                lane from start ids outside the table; with --parent,
-                DIR's thread-row, warp-row and lane checked and timed in
-                turns with this checkout's at both widths; the launch
-                counts of its run.  Phase 2 also counts the global loads
-                in row-loop's machine code (cuobjdump -sass): every one of
-                a walker's unrolled loads is there
+                lane from start ids outside the table; rows-acc (row 6)
+                at N = 256, 2,048, 20,480 beside each walker's distinct
+                rows, its latency floor (all walkers on one SM: rows no
+                other walker reads at L2, the rest at L1; at N = 256 the
+                lesser of that and one bulk copy plus shared-memory loads),
+                each walker on an SM of its own and the union floor (every
+                step at the level that holds all its rows), with shares as
+                a launch and in a CUDA graph, and on a table whose ids
+                leave it (the TPU op's mod N) bit for bit on both routes
+                (N = 256 staged, 2,048 global); the yardstick also times
+                the shared-memory ring, rows-acc's step ring, the L1 ring
+                at 64-256 KB (the L1 global loads get) and one block's
+                bulk copy of the N = 256 table; with --parent, DIR's
+                thread-row, warp-row and lane checked and timed in turns
+                with this checkout's at both widths, and DIR's rows-acc at
+                each N in turns in CUDA graphs; the launch counts of its
+                run.  Phase 2 also counts the global loads in row-loop's
+                machine code (cuobjdump -sass): every one of a walker's
+                unrolled loads is there; and in rows-acc's fast step loop
+                (both routes) no shuffle, and no read of a row's registers
+                before the chain's next wait for an id loaded earlier than
+                that row (_rows_acc_sass)
 Then one JSON line with the kernels, nvidia-smi's line, and the status line.
 """
 from __future__ import annotations
@@ -383,6 +399,15 @@ def _c_params(source: Path, symbol: str) -> list:
     return params
 
 
+def _sass_functions(build, source: str) -> dict[str, str]:
+    """cuobjdump -sass of csrc/<source>'s built library: {mangled name:
+    its instructions' text}."""
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(build.cuda_library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    return {part.split(None, 1)[0]: part for part in sass.split("Function : ")[1:]}
+
+
 def _row_loop_sass(build) -> str:
     """The global loads (LDG) in row-loop's machine code, read by cuobjdump
     from the built probe library; fails unless one stretch between two
@@ -390,12 +415,8 @@ def _row_loop_sass(build) -> str:
     row[0]: a compiler that merged loads of one address would leave one."""
     src = (build.CSRC_DIR / "gather_probe.cu").read_text()
     unroll = int(re.search(r"kRowLoopUnroll = (\d+)", src).group(1))
-    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
-    lib = build.cuda_library_path("gather_probe.cu")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    body = next((part for part in sass.split("Function : ")[1:]
-                 if part.split(None, 1)[0].find("walk_row_loop") >= 0), None)
+    body = next((part for name, part in _sass_functions(build, "gather_probe.cu").items()
+                 if "walk_row_loop" in name), None)
     _check(body is not None, "cuobjdump shows no walk_row_loop")
     loads, stretches, run = [], [], 0
     for line in body.splitlines():
@@ -412,6 +433,137 @@ def _row_loop_sass(build) -> str:
     return (f"row-loop SASS (cuobjdump): {len(loads)} global loads in walk_row_loop "
             f"({', '.join(sorted(set(loads)))}), {most} of them in the unrolled step loop "
             f"between two branches ({unroll} steps), the rest the id's and the remainder loop's")
+
+
+def _sass_ops(body: str) -> list[tuple]:
+    """(address or label, opcode, operands, predicated) of each instruction
+    (and (label, None, None, False) of each label) in one function's SASS."""
+    ops = []
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            ops.append((lab.group(1), None, None, False))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)\s*([^;]*);", line)
+        if m:
+            ops.append((int(m.group(1), 16), m.group(3), m.group(4), m.group(2) is not None))
+    return ops
+
+
+def _regs(text: str, op: str = "") -> set[int]:
+    """The general registers an operand list names (Rn.64 is Rn, Rn+1); with
+    `op`, the registers a destination Rn of that instruction writes (four
+    for a .128 load, two for a .64 load or an IMAD.WIDE)."""
+    wide = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+    out = set()
+    for m in re.finditer(r"\bR(\d+)(\.64)?", text):
+        out.update(range(int(m.group(1)), int(m.group(1)) + (2 if m.group(2) else wide)))
+    return out
+
+
+def _rows_acc_loop(route: str, load: str, body: list) -> int:
+    """One step loop of rows-acc's SASS (_sass_ops, from the branch's target
+    to the branch): as many 16-byte row loads as 4-byte id loads (row +
+    0xc0, row[48]), no shuffle, and no wait for a row on the id's chain:
+    an instruction that reads a row's registers stalls until that row's
+    load returns, so the next use of an id after it (the chain's next wait,
+    in loop order) must be of an id loaded after that row (loads return in
+    the order they issued, so the chain waits no longer than it would for
+    that id).  ptxas may issue a row's load steps after its id's.  Returns
+    the loop's steps; fails otherwise."""
+    n = len(body)
+    loop = body + body  # a second lap: the loop's order wraps
+    rows, ids = [], {}
+    for i, (_, op, args, _) in enumerate(body):
+        if op and op.startswith(load):
+            dst = int(re.match(r"\s*R(\d+)", args).group(1))
+            if ".128" in op:
+                rows.append((i, set(range(dst, dst + 4))))
+            elif "+0xc0]" in args:
+                ids[i] = dst
+    shuffles = sum(1 for _, op, _, _ in body if op and op.startswith("SHFL"))
+    _check(len(rows) == len(ids) and ids and shuffles == 0,
+           f"rows-acc ({route}): a loop holds {len(rows)} row loads, {len(ids)} id loads "
+           f"(row + 0xc0) and {shuffles} shuffles")
+
+    def id_use(i: int):
+        """(position, id load's position) of the first wait for an id at or
+        after position i, in the two laps: the first read of an id load's
+        register (later reads find it there)."""
+        live = {}  # register -> the id load that wrote it, not yet read
+        for j in range(i - n, i):  # the lap before i, for ids loaded earlier
+            _, op, args, _ = loop[j % n + n] if j < 0 else loop[j]
+            if op:
+                dst, _, srcs = args.partition(",")
+                live = {r: at for r, at in live.items()
+                        if r not in _regs(srcs) and r not in _regs(dst, op)}
+                if j % n in ids:
+                    live[ids[j % n]] = j
+        for j in range(i, 2 * n):
+            _, op, args, _ = loop[j]
+            if op is None:
+                continue
+            dst, _, srcs = args.partition(",")
+            hit = [live[r] for r in _regs(srcs) if r in live]
+            if hit:
+                return j, max(hit)
+            live = {r: at for r, at in live.items() if r not in _regs(dst, op)}
+            if j % n in ids:
+                live[ids[j % n]] = j
+        return None, None
+
+    for k, (i_row, regs) in enumerate(rows):
+        live = set(regs)
+        for j in range(i_row + 1, i_row + n):
+            _, op, args, _ = loop[j]
+            if op is None or not live:
+                continue
+            dst, _, srcs = args.partition(",")
+            if _regs(srcs) & live:
+                use, loaded = id_use(j)
+                _check(use is not None and loaded > i_row,
+                       f"rows-acc ({route}): {op} {args.strip()} waits for step {k}'s row before "
+                       f"the chain's next id use, of an id loaded before that row")
+            if not op.startswith(("ST", "BRA", "RED", "ATOM")):
+                live -= _regs(dst, op)
+    return len(ids)
+
+
+def _rows_acc_sass(build) -> str:
+    """rows-acc's fast walk in its machine code (cuobjdump -sass), both
+    routes: of the loops (conditional backward branches) around the row's
+    16-byte loads without an F2I (the rule's re-walk has one), the one
+    that holds the most steps (ptxas unrolls the step loop and leaves a
+    remainder loop of a few steps beside it) passes _rows_acc_loop: the
+    id's chain never waits for a row.  Fails otherwise."""
+    lines = []
+    for mangled, body in _sass_functions(build, "gather_probe.cu").items():
+        if "walk_rows_acc" not in mangled:
+            continue
+        route = "staged" if "ILb1E" in mangled else "global"
+        load = "LDS" if route == "staged" else "LDG"
+        ops = _sass_ops(body)
+        where = {key: i for i, (key, _, _, _) in enumerate(ops)}
+        loops = []
+        for i, (_, op, args, predicated) in enumerate(ops):
+            t = re.search(r"0x([0-9a-f]+)|(\.L_x_\d+)", args or "")
+            start = where.get(int(t.group(1), 16) if t.group(1) else t.group(2)) if t else None
+            ops_in = [o for _, o, _, _ in ops[start:i]] if start is not None and start < i else []
+            if (op == "BRA" and predicated and any(o and o.startswith(load) and ".128" in o
+                                                   for o in ops_in)
+                    and not any(o and o.startswith("F2I") for o in ops_in)):
+                loops.append(ops[start:i + 1])
+        _check(bool(loops), f"rows-acc ({route}): no loop around a 16-byte {load}")
+        main = max(loops, key=lambda lp: sum(1 for _, o, a, _ in lp
+                                             if o and o.startswith(load) and "+0xc0]" in a))
+        steps = _rows_acc_loop(route, load, main)
+        lines.append(f"rows-acc SASS ({route}, cuobjdump): the fast walk's step loop, "
+                     f"{len(main)} instructions, holds {steps} steps (beside "
+                     f"{len(loops) - 1} remainder loop(s)), each a 16-byte {load} of the row and "
+                     f"a 4-byte {load} of row[48]; no shuffle; every read of a row precedes "
+                     f"only uses of ids loaded after that row")
+    _check(len(lines) == 2, f"cuobjdump shows {len(lines)} walk_rows_acc instances, not 2")
+    return "\n".join(lines)
 
 
 def _other_launch(csrc: Path, source: str, symbol: str):
@@ -537,13 +689,16 @@ def main() -> int:
                                  {"trace_kernelILb0E": "K3", "trace_kernelILb1E": "K3 filtered"})
                  + _ptxas_report(build_log("toy_scale.cu"), {"toy_scale": "toy"})
                  + _ptxas_report(build_log("gather_probe.cu"),
-                                 {k: k for k in ("walk_thread_row", "walk_warp_row",
-                                                 "walk_chase", "walk_lane", "walk_rows_acc",
-                                                 "walk_row_loop", "gather16", "read_rate",
-                                                 "chase_ring")})):
+                                 {"walk_rows_accILb0E": "walk_rows_acc (global)",
+                                  "walk_rows_accILb1E": "walk_rows_acc (staged)",
+                                  **{k: k for k in ("walk_thread_row", "walk_warp_row",
+                                                    "walk_chase", "walk_lane", "walk_row_loop",
+                                                    "gather16", "read_rate", "chase_ring",
+                                                    "stage_copy")}})):
         print(line)
     print(f"build: {compiles} compiler runs")
     print(_row_loop_sass(build))
+    print(_rows_acc_sass(build))
 
     # the toy library once more, from another working directory and process:
     # the same file, no compiler run
@@ -1556,7 +1711,7 @@ def main() -> int:
     probe_res = probe.run(parent=None if other_probe is None
                           else _parent_walk(other_probe, build, dev))
     print(f"probe launches: {dict(probe.launches)}")
-    for name in [*probe.REPLACES, "read-rate", "latency"]:
+    for name in [*probe.REPLACES, "read-rate", "latency", "stage"]:
         _check(probe.launches[name] >= 1, f"probe kernel {name} never launched")
     _phase("probe", t0)
 
@@ -1612,14 +1767,18 @@ def _parent_walk(other, build, dev):
     """walk(kind, tab, idx0, steps) -> (ids, sums) through another
     checkout's probe_walk_launch, bound by the names of its prototype's
     parameters."""
+    from vulkanhybridrenderer_tpu_torch.probes.gather import KINDS
+
     fn, params = other
     own = _c_params(build.CSRC_DIR / "gather_probe.cu", "probe_walk_launch")
-    stream = build.current_stream(dev.index)
 
     def walk(kind, tab, idx0, steps):
+        # the current stream at each call: a CUDA graph captures on its own
+        stream = build.current_stream(dev.index)
         w = idx0.shape[0]
         out_idx = torch.empty(w, dtype=torch.int32, device=dev)
-        out_acc = torch.empty(w, dtype=torch.float32, device=dev)
+        out_acc = torch.empty((w, 128) if kind == KINDS["rows-acc"] else w,
+                              dtype=torch.float32, device=dev)
         values = dict(kind=kind, tab=tab.data_ptr(), idx0=idx0.data_ptr(),
                       w=w, steps=steps, n=tab.shape[0], out_idx=out_idx.data_ptr(),
                       out_acc=out_acc.data_ptr(), device=dev.index, stream=stream)

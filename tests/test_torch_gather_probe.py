@@ -66,9 +66,11 @@ def _jax_row_loop(tab, idx0, steps):
 
 
 def _jax_rows_acc(tab, idx0, steps):
+    """scripts/probe_dyngather.py's rule: row idx mod N each step, the final
+    ids unreduced."""
     def body(s, c):
         idx, acc = c
-        rows = tab[idx]
+        rows = tab[jnp.mod(idx, tab.shape[0])]
         return rows[:, 48].astype(jnp.int32), acc + rows
 
     return jax.lax.fori_loop(0, steps, body,

@@ -19,7 +19,8 @@
 //                latency probe of the card; no TPU kernel computes it);
 //   walk kind 3  lane, the per-lane gather: walker i reads tab[idx, i % 128]
 //                and steps idx = (idx + (int)v * 7 + s) mod N;
-//   walk kind 4  warp per walker, the whole row added into a 128-wide sum;
+//   walk kind 4  rows-acc, row 6's function: a warp per walker, the whole
+//                row added into a 128-wide sum, the next row row[48] mod N;
 //   walk kind 5  row-loop, row 4's function: walker i loads row[0] of row
 //                idx0[i] `steps` times through L1 and adds each load to its
 //                sum in step order; its id never changes, so the kernel
@@ -30,7 +31,11 @@
 //                keeps in L1, or of the whole table from L2, many passes a
 //                launch, their bits summed (uint32) so a plain sum checks them;
 //   chase_ring   the yardstick's latency: one warp follows a pointer ring
-//                resident in L1 or in L2, timed by the global timer.
+//                resident in L1, in L2 or in shared memory, or takes
+//                rows-acc's step (the load, F2I, the wrap, the address)
+//                through L1, timed by the global timer;
+//   stage_copy   the yardstick's staging time: one block's TMA bulk copy of
+//                rows-acc's N = 256 table into its shared memory.
 // Bound on this card: the roofline bound counts each table byte a walk
 // reads once at 3.35 TB/s, far below what a walk can reach.  What bounds the
 // walks is the L1 and, behind it, the L2: the 2,073,600 walkers of the
@@ -90,10 +95,29 @@
 //               whose column does not fit (LANE_MAX_ROWS rows).  The launch
 //               takes its scratch stream-ordered from a pool of its own per
 //               card, which keeps the memory across calls.
-// A row id outside [0, N) stops its walker before the read (its final id is
-// that id; row-loop's sum is then 0), and gather16 writes NaN for such an
-// id: no read leaves the table.  The plain versions raise there instead; the
-// two agree on every table whose ids are in range.
+//   rows-acc    (row 6) S = 8 walkers of 512 steps: each walker's steps are
+//               one chain of dependent loads, so its time is latency, not
+//               bytes.  A step's chain is the id's load (4 bytes every
+//               lane reads, a broadcast) and fast_row, three fixed-latency
+//               operations from row[48] to the next row's address: no F2I,
+//               no shuffle, no branch, and no wait for the row's float4,
+//               which is added a step or more after its load.  A walk that
+//               met an id that is no row of the table walks again by the
+//               rule (F2I and the floor modulo).  The walkers' chains meet,
+//               so eight walkers a block share an SM's L1: a row one loaded
+//               is an L1 hit for the others.  Where the whole table fits a
+//               block's shared memory (N <= 453, the TPU probe's N = 256)
+//               each walker's block stages it with one TMA bulk copy and
+//               walks shared memory.  Ids wrap as the TPU op's: row v mod N
+//               (floor), v = (int)row[48] truncated and saturated (NaN 0),
+//               the final id unreduced.
+// In kinds 0-3 and 5 a row id outside [0, N) stops its walker before the
+// read (its final id is that id; a walker stopped at its start has sum 0;
+// the lane walk's later ids are mod N and stay in the table), and gather16
+// writes NaN for such an id: no read leaves the table.  The plain versions
+// of kinds 0, 1, 2, 5 and gather16 raise there instead; the two agree on
+// every table whose ids are in range.  rows-acc's plain version wraps as
+// its kernel does.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -111,10 +135,17 @@ constexpr int kRowLoopThreads = 128;  // row-loop: the most threads a block
 constexpr int kLaneCols = 128;      // lane: the table's columns, walker i reads i % 128
 constexpr int kLaneThreads = 1024;  // lane: a block's threads
 constexpr int kLaneChunk = 2048;    // lane: a column's walkers a block
-// lane: a block's column in shared memory: Hopper's 227 KB a block less 16
-// bytes for the staging barrier
-constexpr int kLaneMaxSmem = 232448 - 16;
-constexpr int kLaneMaxRows = kLaneMaxSmem / 4;  // 58,108
+// Hopper's 227 KB of shared memory a block, and what a staged table may take
+// of it: all but 16 bytes for the staging barrier
+constexpr int kBlockSmem = 232448;
+constexpr int kStageMaxBytes = kBlockSmem - 16;
+constexpr int kLaneMaxRows = kStageMaxBytes / 4;     // lane: a column, 58,108 rows
+constexpr int kStageMaxRows = kStageMaxBytes / 512;  // rows-acc's staged table, 453 rows
+// rows-acc's walkers a block on the global route: eight, so walkers whose
+// chains meet share an SM's L1 (a row one of them loaded is an L1 hit for
+// the others).  The staged route takes one (each block reads its own copy
+// of the table).
+constexpr int kRowsAccPerBlock = 8;
 
 __device__ __forceinline__ float4 ld_v4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -269,6 +300,41 @@ __device__ __forceinline__ unsigned smem_u32(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
 }
 
+// thread 0's part of one TMA bulk copy into shared memory: the barrier
+// (initialised by mbar_init, count 1) expects `bytes` and the copy of
+// `bytes` (a multiple of 16) from global src to shared dst completes them
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+    if (bytes > 0)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+            "[%3];" ::"r"(smem_u32(dst)),
+            "l"(src), "r"(bytes), "r"(smem_u32(bar))
+            : "memory");
+}
+
+// every thread waits for the barrier's phase `parity` to complete
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+    unsigned done = 0;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(smem_u32(bar)), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
 // Block x owns column x and chunk y of its walkers i = x + 128 k, k in
 // [y * kLaneChunk, ..).  It stages its column (ld floats of `cols`, the
 // table's columns as rows) into shared memory with one TMA bulk copy, then
@@ -285,33 +351,10 @@ walk_lane(const float* __restrict__ cols, int ld, const int* __restrict__ ids, i
     extern __shared__ __align__(16) float col[];
     __shared__ unsigned long long bar;
     const int c = blockIdx.x;
-    if (threadIdx.x == 0) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(&bar)) : "memory");
-        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
+    if (threadIdx.x == 0) mbar_init(&bar);
     __syncthreads();
-    if (threadIdx.x == 0) {
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                         smem_u32(&bar)),
-                     "r"(ld * 4)
-                     : "memory");
-        if (ld > 0)
-            asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-            "[%3];" ::"r"(smem_u32(col)),
-            "l"(cols + (size_t)c * ld), "r"(ld * 4), "r"(smem_u32(&bar))
-            : "memory");
-    }
-    unsigned done = 0;
-    do {
-        asm volatile(
-            "{\n\t.reg .pred p;\n\t"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n\t"
-            "selp.u32 %0, 1, 0, p;\n\t}"
-            : "=r"(done)
-            : "r"(smem_u32(&bar))
-            : "memory");
-    } while (!done);
+    if (threadIdx.x == 0) bulk_copy(col, cols + (size_t)c * ld, (unsigned)ld * 4u, &bar);
+    mbar_wait(&bar, 0);
     const int k0 = blockIdx.y * kLaneChunk;
     const int k1 = kc < k0 + kLaneChunk ? kc : k0 + kLaneChunk;
     for (int k = k0 + threadIdx.x; k < k1; k += kLaneThreads) {
@@ -376,23 +419,140 @@ walk_row_loop(const float* __restrict__ tab, const int* __restrict__ idx0, int w
     out_acc[i] = acc;
 }
 
-__global__ void walk_rows_acc(const float* __restrict__ tab, const int* __restrict__ idx0,
-                              int w, int steps, int n, int* out_idx, float* out_acc) {
+__device__ __forceinline__ void add4(float4& acc, float4 v) {
+    acc.x = acc.x + v.x;
+    acc.y = acc.y + v.y;
+    acc.z = acc.z + v.z;
+    acc.w = acc.w + v.w;
+}
+
+// floor modulo into [0, n) for n >= 1: the `%` path of rows-acc's wrap
+__device__ __forceinline__ int wrap_row(int v, int n) {
+    if ((unsigned)v < (unsigned)n) return v;
+    const int m = v % n;
+    return m < 0 ? m + n : m;
+}
+
+// rows-acc's next row from x = row[48] in three fixed-latency operations:
+// y = x + 1.5 * 2^23 puts an integer x in [0, 2^22) into y's low bits, so
+// bits(y) - bits(1.5 * 2^23) is the row, and its minimum with n - 1 (one
+// add-and-min) a row of the table whatever x is.  `exact` (0 <= x < lim =
+// min(n, 2^22) and y - 1.5 * 2^23 == x, float compares off the chain) holds
+// iff x is an integer in [0, lim), where the row is the rule's.
+constexpr float kMagic = 12582912.0f;       // 1.5 * 2^23
+constexpr unsigned kMagicBits = 0x4B400000u;  // its bits
+
+__device__ __forceinline__ unsigned fast_row(float x, int n, float lim, bool& exact) {
+    const float y = x + kMagic;
+    exact = x >= 0.0f && x < lim && y - kMagic == x;
+    return min(__float_as_uint(y) - kMagicBits, (unsigned)n - 1u);
+}
+
+// a row's row[48] and its float4 (this lane's), the id first so that it
+// does not queue behind the row's four lines (ptxas schedules them: it
+// issues a row's float4 a few steps after its id, and chip_smoke.py's SASS
+// check holds that no read of a row delays the chain).  asm volatile: the
+// compiler neither merges nor sinks them.  Global: through L1 (.nc, the
+// read-only path), from the table and from the lane's column; staged:
+// shared memory.
+template <bool kStaged>
+__device__ __forceinline__ void load_row(const float* g_row, const float* g_lane, unsigned s_row,
+                                         unsigned s_lane, unsigned r, float4& v, float& next) {
+    if (kStaged) {
+        asm volatile("ld.shared.f32 %0, [%1+192];" : "=f"(next) : "r"(s_row + r * 512u));
+        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                     : "r"(s_lane + r * 512u));
+    } else {
+        asm volatile("ld.global.nc.f32 %0, [%1+192];" : "=f"(next) : "l"(g_row + (size_t)r * 128));
+        asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];"
+                     : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                     : "l"(g_lane + (size_t)r * 128));
+    }
+}
+
+// One walker's `steps` steps from id v (its final id back in v), its sums
+// added to acc in step order.  kRule: each next row by the rule itself,
+// __float2int_rz then wrap_row.  Otherwise by fast_row, with no branch;
+// returns whether every id was exact (fast_row's row is then the rule's).
+// Two steps an iteration, so the float4 `a` and `b` trade places without a
+// copy: a copy of a row's float4 would wait for its load.
+template <bool kStaged, bool kRule>
+__device__ __forceinline__ bool walk_rows(const float* g_row, const float* g_lane, unsigned s_row,
+                                          unsigned s_lane, int n, int steps, int& v,
+                                          float4& acc) {
+    const float lim = (float)min(n, 1 << 22);
+    bool all_exact = true;
+    auto next_row = [&](float x) {
+        if constexpr (kRule) return (unsigned)wrap_row(__float2int_rz(x), n);
+        bool exact;
+        const unsigned r = fast_row(x, n, lim, exact);
+        all_exact = all_exact && exact;
+        return r;
+    };
+    float4 a, b;
+    float next;
+    load_row<kStaged>(g_row, g_lane, s_row, s_lane, (unsigned)wrap_row(v, n), a, next);
+    int s = 1;
+    for (; s + 2 <= steps; s += 2) {
+        load_row<kStaged>(g_row, g_lane, s_row, s_lane, next_row(next), b, next);
+        add4(acc, a);
+        load_row<kStaged>(g_row, g_lane, s_row, s_lane, next_row(next), a, next);
+        add4(acc, b);
+    }
+    if (s < steps) {
+        load_row<kStaged>(g_row, g_lane, s_row, s_lane, next_row(next), b, next);
+        add4(acc, a);
+        a = b;
+    }
+    add4(acc, a);
+    v = __float2int_rz(next);
+    return all_exact;
+}
+
+// Rows-acc: warp wk walks from row idx0[wk] mod n; each step reads row
+// r = v mod n whole (a float4 a lane), adds it to the warp's 128 sums and
+// takes v = __float2int_rz(row[48]) (truncated, saturated to int32, NaN 0:
+// jnp's astype).  The final id is the last v, unreduced.  The next id's load
+// is a 4-byte load every lane makes of one address (a broadcast), and the
+// row's float4 is added a step or more after its load, once the next ids'
+// loads are issued; the next row comes from row[48] by fast_row, so the
+// chain a step waits on is the id's load and three fixed-latency
+// operations (no F2I, no shuffle, no branch).  A walk
+// that met an id fast_row does not take exactly (an id outside [0, n), or
+// no integer) is walked again by the rule itself.  kStaged: the block first
+// copies the whole table (n * 512 bytes) into its shared memory with one
+// TMA bulk copy and walks it there.  blockDim.x / 32 walkers a block.
+template <bool kStaged>
+__global__ void __launch_bounds__(32 * kRowsAccPerBlock)
+walk_rows_acc(const float* __restrict__ tab, const int* __restrict__ idx0, int w, int steps,
+              int n, int* out_idx, float* out_acc) {
+    extern __shared__ __align__(16) float staged[];
+    __shared__ unsigned long long bar;
+    if (kStaged) {
+        if (threadIdx.x == 0) mbar_init(&bar);
+        __syncthreads();
+        if (threadIdx.x == 0) bulk_copy(staged, tab, (unsigned)n * 512u, &bar);
+        mbar_wait(&bar, 0);
+    }
     const int lane = threadIdx.x & 31;
     const long long wk = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
     if (wk >= w) return;
-    int idx = idx0[wk];
+    // the lane's column as a base of its own: ptxas would otherwise add
+    // 16 * lane to the row's address, two more instructions a step
+    const float* g_lane = tab + 4 * lane;
+    asm volatile("" : "+l"(g_lane));
+    const unsigned s_row = smem_u32(staged), s_lane = s_row + 16u * (unsigned)lane;
+    int v = idx0[wk];
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    for (int s = 0; s < steps && !out_of_table(idx, n); ++s) {
-        const float4 v = ld_v4(tab + (size_t)idx * 128 + 4 * lane);
-        acc.x = acc.x + v.x;
-        acc.y = acc.y + v.y;
-        acc.z = acc.z + v.z;
-        acc.w = acc.w + v.w;
-        idx = (int)__shfl_sync(0xffffffffu, v.x, 12);
+    if (steps > 0 &&
+        !walk_rows<kStaged, false>(tab, g_lane, s_row, s_lane, n, steps, v, acc)) {
+        v = idx0[wk];
+        acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        walk_rows<kStaged, true>(tab, g_lane, s_row, s_lane, n, steps, v, acc);
     }
     reinterpret_cast<float4*>(out_acc)[wk * 32 + lane] = acc;
-    if (lane == 0) out_idx[wk] = idx;
+    if (lane == 0) out_idx[wk] = v;
 }
 
 __global__ void gather16(const float4* __restrict__ img, int rows,
@@ -468,27 +628,101 @@ read_rate(const uint4* __restrict__ tab, long long n4, int span, int passes, uns
 // One warp follows ring (next = ring[p]) from `start`: `warm` steps that
 // bring the ring into the cache, then `steps` timed ones.  out[0]: the final
 // position; out[1]: the timed steps' nanoseconds on the global timer.
-template <bool kL1>
-__global__ void chase_ring(const int* __restrict__ ring, int start, int warm, int steps,
-                           long long* out) {
-    int p = start;
-    for (int s = 0; s < warm; ++s) {
-        if (kL1)
-            asm volatile("ld.global.ca.s32 %0, [%1];" : "=r"(p) : "l"(ring + p));
-        else
-            asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(p) : "l"(ring + p));
+// kLevel 1: through L1 (.ca); 2: from L2 (.cg); 3: from shared memory (the
+// warp first copies the `len`-int ring there); 4: rows-acc's step through
+// L1 (step_ring); 5: the same step with __float2int_rz and a compare and
+// branch before the next load (the wrap as the chain would take it without
+// fast_row).
+template <int kLevel>
+__device__ __forceinline__ int ring_step(const int* ring, unsigned sring, int p, int len) {
+    int q;
+    if (kLevel == 1) {
+        asm volatile("ld.global.ca.s32 %0, [%1];" : "=r"(q) : "l"(ring + p));
+    } else if (kLevel == 5) {
+        float x;
+        asm volatile("ld.global.ca.f32 %0, [%1];" : "=f"(x) : "l"(ring + p));
+        q = wrap_row(__float2int_rz(x), len);
+    } else if (kLevel == 2) {
+        asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(q) : "l"(ring + p));
+    } else {
+        asm volatile("ld.shared.s32 %0, [%1];" : "=r"(q) : "r"(sring + 4u * (unsigned)p));
     }
+    return q;
+}
+
+// `steps` steps of rows-acc's chain over the ring's entries read as float32
+// (exact ints) through L1: the next entry's load issues from fast_row's row,
+// with no branch, as in walk_rows_acc.  One load more than steps (the
+// first); returns the position after `steps`, or -1 if an entry was not
+// exact.
+__device__ __forceinline__ int step_ring(const int* ring, int len, int p, int steps) {
+    const float lim = (float)min(len, 1 << 22);
+    bool all_exact = true;
+    float x;
+    asm volatile("ld.global.ca.f32 %0, [%1];" : "=f"(x) : "l"(ring + p));
+    for (int s = 0; s < steps; ++s) {
+        bool exact;
+        p = (int)fast_row(x, len, lim, exact);
+        all_exact = all_exact && exact;
+        asm volatile("ld.global.ca.f32 %0, [%1];" : "=f"(x) : "l"(ring + p));
+    }
+    return all_exact ? p : -1;
+}
+
+template <int kLevel>
+__global__ void chase_ring(const int* __restrict__ ring, int len, int start, int warm, int steps,
+                           long long* out) {
+    extern __shared__ __align__(16) int sring[];
+    if (kLevel == 3) {
+        for (int i = threadIdx.x; i < len; i += blockDim.x) sring[i] = ring[i];
+        __syncwarp();
+    }
+    const unsigned sbase = smem_u32(sring);
+    int p = start;
+    if (kLevel == 4)
+        p = step_ring(ring, len, p, warm);
+    else
+        for (int s = 0; s < warm; ++s) p = ring_step<kLevel>(ring, sbase, p, len);
     unsigned long long t0, t1;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) : : "memory");
-    for (int s = 0; s < steps; ++s) {
-        if (kL1)
-            asm volatile("ld.global.ca.s32 %0, [%1];" : "=r"(p) : "l"(ring + p));
-        else
-            asm volatile("ld.global.cg.s32 %0, [%1];" : "=r"(p) : "l"(ring + p));
-    }
+    if (kLevel == 4)
+        p = p < 0 ? p : step_ring(ring, len, p, steps);
+    else
+        for (int s = 0; s < steps; ++s) p = ring_step<kLevel>(ring, sbase, p, len);
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1) : "r"(p) : "memory");
     if (threadIdx.x == 0) {
         out[0] = p;
+        out[1] = (long long)(t1 - t0);
+    }
+}
+
+// The yardstick's staging time: one block copies `bytes` of tab into its
+// shared memory with one TMA bulk copy, waits for it, `reps` times in turn
+// (rows-acc's staged route makes one).  out[0]: the uint32 sum of the
+// staged words' bits; out[1]: the copies' nanoseconds on the global timer.
+__global__ void __launch_bounds__(256)
+stage_copy(const float* __restrict__ tab, unsigned bytes, int reps, long long* out) {
+    extern __shared__ __align__(16) unsigned staged_words[];
+    __shared__ unsigned long long bar;
+    __shared__ unsigned part[8];
+    if (threadIdx.x == 0) mbar_init(&bar);
+    __syncthreads();
+    unsigned long long t0, t1;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0) : : "memory");
+    for (int r = 0; r < reps; ++r) {
+        if (threadIdx.x == 0) bulk_copy(staged_words, tab, bytes, &bar);
+        mbar_wait(&bar, (unsigned)r & 1u);
+    }
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1) : : "memory");
+    unsigned acc = 0;
+    for (unsigned i = threadIdx.x; i < bytes / 4; i += blockDim.x) acc += staged_words[i];
+    acc = __reduce_add_sync(kFull, acc);
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned sum = 0;
+        for (int k = 0; k < (int)(blockDim.x >> 5); ++k) sum += part[k];
+        out[0] = sum;
         out[1] = (long long)(t1 - t0);
     }
 }
@@ -515,20 +749,65 @@ cudaError_t lane_pool(int device, cudaMemPool_t* pool) {
     return cudaSuccess;
 }
 
+// Lets the kernels that stage into more than 48 KB of dynamic shared memory
+// take what a block has beside their static shared memory, on the current
+// card, `device`: once a card.
+cudaError_t allow_block_smem(int device) {
+    static bool done[64];
+    if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+    if (done[device]) return cudaSuccess;
+    const void* kernels[] = {reinterpret_cast<const void*>(walk_lane),
+                             reinterpret_cast<const void*>(walk_rows_acc<true>),
+                             reinterpret_cast<const void*>(chase_ring<3>),
+                             reinterpret_cast<const void*>(stage_copy)};
+    for (const void* kernel : kernels) {
+        cudaFuncAttributes attr;
+        cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kBlockSmem - (int)attr.sharedSizeBytes);
+        if (err != cudaSuccess) return err;
+    }
+    done[device] = true;
+    return cudaSuccess;
+}
+
+// rows-acc: where the table fits a block's shared memory (n <=
+// kStageMaxRows) a walker a block, each block staging the table; else
+// kRowsAccPerBlock walkers a block through L1
+int rows_acc_launch(const float* tab, const int* idx0, int w, int steps, int n, int* out_idx,
+                    float* out_acc, int device, cudaStream_t st) {
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    if (w <= 0) return (int)cudaGetLastError();
+    const DeviceGuard guard(device);
+    if (n <= kStageMaxRows) {
+        const cudaError_t err = allow_block_smem(device);
+        if (err != cudaSuccess) return (int)err;
+        walk_rows_acc<true><<<(unsigned)w, 32, (size_t)n * 512, st>>>(tab, idx0, w, steps, n,
+                                                                      out_idx, out_acc);
+    } else {
+        walk_rows_acc<false><<<(unsigned)((w + kRowsAccPerBlock - 1) / kRowsAccPerBlock),
+                               32 * kRowsAccPerBlock, 0, st>>>(tab, idx0, w, steps, n, out_idx,
+                                                               out_acc);
+    }
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int probe_walk_launch(int kind, const float* tab, const int* idx0, int w,
                                  int steps, int n, int* out_idx, float* out_acc, int device,
                                  void* stream) {
     // kind: 0 thread-row, 1 warp-row, 2 chase, 3 lane (n <= kLaneMaxRows),
-    // 4 warp rows-acc, 5 row-loop (writes out_acc only: its ids are idx0).
-    // device: the tensors' card.
+    // 4 rows-acc (n >= 1; out_acc (w, 128)), 5 row-loop (writes out_acc
+    // only: its ids are idx0).  device: the tensors' card.
     if (kind == 3 && (n < 0 || n > kLaneMaxRows)) return (int)cudaErrorInvalidValue;
+    if (kind == 4) return rows_acc_launch(tab, idx0, w, steps, n, out_idx, out_acc, device,
+                                          (cudaStream_t)stream);
     if (w <= 0) return (int)cudaGetLastError();
     const DeviceGuard guard(device);
     cudaStream_t st = (cudaStream_t)stream;
     const int threads = 128;
-    const long long warp_blocks = ((long long)w * 32 + threads - 1) / threads;
     const int blocks = (w + threads - 1) / threads;
     switch (kind) {
         case 0:
@@ -549,16 +828,10 @@ extern "C" int probe_walk_launch(int kind, const float* tab, const int* idx0, in
             // = n rounded up to 4, then the start ids, final ids and sums as
             // 128 rows of kc = ceil(w / 128): four launches, the transposes
             // in and out and the walk
-            static bool opted[64];
             cudaMemPool_t pool;
             cudaError_t err = lane_pool(device, &pool);
+            if (err == cudaSuccess) err = allow_block_smem(device);
             if (err != cudaSuccess) return (int)err;
-            if (!opted[device]) {
-                err = cudaFuncSetAttribute(walk_lane, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           kLaneMaxSmem);
-                if (err != cudaSuccess) return (int)err;
-                opted[device] = true;
-            }
             const int ld = (n + 3) / 4 * 4;
             const int kc = (int)(((long long)w + kLaneCols - 1) / kLaneCols);
             void* scratch = nullptr;
@@ -588,10 +861,6 @@ extern "C" int probe_walk_launch(int kind, const float* tab, const int* idx0, in
             const cudaError_t freed = cudaFreeAsync(scratch, st);
             return (int)(err != cudaSuccess ? err : freed);
         }
-        case 4:
-            walk_rows_acc<<<(unsigned)warp_blocks, threads, 0, st>>>(tab, idx0, w, steps, n,
-                                                                     out_idx, out_acc);
-            break;
         case 5: {
             // spread the walkers over every SM: a block of at most
             // kRowLoopThreads, a multiple of 8 threads
@@ -644,15 +913,47 @@ extern "C" int probe_read_rate_launch(int level, const float* tab, long long n4,
     return (int)cudaGetLastError();
 }
 
-extern "C" int probe_latency_launch(int level, const int* ring, int start, int warm, int steps,
-                                    long long* out, int device, void* stream) {
-    // level 1: the ring read through L1 (.ca); level 2: from L2 (.cg)
-    if (level != 1 && level != 2) return (int)cudaErrorInvalidValue;
+extern "C" int probe_latency_launch(int level, const int* ring, int len, int start, int warm,
+                                    int steps, long long* out, int device, void* stream) {
+    // level 1: the ring read through L1 (.ca); 2: from L2 (.cg); 3: from
+    // shared memory (len * 4 bytes at most 227 KB); 4: rows-acc's step
+    // through L1 (the ring's entries as float32); 5: that step with
+    // __float2int_rz and the wrap's branch before the next load
+    if (level < 1 || level > 5 || len < 1 || (level == 3 && len > kBlockSmem / 4))
+        return (int)cudaErrorInvalidValue;
     const DeviceGuard guard(device);
     cudaStream_t st = (cudaStream_t)stream;
-    if (level == 1)
-        chase_ring<true><<<1, 32, 0, st>>>(ring, start, warm, steps, out);
-    else
-        chase_ring<false><<<1, 32, 0, st>>>(ring, start, warm, steps, out);
+    switch (level) {
+        case 1:
+            chase_ring<1><<<1, 32, 0, st>>>(ring, len, start, warm, steps, out);
+            break;
+        case 2:
+            chase_ring<2><<<1, 32, 0, st>>>(ring, len, start, warm, steps, out);
+            break;
+        case 3: {
+            const cudaError_t err = allow_block_smem(device);
+            if (err != cudaSuccess) return (int)err;
+            chase_ring<3><<<1, 32, (size_t)len * 4, st>>>(ring, len, start, warm, steps, out);
+            break;
+        }
+        case 4:
+            chase_ring<4><<<1, 32, 0, st>>>(ring, len, start, warm, steps, out);
+            break;
+        default:
+            chase_ring<5><<<1, 32, 0, st>>>(ring, len, start, warm, steps, out);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int probe_stage_launch(const float* tab, int bytes, int reps, long long* out,
+                                  int device, void* stream) {
+    // one block stages `bytes` (a multiple of 16, at most kStageMaxRows rows)
+    // of tab into its shared memory `reps` times
+    if (bytes < 16 || bytes % 16 || bytes > kStageMaxRows * 512 || reps < 1)
+        return (int)cudaErrorInvalidValue;
+    const DeviceGuard guard(device);
+    const cudaError_t err = allow_block_smem(device);
+    if (err != cudaSuccess) return (int)err;
+    stage_copy<<<1, 256, (size_t)bytes, (cudaStream_t)stream>>>(tab, (unsigned)bytes, reps, out);
     return (int)cudaGetLastError();
 }

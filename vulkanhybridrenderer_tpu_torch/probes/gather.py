@@ -20,7 +20,11 @@ launch, of a 32 KB slice a block keeps in L1 and of the whole table from L2
 clock an SM at the SM clock nvidia-smi reports under that load; one warp's
 dependent-load latency through a pointer ring resident in L1 and in L2; and
 what the frame-width walkers share (``sharing``): the distinct rows all of
-them read at each step, and the mean distinct rows a 128-walker block reads.
+them read at each step, and the mean distinct rows a 128-walker block reads;
+the L1 ring's lines from shared memory, rows-acc's step through L1 (the
+load, fast_row, the address; and with F2I and the wrap's branch instead of
+fast_row), the L1 ring at 64-256 KB, and one block's TMA bulk copy of the
+N = 256 table (``stage_copy``).
 The cases:
   walk         the plain version: ``tab[idx]`` per step;
   thread-row   (row 3) a thread owns its walker (K4's layout), 32 walkers
@@ -38,11 +42,17 @@ The cases:
                on ``lane_table``, whose values reach +-1e5 so the modulo's
                `%` path runs;
   rows-acc     (row 6) S = 8 warp walkers adding whole rows, N = 256, 2048,
-               20480 (128 KB, 1 MB, 10.5 MB tables); each beside its
-               latency floor, steps x the yardstick's dependent-load
-               latency at the level that holds the rows the walk reads
-               (L1 where they fit L1_BYTES, else L2): a walker's steps are
-               one chain of dependent row loads, which no layout overlaps;
+               20480 (128 KB, 1 MB, 10.5 MB tables), the TPU op's rule:
+               row v mod N, v = row[48] truncated to int32 (to_int32), the
+               final id unreduced.  Each beside its latency floor
+               (``latency_floor``: a walker's steps are one chain of
+               dependent row loads; the lesser of all walkers on one SM and,
+               where the table fits a block's shared memory, one bulk copy
+               plus steps shared-memory loads), each walker on an SM of its
+               own and the union floor (every step at the level that holds
+               the union of the walkers' rows); and on ``wrap_table``, whose
+               ids leave the table and whose column 48 holds values with no
+               int32, on both of the kernel's routes (N = 256 and 2048);
   chase        a thread per walker reading row[0] and row[48] only, K2's
                walk's latency on the card (no TPU kernel computes it);
   gather16     2,073,600 random 16-byte rows of a 1920x1080x4 image.
@@ -53,10 +63,10 @@ whose rows hold +inf, against ``walk_guarded``, and row-loop and lane from
 start ids outside the table (final id that id, sum 0); lane also at N =
 LANE_MAX_ROWS, and its launch's refusal one row above.  Every wrapper checks
 its arguments on any device (lane also that a column fits a block's shared
-memory, N <= LANE_MAX_ROWS); on CPU tensors it runs its plain version, on
-CUDA tensors its kernel.  ``launches`` counts wrapper calls that launched
-(lane's call is four kernels) and the graph replays of them.  ``run`` needs
-the card.
+memory, N <= LANE_MAX_ROWS; rows-acc a table with a row); on CPU tensors it
+runs its plain version, on CUDA tensors its kernel.  ``launches`` counts
+wrapper calls that launched (lane's call is four kernels) and the graph
+replays of them.  ``run`` needs the card.
 """
 from __future__ import annotations
 
@@ -75,10 +85,17 @@ N_ROWS = 20480  # the TPU probe's table: 10.5 MB, SponzaProxy's BVH8 size
 W_PROBE, STEPS_PROBE = 1024, 512
 W_FRAME, STEPS_FRAME = 1920 * 1080, 32
 ROWS_ACC_S, ROWS_ACC_N = 8, (256, 2048, 20480)
-#: an SM's L1 and shared memory are one 256 KB array: where every row a walk
-#: reads fits it, each block's walkers read their rows from their SM's L1
-#: after the first load
+#: an SM's L1 and shared memory are one 256 KB array: the union floor takes
+#: a union of rows that fits it as L1-resident, and latency_floor's own-SM
+#: route a walker's rows unless given the yardstick's measured L1
+#: (l1_fit_bytes)
 L1_BYTES = 256 * 1024
+#: what a staged table may take of a block's shared memory: Hopper's 227 KB
+#: less 16 bytes for the staging barrier (csrc's kStageMaxBytes)
+STAGE_MAX_BYTES = 232448 - 16
+#: rows-acc's staged route: the whole table in a block's shared memory
+#: (csrc's kStageMaxRows)
+STAGE_MAX_ROWS = STAGE_MAX_BYTES // 512
 NEXT = 48  # the column holding the next row id
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 SHARE_BLOCK = 128  # walkers a block, in start order, for sharing()
@@ -96,10 +113,9 @@ REPLACES = {
     "chase": None,
     "gather16": None,
 }
-#: the lane walk stages a column in a block's shared memory: Hopper's 227 KB
-#: a block less 16 bytes for its barrier (csrc's kLaneMaxRows; ``run`` holds
-#: the launch to it on the card)
-LANE_MAX_ROWS = (232448 - 16) // 4
+#: the lane walk stages a column in a block's shared memory (csrc's
+#: kLaneMaxRows; ``run`` holds the launch to it on the card)
+LANE_MAX_ROWS = STAGE_MAX_BYTES // 4
 
 #: the yardstick: 16-byte words a read-rate round covers (csrc's
 #: kRateThreads * kRateLoads), a block's L1 slice, blocks an SM, passes
@@ -110,6 +126,13 @@ RATE_PASSES = {1: 4000, 2: 500}
 #: the latency rings: 128-byte lines (L1: 32 KB; L2: 4 MB), laps to warm, steps
 RING_LINES = {1: 256, 2: 32768}
 RING_STEPS = 20000
+#: the L1 ring again at these sizes (KB): where its latency leaves L1's, the
+#: L1 that global loads get is full (l1_fit_bytes: within L1_FIT of the
+#: 32 KB ring's latency)
+L1_SWEEP_KB = (64, 128, 160, 192, 224, 256)
+L1_FIT = 1.1
+#: the staging time: copies of rows-acc's N = 256 table a launch
+STAGE_REPS = 64
 #: kernel launches by kernel name
 launches = collections.Counter()
 
@@ -228,16 +251,99 @@ def row_loop_plain(tab, idx0, steps: int):
     return idx0, acc
 
 
+def to_int32(x):
+    """float32 -> int32 as jnp's astype and CUDA's __float2int_rz: truncated
+    toward 0, saturated to [-2^31, 2^31 - 1], NaN to 0."""
+    return x.double().trunc().clamp(-2**31, 2**31 - 1).nan_to_num(0.0).to(torch.int32)
+
+
 def rows_acc_plain(tab, idx0, steps: int):
-    """Final row ids (W,) and each walker's elementwise sum of its rows
-    (W, 128)."""
-    idx = idx0.long()
+    """The TPU op's rule (scripts/probe_dyngather.py): each step walker i
+    reads row v mod N (floor modulo into [0, N)), adds it to its (128,)
+    float32 sum and takes v = to_int32(row[48]); v starts at idx0[i].  The
+    walker never stops; its final id is the last v, unreduced (idx0 itself
+    after 0 steps).  Final ids (W,) int32 and sums (W, 128)."""
+    n = tab.shape[0]
+    idx = idx0.clone()
     acc = torch.zeros((idx.shape[0], 128), dtype=torch.float32, device=tab.device)
     for _ in range(steps):
-        rows = tab[idx]
+        rows = tab[torch.remainder(idx.long(), n)]
         acc = acc + rows
-        idx = rows[:, NEXT].long()
-    return idx.int(), acc
+        idx = to_int32(rows[:, NEXT])
+    return idx, acc
+
+
+def wrap_table(tab: np.ndarray, seed: int = 0) -> np.ndarray:
+    """A copy of `tab` whose column 48 leaves [0, N) in 40 rows: 16 ids
+    below 0 (to -5N), 16 at or above N (to 5N), and 8 values with no int32
+    (+-inf, NaN, +-3e9, 2^31) or no integer (7.9, -0.5): rows_acc_plain's
+    wrap and its conversion rule."""
+    n = tab.shape[0]
+    out = tab.copy()
+    rng = np.random.default_rng(seed + 7)
+    rows = rng.choice(n, 40, replace=False)
+    out[rows[:16], NEXT] = rng.integers(-5 * n, 0, 16)
+    out[rows[16:32], NEXT] = rng.integers(n, 5 * n, 16)
+    out[rows[32:], NEXT] = [np.inf, -np.inf, np.nan, 3e9, -3e9, 2.0**31, 7.9, -0.5]
+    return out
+
+
+def walker_rows(tab, idx0, steps: int) -> list[list[int]]:
+    """rows_acc_plain's walkers' distinct rows, each walker's in the order
+    of their first load (a replay of the walk's ids)."""
+    n = tab.shape[0]
+    idx = idx0.long()
+    read = []
+    for _ in range(steps):
+        r = torch.remainder(idx, n)
+        read.append(r)
+        idx = to_int32(tab[r, NEXT]).long()
+    if not read:
+        return [[] for _ in range(idx0.shape[0])]
+    return [list(dict.fromkeys(rows)) for rows in torch.stack(read, 1).tolist()]
+
+
+def latency_floor(walkers, steps: int, n: int, l1_ns: float, l2_ns: float,
+                  smem_ns: float | None = None, stage_ns: float | None = None,
+                  l1_bytes: int = L1_BYTES) -> dict:
+    """rows-acc's least time: each walker's steps are one chain of
+    dependent loads, and a route's time is its slowest walker's.
+    `walkers`: each walker's distinct rows (walker_rows).  The floor is the
+    lesser of two routes:
+      one SM   all walkers on one SM: a row no other walker reads from L2
+               (its first load), every other load from L1 (a row another
+               walker reads may have reached L1 first).  It ignores L1's
+               capacity, so no layout does better, whatever fits;
+      shared   where the table (n rows) fits a block's shared memory (n <=
+               STAGE_MAX_ROWS) and smem_ns / stage_ns are given: one
+               block's bulk copy of it, then steps shared-memory loads.
+    Beside it, not part of it (one SM is never above it): each walker on an
+    SM of its own, its first load of a row from L2, a later one from L1
+    where its rows fit `l1_bytes`, else from L2.
+    Returns dict(ms, route, one_sm_ms, shared_ms (None where the table does
+    not fit), own_sm_ms, walker_ms (own SM, per walker))."""
+    walker_ns = []
+    for rows in walkers:
+        again = l1_ns if len(rows) * 512 <= l1_bytes else l2_ns
+        walker_ns.append(len(rows) * l2_ns + (steps - len(rows)) * again)
+    counts = collections.Counter(r for rows in walkers for r in set(rows))
+    alone = [sum(counts[r] == 1 for r in rows) for rows in walkers]
+    routes = {"one SM": max((k * l2_ns + (steps - k) * l1_ns for k in alone), default=0.0) * 1e-6}
+    if n <= STAGE_MAX_ROWS and smem_ns is not None and stage_ns is not None:
+        routes["shared"] = (stage_ns + steps * smem_ns) * 1e-6
+    route = min(routes, key=routes.get)
+    return dict(ms=routes[route], route=route, one_sm_ms=routes["one SM"],
+                shared_ms=routes.get("shared"), own_sm_ms=max(walker_ns, default=0.0) * 1e-6,
+                walker_ms=[t * 1e-6 for t in walker_ns])
+
+
+def l1_fit_bytes(sweep: dict, l1_ns: float) -> int:
+    """The L1 that global loads get, from the yardstick's L1 ring at
+    several sizes (sweep: KB -> ns a step): the largest size whose latency
+    is within L1_FIT of l1_ns (the 32 KB ring's), in bytes; 32 KB where
+    none is."""
+    fit = [kb for kb, ns in sweep.items() if ns <= L1_FIT * l1_ns]
+    return max(fit, default=RING_LINES[1] * 128 // 1024) * 1024
 
 
 def gather16_plain(img, idx):
@@ -264,6 +370,8 @@ def table_bytes_read(kind: str, tab, idx0, steps: int) -> int:
             v = tab.reshape(-1)[flat]
             idx = torch.remainder(idx + v.to(torch.int32).long() * 7 + s, n)
         return int(seen.sum()) * 4
+    if kind == "rows-acc":
+        return len(set().union(*walker_rows(tab, idx0, steps))) * 512
     seen = torch.zeros(n, dtype=torch.bool, device=tab.device)
     idx = idx0.long()
     for _ in range(steps):
@@ -335,9 +443,13 @@ def load_kernel():
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     chase = lib.probe_latency_launch
     chase.restype = ctypes.c_int
-    chase.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3 + [
+    chase.argtypes = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    return walk, g16, rate, chase
+    stage = lib.probe_stage_launch
+    stage.restype = ctypes.c_int
+    stage.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p]
+    return walk, g16, rate, chase, stage
 
 
 def _check_args(name: str, *tensors):
@@ -361,10 +473,12 @@ def walk(kind: str, tab, idx0, steps: int):
     """Kernel `kind` (thread-row, warp-row, chase, lane, rows-acc or
     row-loop) over the (N, 128) float32 table from the int32 start rows
     idx0.  Its plain version on CPU tensors, its kernel on CUDA tensors; the
-    checks hold on both (lane: N <= LANE_MAX_ROWS).  Row ids (idx0 and the
-    table's column 48) lie in [0, N): the kernel stops a walker at one that
-    does not (its final id is that id), the plain version raises.  row-loop
-    returns idx0 itself as its final ids."""
+    checks hold on both (lane: N <= LANE_MAX_ROWS; rows-acc: N >= 1).
+    rows-acc wraps its ids as the TPU op does (rows_acc_plain: row v mod N,
+    v = to_int32(row[48]), the final id unreduced), on both.  For the other
+    kinds row ids (idx0 and the table's column 48) lie in [0, N): the kernel
+    stops a walker at one that does not (its final id is that id), the
+    plain version raises.  row-loop returns idx0 itself as its final ids."""
     if kind not in KINDS:
         raise ValueError(f"unknown walk kind {kind!r}; kinds: {sorted(KINDS)}")
     cuda = _check_args(kind, tab, idx0)
@@ -375,6 +489,8 @@ def walk(kind: str, tab, idx0, steps: int):
     if kind == "lane" and tab.shape[0] > LANE_MAX_ROWS:
         raise ValueError(f"lane: a column of {tab.shape[0]} rows does not fit a block's shared "
                          f"memory (at most {LANE_MAX_ROWS} rows)")
+    if kind == "rows-acc" and tab.shape[0] == 0:
+        raise ValueError("rows-acc: ids wrap mod N, so the table needs a row")
     if not cuda:
         plain = {"lane": lane_plain, "rows-acc": rows_acc_plain,
                  "row-loop": row_loop_plain}.get(kind, walk_plain)
@@ -431,20 +547,40 @@ def read_rate(tab, level: int, blocks: int, passes: int):
 
 
 def chase_ring(ring, level: int, start: int, warm: int, steps: int):
-    """One warp follows the int32 pointer ring on the card (level 1 through
-    L1, level 2 from L2): (final position, ns of the timed steps)."""
+    """One warp follows the pointer ring on the card: level 1 through L1, 2
+    from L2, 3 from shared memory (an int32 ring), 4 rows-acc's step through
+    L1 (a float32 ring: its load and fast_row's fixed-latency operations to the
+    next address), 5 that step with F2I and the wrap's compare and branch
+    (a float32 ring): (final position, ns of the timed steps)."""
     _check_args("chase ring", ring)
-    if not ring.is_cuda or ring.dtype != torch.int32:
-        raise ValueError("chase ring: a CUDA int32 ring")
+    if not ring.is_cuda or ring.dtype != (torch.float32 if level >= 4 else torch.int32):
+        raise ValueError("chase ring: a CUDA ring, float32 at levels 4-5, else int32")
     out = torch.zeros(2, dtype=torch.int64, device=ring.device)
     index, stream = _stream(ring)
-    err = load_kernel()[3](level, ring.data_ptr(), start, warm, steps, out.data_ptr(), index,
-                           stream)
+    err = load_kernel()[3](level, ring.data_ptr(), ring.numel(), start, warm, steps,
+                           out.data_ptr(), index, stream)
     if err != 0:
         raise RuntimeError(f"gather probe latency launch failed: CUDA error {err}")
     launches["latency"] += 1
     pos, ns = out.tolist()
     return pos, ns
+
+
+def stage_copy(tab, reps: int):
+    """One block copies the float32 table (at most STAGE_MAX_ROWS rows of
+    128) into its shared memory with one TMA bulk copy, `reps` times in
+    turn, on the card: (uint32 sum of the staged bits as int, ns a copy)."""
+    _check_args("stage copy", tab)
+    if not tab.is_cuda or tab.dtype != torch.float32 or not 0 < tab.numel() <= STAGE_MAX_ROWS * 128:
+        raise ValueError("stage copy: a CUDA float32 table of at most STAGE_MAX_ROWS rows")
+    out = torch.zeros(2, dtype=torch.int64, device=tab.device)
+    index, stream = _stream(tab)
+    err = load_kernel()[4](tab.data_ptr(), tab.numel() * 4, reps, out.data_ptr(), index, stream)
+    if err != 0:
+        raise RuntimeError(f"gather probe stage copy launch failed: CUDA error {err}")
+    launches["stage"] += 1
+    bits, ns = out.tolist()
+    return bits & 0xFFFFFFFF, ns / reps
 
 
 # ---- the probe -----------------------------------------------------------------
@@ -546,18 +682,84 @@ def yardstick(tab, out=print) -> dict:
         if pos != int(order[(lines + RING_STEPS) % lines]) * 32:
             raise RuntimeError(f"gather probe latency L{level}: the chase ended at {pos}")
         lat[level] = ns / RING_STEPS
+    # the L1 ring's lines from shared memory, and rows-acc's step through L1
+    # (the ring's entries as float32), with fast_row and with F2I
+    lines = RING_LINES[1]
+    ring_np, order = make_ring(lines)
+    for level, ring in ((3, ring_np), (4, ring_np.astype(np.float32)),
+                        (5, ring_np.astype(np.float32))):
+        pos, ns = chase_ring(torch.from_numpy(ring).to(dev), level, int(order[0]) * 32, lines,
+                             RING_STEPS)
+        if pos != int(order[(lines + RING_STEPS) % lines]) * 32:
+            raise RuntimeError(f"gather probe latency level {level}: the chase ended at {pos}")
+        lat[level] = ns / RING_STEPS
     out(f"  dependent-load latency, one warp, {RING_STEPS} steps after a lap: L1 ring "
         f"({RING_LINES[1] * 128} bytes, ld.ca) {lat[1]:.2f} ns a step, L2 ring "
-        f"({RING_LINES[2] * 128} bytes, ld.cg) {lat[2]:.2f} ns a step; ends as the replay's")
+        f"({RING_LINES[2] * 128} bytes, ld.cg) {lat[2]:.2f} ns a step, the L1 ring's lines in "
+        f"shared memory {lat[3]:.2f} ns a step; rows-acc's step through L1 (its load, "
+        f"fast_row, the address) {lat[4]:.2f} ns a step, "
+        f"{(lat[4] - lat[1]) * clock_mhz * 1e-3:.1f} clocks over the L1 load's at "
+        f"{clock_mhz:.0f} MHz; the step with F2I and the wrap's compare and branch instead "
+        f"{lat[5]:.2f} ns, {(lat[5] - lat[1]) * clock_mhz * 1e-3:.1f} clocks over; each ends "
+        f"as the replay's")
+    sweep = {}
+    for kb in L1_SWEEP_KB:
+        lines = kb * 1024 // 128
+        ring_np, order = make_ring(lines)
+        pos, ns = chase_ring(torch.from_numpy(ring_np).to(dev), 1, int(order[0]) * 32, lines,
+                             RING_STEPS)
+        if pos != int(order[(lines + RING_STEPS) % lines]) * 32:
+            raise RuntimeError(f"gather probe latency, {kb} KB L1 ring: the chase ended at {pos}")
+        sweep[kb] = ns / RING_STEPS
+    l1_fit = l1_fit_bytes(sweep, lat[1])
+    out("  the L1 ring (ld.ca) at larger sizes, ns a step: "
+        + ", ".join(f"{kb} KB {ns:.2f}" for kb, ns in sweep.items())
+        + f" (L1's latency while the ring stays in the L1 that global loads get): global "
+        f"loads get {l1_fit} bytes of L1 (the largest ring within {L1_FIT}x the 32 KB ring's)")
+    staged = tab[:ROWS_ACC_N[0]]
+    bits, stage_ns = stage_copy(staged, STAGE_REPS)
+    if bits != int((staged.view(torch.int32).long() & 0xFFFFFFFF).sum()) & 0xFFFFFFFF:
+        raise RuntimeError("gather probe stage copy: the staged bits' sum differs from the table's")
+    out(f"  one block's TMA bulk copy of rows-acc's N = {ROWS_ACC_N[0]} table ({staged.numel() * 4} "
+        f"bytes, from L2) into its shared memory: {stage_ns:.2f} ns ({STAGE_REPS} copies in turn "
+        f"a launch); the staged bits' sum equals the table's")
     return dict(l1_rate=rates[1][0], l2_rate=rates[2][0], l1_per_clk=per_clk[1],
                 l2_per_clk=per_clk[2], clock_mhz=clock_mhz, max_mhz=max_mhz, n_sm=n_sm,
-                l1_ns=lat[1], l2_ns=lat[2])
+                l1_ns=lat[1], l2_ns=lat[2], smem_ns=lat[3], step_ns=lat[4], f2i_step_ns=lat[5],
+                l1_sweep=sweep, l1_fit=l1_fit, stage_ns=stage_ns)
 
 
 def turns(other, mine, iters: int) -> list[float]:
     """Milliseconds of two launches (functions of no argument) timed in
     turns: other, mine, mine, other."""
     return [_cuda_ms(fn, iters) for fn in (other, mine, mine, other)]
+
+
+def graph_turns(fns, calls: int = 20, replays: int = 5) -> list[list[float]]:
+    """Milliseconds of one call of each fn on the device alone: each fn's
+    `calls` calls captured in a CUDA graph of its own, the graphs replayed
+    in turns, in order and then in reverse (other, mine, mine, other for
+    two): [[first, second] for each fn].  ``launches`` counts the replays."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graphs = []
+    for fn in fns:
+        graph = torch.cuda.CUDAGraph()
+        before = launches.copy()
+        with torch.cuda.graph(graph):
+            for _ in range(calls):
+                fn()
+        captured = launches - before
+        launches.subtract(captured)
+        graphs.append((graph, captured))
+    times = [[] for _ in fns]
+    for i in [*range(len(fns)), *reversed(range(len(fns)))]:
+        graph, captured = graphs[i]
+        times[i].append(_cuda_ms(graph.replay, replays) / calls)
+        for name, count in captured.items():
+            launches[name] += count * (replays + 1)
+    return times
 
 
 def _out_of_table_starts(idx0, n: int, seed: int):
@@ -578,8 +780,9 @@ def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
     plain version differ.  Returns, per kernel, its numbers at the case
     that stands for it (rows 3-5 and the chase at the frame's width, row 6
     at N = 20480).  parent(kind, tab, idx0, steps) -> (ids, sums): another
-    build's walk launch; its thread-row, warp-row and lane are checked
-    against the plain versions and timed in turns with this build's."""
+    build's walk launch; its thread-row, warp-row, lane and rows-acc are
+    checked against the plain versions and timed in turns with this
+    build's (rows-acc in CUDA graphs)."""
     if not torch.cuda.is_available():
         raise RuntimeError("the gather probe measures the card: no CUDA device")
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -718,24 +921,7 @@ def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
                            f"{LANE_MAX_ROWS + 1} rows, not cudaErrorInvalidValue (1)")
     out(f"lane at N = LANE_MAX_ROWS = {LANE_MAX_ROWS} (lane_table): equal to lane_plain bit for "
         f"bit; the launch refuses N = {LANE_MAX_ROWS + 1} (cudaErrorInvalidValue)")
-    out(f"rows-acc (row 6), S = {ROWS_ACC_S} warp walkers x {STEPS_PROBE} steps:")
-    for n in ROWS_ACC_N:
-        t = torch.from_numpy(make_table(n, seed)).to(dev)
-        idx0 = torch.from_numpy(start_rows(n, ROWS_ACC_S, seed)).to(dev)
-        read = table_bytes_read("rows-acc", t, idx0, STEPS_PROBE)
-        res = results["rows-acc"] = case(
-            f"N = {n} ({n * 512} bytes)", idx0, STEPS_PROBE, 512,
-            lambda: walk("rows-acc", t, idx0, STEPS_PROBE),
-            lambda: rows_acc_plain(t, idx0, STEPS_PROBE),
-            read, ROWS_ACC_S * (4 + 512), ROWS_ACC_S * STEPS_PROBE * 128)
-        level = 1 if read <= L1_BYTES else 2
-        ns = ys["l1_ns"] if level == 1 else ys["l2_ns"]
-        floor_ms = STEPS_PROBE * ns * 1e-6
-        out(f"    latency floor: the walk's {read} distinct table bytes "
-            f"{'fit' if level == 1 else 'exceed'} L1 ({L1_BYTES} bytes): {STEPS_PROBE} dependent "
-            f"steps x the L{level} latency {ns:.2f} ns = {floor_ms:.4f} ms; share of it "
-            f"{floor_ms / res['ms']:.4f} (a launch), {floor_ms / res['graph_ms']:.4f} (in a "
-            f"CUDA graph)")
+    rows_acc_section(dev, seed, ys, case, results, out, parent)
     rng = np.random.default_rng(seed + 2)
     img = torch.from_numpy(rng.standard_normal((1080, 1920, 4), dtype=np.float32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, 1080 * 1920, 1080 * 1920).astype(np.int32)).to(dev)
@@ -745,6 +931,86 @@ def run(seed: int = 0, out=print, parent=None) -> dict[str, dict]:
                                int(torch.unique(idx).numel()) * 16, idx.numel() * 16, 0,
                                library=True)
     return results
+
+
+def rows_acc_section(dev, seed, ys, case, results, out, parent=None):
+    """run's rows-acc (row 6) cases: at each N the kernel against
+    rows_acc_plain bit for bit, each walker's distinct rows, the latency
+    floor with its shares, beside it the own-SM route and the union floor
+    (every step at the level that holds the union of the walkers' rows)
+    with theirs, and with `parent` the parent's rows-acc in turns in CUDA
+    graphs; then the wrap table on both routes."""
+    out(f"rows-acc (row 6), S = {ROWS_ACC_S} warp walkers x {STEPS_PROBE} steps, row v mod N "
+        f"(v = row[48] truncated to int32), the final id unreduced:")
+    for n in ROWS_ACC_N:
+        t = torch.from_numpy(make_table(n, seed)).to(dev)
+        idx0 = torch.from_numpy(start_rows(n, ROWS_ACC_S, seed)).to(dev)
+        walkers = walker_rows(t, idx0, STEPS_PROBE)
+        read = len(set().union(*walkers)) * 512
+        res = results["rows-acc"] = case(
+            f"N = {n} ({n * 512} bytes)", idx0, STEPS_PROBE, 512,
+            lambda: walk("rows-acc", t, idx0, STEPS_PROBE),
+            lambda: rows_acc_plain(t, idx0, STEPS_PROBE),
+            read, ROWS_ACC_S * (4 + 512), ROWS_ACC_S * STEPS_PROBE * 128)
+        floor = latency_floor(walkers, STEPS_PROBE, n, ys["l1_ns"], ys["l2_ns"], ys["smem_ns"],
+                              ys["stage_ns"], ys["l1_fit"])
+        level = 1 if read <= L1_BYTES else 2
+        old_ms = STEPS_PROBE * (ys["l1_ns"] if level == 1 else ys["l2_ns"]) * 1e-6
+        res.update(floor_ms=floor["ms"], old_floor_ms=old_ms)
+
+        def shares(ms):
+            return f"share {ms / res['ms']:.4f} (a launch), {ms / res['graph_ms']:.4f} (in a CUDA graph)"
+
+        shared = ("" if floor["shared_ms"] is None else
+                  f"; shared: one block's bulk copy {ys['stage_ns']:.2f} ns + {STEPS_PROBE} x the "
+                  f"shared-memory latency {ys['smem_ns']:.2f} ns = {floor['shared_ms']:.4f} ms")
+        out(f"    each walker's distinct rows (first loads, from L2): {[len(r) for r in walkers]}; "
+            f"union {read} bytes")
+        out(f"    latency floor ({floor['route']}) {floor['ms']:.4f} ms, the lesser of: one SM (rows "
+            f"no other walker reads at L2 {ys['l2_ns']:.2f} ns, the rest at L1 {ys['l1_ns']:.2f} "
+            f"ns; L1's capacity ignored) {floor['one_sm_ms']:.4f} ms{shared}; "
+            f"{shares(floor['ms'])}")
+        out(f"    beside it, each walker on an SM of its own (its first loads at L2, the rest at L1 "
+            f"where its rows fit the {ys['l1_fit']} bytes of L1 global loads get, else L2): "
+            f"{floor['own_sm_ms']:.4f} ms (walkers {[round(x, 4) for x in floor['walker_ms']]}); "
+            f"{shares(floor['own_sm_ms'])}")
+        out(f"    the union floor, {STEPS_PROBE} steps x the L{level} latency (the union "
+            f"{'fits' if level == 1 else 'exceeds'} {L1_BYTES} bytes): {old_ms:.4f} ms; "
+            f"{shares(old_ms)}")
+        if parent is not None:
+            _check_equal(f"the parent's rows-acc, N = {n}",
+                         parent(KINDS["rows-acc"], t, idx0, STEPS_PROBE),
+                         rows_acc_plain(t, idx0, STEPS_PROBE))
+            tt = graph_turns([lambda: parent(KINDS["rows-acc"], t, idx0, STEPS_PROBE),
+                              lambda: walk("rows-acc", t, idx0, STEPS_PROBE)])
+            res.update(parent_ms=tt[0], this_ms=tt[1])
+            out(f"    against the parent's, in turns in CUDA graphs (parent, this, this, parent): "
+                f"{tt[0][0]:.4f} / {tt[0][1]:.4f} ms against {tt[1][0]:.4f} / {tt[1][1]:.4f} ms: "
+                f"{sum(tt[0]) / sum(tt[1]):.3f}x; both equal to rows_acc_plain")
+    # ids that leave the table, and values with no int32: the TPU op's mod N,
+    # on the staged route (N = 256) and the global one (N = 2048)
+    for n in ROWS_ACC_N[:2]:
+        wt_np = wrap_table(make_table(n, seed), seed)
+        wt = torch.from_numpy(wt_np).to(dev)
+        col = wt_np[:, NEXT]
+        odd = ~((col >= 0) & (col < n) & (col == np.trunc(col)))
+        for w in (ROWS_ACC_S, W_PROBE):
+            idx0 = torch.from_numpy(start_rows(n, w, seed)).to(dev)
+            if w >= 32:
+                idx0 = _out_of_table_starts(idx0, n, seed)[0]
+            hits = sum(int(odd[rows].sum()) for rows in walker_rows(wt, idx0, STEPS_PROBE))
+            if hits == 0:
+                raise RuntimeError(f"gather probe: no rows-acc walker read a row whose id leaves "
+                                   f"the N = {n} table")
+            got, ref = walk("rows-acc", wt, idx0, STEPS_PROBE), rows_acc_plain(wt, idx0, STEPS_PROBE)
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, ref)):
+                raise RuntimeError(f"gather probe rows-acc on the wrap table, N = {n}, W = {w}: "
+                                   f"kernel and plain version differ")
+            out(f"rows-acc on wrap_table (N = {n}, the {'staged' if n <= STAGE_MAX_ROWS else 'global'} "
+                f"route; column 48 below 0, at or above N, +-inf, NaN, +-3e9, 2^31, 7.9, -0.5), "
+                f"W = {w}{' (32 start ids outside the table)' * (w >= 32)}: equal to rows_acc_plain "
+                f"bit for bit (NaN too); {hits} of the walkers' distinct rows hold such an id")
 
 
 def _check_equal(label, got, ref):
