@@ -37,6 +37,15 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 triangles, 370 primitives, 39 textures, 600 alpha-masked
                 triangles, atlas (4, 72, 2560)); a 1024x1024 RGBA PNG round
                 trip must be exact
+  2c. jpeg kinds - tests/data/torch_jpeg's eight streams (arithmetic-coded
+                sequential with restarts and DAC, and progressive; lossless
+                grey, RGB and CMYK; CMYK with and without Adobe APP14;
+                YCCK): utils/jpeg.decode_jpeg must equal each beside-file
+                Pillow decode exactly (host seconds a stream printed); a
+                glTF showing them (sample_asset.build_texture_board_glb)
+                loads to the atlas of those decodes and renders its second
+                frame of the flagship configuration (full hybrid,
+                alpha_raster="brute") at 320x180 on the card, finite
   3. golden   - cornell_box() at 64x64 (shadow_map_size 128) on the GPU against
                 the JAX package's goldens (RMSE <= 2e-3 after clamping to
                 [0, 1], the reference's golden tolerance): the RT-shadows frame
@@ -282,6 +291,10 @@ import torch
 WIDTH, HEIGHT = 1920, 1080
 REPO = Path(__file__).resolve().parent
 GOLDENS = REPO / "tests" / "goldens"
+#: streams of every JPEG kind beyond Huffman DCT, each beside Pillow's decode
+#: (.npy), written by tests/jpeg_writers.py and checked current by
+#: tests/test_torch_jpeg_kinds.py
+JPEG_FIXTURES = REPO / "tests" / "data" / "torch_jpeg"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clock
 # K1's FP32 operations (per tested (entry, pixel) pair, and the corner
@@ -631,7 +644,9 @@ def main() -> int:
     from vulkanhybridrenderer_tpu_torch.runtime import app
     from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
     from vulkanhybridrenderer_tpu_torch.scene import gltf, procedural, sample_asset
+    from vulkanhybridrenderer_tpu_torch.scene.atlas import build_atlas
     from vulkanhybridrenderer_tpu_torch.utils import build, png
+    from vulkanhybridrenderer_tpu_torch.utils.jpeg import decode_jpeg
     from vulkanhybridrenderer_tpu_torch.utils.build import build_log
     from vulkanhybridrenderer_tpu_torch.utils.image import to_uint8_image
 
@@ -797,7 +812,7 @@ def main() -> int:
     t = time.perf_counter()
     host = b.to("cpu")
     world_tris = bvh_ops.world_triangles(geometry.to_world(host).position, host.tri_vertex)
-    rg_bvh = bvh8_ops.build_bvh8_host(world_tris.numpy())
+    rg_bvh = bvh8_ops.build_bvh8_sah_host(world_tris.numpy())
     bvh_s = time.perf_counter() - t
     counts = dict(triangles=b.num_triangles, primitives=b.prim_transform.shape[0],
                   textures=b.atlas.uv_offset.shape[0], alpha_masked=b.alpha_tri_idx.shape[0],
@@ -821,6 +836,45 @@ def main() -> int:
     _check(np.array_equal(back, img), "the PNG round trip is not exact")
     del host, world_tris, rg_bvh, img, back
     _phase("asset", t0)
+
+    # ---- 2c. jpeg kinds: the JPEGs beyond Huffman DCT that the reference reads ----
+    t0 = time.perf_counter()
+    jpgs = sorted(f.stem for f in JPEG_FIXTURES.glob("*.jpg"))
+    _check(bool(jpgs) and jpgs == sorted(f.stem for f in JPEG_FIXTURES.glob("*.npy")),
+           f"jpeg fixtures {jpgs} are not each beside its Pillow decode (.npy)")
+    streams, goldens = {}, {}
+    for f in sorted(JPEG_FIXTURES.glob("*.jpg")):
+        data, golden = f.read_bytes(), np.load(f.with_suffix(".npy"))
+        t = time.perf_counter()
+        got = decode_jpeg(data)
+        decode_s = time.perf_counter() - t
+        same = got.shape == golden.shape and np.array_equal(got, golden)
+        print(f"jpeg {f.stem} ({len(data)} bytes, {golden.shape[1]}x{golden.shape[0]}): host "
+              f"decode {decode_s:.4f} s ({smi}), equal to Pillow's decode {same}")
+        _check(same, f"decode_jpeg({f.name}) differs from Pillow's decode")
+        streams[f.stem], goldens[f.stem] = data, golden
+    board_path = build.BUILD_DIR / "jpeg_kinds.glb"
+    sample_asset.build_texture_board_glb(board_path, list(streams.values()))
+    t = time.perf_counter()
+    board = gltf.load_scene(board_path)
+    load_s = time.perf_counter() - t
+    want = build_atlas(list(goldens.values()), [True] * len(goldens))  # base colours: sRGB
+    _check(np.array_equal(np.asarray(board.buffers.atlas.data), want.data),
+           "the texture board's atlas is not the atlas of Pillow's decodes")
+    r = Renderer(board, RenderConfig(width=320, height=180, hybrid=full, alpha_raster="brute"),
+                 device=dev)
+    r.render_frame()
+    img = r.render_frame()
+    _check(img.device.type == "cuda", f"the jpeg kinds frame is on {img.device}")
+    img = img.cpu().numpy()
+    print(f"jpeg kinds: {len(streams)} streams as the textures of a glTF, load_scene "
+          f"{load_s:.3f} s, atlas {tuple(want.data.shape)} equal to Pillow's decodes; frame 2 "
+          f"of the flagship configuration at 320x180 on {img.shape} finite "
+          f"{bool(np.isfinite(img).all())}, mean {float(img[:3].mean()):.4f}")
+    _check(img.shape == (4, 180, 320) and np.isfinite(img).all() and img[:3].max() > 0,
+           "the jpeg kinds frame is not finite or is black")
+    del r, board, img
+    _phase("jpeg kinds", t0)
 
     # ---- 3. golden ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1034,7 +1088,7 @@ def main() -> int:
         from them.  Returns the JSON line's fields."""
         n = o.shape[0]
         tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n).contiguous()
-        filt = None if tables is None else traverse.make_alpha_hit_filter(tables)
+        filt = None if tables is None else traverse.make_alpha_hit_filter(None, tables)
         steps = traverse.default_max_steps(bvh)
         mode = ("filtered " if tables is not None else "") + ("any-hit" if anyhit else "closest-hit")
         k = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=anyhit, alpha_tables=tables)
@@ -1121,7 +1175,7 @@ def main() -> int:
     lbvh, k4_entries = _lbvh_oracle(res["WorldTris"], res["BVH"], hybrid_wavefronts(rays, 2),
                                     bound, res["shade_tables"], other_k4)
     kernels.update(k4_entries)
-    lbvh8 = bvh8_ops.collapse_host(lbvh, res["WorldTris"].cpu().numpy()).to(dev)
+    lbvh8 = bvh8_ops.build_bvh8_host(lbvh, res["WorldTris"].cpu().numpy()).to(dev)
     print(f"realglb: the device LBVH's BVH8 {lbvh8.num_rows} rows, depth bound {lbvh8.depth}; "
           f"the SAH BVH8 {res['BVH'].num_rows} rows, depth bound {res['BVH'].depth}")
     check_k2(lbvh8, hybrid_wavefronts(rays, 2), "realglb full frame's (LBVH BVH8)", timed=False)
@@ -1697,7 +1751,9 @@ def main() -> int:
     torch.cuda.synchronize()
     table = r.stats.table()
     _check(r.stats.frame_ms is not None, "no frame time reached stats")
-    trace = Path(r.profile(build.BUILD_DIR / "chip_smoke_trace", frames=2))
+    trace_dir = build.BUILD_DIR / "chip_smoke_trace"
+    _check(r.profile(trace_dir, frames=2) == trace_dir, "profile returned another directory")
+    trace = trace_dir / f"{r.path_name}_frame{r.frame_index}.json"
     _check(trace.is_file() and trace.stat().st_size > 0, f"profile wrote no trace at {trace}")
     print(f"surface: {len(names)} resources listed, the graph's outputs; debug_dump Albedo "
           f"{dumped.shape} PNG decodes to to_uint8_image; find_nonfinite_pass None; profile "
@@ -1810,7 +1866,7 @@ def _animated_wavefronts(pica, cfg, dev, bound):
     res = r.fetch_resources("pfd", "BVH", "ShadowGrid", "WorldTris", hybrid_path.DEPTH,
                             hybrid_path.NORMALS)
     refit, tris = res["BVH"], res["WorldTris"]
-    fresh = bvh8_ops.build_bvh8_host(tris.cpu().numpy()).to(dev)
+    fresh = bvh8_ops.build_bvh8_sah_host(tris.cpu().numpy()).to(dev)
     rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
                              cfg.hybrid, ao_rays=cfg.ao_rays)
     _k3_wave(refit, res["ShadowGrid"], rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
@@ -1866,7 +1922,7 @@ def _route_renderer(scene, cfg, dev):
     lbvh, world_tris, lbvh8, native_s = _lbvh8(r)
     tris_np = world_tris.cpu().numpy()
     t = time.perf_counter()
-    python8 = bvh8_ops.collapse_host(lbvh, tris_np, prefer_native=False)
+    python8 = bvh8_ops.build_bvh8_host(lbvh, tris_np, prefer_native=False)
     python_s = time.perf_counter() - t
     same = {f: torch.equal(getattr(route8, f).cpu(), getattr(lbvh8, f).cpu())
             for f in ("rows", "child8", "valid8", "tri8")}
@@ -1897,7 +1953,7 @@ def _lbvh8(r):
     lbvh = bvh_ops.build(tris)
     tris_np = tris.cpu().numpy()
     t = time.perf_counter()
-    native = bvh8_ops.collapse_host(lbvh, tris_np, prefer_native=True)
+    native = bvh8_ops.build_bvh8_host(lbvh, tris_np, prefer_native=True)
     seconds = time.perf_counter() - t
     return lbvh, tris, native.to(r.device), seconds
 
@@ -1996,7 +2052,7 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
           f"{sah_bin.left.shape[0]} nodes, leaves of {sah_bin.leaf_size}")
     fn = traverse.load_flat_kernel()
     own_params = _c_params(build.CSRC_DIR / "bvh_flat_trace.cu", "bvh_flat_trace_launch")
-    filt = traverse.make_alpha_hit_filter(tables)
+    filt = traverse.make_alpha_hit_filter(None, tables)
     entries = {}
 
     def stat(x):
@@ -2204,7 +2260,7 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
     counts, ended, err = {}, {}, 0
     for filtered in (False, True) if tables is not None else (False,):
         tab = tables if filtered else None
-        filt = traverse.make_alpha_hit_filter(tab) if filtered else None
+        filt = traverse.make_alpha_hit_filter(None, tab) if filtered else None
         what = f"{'filtered ' if filtered else ''}{label}"
         k = shadowgrid.trace_shadow(sg, o, d, tmin, tmax, alpha_tables=tab, width=width)
         for big_first in (False, True):

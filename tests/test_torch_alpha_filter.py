@@ -116,7 +116,7 @@ def test_filter_plain_matches_jax(setup):
     jf = jtrav.make_alpha_hit_filter(s["js"].buffers, s["jtables"])
     ja = np.asarray(jf(jnp.asarray(tri), jnp.asarray(u), jnp.asarray(v),
                        jnp.ones(4096, bool)))
-    pa = ptrav.make_alpha_hit_filter(s["ptables"])(
+    pa = ptrav.make_alpha_hit_filter(None, s["ptables"])(
         torch.from_numpy(tri), torch.from_numpy(u), torch.from_numpy(v)).numpy()
     np.testing.assert_array_equal(pa, ja)
     assert 0.05 < pa.mean() < 0.95  # both outcomes exercised

@@ -56,8 +56,8 @@ def collapsed(scene_tris):
     for name, tris in scene_tris.items():
         for kind in TREES:
             tree = _tree(tris, kind)
-            out[name, kind] = (tree, tris, pbvh8.collapse_host(tree, tris.numpy()),
-                               pbvh8.collapse_host(tree, tris.numpy(), prefer_native=False))
+            out[name, kind] = (tree, tris, pbvh8.build_bvh8_host(tree, tris.numpy()),
+                               pbvh8.build_bvh8_host(tree, tris.numpy(), prefer_native=False))
     return out
 
 

@@ -161,7 +161,7 @@ def test_collapse_equals_reference(name, leaf_size):
     tris = _tris(name)
     j = jbvh8.build_bvh8_host(jbvh.build(jnp.asarray(tris), leaf_size=leaf_size),
                               jnp.asarray(tris))
-    p = pbvh8.collapse_host(pbvh.build(torch.from_numpy(tris), leaf_size=leaf_size), tris)
+    p = pbvh8.build_bvh8_host(pbvh.build(torch.from_numpy(tris), leaf_size=leaf_size), tris)
     np.testing.assert_array_equal(p.rows.numpy(), np.asarray(j.rows))
     np.testing.assert_array_equal(p.child8.numpy(), np.asarray(j.child8))
     np.testing.assert_array_equal(p.valid8.numpy(), np.asarray(j.valid8))

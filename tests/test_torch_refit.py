@@ -67,7 +67,7 @@ def test_metadata_sah_build():
     bound and metadata."""
     tris = _random_soup(900, seed=21, spread=30.0)
     j = jbvh8.build_bvh8_host(jnative.build_sah_host(tris), jnp.asarray(tris))
-    _assert_meta(j, pbvh8.build_bvh8_host(tris))
+    _assert_meta(j, pbvh8.build_bvh8_sah_host(tris))
 
 
 @pytest.mark.parametrize("n, seed, spread, move", [(100, 7, 10.0, (5.0, 0.0, 0.0)),
@@ -92,11 +92,11 @@ def test_refit_traces_like_a_fresh_build():
     one sweep leaves upper boxes over the old place and misses hits."""
     tris = _random_soup(900, seed=21, spread=30.0)
     moved = torch.from_numpy(tris + np.asarray([0.0, 40.0, 0.0], np.float32))
-    b = pbvh8.build_bvh8_host(tris)
+    b = pbvh8.build_bvh8_sah_host(tris)
     assert b.depth >= 3
     refit = pbvh8.refit8(b, moved)
     assert torch.equal(refit.rows, pbvh8.refit8(b, moved, sweeps=b.depth).rows)
-    fresh = pbvh8.build_bvh8_host(moved.numpy())
+    fresh = pbvh8.build_bvh8_sah_host(moved.numpy())
     # rays from random points toward random triangles' centroids, and
     # tests/test_bvh8.py's random rays
     o, d = _rand_rays(512, seed=13, spread=35.0)

@@ -102,7 +102,7 @@ def test_trace_matches_reference_and_bvh(case):
     hit, tested = psg.trace_shadow_plain(case["pg"], o, d, tmin, tmax, visits=True)
     ref = np.asarray(jsg.trace_shadow(case["jg"], case["o"], case["d"], 0.01, 1e4))
     np.testing.assert_array_equal(hit.numpy(), ref)
-    b8 = pbvh8.build_bvh8_host(np.asarray(case["tris"]))
+    b8 = pbvh8.build_bvh8_sah_host(np.asarray(case["tris"]))
     bvh_hit = ptrav.trace(b8, o, d, 0.01, 1e4, anyhit=True).hit
     np.testing.assert_array_equal(hit.numpy(), bvh_hit.numpy())
     assert 0 < int(hit.sum()) < n or case["pg"].num_big > 0
@@ -285,7 +285,7 @@ def test_orders_filter_and_tmin_forms(frame_case, filtered, form):
         tmin = tmin_a = torch.full((n,), c["tmin"])
         tmax = tmax_a = c["tmax"]
     tables = c["tables"] if filtered else None
-    filt = ptrav.make_alpha_hit_filter(tables) if filtered else None
+    filt = ptrav.make_alpha_hit_filter(None, tables) if filtered else None
     want = psg.trace_shadow_plain(sg, o, d, tmin_a, tmax_a, hit_filter=filt)
     assert torch.equal(psg.trace_shadow_plain(sg, o, d, tmin_a, tmax_a, hit_filter=filt,
                                               big_first=True), want)

@@ -150,11 +150,12 @@ def test_stats_fed_by_time_passes_and_frames():
 
 def test_profile_writes_a_trace(tmp_path):
     r = port_renderer()
-    path = r.profile(tmp_path / "trace", frames=1)
-    with open(path) as fh:
+    out = tmp_path / "trace"
+    assert r.profile(out, frames=1) == out
+    assert r.frame_index == 2  # one untraced frame, one traced
+    with open(out / f"{r.path_name}_frame2.json") as fh:
         trace = json.load(fh)
     assert trace["traceEvents"]
-    assert r.frame_index == 2  # one untraced frame, one traced
 
 
 @pytest.mark.parametrize("seed", [0, 5])

@@ -38,6 +38,8 @@ from vulkanhybridrenderer_tpu_torch.utils import png
 from vulkanhybridrenderer_tpu_torch.utils.jpeg import decode_jpeg
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+import jpeg_writers  # noqa: E402
+from jpeg_writers import photo  # noqa: E402
 from test_torch_gltf import assert_scenes_equal  # noqa: E402
 from test_torch_png import ADAM7, chunk, filter_rows, pack  # noqa: E402
 
@@ -137,15 +139,6 @@ def test_png_random(fmt, w, h, seed, interlace, trns):
     np.testing.assert_array_equal(png.decode_png(data), pil_rgba(data))
 
 
-def photo(h, w, channels, seed):
-    """Smooth colour gradients plus noise: blocks with DC and AC energy."""
-    rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:h, 0:w]
-    base = np.stack([128 + 100 * np.sin(x / 7.0 + k) * np.cos(y / 11.0 - k)
-                     for k in range(channels)], -1)
-    return np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
-
-
 def pil_jpeg(arr, **kw) -> bytes:
     img = Image.fromarray(arr[..., 0] if arr.shape[2] == 1 else arr,
                           "L" if arr.shape[2] == 1 else "RGB")
@@ -218,22 +211,31 @@ def test_jpeg_rgb_component_ids():
                                                         subsampling=0)))
 
 
-@pytest.mark.parametrize("what", ["12-bit", "arithmetic", "CMYK", "lossless", "not a JPEG"])
+@pytest.mark.parametrize("what", ["12-bit", "hierarchical", "DNL", "lossless 12-bit",
+                                  "lossless 6-bit", "not a JPEG"])
 def test_jpeg_unsupported_raise(what):
+    """Kinds Pillow refuses too (checked here): samples of other than 8 bits
+    (its JpegImagePlugin opens 8-bit data only, DCT or lossless),
+    hierarchical frames and a DNL-defined height (libjpeg-turbo's "Empty
+    JPEG image (DNL not supported)").  Arithmetic-coded, lossless and CMYK
+    JPEGs decode (test_torch_jpeg_kinds.py)."""
     data = bytearray(pil_jpeg(photo(8, 8, 3, 1)))
     sof = [s for s in _segments(bytes(data)) if s[0] == 0xC0][0]
+    grey = photo(9, 14, 1, 4)[..., 0]
     if what == "12-bit":
         data[sof[1]] = 12
-    elif what == "arithmetic":
-        data[sof[1] - 3] = 0xC9
-    elif what == "lossless":
-        data[sof[1] - 3] = 0xC3
-    elif what == "CMYK":
-        buf = io.BytesIO()
-        Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(buf, format="JPEG")
-        data = buf.getvalue()
+    elif what == "hierarchical":
+        data[sof[1] - 3] = 0xC5
+    elif what == "DNL":
+        data[sof[1] + 1:sof[1] + 3] = b"\x00\x00"
+    elif what.startswith("lossless"):
+        bits = int(what.split()[1][:-4])
+        data = jpeg_writers.encode_lossless([grey >> (8 - bits) if bits < 8 else grey], 1,
+                                            precision=bits)
     else:
         data = b"\x89PNG" + bytes(data[4:])
+    with pytest.raises(Exception):
+        pil_rgba(bytes(data))
     with pytest.raises(ValueError, match=what):
         decode_jpeg(bytes(data))
 

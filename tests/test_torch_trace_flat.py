@@ -151,7 +151,7 @@ def test_closest_hits_equal_k2_on_sah_bvh8(sponza):
     over the SAH BVH8 of the same triangles."""
     tris = sponza["tris"]
     lbvh = pbvh.build(torch.from_numpy(tris))
-    sah = pbvh8.build_bvh8_host(tris)
+    sah = pbvh8.build_bvh8_sah_host(tris)
     o, d, tmax = (torch.from_numpy(a) for a in _rays(tris, seed=4))
     flat = ptrav.trace(lbvh, o, d, 0.01, tmax, tri_verts=torch.from_numpy(tris))
     wide = ptrav.trace(sah, o, d, 0.01, tmax)

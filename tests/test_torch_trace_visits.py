@@ -68,14 +68,14 @@ def _setup(name):
     buffers = _scene(pproc, name).buffers.to("cpu")
     world = pgeo.to_world(buffers)
     tris = pbvh.world_triangles(world.position, buffers.tri_vertex).numpy()
-    pb = pbvh8.build_bvh8_host(tris)
+    pb = pbvh8.build_bvh8_sah_host(tris)
     o, d, tmax = _rays(name, tris, np.random.default_rng(23))
     out = dict(name=name, pb=pb, o=o, d=d, tmax=tmax)
     if name == "checker":
         js = _scene(jproc, name)
         out["jfilter"] = jtrav.make_alpha_hit_filter(
             js.buffers, jshadetab.build_shade_tables(js.buffers))
-        out["pfilter"] = ptrav.make_alpha_hit_filter(pshadetab.build_shade_tables(buffers))
+        out["pfilter"] = ptrav.make_alpha_hit_filter(None, pshadetab.build_shade_tables(buffers))
     return out
 
 

@@ -45,7 +45,7 @@ def sponza():
 def test_bvh8_rows_identical(name):
     tris = _tris(name)
     jb = jbvh8.build_bvh8_host(jnative.build_sah_host(tris), tris, leaf_max=8)
-    pb = pbvh8.build_bvh8_host(tris)
+    pb = pbvh8.build_bvh8_sah_host(tris)
     np.testing.assert_array_equal(pb.rows.numpy(), np.asarray(jb.rows))
     assert pb.depth == jb.depth and pb.leaf_max == jb.leaf_max == 8
     assert pb.rows.dtype == torch.float32

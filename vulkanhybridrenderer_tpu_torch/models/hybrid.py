@@ -152,8 +152,9 @@ class HybridPath(RenderPath):
             def raytrace_pass(res):
                 shadow_ao, refl = raygen.hybrid_raytrace(
                     res["scene"], res["shade_tables"], res["TriRows"], res.get("BVH"),
-                    res["pfd"], res[rt_depth], res[rt_normals], ao_rays=cfg.ao_rays,
-                    settings=s, shadow_grid=res.get(SHADOW_GRID),
+                    tri_verts=None, pfd=res["pfd"], depth=res[rt_depth],
+                    normal_oid=res[rt_normals], ao_rays=cfg.ao_rays, settings=s,
+                    shadow_grid=res.get(SHADOW_GRID),
                 )
                 return {RT_SHADOW_AO: shadow_ao, RT_REFLECTIONS: refl}
 

@@ -70,17 +70,18 @@ def add_geometry_pass(graph: RenderGraph):
     )
 
 
-def add_shadow_map_pass(graph: RenderGraph, size: int, config, chunk: int = 256):
+def add_shadow_map_pass(graph: RenderGraph, size: int, config=None, chunk: int = 256):
     """The depth-only prepass into the size x size shadow map from the
     light's view (forward_raster_render_path.cpp:13-41,
     hybrid_render_path.cpp:60-96).  Its fragment shader is empty
-    (depth_prepass.frag), so masked triangles raster solid.  "binned": every
-    triangle through K1a with the config's cull mode; "brute": the reference
+    (depth_prepass.frag), so masked triangles raster solid.  A config whose
+    raster is "binned": every triangle through K1a with the config's cull
+    mode; "brute" or no config (as in the reference): the reference
     rasterizer in chunks of `chunk` triangles, back faces culled, the
     reverse-Z preset (the reference's render_shadow_map)."""
 
     def fn(res):
-        if config.raster == "binned":
+        if config is not None and config.raster == "binned":
             vis = rasterize_for_path(res["scene"], res["LightClip"], size, size, config,
                                      alpha=False)
             return {"Shadow Map": vis.depth}

@@ -7,7 +7,7 @@ tracked ``native/libvhr_native.so``.  Argument types follow the reference
 bridge (``vulkanhybridrenderer_tpu/native_bridge.py``).  ``load`` raises
 where g++ is missing or the build fails; ``native_available`` says so
 without raising, and callers that can do without the library (the
-renderer's BVH, ``ops/bvh8.collapse_host``) take the device LBVH and the
+renderer's BVH, ``ops/bvh8.build_bvh8_host``) take the device LBVH and the
 Python collapse instead, as the reference does.
 """
 from __future__ import annotations

@@ -11,7 +11,7 @@ Row layout ((N, 128) float32, slot-major SoA groups of 8):
 Static scenes build it once on the host: native binned-SAH binary tree,
 collapsed to 8-wide rows with 8-triangle leaves (native_bridge.py); any
 other binary tree, such as the device LBVH (ops/bvh.py), collapses the same
-way (``collapse_host``), natively or, without a native build, in Python
+way (``build_bvh8_host``), natively or, without a native build, in Python
 with the same rows.  ``validate_host`` checks a table's structure.  The
 per-slot refit metadata (child8 / valid8 / tri8) is read back from the rows
 (``BVH8.from_rows``), and ``refit8`` recomputes the leaf triangles and every
@@ -48,6 +48,15 @@ class BVH8:
     tri8: Any = None  # int32
 
     @property
+    def is_leaf_rows(self):
+        """(N,) bool: the leaf rows ([127] = 1)."""
+        return self.rows[:, 127] > 0.5
+
+    @property
+    def root(self) -> int:
+        return 0
+
+    @property
     def num_rows(self) -> int:
         return self.rows.shape[0]
 
@@ -76,21 +85,14 @@ class BVH8:
                    child8=child8, valid8=valid, tri8=tri8)
 
 
-def build_bvh8_host(tri_verts, leaf_max: int = LEAF_MAX) -> BVH8:
-    """SAH build + BVH8 collapse of (T, 3, 3) world triangles on the host.
-    Returns a BVH8 whose rows live on the CPU."""
-    tris = np.asarray(tri_verts, np.float32)
-    return collapse_host(native_bridge.build_sah_host(tris), tris, leaf_max)
-
-
-def collapse_host(bvh, tri_verts, leaf_max: int = LEAF_MAX,
-                  prefer_native: bool = True) -> BVH8:
+def build_bvh8_host(bvh, tri_verts, prefer_native: bool = True,
+                    leaf_max: int = LEAF_MAX) -> BVH8:
     """The BVH8 of any binary tree (ops/bvh.BVH: the SAH tree, the native or
     the device LBVH, any leaf_size) over its (T, 3, 3) triangles, collapsed
-    on the host (the reference's build_bvh8_host(bvh, tri_verts,
-    prefer_native)): natively (native/bvh8.cpp) where prefer_native and the
+    on the host: natively (native/bvh8.cpp) where prefer_native and the
     native build is available, else in Python; both give the same rows and
-    depth.  Returns a BVH8 whose rows live on the CPU."""
+    depth.  The reference's signature and function.  Returns a BVH8 whose
+    rows live on the CPU."""
     if leaf_max != LEAF_MAX:
         raise ValueError("the port builds 8-triangle leaf rows only")
     if prefer_native and native_bridge.native_available():
@@ -98,6 +100,14 @@ def collapse_host(bvh, tri_verts, leaf_max: int = LEAF_MAX,
     else:
         rows, depth = _collapse_python(bvh, np.asarray(tri_verts, np.float32), leaf_max)
     return BVH8.from_rows(torch.from_numpy(rows), depth, leaf_max)
+
+
+def build_bvh8_sah_host(tri_verts, leaf_max: int = LEAF_MAX) -> BVH8:
+    """The native binned-SAH binary tree of (T, 3, 3) world triangles,
+    collapsed by ``build_bvh8_host``.  Needs the native build.  Returns a
+    BVH8 whose rows live on the CPU."""
+    tris = np.asarray(tri_verts, np.float32)
+    return build_bvh8_host(native_bridge.build_sah_host(tris), tris, leaf_max=leaf_max)
 
 
 def _subtree_counts(left, right, leaf_tri, order, leaf_size):

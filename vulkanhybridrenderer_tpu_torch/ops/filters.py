@@ -13,6 +13,11 @@ import torch
 import torch.nn.functional as F
 
 
+def flat_gather(table, idx):
+    """table: (N,) 1-D; idx: any integer shape -> table[idx]."""
+    return table[idx]
+
+
 def gather_2d(img, iy, ix):
     """img: (H, W) or (C, H, W); iy / ix integer (...,), clamped to bounds.
     Returns (...,) or (..., C)."""

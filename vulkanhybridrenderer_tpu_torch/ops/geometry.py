@@ -36,13 +36,14 @@ def _apply(m, p, translate: bool):
     return out + m[:, :3, 3] if translate else out
 
 
-def to_world(scene: SceneBuffers, prim_transform=None) -> WorldGeometry:
-    """Object -> world for all vertices.  prim_transform overrides the scene's
-    primitive matrices (animation)."""
+def to_world(scene: SceneBuffers, prim_transform=None, prim_normal_mat=None) -> WorldGeometry:
+    """Object -> world for all vertices.  prim_transform and prim_normal_mat
+    override the scene's primitive matrices and normal matrices (animation)."""
     m = scene.prim_transform if prim_transform is None else prim_transform
+    nm = scene.prim_normal_mat if prim_normal_mat is None else prim_normal_mat
     vprim = vertex_prim_ids(scene)
     mv = m[vprim]
-    nmv = scene.prim_normal_mat[vprim]
+    nmv = nm[vprim]
     pos = _apply(mv, scene.positions, True)
     nrm = _apply(nmv, scene.normals, False)
     tan = torch.cat([_apply(mv, scene.tangents[:, :3], False), scene.tangents[:, 3:]], -1)

@@ -67,10 +67,11 @@ class Wavefronts:
     (R,); the AO rays' `ao_dir` (ao_rays * R, 3), ray k of pixel i at
     k * R + i, and `ao_tmax` (R,); the reflection rays' `refl_dir` (R, 3)
     and `refl_tmax` (R,).  tmax is -1 for dead rays.  The AO and reflection
-    rays are made only when `settings` traces them (else None)."""
+    rays are made only when `settings` traces them (else None); `settings`
+    None traces all three kinds and keeps every lit pixel's shadow ray."""
 
     def __init__(self, pfd: PerFrameData, depth, normal_oid,
-                 settings: HybridSettings, ao_rays: int = 2):
+                 settings: HybridSettings | None = None, ao_rays: int = 2):
         h, w = depth.shape
         p_world, n, sky = surface(pfd, depth, normal_oid)
         sky_flat = sky.reshape(-1)
@@ -85,13 +86,14 @@ class Wavefronts:
         cone = normalize(uniform_sample_cone(u2, CONE_COS_THETA_MAX))
         self.shadow_dir = to_basis(l.expand(h * w, 3), cone).contiguous()
         tmax = torch.where(sky_flat, -1.0, SHADOW_TMAX)
-        if not settings.denoise and settings.reflection_mode == ReflectionMode.OFF:
+        if (settings is not None and not settings.denoise
+                and settings.reflection_mode == ReflectionMode.OFF):
             ndl = torch.sum(n_flat * l, dim=-1)
             tmax = torch.where(ndl <= 0.0, -1.0, tmax)
         self.shadow_tmax = tmax.contiguous()
 
         self.ao_dir = self.ao_tmax = self.refl_dir = self.refl_tmax = None
-        if settings.ao_mode == AmbientOcclusionMode.RAYTRACED:
+        if settings is None or settings.ao_mode == AmbientOcclusionMode.RAYTRACED:
             dirs = []
             for _ in range(ao_rays):
                 state, r1 = rng.random01(state)
@@ -100,26 +102,31 @@ class Wavefronts:
                 dirs.append(to_basis(n_flat, uniform_sample_cosine_hemisphere(u2)))
             self.ao_dir = torch.cat(dirs).contiguous()
             self.ao_tmax = torch.where(sky_flat, -1.0, AO_TMAX).contiguous()
-        if settings.reflection_mode == ReflectionMode.RAYTRACED:
+        if settings is None or settings.reflection_mode == ReflectionMode.RAYTRACED:
             i_dir = normalize(p_world - pfd.camera_position).reshape(-1, 3)
             self.refl_dir = reflect(i_dir, n_flat).contiguous()
             self.refl_tmax = torch.where(sky_flat, -1.0, SHADOW_TMAX).contiguous()
 
 
-def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8 | None, pfd: PerFrameData,
-                    depth, normal_oid, settings: HybridSettings, ao_rays: int = 2,
+def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8 | None, tri_verts,
+                    pfd: PerFrameData, depth, normal_oid, ao_rays: int = 2,
+                    settings: HybridSettings | None = None,
                     shadow_grid: shadowgrid.ShadowGrid | None = None):
     """depth (H, W), normal_oid (4, H, W) -> ("Raytraced Shadows and Ambient
-    Occlusion" (4, H, W), "Raytraced Reflections" (4, H, W)).  With
-    `shadow_grid` (``shadow_accel="grid"``) the shadow rays go through the
-    light-space grid (K3) instead of the BVH8, with the same hit / miss
-    answers; `bvh` may then be None when nothing else is traced."""
+    Occlusion" (4, H, W), "Raytraced Reflections" (4, H, W)).  The
+    reference's signature: `tri_verts` (the world triangles) is accepted and
+    not read, as in the reference, since the BVH8's leaf rows hold the
+    vertices.  `settings` None traces shadows, AO and reflections; otherwise
+    the kinds no active mode reads are not traced.  With `shadow_grid`
+    (``shadow_accel="grid"``) the shadow rays go through the light-space
+    grid (K3) instead of the BVH8, with the same hit / miss answers; `bvh`
+    may then be None when nothing else is traced."""
     h, w = depth.shape
     dev = depth.device
     rays = Wavefronts(pfd, depth, normal_oid, settings, ao_rays)
     ones = torch.ones((h, w), dtype=torch.float32, device=dev)
 
-    if settings.shadow_mode == ShadowMode.RAYTRACED:
+    if settings is None or settings.shadow_mode == ShadowMode.RAYTRACED:
         if shadow_grid is not None:
             hit = shadowgrid.trace_shadow(shadow_grid, rays.origin, rays.shadow_dir,
                                           SHADOW_TMIN, rays.shadow_tmax, width=w)

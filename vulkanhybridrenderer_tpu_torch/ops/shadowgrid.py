@@ -358,7 +358,7 @@ def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, max_steps: int =
 
         return trace_shadow_plain(
             sg, origin, direction, full(tmin), full(tmax), max_steps,
-            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables),
+            None if alpha_tables is None else make_alpha_hit_filter(None, alpha_tables),
             big_first=True)
     if dev.type != "cuda":
         raise ValueError(f"trace_shadow: unsupported device {dev}")

@@ -64,11 +64,13 @@ def default_max_steps(bvh: BVH8) -> int:
     return min(4 * bvh.num_rows + 4, 32768)
 
 
-def _octants(d):
+def ray_octants(direction):
+    """Per-ray direction octant of (..., 3) directions, in bvh's octant-link
+    bit convention: (dx < 0) << 2 | (dy < 0) << 1 | (dz < 0), int32."""
     return (
-        ((d[:, 0] < 0).to(torch.int32) << 2)
-        | ((d[:, 1] < 0).to(torch.int32) << 1)
-        | (d[:, 2] < 0).to(torch.int32)
+        ((direction[..., 0] < 0).to(torch.int32) << 2)
+        | ((direction[..., 1] < 0).to(torch.int32) << 1)
+        | (direction[..., 2] < 0).to(torch.int32)
     )
 
 
@@ -81,14 +83,18 @@ def _first_slot(mask, oct_):
     return slot, mask & ~(1 << slot)
 
 
-def moller_trumbore(v0, v1, v2, o, d, stage: bool = False):
+def moller_trumbore(v0, v1, v2, o, d, eps: float = 1e-9, stage: bool = False):
     """Moller-Trumbore without culling (the reference's moller_trumbore,
     traverse.py:679), each product rounded, in the operation order of K2's
     and K3's kernels.  v0, v1, v2 (the triangle), o and d (the ray) are
-    (x, y, z) triples of broadcastable tensors; returns (t, u, v, ok), ok
-    the geometric hit before any t test.  With `stage` also the int64 test
-    at which an early-returning walk (K3's) rejects the pair: 0 at det, 1 at
-    u, 2 at v, 3 past them all (a full test)."""
+    (..., 3) tensors, as the reference takes them, or (x, y, z) triples of
+    broadcastable tensors; returns (t, u, v, ok), ok the geometric hit
+    (|det| > eps) before any t test.  The kernels compile eps = 1e-9 in,
+    and their plain walks never pass another.  With `stage` also the int64
+    test at which an early-returning walk (K3's) rejects the pair: 0 at
+    det, 1 at u, 2 at v, 3 past them all (a full test)."""
+    v0, v1, v2, o, d = (x.unbind(-1) if isinstance(x, torch.Tensor) else x
+                        for x in (v0, v1, v2, o, d))
     (v0x, v0y, v0z), (ox, oy, oz), (dx, dy, dz) = v0, o, d
     e1x, e1y, e1z = v1[0] - v0x, v1[1] - v0y, v1[2] - v0z
     e2x, e2y, e2z = v2[0] - v0x, v2[1] - v0y, v2[2] - v0z
@@ -96,7 +102,7 @@ def moller_trumbore(v0, v1, v2, o, d, stage: bool = False):
     py = dz * e2x - dx * e2z
     pz = dx * e2y - dy * e2x
     det = e1x * px + e1y * py + e1z * pz
-    okd = torch.abs(det) > 1e-9
+    okd = torch.abs(det) > eps
     invdet = 1.0 / torch.where(okd, det, torch.ones_like(det))
     tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
     u = (tvx * px + tvy * py + tvz * pz) * invdet
@@ -113,13 +119,18 @@ def moller_trumbore(v0, v1, v2, o, d, stage: bool = False):
     return t, u, v, ok, at
 
 
-def make_alpha_hit_filter(tables: shadetab.ShadeTables):
+def make_alpha_hit_filter(scene, tables: shadetab.ShadeTables | None = None):
     """The non-opaque any-hit alpha test (shadow_anyhit.rahit:10-26):
     hit_filter(tri, u, v) -> accept mask, rejecting a hit whose base-color
     alpha at the hit uv is below its material's cutoff.  One tri_static row
-    and one atlas quad row per candidate."""
+    and one atlas quad row per candidate.  `tables` None builds the shade
+    tables from `scene` (SceneBuffers), as the reference does; `scene` is
+    not read otherwise.  The filter also takes the reference's fourth
+    argument, `candidate`, and ignores it as the reference's does."""
+    if tables is None:
+        tables = shadetab.build_shade_tables(scene)
 
-    def hit_filter(tri, u, v):
+    def hit_filter(tri, u, v, candidate=None):
         pm = shadetab.fetch_tri_static(tables, tri)
         uv = shadetab.interpolate3(pm["uv0"], torch.stack([1.0 - u - v, u, v], dim=-1))
         alpha = shadetab.sample_atlas4(
@@ -157,7 +168,7 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
         torch.abs(d) < 1e-12, torch.where(d >= 0, 1e-12, -1e-12), d
     )
     inv = 1.0 / safe_d
-    oct_ = _octants(d)
+    oct_ = ray_octants(d)
     n = ids.shape[0]
     node = torch.zeros(n, dtype=torch.int32, device=dev)
     sp = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -360,7 +371,7 @@ def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: b
     if dev.type == "cpu":
         return trace_plain(
             bvh.rows, bvh.depth, origin, direction, tmin_a, tmax_a, anyhit, max_steps,
-            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
+            None if alpha_tables is None else make_alpha_hit_filter(None, alpha_tables))
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
     f32 = torch.float32
@@ -704,7 +715,7 @@ def _trace_tables(tables: FlatTables, origin, direction, tmin, tmax, anyhit: boo
     if dev.type == "cpu":
         return _walk_flat_plain(
             tables, origin, direction, *_ray_bounds(origin, tmin, tmax), anyhit, max_steps,
-            None if alpha_tables is None else make_alpha_hit_filter(alpha_tables))
+            None if alpha_tables is None else make_alpha_hit_filter(None, alpha_tables))
     if dev.type != "cuda":
         raise ValueError(f"trace_flat: unsupported device {dev}")
     slots = leaf_tris.shape[0]

@@ -143,9 +143,10 @@ class Renderer:
             world = to_world(self.buffers, self.prim_transform)
             tris = bvh_ops.world_triangles(world.position, self.buffers.tri_vertex)
             if native_bridge.native_available():
-                b8 = bvh8_ops.build_bvh8_host(tris.cpu().numpy())
+                b8 = bvh8_ops.build_bvh8_sah_host(tris.cpu().numpy())
             else:
-                b8 = bvh8_ops.collapse_host(bvh_ops.build(tris, leaf_size=1), tris.cpu().numpy())
+                b8 = bvh8_ops.build_bvh8_host(bvh_ops.build(tris, leaf_size=1),
+                                              tris.cpu().numpy())
             self._bvh = b8.to(self.device)
         return self._bvh
 
@@ -307,10 +308,13 @@ class Renderer:
         save_png(path, img)
         return img
 
-    def profile(self, trace_dir, frames: int = 3) -> str:
+    def profile(self, trace_dir="/tmp/vhr_trace", frames: int = 3):
         """A torch.profiler trace of `frames` frames (after one untraced
-        frame), written as a Chrome trace under `trace_dir`; returns the
-        file's path.  The counterpart of the reference's RenderDoc labels."""
+        frame), written as the Chrome trace
+        ``<trace_dir>/<path>_frame<index>.json`` (the renderer's path name and
+        its frame index after the traced frames); returns `trace_dir`, as
+        the reference does.  The counterpart of the reference's RenderDoc
+        labels."""
         from torch.profiler import ProfilerActivity, profile
 
         self.render_frame()
@@ -321,11 +325,10 @@ class Renderer:
                 self.render_frame(sync=False)
             if cuda:
                 torch.cuda.synchronize(self.device)
-        trace_dir = Path(trace_dir)
-        trace_dir.mkdir(parents=True, exist_ok=True)
-        out = trace_dir / f"{self.path_name}_frame{self.frame_index}.json"
-        prof.export_chrome_trace(str(out))
-        return str(out)
+        out = Path(trace_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(out / f"{self.path_name}_frame{self.frame_index}.json"))
+        return trace_dir
 
     def find_nonfinite_pass(self) -> str | None:
         """Run the active graph's passes one by one, in execution order, on

@@ -180,6 +180,22 @@ class _GlbWriter:
         self.accessors.append(acc)
         return len(self.accessors) - 1
 
+    def write(self, path, doc: dict):
+        """Write `doc` (its one buffer sized here) and the binary chunk as a
+        GLB file."""
+        self._pad()
+        doc["buffers"] = [{"byteLength": len(self.bin)}]
+        js = json.dumps(doc).encode()
+        while len(js) % 4:
+            js += b" "
+        total = 12 + 8 + len(js) + 8 + len(self.bin)
+        with open(path, "wb") as fh:
+            fh.write(struct.pack("<III", 0x46546C67, 2, total))
+            fh.write(struct.pack("<II", len(js), 0x4E4F534A))
+            fh.write(js)
+            fh.write(struct.pack("<II", len(self.bin), 0x004E4942))
+            fh.write(bytes(self.bin))
+
 
 F32 = 5126
 U16 = 5123
@@ -387,21 +403,9 @@ def build_sample_glb(path) -> dict:
         ],
         "bufferViews": w.views,
         "accessors": w.accessors,
-        "buffers": [{"byteLength": len(w.bin)}],
     }
 
-    w._pad()
-    doc["buffers"][0]["byteLength"] = len(w.bin)
-    js = json.dumps(doc).encode()
-    while len(js) % 4:
-        js += b" "
-    total = 12 + 8 + len(js) + 8 + len(w.bin)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<III", 0x46546C67, 2, total))
-        fh.write(struct.pack("<II", len(js), 0x4E4F534A))
-        fh.write(js)
-        fh.write(struct.pack("<II", len(w.bin), 0x004E4942))
-        fh.write(bytes(w.bin))
+    w.write(path, doc)
     return truth
 
 
@@ -675,19 +679,63 @@ def build_sponza_class_glb(path, scale: float = 1.0) -> dict:
         ],
         "bufferViews": w.views,
         "accessors": w.accessors,
-        "buffers": [{"byteLength": len(w.bin)}],
     }
 
-    w._pad()
-    doc["buffers"][0]["byteLength"] = len(w.bin)
-    js = json.dumps(doc).encode()
-    while len(js) % 4:
-        js += b" "
-    total = 12 + 8 + len(js) + 8 + len(w.bin)
-    with open(path, "wb") as fh:
-        fh.write(struct.pack("<III", 0x46546C67, 2, total))
-        fh.write(struct.pack("<II", len(js), 0x4E4F534A))
-        fh.write(js)
-        fh.write(struct.pack("<II", len(w.bin), 0x004E4942))
-        fh.write(bytes(w.bin))
+    w.write(path, doc)
     return truth
+
+
+def build_texture_board_glb(path, images: list[bytes]) -> None:
+    """Write a GLB that shows each JPEG image (its bytes embedded as they
+    are) as the base colour of one upright quad, in a row above a floor,
+    with a camera facing the row and a directional light."""
+    w = _GlbWriter()
+    n = len(images)
+    image_views = [w.add_view(bytes(im)) for im in images]
+    meshes, nodes, materials = [], [], []
+
+    def add_quad(sx, sz, material, translation, rotation=None):
+        pos, nrm, tan, uv, idx = _quad(sx, sz)
+        a = {
+            "POSITION": w.add_accessor(pos, "VEC3", F32, minmax=True),
+            "NORMAL": w.add_accessor(nrm, "VEC3", F32),
+            "TANGENT": w.add_accessor(tan, "VEC4", F32),
+            "TEXCOORD_0": w.add_accessor(uv, "VEC2", F32),
+        }
+        a_idx = w.add_accessor(idx.reshape(-1, 1), "SCALAR", U16)
+        meshes.append({"primitives": [{"attributes": a, "indices": a_idx,
+                                       "material": material}]})
+        node = {"mesh": len(meshes) - 1, "translation": translation}
+        if rotation is not None:
+            node["rotation"] = rotation
+        nodes.append(node)
+
+    materials.append({"pbrMetallicRoughness": {"baseColorFactor": [0.7, 0.7, 0.72, 1.0],
+                                               "roughnessFactor": 0.9}})
+    add_quad(1.2 * n + 1.0, 3.0, 0, [0.0, 0.0, 0.0])
+    for i in range(n):
+        materials.append({"pbrMetallicRoughness": {"baseColorTexture": {"index": i}}})
+        # stood up to face +z: a quarter turn about x
+        add_quad(0.5, 0.5, i + 1, [1.2 * (i - (n - 1) / 2), 0.6, 0.0],
+                 rotation=[0.7071068, 0.0, 0.0, 0.7071068])
+    nodes.append({"camera": 0, "translation": [0.0, 0.8, 0.6 * n + 2.5], "name": "cam"})
+    nodes.append({"extensions": {"KHR_lights_punctual": {"light": 0}},
+                  "rotation": [-0.3826834, 0, 0, 0.9238795], "name": "sun"})
+    doc = {
+        "asset": {"version": "2.0", "generator": "vulkanhybridrenderer_tpu texture board"},
+        "scene": 0,
+        "scenes": [{"nodes": list(range(len(nodes)))}],
+        "nodes": nodes,
+        "meshes": meshes,
+        "cameras": [{"type": "perspective",
+                     "perspective": {"yfov": 0.9, "znear": 0.1, "aspectRatio": 1.777}}],
+        "extensionsUsed": ["KHR_lights_punctual"],
+        "extensions": {"KHR_lights_punctual": {"lights": [
+            {"type": "directional", "color": [1.0, 0.97, 0.9], "intensity": 3.0}]}},
+        "materials": materials,
+        "textures": [{"source": i} for i in range(n)],
+        "images": [{"bufferView": v, "mimeType": "image/jpeg"} for v in image_views],
+        "bufferViews": w.views,
+        "accessors": w.accessors,
+    }
+    w.write(path, doc)

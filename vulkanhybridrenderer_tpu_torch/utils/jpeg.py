@@ -3,17 +3,38 @@
 ``decode_jpeg`` returns (H, W, 4) uint8 RGBA equal to
 ``PIL.Image.open(...).convert("RGBA")``, whose JPEG reader is libjpeg-turbo
 with its defaults: the accurate integer IDCT, fancy upsampling, the
-fixed-point YCbCr table.  It reads baseline and extended-sequential Huffman
-JPEGs (SOF0, SOF1) and progressive ones (SOF2: DC and AC first and
-refinement scans, EOB runs), grey and YCbCr (or RGB, as libjpeg decides from
-the JFIF and Adobe markers and the component ids), any sampling factors, and
-restart intervals.  CMYK / YCCK, arithmetic coding, lossless and
-hierarchical JPEGs and 12-bit samples raise ``ValueError`` naming them.
+fixed-point YCbCr table.  It reads every 8-bit kind that reader decodes:
+  * DCT frames, Huffman-coded (SOF0 baseline, SOF1 extended sequential,
+    SOF2 progressive: DC and AC first and refinement scans, EOB runs) or
+    arithmetic-coded (SOF9 sequential, SOF10 progressive: the QM-coder of
+    ITU-T T.81 Annex D with the statistics and conditioning of F.1.4 and
+    G.1.3, DAC segments or their defaults L = 0, U = 1, Kx = 5);
+  * lossless frames (SOF3, Huffman): predictors 1-7, the point transform,
+    the 1-D predictor on the first row of the scan and of each restart
+    interval (T.81 H.1.2.1);
+  * one, three or four components with any sampling factors, and restart
+    intervals.
+Colour follows libjpeg's reading of the JFIF and Adobe markers and the
+component ids: grey; YCbCr or RGB; CMYK or YCCK (Adobe transform other than
+0), which libjpeg turns into CMYK.  PIL takes four-component data as
+Adobe-inverted CMYK whatever the markers say (its rawmode "CMYK;I") and
+converts it as ``Convert.c``'s cmyk2rgb: with k' = 255 - K each of R, G, B
+is k' - (x k' + 128 + ((x k' + 128) >> 8)) >> 8 of its inverted sample x.
+In lossless mode libjpeg converts no colour and upsamples by replication
+(its block size is one sample), so there YCbCr and YCCK frames raise.
+Raised as ``ValueError``, as PIL refuses them: samples of any precision
+other than 8 bits (DCT or lossless), hierarchical frames (SOF5-7, SOF13-15),
+arithmetic-coded lossless frames (SOF11), a DNL-defined height, two
+components, and a lossless restart interval that is not a whole number of
+MCU rows.
 
 Three pieces make the output libjpeg-turbo's to the bit:
   * the IDCT is ``jidctint.c`` (jpeg_idct_islow): 13-bit fixed-point
     constants, the column pass descaled by 11 bits, the row pass by 18,
-    then the range limit of a value taken modulo 1024;
+    then clamped to 0-255 as libjpeg-turbo's SIMD version of it (the one
+    PIL runs on x86-64) saturates; the C version's range-limit table
+    wraps a value more than 384 outside the range instead, which only
+    corrupt data reaches;
   * chroma is upsampled as ``jdsample.c`` does: h2v1 and h2v2 "fancy"
     (triangle) filters with their alternating rounding biases (+1 / +2,
     +8 / +7) for components more than 2 samples wide, h1v2 with +1 / +2,
@@ -22,13 +43,15 @@ Three pieces make the output libjpeg-turbo's to the bit:
   * YCbCr goes to RGB through ``jdcolor.c``'s tables: 16-bit fixed point,
     Cr_r = (FIX(1.402) x + 2^15) >> 16, Cb_b likewise, G from the sum of
     the scaled -0.34414 and -0.71414 terms shifted once.
-Entropy decoding is a Python loop over the symbols with 16-bit lookup
-tables, the rest numpy over every block at once: a 512x512 4:2:0 image at
-quality 90 decodes in ~0.3-0.4 s of host time (0.28-0.43 s measured on an x86
-CPU; ``tests/test_torch_textures.py::test_jpeg_decode_time`` prints it).
+Entropy decoding is a Python loop over the symbols (16-bit lookup tables
+for Huffman codes, one call a binary decision for the QM-coder), the rest
+numpy over every block at once: a 512x512 4:2:0 Huffman image at quality 90
+decodes in ~0.3-0.4 s of host time (0.28-0.43 s measured on an x86 CPU;
+``tests/test_torch_textures.py::test_jpeg_decode_time`` prints it).
 """
 from __future__ import annotations
 
+import dataclasses
 import struct
 
 import numpy as np
@@ -42,13 +65,53 @@ ZIGZAG = np.array([
 #: as libjpeg's jpeg_natural_order: 16 extra entries keep a corrupt run in
 #: the block
 _ZZ = ZIGZAG.tolist() + [63] * 16
+_HUFFMAN_DCT_SOF = (0xC0, 0xC1, 0xC2)
+_ARITHMETIC_DCT_SOF = (0xC9, 0xCA)
 _UNSUPPORTED_SOF = {
-    0xC3: "lossless JPEG (SOF3)", 0xC5: "hierarchical JPEG (SOF5)",
-    0xC6: "hierarchical JPEG (SOF6)", 0xC7: "hierarchical lossless JPEG (SOF7)",
-    0xC9: "arithmetic-coded JPEG (SOF9)", 0xCA: "arithmetic-coded progressive JPEG (SOF10)",
-    0xCB: "arithmetic-coded lossless JPEG (SOF11)", 0xCD: "arithmetic-coded JPEG (SOF13)",
-    0xCE: "arithmetic-coded JPEG (SOF14)", 0xCF: "arithmetic-coded JPEG (SOF15)",
+    0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
+    0xC7: "hierarchical lossless JPEG (SOF7)", 0xC8: "JPEG extension frame (JPG)",
+    0xCB: "arithmetic-coded lossless JPEG (SOF11)", 0xCD: "hierarchical JPEG (SOF13)",
+    0xCE: "hierarchical JPEG (SOF14)", 0xCF: "hierarchical lossless JPEG (SOF15)",
 }
+#: T.81 Table D.2: (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS) of each
+#: probability-estimation state; state 113 is the fixed one-half estimate
+#: of the sign and refinement bits libjpeg codes with it
+_QE_TABLE = [
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0),
+]
+#: each state as libjpeg packs it: (Qe, Next_Index_LPS | Switch_MPS << 7,
+#: Next_Index_MPS); a statistics bin holds a state index | MPS << 7
+_QE = [(qe, nl | sw << 7, nm) for qe, nl, nm, sw in _QE_TABLE]
+FIXED_BIN = 113
+DC_STAT_BINS, AC_STAT_BINS = 64, 256
 
 
 class _Huffman:
@@ -72,6 +135,7 @@ class _Huffman:
             code <<= 1
         self.sym = sym.tolist()
         self.len = length.tolist()
+        self.arrays = sym, length
 
 
 class _Bits:
@@ -108,6 +172,53 @@ class _Bits:
         return table.sym[p]
 
 
+class _Arith:
+    """The QM-coder's decoder over one restart interval's unstuffed bytes
+    (jdarith.c's arith_decode: the C register holds the interval's base and
+    the unread bits, CT counts them; past the end of the bytes it reads
+    zeros, as libjpeg does once it meets a marker)."""
+
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+        self.a, self.c, self.ct = 0, 0, -16  # the first call reads 2 bytes
+
+    def decode(self, st: list, i: int) -> int:
+        """One binary decision with statistics bin st[i], which it updates."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:  # renormalize, reading bytes as CT runs out
+            ct -= 1
+            if ct < 0:
+                pos = self.pos
+                c = (c << 8) | (self.data[pos] if pos < len(self.data) else 0)
+                self.pos = pos + 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000  # two initial bytes read: A becomes 0x10000
+            a <<= 1
+        sv = st[i]
+        qe, nl, nm = _QE[sv & 0x7F]
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:  # conditional exchange: the MPS after all
+                st[i] = (sv & 0x80) ^ nm
+            else:
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:  # conditional exchange: the LPS after all
+                st[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
 def _extend(v: int, s: int) -> int:
     """The JPEG sign extension of an s-bit magnitude."""
     return v - (1 << s) + 1 if s and v < (1 << (s - 1)) else v
@@ -135,11 +246,14 @@ def _segments(data: bytes, pos: int):
 class _Frame:
     def __init__(self, sof: int, payload: bytes):
         precision, self.height, self.width, nc = struct.unpack_from(">BHHB", payload)
+        self.lossless = sof == 0xC3
+        self.arithmetic = sof in _ARITHMETIC_DCT_SOF
+        self.progressive = sof in (0xC2, 0xCA)
         if precision != 8:
-            raise ValueError(f"{precision}-bit JPEG samples are not supported, only 8-bit")
+            kind = "lossless " if self.lossless else ""
+            raise ValueError(f"{kind}{precision}-bit JPEG samples are not supported, only 8-bit")
         if self.height == 0 or self.width == 0:
             raise ValueError("JPEG with a zero or DNL-defined size is not supported")
-        self.progressive = sof == 0xC2
         self.ids, self.h, self.v, self.tq = [], [], [], []
         for c in range(nc):
             cid, hv, tq = struct.unpack_from(">BBB", payload, 6 + 3 * c)
@@ -147,14 +261,17 @@ class _Frame:
             self.h.append(hv >> 4)
             self.v.append(hv & 15)
             self.tq.append(tq)
-        if nc not in (1, 3):
-            raise ValueError(f"JPEG with {nc} components (CMYK / YCCK) is not supported")
+        if nc not in (1, 3, 4):
+            raise ValueError(f"JPEG with {nc} components is not supported")
         self.hmax, self.vmax = max(self.h), max(self.v)
-        self.mcux = -(-self.width // (8 * self.hmax))
-        self.mcuy = -(-self.height // (8 * self.vmax))
-        # each component's coefficients over the interleaved block grid
-        self.coef = [np.zeros((self.mcuy * v, self.mcux * h, 64), np.int64)
-                     for h, v in zip(self.h, self.v)]
+        unit = 1 if self.lossless else 8  # samples a block side
+        self.mcux = -(-self.width // (unit * self.hmax))
+        self.mcuy = -(-self.height // (unit * self.vmax))
+        # each component's coefficients (DCT) or sample differences
+        # (lossless) over the interleaved block grid
+        self.coef = [np.zeros((self.mcuy * v, self.mcux * h) + ((64,) if unit == 8 else ()),
+                              np.int64) for h, v in zip(self.h, self.v)]
+        self.samples = [None] * nc  # lossless: each component's samples
 
     def comp_size(self, c):
         """A component's real width and height in samples."""
@@ -163,12 +280,13 @@ class _Frame:
 
 
 def _scan_blocks(frame: _Frame, comps):
-    """The (component, block row, block column) of every block of a scan, in
-    MCU order, grouped by MCU."""
+    """The (component, block row, block column) of every block of a scan
+    (a sample in lossless frames), in MCU order, grouped by MCU."""
     if len(comps) == 1:
         c = comps[0]
         w, h = frame.comp_size(c)
-        return [[(c, by, bx)] for by in range(-(-h // 8)) for bx in range(-(-w // 8))]
+        unit = 1 if frame.lossless else 8
+        return [[(c, by, bx)] for by in range(-(-h // unit)) for bx in range(-(-w // unit))]
     mcus = []
     for my in range(frame.mcuy):
         for mx in range(frame.mcux):
@@ -265,6 +383,264 @@ def _decode_scan(frame, comps, dc_tabs, ac_tabs, ss, se, ah, al, parts, restart)
                         eobrun -= 1
 
 
+class _ArithError(Exception):
+    """Corrupt arithmetic-coded data: libjpeg warns and decodes nothing
+    more in the restart interval."""
+
+
+def _decode_scan_arith(frame, comps, dc_tbl, ac_tbl, ss, se, ah, al, parts, restart, cond):
+    """An arithmetic-coded DCT scan (jdarith.c): sequential scans decode DC
+    and AC together (decode_mcu), progressive ones their first and
+    refinement passes.  Statistics, DC predictions and contexts start at
+    zero in every restart interval; a decoding error ends its interval, the
+    rest of whose blocks keep what they hold, as libjpeg leaves them."""
+    mcus = _scan_blocks(frame, comps)
+    per = restart if restart else len(mcus)
+    coef = frame.coef
+    dc_l, dc_u, ac_k = cond
+    seq = not frame.progressive
+    fixed = [FIXED_BIN]
+    for interval, start in enumerate(range(0, len(mcus), per)):
+        if interval >= len(parts):
+            raise ValueError("JPEG scan has fewer restart intervals than its MCUs need")
+        dec = _Arith(parts[interval])
+        decode = dec.decode
+        dc_stats = {t: [0] * DC_STAT_BINS for t in {dc_tbl[c] for c in comps}}
+        ac_stats = {t: [0] * AC_STAT_BINS for t in {ac_tbl[c] for c in comps}}
+        last_dc = {c: 0 for c in comps}
+        dc_ctx = {c: 0 for c in comps}
+        try:
+            for mcu in mcus[start:start + per]:
+                for c, by, bx in mcu:
+                    blk = coef[c][by, bx]
+                    if seq or (ss == 0 and ah == 0):  # DC: Figure F.19
+                        tbl = dc_tbl[c]
+                        st = dc_stats[tbl]
+                        s0 = dc_ctx[c]
+                        if decode(st, s0) == 0:
+                            dc_ctx[c] = 0
+                        else:
+                            sign = decode(st, s0 + 1)
+                            i = s0 + 2 + sign
+                            m = decode(st, i)
+                            if m:
+                                i = 20
+                                while decode(st, i):
+                                    m <<= 1
+                                    if m == 0x8000:
+                                        raise _ArithError
+                                    i += 1
+                            if m < (1 << dc_l[tbl]) >> 1:
+                                dc_ctx[c] = 0
+                            elif m > (1 << dc_u[tbl]) >> 1:
+                                dc_ctx[c] = 12 + 4 * sign
+                            else:
+                                dc_ctx[c] = 4 + 4 * sign
+                            v = m
+                            i += 14
+                            m >>= 1
+                            while m:
+                                if decode(st, i):
+                                    v |= m
+                                m >>= 1
+                            v += 1
+                            last_dc[c] = (last_dc[c] + (-v if sign else v)) & 0xFFFF
+                        blk[0] = (((last_dc[c] << al) + 0x8000) & 0xFFFF) - 0x8000
+                        if not seq:
+                            continue
+                    elif ss == 0:  # DC refinement: the next bit, fixed estimate
+                        if decode(fixed, 0):
+                            blk[0] |= 1 << al
+                        continue
+                    tbl = ac_tbl[c]
+                    st = ac_stats[tbl]
+                    k, kend = (1, 63) if seq else (ss, se)
+                    if seq or ah == 0:  # AC first pass: Figure F.20
+                        while k <= kend:
+                            i = 3 * (k - 1)
+                            if decode(st, i):  # EOB
+                                break
+                            while decode(st, i + 1) == 0:
+                                i += 3
+                                k += 1
+                                if k > kend:
+                                    raise _ArithError
+                            sign = decode(fixed, 0)
+                            i += 2
+                            m = decode(st, i)
+                            if m and decode(st, i):
+                                m <<= 1
+                                i = 189 if k <= ac_k[tbl] else 217
+                                while decode(st, i):
+                                    m <<= 1
+                                    if m == 0x8000:
+                                        raise _ArithError
+                                    i += 1
+                            v = m
+                            i += 14
+                            m >>= 1
+                            while m:
+                                if decode(st, i):
+                                    v |= m
+                                m >>= 1
+                            v += 1
+                            blk[_ZZ[k]] = (-v if sign else v) << al
+                            k += 1
+                    else:  # AC refinement: Figure G.10's decoder
+                        p1, m1 = 1 << al, -1 << al
+                        kex = se
+                        while kex > 0 and blk[_ZZ[kex]] == 0:
+                            kex -= 1
+                        while k <= kend:
+                            i = 3 * (k - 1)
+                            if k > kex and decode(st, i):  # EOB
+                                break
+                            while True:
+                                z = _ZZ[k]
+                                if blk[z]:  # previously nonzero: a correction bit
+                                    if decode(st, i + 2):
+                                        blk[z] += m1 if blk[z] < 0 else p1
+                                    break
+                                if decode(st, i + 1):  # newly nonzero
+                                    blk[z] = m1 if decode(fixed, 0) else p1
+                                    break
+                                i += 3
+                                k += 1
+                                if k > kend:
+                                    raise _ArithError
+                            k += 1
+        except _ArithError:
+            continue
+
+
+def _difference_lookup(table: _Huffman):
+    """Per 16-bit window of a lossless scan: the bits one whole difference
+    takes (its code and magnitude bits) and its value; 0 bits where the two
+    run past the window or the code is not valid (libjpeg's lookahead)."""
+    w = np.arange(1 << 16)
+    s, n = table.arrays
+    # category 16 (32768) reads no magnitude bits; one past 16 is no category
+    m = np.where(s >= 16, 0, s)
+    t = n + m
+    extra = (w >> np.clip(16 - t, 0, 16)) & ((1 << m) - 1)
+    neg = (m > 0) & (extra < (1 << np.maximum(m - 1, 0)))
+    value = np.where(s == 16, 32768, np.where(neg, extra - (1 << m) + 1, extra))
+    return np.where((n > 0) & (s <= 16) & (t <= 16), t, 0).tolist(), value.tolist()
+
+
+def _decode_scan_lossless(frame, comps, dc_tabs, pred, se, ah, pt, parts, restart):
+    """A lossless scan (jdlhuff.c, jdlossls.c): each sample's difference
+    (SSSS category 16 is 32768), then per component the prediction undone
+    modulo 2^16 and the point transform, kept as the frame's samples.
+    Restarts come every `restart` MCUs, a whole number of MCU rows; the
+    first row of the scan and of each interval takes the 1-D predictor and
+    2^(7 - Pt) at its first sample."""
+    if len(comps) == 1:
+        w, h = frame.comp_size(comps[0])
+        units, mcus_per_row, n_mcus = [(comps[0], 1, 1)], w, w * h
+    else:  # (component, its rows and columns of samples in one MCU)
+        units = [(c, frame.v[c], frame.h[c]) for c in comps]
+        mcus_per_row, n_mcus = frame.mcux, frame.mcux * frame.mcuy
+    if restart and restart % mcus_per_row:
+        raise ValueError(f"lossless JPEG restart interval {restart} is not a whole number "
+                         f"of MCU rows ({mcus_per_row} MCUs)")
+    if not 1 <= pred <= 7 or se != 0 or ah != 0 or pt >= 8:
+        raise ValueError(f"lossless JPEG scan with predictor {pred}, Se {se}, Ah {ah}, Pt {pt} "
+                         "is not valid")
+    if any(dc_tabs[c] is None for c in comps):
+        raise ValueError("JPEG scan names a Huffman table it does not define")
+    tabs = {id(t): t for t in dc_tabs.values()}
+    lookups = {k: _difference_lookup(t) for k, t in tabs.items()}
+    # one (bits, value, table) a sample of the MCU, in MCU order
+    slots = [lookups[id(dc_tabs[c])] + (dc_tabs[c],) for c, ny, nx in units
+             for _ in range(ny * nx)]
+    per = restart if restart else n_mcus
+    vals, i = [0] * (n_mcus * len(slots)), 0
+    for interval, start in enumerate(range(0, n_mcus, per)):
+        if interval >= len(parts):
+            raise ValueError("JPEG scan has fewer restart intervals than its MCUs need")
+        bits = _Bits(parts[interval])
+        buf, pos = bits.buf, 0
+        nbuf = len(buf)
+        for _ in range(min(per, n_mcus - start)):
+            for tot, dif, tab in slots:
+                b = pos >> 3
+                if b + 2 < nbuf:
+                    v = ((buf[b] << 16 | buf[b + 1] << 8 | buf[b + 2]) >> (8 - (pos & 7))) & 0xFFFF
+                    t = tot[v]
+                    if t:
+                        vals[i] = dif[v]
+                        pos += t
+                        i += 1
+                        continue
+                # near the end of the bytes, a long magnitude, or a bad code
+                bits.pos = pos
+                s = bits.huff(tab)
+                vals[i] = 32768 if s == 16 else _extend(bits.bits(s), s)
+                pos = bits.pos
+                i += 1
+    vals = np.array(vals, np.int64).reshape(n_mcus, len(slots))
+    diff = frame.coef
+    if len(comps) == 1:
+        diff[comps[0]][:h, :w] = vals.reshape(h, w)
+    else:
+        j = 0
+        for c, ny, nx in units:
+            diff[c][...] = (vals[:, j:j + ny * nx].reshape(frame.mcuy, frame.mcux, ny, nx)
+                            .transpose(0, 2, 1, 3).reshape(frame.mcuy * ny, frame.mcux * nx))
+            j += ny * nx
+    rows_per_interval = restart // mcus_per_row if restart else 0
+    for c in comps:
+        w, h = frame.comp_size(c)
+        v = 1 if len(comps) == 1 else frame.v[c]
+        first = np.zeros(h, bool)
+        first[0] = True
+        if rows_per_interval:
+            first[::v * rows_per_interval] = True
+        out = _undo_prediction(pred, diff[c][:h, :w], pt, first)
+        frame.samples[c] = (out << pt) & 0xFF
+
+
+def _undo_prediction(pred, d, pt, first):
+    """The samples, modulo 2^16 as libjpeg stores them, of an (H, W) plane
+    of differences.  A row where `first` is set takes the 1-D predictor (Ra,
+    the first sample from 2^(P - Pt - 1)); every other row's first sample is
+    predicted from the sample above (Rb), the rest by predictor `pred` (Ra
+    left, Rb above, Rc above left)."""
+    h, w = d.shape
+    out = np.zeros((h, w), np.int64)
+    for r in np.flatnonzero(first):
+        row = d[r].copy()
+        row[0] += 1 << (8 - pt - 1)
+        out[r] = np.cumsum(row) & 0xFFFF
+    for r in np.flatnonzero(~first):
+        up = out[r - 1]
+        out[r, 0] = (d[r, 0] + up[0]) & 0xFFFF
+        rb, rc = up[1:], up[:-1]
+        if pred == 2:
+            out[r, 1:] = (d[r, 1:] + rb) & 0xFFFF
+        elif pred == 3:
+            out[r, 1:] = (d[r, 1:] + rc) & 0xFFFF
+        elif pred in (1, 4, 5):  # Ra plus a term from the row above: a running sum
+            step = d[r, 1:] + (0 if pred == 1 else rb - rc if pred == 4 else (rb - rc) >> 1)
+            out[r, 1:] = (out[r, 0] + np.cumsum(step)) & 0xFFFF
+    if pred in (6, 7) and w > 1:
+        # Ra sits inside a halving, so no running sum: (r, x) needs (r, x-1),
+        # (r-1, x) and (r-1, x-1), so every sample of one anti-diagonal
+        # r + x = k is computed at once, k rising; the 1-D rows and column 0
+        # are known already
+        o, dd = out.reshape(-1), d.reshape(-1)
+        for k in range(2, h + w - 1):
+            x = np.arange(max(1, k - h + 1), min(k, w - 1) + 1)
+            r = k - x
+            keep = ~first[r]
+            idx = (r * w + x)[keep]
+            ra, rb, rc = o[idx - 1], o[idx - w], o[idx - w - 1]
+            p = rb + ((ra - rc) >> 1) if pred == 6 else (ra + rb) >> 1
+            o[idx] = (dd[idx] + p) & 0xFFFF
+    return out
+
+
 def idct_islow(coef, qt):
     """jidctint.c's jpeg_idct_islow of (N, 64) natural-order coefficients
     with their (N, 64) quantisation values: (N, 8, 8) uint8 samples."""
@@ -294,7 +670,6 @@ def idct_islow(coef, qt):
     ws = np.stack(cols, axis=1)  # [block, y, v]
     rows = butterfly(*[ws[:, :, v] for v in range(8)], c13 + p1 + 3)  # 8 x (N, 8 rows)
     out = np.stack(rows, axis=2)  # [block, y, x]
-    out = ((out + 512) & 1023) - 512  # the range-limit table's index, mod 1024
     return np.clip(out + 128, 0, 255).astype(np.uint8)
 
 
@@ -334,6 +709,11 @@ def _upsample(plane, fx, fy, dw, dh):
             out[v::2, 0::2] = (3 * cs + lc + 8) >> 4
             out[v::2, 1::2] = (3 * cs + rc + 7) >> 4
         return out
+    return _replicate(plane, fx, fy)
+
+
+def _replicate(plane, fx, fy):
+    """Box upsampling: each sample repeated fx x fy times."""
     return np.repeat(np.repeat(plane.astype(np.int64), fy, axis=0), fx, axis=1)
 
 
@@ -347,11 +727,37 @@ def _ycc_to_rgb(y, cb, cr):
     return np.stack([np.clip(c, 0, 255) for c in (r, g, b)], axis=-1).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W, 4) uint8 RGBA (PIL's ``convert("RGBA")``)."""
+def _cmyk_to_rgb(c, m, y, k):
+    """PIL's reading of four samples: inverted ("CMYK;I"), then
+    Convert.c's cmyk2rgb, nk - MULDIV255(255 - s, nk) with nk = 255 minus
+    the inverted K, which is the K sample itself."""
+    nk = k.astype(np.int64)
+
+    def channel(s):
+        t = (255 - s.astype(np.int64)) * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+
+    return np.stack([channel(c), channel(m), channel(y)], axis=-1).astype(np.uint8)
+
+
+@dataclasses.dataclass
+class _Decoded:
+    """A JPEG read up to its samples: the frame (coefficients of DCT frames,
+    samples of lossless ones), the quantisation tables (natural order), the
+    JFIF / Adobe markers libjpeg reads colour from."""
+    frame: _Frame
+    qts: dict
+    jfif: bool
+    adobe: int | None
+
+
+def _read(data: bytes) -> _Decoded:
+    """Every marker segment and scan of `data`, entropy-decoded."""
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
     qts, dcs, acs = {}, {}, {}
+    # arithmetic conditioning (DAC) per table: DC L and U, AC Kx
+    dc_l, dc_u, ac_k = [0] * 16, [1] * 16, [5] * 16
     frame, restart, jfif, adobe = None, 0, False, None
     pos = 2
     while True:
@@ -369,11 +775,23 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         (length,) = struct.unpack_from(">H", data, pos + 2)
         payload = data[pos + 4:pos + 2 + length]
         pos += 2 + length
-        if marker in (0xC0, 0xC1, 0xC2):
+        if marker in _HUFFMAN_DCT_SOF or marker in _ARITHMETIC_DCT_SOF or marker == 0xC3:
             frame = _Frame(marker, payload)
-        elif marker in _UNSUPPORTED_SOF or marker == 0xCC:
-            raise ValueError(f"{_UNSUPPORTED_SOF.get(marker, 'arithmetic-coded JPEG (DAC)')} "
-                             "is not supported")
+        elif marker in _UNSUPPORTED_SOF:
+            raise ValueError(f"{_UNSUPPORTED_SOF[marker]} is not supported")
+        elif marker == 0xDC:
+            raise ValueError("JPEG with a DNL-defined height is not supported")
+        elif marker == 0xCC:
+            for i in range(0, len(payload) - 1, 2):
+                t, val = payload[i], payload[i + 1]
+                if t >= 32:
+                    raise ValueError(f"JPEG DAC table index {t} is out of range")
+                if t >= 16:
+                    ac_k[t - 16] = val
+                else:
+                    dc_l[t], dc_u[t] = val & 15, val >> 4
+                    if dc_l[t] > dc_u[t]:
+                        raise ValueError(f"JPEG DAC conditioning value {val:#x} has L > U")
         elif marker == 0xDB:
             i = 0
             while i < len(payload):
@@ -393,47 +811,89 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 i += 17 + sum(counts)
         elif marker == 0xDD:
             (restart,) = struct.unpack_from(">H", payload)
-        elif marker == 0xE0 and payload[:5] == b"JFIF\x00":
+        elif marker == 0xE0 and payload[:5] == b"JFIF\x00" and len(payload) >= 14:
             jfif = True
-        elif marker == 0xEE and payload[:5] == b"Adobe":
-            adobe = payload[11] if len(payload) >= 12 else 0
+        elif marker == 0xEE and payload[:5] == b"Adobe" and len(payload) >= 12:
+            adobe = payload[11]
         elif marker == 0xDA:
             if frame is None:
                 raise ValueError("JPEG scan before its frame header")
             ns = payload[0]
-            comps, dc_tabs, ac_tabs = [], {}, {}
+            comps, td, ta = [], {}, {}
             for k in range(ns):
                 cid, t = payload[1 + 2 * k], payload[2 + 2 * k]
                 c = frame.ids.index(cid)
                 comps.append(c)
-                dc_tabs[c], ac_tabs[c] = dcs.get(t >> 4), acs.get(t & 15)
+                td[c], ta[c] = t >> 4, t & 15
             ss, se, a = payload[1 + 2 * ns:4 + 2 * ns]
+            ah, al = a >> 4, a & 15
             parts, pos = _segments(data, pos)
-            _decode_scan(frame, comps, dc_tabs, ac_tabs, ss, se, a >> 4, a & 15, parts, restart)
+            if frame.lossless:
+                _decode_scan_lossless(frame, comps, {c: dcs.get(td[c]) for c in comps},
+                                      ss, se, ah, al, parts, restart)
+            elif frame.arithmetic:
+                _decode_scan_arith(frame, comps, td, ta, ss, se, ah, al, parts, restart,
+                                   (dc_l, dc_u, ac_k))
+            else:
+                _decode_scan(frame, comps, {c: dcs.get(td[c]) for c in comps},
+                             {c: acs.get(ta[c]) for c in comps}, ss, se, ah, al, parts, restart)
     if frame is None:
         raise ValueError("JPEG without a frame header")
+    return _Decoded(frame, qts, jfif, adobe)
 
+
+def _colour_space(frame, jfif, adobe) -> str:
+    """libjpeg's jpeg_color_space (jdapimin.c, libjpeg-turbo 3): "grey",
+    "ycc", "rgb", "cmyk" or "ycck"."""
+    n = len(frame.ids)
+    if n == 1:
+        return "grey"
+    if n == 4:
+        return "ycck" if adobe is not None and adobe != 0 else "cmyk"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    if frame.ids == [82, 71, 66]:  # 'R', 'G', 'B'
+        return "rgb"
+    # ids 1, 2, 3 or unknown: a DCT frame is taken as YCbCr, a lossless one as RGB
+    return "rgb" if frame.lossless else "ycc"
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W, 4) uint8 RGBA (PIL's ``convert("RGBA")``)."""
+    dec = _read(data)
+    frame = dec.frame
+    space = _colour_space(frame, dec.jfif, dec.adobe)
+    if frame.lossless and space in ("ycc", "ycck"):
+        raise ValueError(f"lossless JPEG in {space.upper()} is not supported (libjpeg converts "
+                         "no colour in lossless mode)")
     planes = []
     for c in range(len(frame.ids)):
-        co = frame.coef[c]
-        by, bx = co.shape[:2]
-        px = idct_islow(co.reshape(-1, 64), qts[frame.tq[c]][None, :])
-        plane = px.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
         dw, dh = frame.comp_size(c)
-        up = _upsample(plane, frame.hmax // frame.h[c], frame.vmax // frame.v[c], dw, dh)
+        fx, fy = frame.hmax // frame.h[c], frame.vmax // frame.v[c]
+        if frame.lossless:
+            if frame.samples[c] is None:
+                raise ValueError("lossless JPEG component has no scan")
+            up = _replicate(frame.samples[c], fx, fy)
+        else:
+            co = frame.coef[c]
+            by, bx = co.shape[:2]
+            px = idct_islow(co.reshape(-1, 64), dec.qts[frame.tq[c]][None, :])
+            plane = px.reshape(by, bx, 8, 8).transpose(0, 2, 1, 3).reshape(by * 8, bx * 8)
+            up = _upsample(plane, fx, fy, dw, dh)
         planes.append(up[:frame.height, :frame.width])
     out = np.empty((frame.height, frame.width, 4), np.uint8)
     out[..., 3] = 255
-    if len(planes) == 1:
+    if space == "grey":
         out[..., :3] = planes[0][..., None]
-        return out
-    # libjpeg's jpeg_color_space for three components (jdapimin.c)
-    ids = frame.ids
-    if jfif:
-        rgb = False
-    elif adobe is not None:
-        rgb = adobe == 0
+    elif space == "rgb":
+        out[..., :3] = np.stack(planes, axis=-1)
+    elif space == "ycc":
+        out[..., :3] = _ycc_to_rgb(*planes)
     else:
-        rgb = ids == [82, 71, 66]  # 'R', 'G', 'B'
-    out[..., :3] = (np.stack(planes, axis=-1) if rgb else _ycc_to_rgb(*planes))
+        if space == "ycck":  # jdcolor.c's ycck_cmyk_convert: 255 - each RGB of YCC
+            cmy = 255 - _ycc_to_rgb(*planes[:3]).astype(np.int64)
+            planes = [cmy[..., 0], cmy[..., 1], cmy[..., 2], planes[3]]
+        out[..., :3] = _cmyk_to_rgb(*planes)
     return out
