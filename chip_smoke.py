@@ -3,16 +3,18 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
-    python3 chip_smoke.py --parent DIR # and K3, K4, the toy and the probe's thread-row,
-                                       # warp-row, lane and rows-acc walks against DIR's
-                                       # (another checkout's) kernels, in turns
+    python3 chip_smoke.py --parent DIR # and K2 (f32 leaf-8), K3, K4, the toy and the
+                                       # probe's thread-row, warp-row, lane and rows-acc
+                                       # walks against DIR's (another checkout's)
+                                       # kernels, in turns
 
 Phases, each printed with its seconds; any failure raises and exits non-zero:
   1. device   - the GPU's name, nvidia-smi's name / power limit / max SM clock
                 (no CUDA: fail)
   2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d),
                 csrc/bvh8_trace.cu (K2, four lanes a ray, with and without
-                the alpha filter), csrc/shadow_grid.cu (K3, the shadow
+                the alpha filter, for each row kind: f32 rows with 8- or
+                12-triangle leaves, bf16 rows), csrc/shadow_grid.cu (K3, the shadow
                 grid's trace: a block's live rays queued in shared memory,
                 its cells' lists staged there, the big tier first),
                 csrc/bvh_flat_trace.cu (K4,
@@ -81,7 +83,18 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 printed beside the dense bound of every (entry, pixel) pair;
                 K2 any-hit on the frame's shadow and AO wavefronts: identical
                 hit masks; K2 closest-hit on its reflection wavefront: t, tri,
-                u and v equal on every ray.  Kernel and plain times by CUDA
+                u and v equal on every ray.  Then K2's other row kinds on
+                the same wavefronts (and on realglb's below): the bf16 rows
+                of the frame's SAH table (table_to_bf16) and the f32 rows of
+                its SAH tree with 12-triangle leaves, any-hit on the shadow
+                and AO rays, closest-hit on the reflection rays, and both
+                through the alpha filter (shadow, reflection), each with t,
+                tri, u and v equal to its plain version on every ray, its
+                bound (bytes at 256 a bf16 row, the operations
+                trace_plain(visits=True) counts plus the bf16 decode's) and
+                its time beside the f32 leaf-8 kernel's on the same rays;
+                with --parent, DIR's K2 on the f32 leaf-8 table, equal
+                outputs and timed in turns with this one.  Kernel and plain times by CUDA
                 events, each kernel's bound (K2's from the rows and filter
                 evaluations trace_plain counts on the same rays, printed per
                 wavefront with the bound's share of the kernel's time and the
@@ -91,8 +104,10 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 4 and 8 samples on the opaque stream against its plain
                 version, and at 4 and 8 against as many K1a launches on
                 offset_planes; the same K1a, K1b, K1c and K2 instances on
-                realglb's full frame (main path 8's shapes; printed, not in
-                the JSON line); on that frame the device LBVH
+                realglb's full frame (main path 8's shapes, on its f32
+                leaf-8 SAH table; printed, not in the JSON line), and the
+                other row kinds on it (the JSON line's entries of those
+                kinds); on that frame the device LBVH
                 (ops/bvh.build of the Geometry pass's WorldTris): its build
                 time by CUDA events, its true depth (<= 64, the build's
                 sweeps), the native host LBVH's time, order / left / right /
@@ -172,7 +187,8 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 every value
   6. main     - native_available() must be True (paths 1-11 are the SAH
                 tree's; no silent fallback to the LBVH's), then
-                twelve paths at 1920x1080, SponzaProxy but paths 8, 9, 11 and 12, each driven with the
+                thirteen paths at 1920x1080, SponzaProxy but paths 8, 9,
+                11, 12 and 14, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
                 2 warm-up frames) and read just after; every kernel of the
                 slice must rise by >= 1 per frame; finite output; per-pass ms:
@@ -194,8 +210,12 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   7. the full frame at rt_scale=2: K2 any-hit and
                   closest-hit, its ms/frame beside path 2's;
                   8. bench.py's flagship as written: the full frame on
-                  realglb (254,636 triangles): K1a, K1b, K1c, K2 any-hit and
-                  closest-hit, its breakdown, its ms/frame beside path 2's;
+                  realglb (254,636 triangles) with the default
+                  RenderConfig table knobs (bvh_dtype="auto",
+                  bvh_leaf_max=0), which must pick bf16 rows (the f32 and
+                  bf16 table bytes printed): K1a, K1b, K1c, K2 bf16-8
+                  any-hit and closest-hit, its breakdown, its ms/frame
+                  beside path 2's;
                   9. path 4's configuration with raster="brute" on
                   cornell_box() (the 4096^2 brute prepass included): no hand
                   kernel launches; its visibility against the binned raster
@@ -219,16 +239,24 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   a native build (the reference's _get_bvh): the renderer
                   built with native_available() returning False and the
                   native library refused, its BVH8 the device LBVH
-                  collapsed in Python, equal (rows, refit metadata, depth)
-                  to the native collapse of the same LBVH; host seconds of
-                  the route, the native and the Python collapse;
-                  validate_host on both BVH8s; then K1a, K1b, K1c, K2
-                  any-hit and closest-hit, its ms/frame beside path 8's, K2's rows a
+                  collapsed in Python and, by the default table rule,
+                  re-encoded in bf16 (its kind printed), equal (rows, refit
+                  metadata, depth) to the native collapse of the same LBVH
+                  re-encoded alike; host seconds of the route, the native
+                  and the Python collapse; validate_host on both f32
+                  collapses; then K1a, K1b, K1c, K2 any-hit and closest-hit
+                  of the route's kind, its ms/frame beside path 8's, K2's rows a
                   live ray on the two trees, a 3-frame profile (device
                   ms/frame, busy share); then K4's path: the frame's three
                   wavefronts through trace(pack_flat(LBVH, WorldTris)) with
                   the counters set to 0 just before, hit flags against K2
-                  over the LBVH's BVH8
+                  over the LBVH's BVH8;
+                  14. the table kinds path 8 does not trace, on realglb:
+                  the full frame with bvh_leaf_max=12 (K2 f32-12 any-hit
+                  and closest-hit), the raytraced frame with test_alpha on
+                  the default table (K2 bf16-8 filtered any-hit and
+                  closest-hit) and with bvh_leaf_max=12 (K2 f32-12
+                  filtered); each must trace its kind
   6b. surface - realglb's full frame at 320x180: list_resources is the set
                 of the graph's outputs, debug_dump's PNG decodes to
                 to_uint8_image, find_nonfinite_pass() is None, stats.table()
@@ -240,8 +268,9 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 (1080 rows / 4 bands) equal to rasterize_scene on every
                 pixel, K1a launched once per shard; frames 1 and 2 of
                 Renderer(mesh=) equal (torch.equal) to the single-device
-                renderer's, K1a once per shard and frame, K2 once per slab
-                and wavefront; ms/frame of both in turns (single, mesh,
+                renderer's (both on path 8's bf16 table; its kind printed),
+                K1a once per shard and frame, K2 once per slab and
+                wavefront; ms/frame of both in turns (single, mesh,
                 mesh, single; CUDA events on the primary's stream, which
                 waits for every device of the mesh) with nvidia-smi's
                 line; K1a on shard 0's triangles and K2 on slab 0's AO and
@@ -332,6 +361,15 @@ FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clo
 #: 1 compare.  trace_plain(visits=True) counts the rows, slots and
 #: evaluations of each run.
 K2_OPS_BOX, K2_OPS_TRI, K2_OPS_EMPTY, K2_OPS_FILTER = 26, 59, 1, 53
+#: K2's row kinds, in the order of csrc/bvh8_trace.cu's kKind (ops/traverse.KERNEL_KINDS)
+K2_KINDS = ("f32-8", "f32-12", "bf16-8")
+#: the bf16 decode's FP32 operations a visited row (csrc/bvh8_trace.cu,
+#: ops/traverse.decode_rows): the centroid c_hi + c_lo, 3 FADD, and its add to
+#: the planes the row's test reads, 48 of an internal row's, 72 of a leaf
+#: row's; an internal row's child base and offset map from their 8-bit
+#: pieces, 2 x (2 FMUL + 2 FADD); a leaf row's 8 triangle ids, 8 x (2 FMUL +
+#: 2 FADD).  The bf16 to f32 conversions are integer shifts.
+K2_OPS_DECODE_INTERNAL, K2_OPS_DECODE_LEAF = 3 + 48 + 8, 3 + 72 + 32
 #: K3's FP32 operations per test, by the test at which its early-returning
 #: Moller-Trumbore (csrc/shadow_grid.cu row_hit) ends, from K2's 59: at det
 #: 21 (the edges 6, p 9, det 5, its compare 1), at u 33 (+ 1/det 1, tv 3,
@@ -352,6 +390,12 @@ GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE = 1e-3, 0.999
 #: pixel (0.999514 within 1e-3 before), the raster-mode frame within 1e-4 on
 #: 0.999965 (max 2.7e-4), the rayquery frame equal.  Phase 5 prints the stages.
 GPU_CPU_RASTER_TOL, GPU_CPU_RASTER_SHARE = 1e-3, 0.999
+
+
+def _k2_name(kind: str, mode: str) -> str:
+    """K2's name in the JSON line and the launch counters: "K2 <mode>" on an
+    f32 leaf-8 table, "K2 <kind> <mode>" on the other kinds."""
+    return f"K2 {mode}" if kind == "f32-8" else f"K2 {kind} {mode}"
 
 
 def _check(ok: bool, what: str) -> None:
@@ -629,6 +673,39 @@ def _bind(params, own_params, own_args, extra=None) -> list:
     return out
 
 
+def _k2_parent(other, b8, label, o, d, tmin, tmax, anyhit, tables) -> str:
+    """K2 on the f32 leaf-8 table b8 against another checkout's K2 (whose
+    launch function is bound by its prototype's parameter names): equal
+    outputs on every ray, and the two kernels alone timed in turns."""
+    from vulkanhybridrenderer_tpu_torch.ops import traverse
+    from vulkanhybridrenderer_tpu_torch.utils import build
+
+    fn, _ = traverse.load_kernel()
+    n, dev = o.shape[0], o.device
+    tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n).contiguous()
+
+    def outs():
+        return [torch.empty(n, dtype=t, device=dev)
+                for t in (torch.float32, torch.int32, torch.float32, torch.float32)]
+
+    mine_out, other_out = outs(), outs()
+    head = [b8.rows.data_ptr(), o.data_ptr(), d.data_ptr(), tmin_a.data_ptr(), tmax.data_ptr(),
+            n, traverse.default_max_steps(b8), int(anyhit), b8.depth, 0,
+            *traverse._table_args(tables)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = head + [x.data_ptr() for x in mine_out] + [stream]
+    own_params = _c_params(build.CSRC_DIR / "bvh8_trace.cu", "bvh8_trace_launch")
+    pfn, pparams = other
+    pargs = _bind(pparams, own_params, head + [x.data_ptr() for x in other_out] + [stream])
+    _check(fn(*args) == 0 and pfn(*pargs) == 0, "a K2 launch against the other checkout failed")
+    same = all(torch.equal(a, b) for a, b in zip(mine_out, other_out))
+    _check(same, f"K2 f32-8 differs from the other checkout's on the {label} rays")
+    return _in_turns(f"K2 f32-8 ({'filtered ' * (tables is not None)}"
+                     f"{'any-hit' if anyhit else 'closest-hit'}), {label} rays: the other "
+                     f"checkout's kernel alone against this one's, outputs equal",
+                     lambda: pfn(*pargs), lambda: fn(*args), 10)
+
+
 def _in_turns(label: str, other, mine, iters: int) -> str:
     from vulkanhybridrenderer_tpu_torch.probes.gather import turns
 
@@ -698,8 +775,9 @@ def main() -> int:
         for f in [pool.submit(fn) for fn in loaders]:
             f.result()
     compiles = build.build_library.compiles
-    other_k3 = other_toy = other_k4 = other_probe = None
+    other_k2 = other_k3 = other_toy = other_k4 = other_probe = None
     if other_csrc is not None:
+        other_k2 = _other_launch(other_csrc, "bvh8_trace.cu", "bvh8_trace_launch")
         other_k3 = _other_launch(other_csrc, "shadow_grid.cu", "shadow_grid_trace_launch")
         other_toy = _other_launch(other_csrc, "toy_scale.cu", "toy_scale_launch")
         other_k4 = _other_launch(other_csrc, "bvh_flat_trace.cu", "bvh_flat_trace_launch")
@@ -709,10 +787,10 @@ def main() -> int:
                                {"ILb0ELb0E": "K1a", "ILb1ELb0E": "K1b", "ILb1ELb1E": "K1c",
                                 "msaa_kernelILi2E": "K1d 2 samples",
                                 "msaa_kernelILi4E": "K1d 4 and 8 samples"})
-                 + _ptxas_report(build_log("bvh8_trace.cu"),
-                                 {"ILb0ELb0E": "K2 closest-hit", "ILb1ELb0E": "K2 any-hit",
-                                  "ILb0ELb1E": "K2 filtered closest-hit",
-                                  "ILb1ELb1E": "K2 filtered any-hit"})
+                 + _ptxas_report(build_log("bvh8_trace.cu"), {
+                     f"ILi{k}ELb{a}ELb{f}E": _k2_name(kind, f"{'filtered ' * f}"
+                                                              f"{'any-hit' if a else 'closest-hit'}")
+                     for k, kind in enumerate(K2_KINDS) for f in (0, 1) for a in (0, 1)})
                  + _ptxas_report(build_log("bvh_flat_trace.cu"), {
                      f"ILb{a}ELb{f}ELb{c}E": f"K4 {'filtered ' * f}"
                      f"{'any-hit' if a else 'closest-hit'}{', counted' * c}"
@@ -1097,32 +1175,36 @@ def main() -> int:
     rows_live = {}  # k2_wave's label -> rows K2 visits a live ray
 
     def k2_wave(bvh, label, o, d, tmin, tmax, anyhit, tables=None, plain_timed=False,
-                extra_bytes=0):
-        """K2 on one wavefront against trace_plain on the same rays:
-        closest-hit t, tri, u and v equal on every ray, any-hit hit masks
-        identical.  Prints rays, live rays, the walk's internal and leaf rows
-        (and filter evaluations), the kernel's ms and the bound recounted
-        from them.  Returns the JSON line's fields."""
+                extra_bytes=0, all_fields=False):
+        """K2 on one wavefront against trace_plain on the same rays, on the
+        table's kind: closest-hit (and with `all_fields` any-hit too) t,
+        tri, u and v equal on every ray, any-hit hit masks identical.
+        Prints rays, live rays, the walk's internal and leaf rows (and
+        filter evaluations), the kernel's ms and the bound recounted from
+        them (a bf16 table's decode included).  Returns the JSON line's
+        fields."""
         n = o.shape[0]
         tmin_a = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(n).contiguous()
         filt = None if tables is None else traverse.make_alpha_hit_filter(None, tables)
         steps = traverse.default_max_steps(bvh)
+        kind = bvh.kind
         mode = ("filtered " if tables is not None else "") + ("any-hit" if anyhit else "closest-hit")
+        name = _k2_name(kind, mode)
         k = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=anyhit, alpha_tables=tables)
         p, vis = traverse.trace_plain(bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps,
-                                      filt, visits=True)
-        if anyhit:
+                                      filt, visits=True, leaf_max=bvh.leaf_max)
+        if anyhit and not all_fields:
             err = float((k.hit != p.hit).sum())
             agree = f"mismatched hit flags {int(err)}"
-            _check(err == 0.0, f"K2 {mode} hit masks differ on the {label} rays")
+            _check(err == 0.0, f"{name} hit masks differ on the {label} rays")
         else:
             diff = {f: int((getattr(k, f) != getattr(p, f)).sum()) for f in ("t", "tri", "u", "v")}
             err = max(_max_abs(k.t - p.t), _max_abs(k.u - p.u), _max_abs(k.v - p.v),
                       float(diff["tri"]))
             agree = "rays whose t / tri / u / v differ " + " / ".join(map(str, diff.values()))
             _check(not any(diff.values()),
-                   f"K2 {mode} differs from its plain version on the {label} rays: {diff}")
-        k2_errs[f"K2 {mode}"] = max(k2_errs.get(f"K2 {mode}", 0.0), err)
+                   f"{name} differs from its plain version on the {label} rays: {diff}")
+        k2_errs[name] = max(k2_errs.get(name, 0.0), err)
         ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=anyhit,
                                              alpha_tables=tables), 10)
         plain_ms = None
@@ -1131,11 +1213,14 @@ def main() -> int:
                 bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps, filt), 1)
         internal, leaf, boxes, tris, evals = (
             int(x.sum()) for x in (vis.internal, vis.leaf, vis.boxes, vis.triangles, vis.filtered))
-        empty = 8 * (internal + leaf) - boxes - tris
+        empty = 8 * internal + bvh.leaf_max * leaf - boxes - tris
         ops = (boxes * K2_OPS_BOX + tris * K2_OPS_TRI + empty * K2_OPS_EMPTY
                + evals * K2_OPS_FILTER)
-        # bytes: rays in (origin, direction, tmin, tmax), hits out, the table once
-        nbytes = n * (12 + 12 + 4 + 4) + n * 16 + bvh.num_rows * 512 + extra_bytes
+        if kind == "bf16-8":
+            ops += internal * K2_OPS_DECODE_INTERNAL + leaf * K2_OPS_DECODE_LEAF
+        # bytes: rays in (origin, direction, tmin, tmax), hits out, the table
+        # once (512 bytes a row in f32, 256 in bf16)
+        nbytes = n * (12 + 12 + 4 + 4) + n * 16 + bvh.table_bytes + extra_bytes
         b_ms, b_by = bound(ops, nbytes)
         live = int((tmax >= tmin_a).sum())
         rows_live[label] = (internal + leaf) / max(live, 1)
@@ -1144,7 +1229,7 @@ def main() -> int:
         walk = (vis.internal + vis.leaf).float()
         walk = torch.cat([walk, walk.new_zeros((-n) % 8)]).reshape(-1, 8)
         busy = float(walk.sum() / (walk.amax(dim=1).sum() * 8).clamp(min=1))
-        print(f"K2 {mode} bvh8_trace, {label} rays: {n} ({live} live), hits {int(k.hit.sum())}, "
+        print(f"{name} bvh8_trace, {label} rays: {n} ({live} live), hits {int(k.hit.sum())}, "
               f"{agree}; visits: internal rows {internal} ({boxes} boxes), leaf rows {leaf} "
               f"({tris} triangles)"
               + (f", filter evaluations {evals}" if tables is not None else "")
@@ -1166,14 +1251,51 @@ def main() -> int:
             if timed and record and name != "shadow":
                 kernels[f"K2 {'any-hit' if anyhit else 'closest-hit'}"] = entry
 
+    def k2_kinds(label, b8, tris, rays, tables, record):
+        """K2's other row kinds on a full frame's wavefronts: the bf16 rows
+        of b8 (table_to_bf16) and the f32 leaf-12 rows of the same
+        triangles' SAH tree, each against its plain version on every ray
+        (t, tri, u and v, any-hit too) on the shadow, AO and reflection
+        rays, and through the alpha filter on the shadow and reflection
+        rays, with its bound, timed beside K2 on b8 (f32 leaf-8) on the same
+        rays.  With `record`, the AO (any-hit), reflection (closest-hit) and
+        filtered numbers are the JSON line's entries of each kind."""
+        kinds = {"bf16-8": bvh8_ops.table_to_bf16(b8),
+                 "f32-12": bvh8_ops.build_bvh8_sah_host(tris.cpu().numpy(), leaf_max=12).to(dev)}
+        print(f"{label} table kinds: " + "; ".join(
+            f"{b.kind} {b.num_rows} rows, {b.table_bytes} bytes, depth bound "
+            f"{b.depth}" for b in (b8, *kinds.values())))
+        waves = {w: (*v, None) for w, v in hybrid_wavefronts(rays, 2).items()}
+        waves["filtered shadow"] = waves["shadow"][:4] + (tables,)
+        waves["filtered reflection"] = waves["reflection"][:4] + (tables,)
+        for kind, b in kinds.items():
+            for w, (o, d, tmax, anyhit, tabs) in waves.items():
+                entry = k2_wave(b, f"{label} {kind} {w}", o, d, raygen.SHADOW_TMIN, tmax,
+                                anyhit, tabs, plain_timed=True, all_fields=True)
+                f8_ms = _cuda_ms(lambda: traverse.trace(b8, o, d, raygen.SHADOW_TMIN, tmax,
+                                                        anyhit=anyhit, alpha_tables=tabs), 10)
+                print(f"K2 {kind} against f32-8 on the {label} {w} rays: {entry['ms']:.4f} ms "
+                      f"against {f8_ms:.4f} ms (ratio {entry['ms'] / f8_ms:.3f})")
+                if other_k2 is not None and kind == "bf16-8":
+                    print(_k2_parent(other_k2, b8, f"{label} {w}", o, d, raygen.SHADOW_TMIN,
+                                     tmax, anyhit, tabs))
+                if record and w != "shadow":
+                    mode = ("filtered " if tabs is not None else "") + (
+                        "any-hit" if anyhit else "closest-hit")
+                    kernels[_k2_name(kind, mode)] = dict(entry, f32_8_ms=f8_ms)
+        del kinds
+
     rays = raygen.Wavefronts(pfd, depth, normals, full, ao_rays=2)
     check_k2(bvh, hybrid_wavefronts(rays, 2), "full frame's", timed=True)
+    k2_kinds("SponzaProxy full frame's", bvh, res["WorldTris"], rays, tables, record=False)
     del r, res, rays
     torch.cuda.empty_cache()
 
     # the same K1 and K2 instances on main path 8's frame: realglb, the
-    # flagship asset, second frame
-    r = Renderer(realglb, full_cfg, device=dev)
+    # flagship asset, second frame, on its f32 leaf-8 SAH table (its default
+    # table is bf16: k2_kinds below, and main path 8)
+    r = Renderer(realglb, dataclasses.replace(full_cfg, bvh_dtype="f32", bvh_leaf_max=8),
+                 device=dev)
     r.render_frame()
     res = r.fetch_resources("pfd", "Clip", "BVH", "shade_tables", "WorldTris", hybrid_path.DEPTH,
                             hybrid_path.NORMALS)
@@ -1186,6 +1308,8 @@ def main() -> int:
                              ao_rays=2)
     check_k2(res["BVH"], hybrid_wavefronts(rays, 2), "realglb full frame's", timed=True,
              record=False)
+    k2_kinds("realglb full frame's", res["BVH"], res["WorldTris"], rays, res["shade_tables"],
+             record=True)
     # the device LBVH and K4, the threaded walk, on the same frame: K4
     # against its plain version on every ray, against K2 on the SAH BVH8 (the
     # oracle), the refit; then K2 over the LBVH's BVH8 (main path 12's tree)
@@ -1334,7 +1458,10 @@ def main() -> int:
     # realglb; each unfiltered and filtered with the scene's alpha tables
     for wave_scene, label in ((scene, "path 10's second frame's shadow"),
                               (realglb, "realglb's grid frame's shadow")):
-        r = Renderer(wave_scene, grid_cfg, device=dev)
+        # K3 is held to K2 any-hit on the f32 leaf-8 table (realglb's
+        # default is bf16, whose rounded vertices answer differently)
+        r = Renderer(wave_scene, dataclasses.replace(grid_cfg, bvh_dtype="f32", bvh_leaf_max=8),
+                     device=dev)
         r.render_frame()
         res = r.fetch_resources("pfd", "ShadowGrid", "shade_tables", hybrid_path.DEPTH,
                                 hybrid_path.NORMALS)
@@ -1437,7 +1564,8 @@ def main() -> int:
         "K1b": lambda: rt.raster_tiles_peel.launches,
         "K1c": lambda: rt.raster_tiles_compact.launches,
         "K1d": lambda: rt.raster_tiles_msaa.launches,
-        **{f"K2 {mode}": (lambda m=mode: traverse.trace.launches[m])
+        **{_k2_name(kind, mode): (lambda m=_k2_name(kind, mode)[3:]: traverse.trace.launches[m])
+           for kind in K2_KINDS
            for mode in ("any-hit", "closest-hit", "filtered any-hit", "filtered closest-hit")},
         "K3": lambda: shadowgrid.trace_shadow.launches,
         **{f"K4 {mode}": (lambda m=mode: traverse.trace_flat.launches[m])
@@ -1498,7 +1626,7 @@ def main() -> int:
     ms_full = ms_frame
     for name, count in launches.items():
         _check(name in ("K1d", "K3") or name.startswith("K4") or "filtered" in name
-               or count >= 10,
+               or "bf16-8" in name or "f32-12" in name or count >= 10,
                f"{name} launched {count} times in the full frame's 10 frames")
     passes = r.time_passes(iters=5)
     print(f"main path 2: {scene.name} {WIDTH}x{HEIGHT} full hybrid (RT shadows + RT AO + "
@@ -1589,18 +1717,28 @@ def main() -> int:
         _profile(r, "full at rt_scale=2")
     del r
 
-    # main path 8: bench.py's flagship as written, on realglb
+    # main path 8: bench.py's flagship as written, on realglb, with the
+    # reference's default table rule (bvh_dtype="auto", bvh_leaf_max=0),
+    # which must pick bf16 rows: the f32 leaf-8 table is past
+    # TABLE_BUDGET_BYTES and the bf16 one is not
     r = Renderer(realglb, full_cfg, device=dev)
+    b8_kind = r._get_bvh().kind
+    f32_bytes = 512 * r._get_bvh().num_rows
+    print(f"main path 8: RenderConfig(bvh_dtype={full_cfg.bvh_dtype!r}, "
+          f"bvh_leaf_max={full_cfg.bvh_leaf_max}) on realglb: {b8_kind} rows; the f32 leaf-8 "
+          f"table {f32_bytes} bytes, the bf16 one {r._get_bvh().table_bytes} bytes, budget "
+          f"{bvh8_ops.TABLE_BUDGET_BYTES}")
+    _check(b8_kind == "bf16-8", f"path 8's default config traced {b8_kind} rows, not bf16-8")
     ms_frame, launches8 = drive(r)
     ms_flagship = ms_frame
-    for name in ("K1a", "K1b", "K1c", "K2 any-hit", "K2 closest-hit"):
+    for name in ("K1a", "K1b", "K1c", "K2 bf16-8 any-hit", "K2 bf16-8 closest-hit"):
         _check(launches8[name] >= 10,
                f"{name} launched {launches8[name]} times in the realglb frame's 10 frames")
     passes = r.time_passes(iters=5)
     print(f"main path 8: {realglb.name} ({r.buffers.num_triangles} triangles) {WIDTH}x{HEIGHT} "
           f"full hybrid, bench.py's flagship (RT shadows + RT AO + RT reflections + SVGF, "
-          f"alpha_raster=brute, 4 peel rounds): {ms_frame:.3f} ms/frame over 10 frames, path 2 "
-          f"(SponzaProxy) {ms_full:.3f} | launches {launches8}")
+          f"alpha_raster=brute, 4 peel rounds, {b8_kind} BVH8): {ms_frame:.3f} ms/frame over 10 "
+          f"frames, path 2 (SponzaProxy) {ms_full:.3f} | launches {launches8}")
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     _breakdown(r, full)
     if profile:
@@ -1713,15 +1851,17 @@ def main() -> int:
     # collapsed in Python; its rows against the native collapse of the same
     # LBVH (_lbvh8, the yardstick)
     r, route8, lbvh, world_tris, lbvh8 = _route_renderer(realglb, full_cfg, dev)
+    kind12 = route8.kind
     ms_frame, launches12 = drive(r)
-    for name in ("K1a", "K1b", "K1c", "K2 any-hit", "K2 closest-hit"):
+    for name in ("K1a", "K1b", "K1c", _k2_name(kind12, "any-hit"),
+                 _k2_name(kind12, "closest-hit")):
         _check(launches12[name] >= 10,
                f"{name} launched {launches12[name]} times in path 12's 10 frames")
     _check(r._get_bvh() is route8, "path 12 did not trace the route's BVH8")
     passes = r.time_passes(iters=5)
     print(f"main path 12: {realglb.name} {WIDTH}x{HEIGHT} full hybrid through the no-native "
-          f"route, K2 over the device LBVH's BVH8 ({r._bvh.num_rows} rows, depth bound "
-          f"{r._bvh.depth}): {ms_frame:.3f} "
+          f"route, K2 over the device LBVH's BVH8 ({kind12} rows, {r._bvh.num_rows} rows, depth "
+          f"bound {r._bvh.depth}): {ms_frame:.3f} "
           f"ms/frame over 10 frames, path 8 (SAH BVH8) {ms_flagship:.3f} | launches {launches12}")
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     lb, sa = "realglb full frame's (LBVH BVH8) ", "realglb full frame's "
@@ -1751,6 +1891,33 @@ def main() -> int:
     _check(k4_launches.get("any-hit", 0) >= 2 and k4_launches.get("closest-hit", 0) >= 1,
            f"K4's path launched it {k4_launches}")
     del r, res, rays, waves, flat, lbvh, lbvh_tables, world_tris, lbvh8, route8
+
+    # main path 14: the table kinds path 8 does not trace, through the entry
+    # points on realglb: the full frame with bvh_leaf_max=12 (f32 leaf-12
+    # rows), and the raytraced frame with test_alpha (filtered primary and
+    # shadow rays) on the default table, bf16, and with bvh_leaf_max=12
+    launches14 = {}
+    for label, path, cfg14, want, modes in (
+            ("full hybrid, bvh_leaf_max=12", "hybrid",
+             dataclasses.replace(full_cfg, bvh_leaf_max=12), "f32-12", ("any-hit", "closest-hit")),
+            ("raytraced, test_alpha", "raytraced", rt_cfg, "bf16-8",
+             ("filtered any-hit", "filtered closest-hit")),
+            ("raytraced, test_alpha, bvh_leaf_max=12", "raytraced",
+             dataclasses.replace(rt_cfg, bvh_leaf_max=12), "f32-12",
+             ("filtered any-hit", "filtered closest-hit"))):
+        r = Renderer(realglb, cfg14, path=path, device=dev)
+        kind14 = r._get_bvh().kind
+        _check(kind14 == want, f"path 14 ({label}) traced {kind14} rows, not {want}")
+        ms_frame, counts = drive(r)
+        for mode in modes:
+            name = _k2_name(kind14, mode)
+            _check(counts[name] >= 10, f"{name} launched {counts[name]} times in path 14's "
+                   f"{label} frames")
+            launches14[name] = counts[name]
+        print(f"main path 14: {realglb.name} {WIDTH}x{HEIGHT} {label}: {kind14} rows "
+              f"({r._bvh.num_rows} rows, {r._bvh.table_bytes} bytes): {ms_frame:.3f} ms/frame "
+              f"over 10 frames | launches { {k: v for k, v in counts.items() if v} }")
+        del r
     print(f"card: {smi}")
     _phase("main", t0)
 
@@ -1815,6 +1982,10 @@ def main() -> int:
           f"{launches4['K1a']} in its timed frames, by image in 10 more: {k1a_split}")
     for name in ("K2 filtered closest-hit", "K2 filtered any-hit"):
         launches[name] = launches5[name]
+    # K2's other row kinds: path 8's bf16 walks, path 14's others
+    for mode in ("any-hit", "closest-hit"):
+        launches[_k2_name("bf16-8", mode)] = launches8[_k2_name("bf16-8", mode)]
+    launches.update(launches14)
     for mode in ("any-hit", "closest-hit"):
         launches[f"K4 {mode}"] = k4_launches[mode]
 
@@ -1936,17 +2107,19 @@ def _mesh_phase(realglb, cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi, laun
     traverse.trace.launches.clear()
     mframes = [meshed.render_frame() for _ in range(2)]
     sync_all()
+    kind = res["BVH"].kind
+    any_hit, closest = _k2_name(kind, "any-hit"), _k2_name(kind, "closest-hit")
     got = {"K1a": rt.raster_tiles.launches, "K1b": rt.raster_tiles_peel.launches,
-           "K2 any-hit": traverse.trace.launches["any-hit"],
-           "K2 closest-hit": traverse.trace.launches["closest-hit"]}
+           any_hit: traverse.trace.launches[any_hit[3:]],
+           closest: traverse.trace.launches[closest[3:]]}
     for i, (a, m) in enumerate(zip(frames, mframes), start=1):
         eq = torch.equal(a, m)
         print(f"mesh: path 8's frame {i} over the mesh against the single-device frame: "
               + ("equal on every pixel" if eq else
                  f"DIFFERS on {int((a != m).any(dim=0).sum())} pixels (max {_max_abs(a - m):.3g})"))
         _check(eq, f"path 8's frame {i} over the mesh differs from the single-device frame")
-    print(f"mesh: launches in frames 1-2 {got}")
-    _check(got["K1a"] == 2 * n and got["K2 any-hit"] == 4 * n and got["K2 closest-hit"] == 2 * n
+    print(f"mesh: launches in frames 1-2 {got} ({kind} rows)")
+    _check(got["K1a"] == 2 * n and got[any_hit] == 4 * n and got[closest] == 2 * n
            and got["K1b"] >= 2, f"frames 1-2 over the mesh launched {got}: want K1a {2 * n} "
            f"(a shard a frame), K2 any-hit {4 * n} and closest-hit {2 * n} (a slab a wavefront)")
     del frames, mframes
@@ -1958,7 +2131,7 @@ def _mesh_phase(realglb, cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi, laun
         ms[which].append(ms_frame)
         if which == "mesh":
             mesh_launches = counts
-    _check(mesh_launches["K1a"] == 10 * n and mesh_launches["K2 closest-hit"] == 10 * n,
+    _check(mesh_launches["K1a"] == 10 * n and mesh_launches[closest] == 10 * n,
            f"the timed mesh frames launched {mesh_launches}")
     print(f"mesh ms/frame (path 8, realglb {WIDTH}x{HEIGHT}, 10 frames each, in turns single, "
           f"mesh, mesh, single): single {ms['single'][0]:.3f} / {ms['single'][1]:.3f}, "
@@ -1992,15 +2165,15 @@ def _mesh_phase(realglb, cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi, laun
     ao = (rays.origin[slab].repeat(k, 1),
           rays.ao_dir.reshape(k, -1, 3)[:, slab].reshape(-1, 3), rays.ao_tmax[slab].repeat(k))
     for name, (o, d, tmax), anyhit in (
-            ("K2 any-hit mesh slab", ao, True),
-            ("K2 closest-hit mesh slab", (rays.origin[slab], rays.refl_dir[slab],
-                                          rays.refl_tmax[slab]), False)):
+            (f"{any_hit} mesh slab", ao, True),
+            (f"{closest} mesh slab", (rays.origin[slab], rays.refl_dir[slab],
+                                      rays.refl_tmax[slab]), False)):
         entries[name] = k2_wave(res["BVH"], f"mesh slab 0 of {n} {'AO' if anyhit else 'reflection'}",
                                 o.contiguous(), d.contiguous(), raygen.SHADOW_TMIN,
                                 tmax.contiguous(), anyhit, plain_timed=True)
     launches.update({"K1a mesh shard": mesh_launches["K1a"],
-                     "K2 any-hit mesh slab": mesh_launches["K2 any-hit"],
-                     "K2 closest-hit mesh slab": mesh_launches["K2 closest-hit"]})
+                     f"{any_hit} mesh slab": mesh_launches[any_hit],
+                     f"{closest} mesh slab": mesh_launches[closest]})
     del single, meshed
     torch.cuda.empty_cache()
     return entries
@@ -2094,9 +2267,10 @@ def _route_renderer(scene, cfg, dev):
     """Main path 12's renderer: built, and its BVH8 made, by the renderer's
     own route without a native build (inside _no_native); that BVH8 held
     equal to the native collapse of the same device LBVH and to an explicit
-    Python collapse, with the host seconds of each; validate_host on the
-    route's and the native BVH8.  Returns (renderer, its BVH8, the LBVH, its
-    triangles, the native BVH8 on dev)."""
+    Python collapse (each re-encoded by table_to_bf16 where the route's
+    table rule picked bf16 rows), with the host seconds of each;
+    validate_host on the Python and the native collapse.  Returns
+    (renderer, its BVH8, the LBVH, its triangles, the native BVH8 on dev)."""
     from vulkanhybridrenderer_tpu_torch import native_bridge
     from vulkanhybridrenderer_tpu_torch.ops import bvh8 as bvh8_ops
     from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
@@ -2111,20 +2285,22 @@ def _route_renderer(scene, cfg, dev):
     t = time.perf_counter()
     python8 = bvh8_ops.build_bvh8_host(lbvh, tris_np, prefer_native=False)
     python_s = time.perf_counter() - t
-    same = {f: torch.equal(getattr(route8, f).cpu(), getattr(lbvh8, f).cpu())
+    kind = route8.kind
+    want = bvh8_ops.table_to_bf16(lbvh8) if kind == "bf16-8" else lbvh8
+    same = {f: torch.equal(getattr(route8, f).cpu(), getattr(want, f).cpu())
             for f in ("rows", "child8", "valid8", "tri8")}
     same["depth"] = route8.depth == lbvh8.depth == python8.depth
     same["python collapse"] = torch.equal(python8.rows, lbvh8.rows.cpu())
     print(f"path 12: {scene.name}'s BVH8 by the renderer's no-native route (device LBVH + "
-          f"Python collapse + upload) {route_s:.3f} s, {route8.num_rows} rows, depth bound "
-          f"{route8.depth}; equal to the native collapse of the same device LBVH: {same}; host "
-          f"seconds on the LBVH's {tris_np.shape[0]} triangles: native collapse {native_s:.3f} s, "
-          f"Python collapse {python_s:.3f} s")
+          f"Python collapse + upload) {route_s:.3f} s, {kind} rows, {route8.num_rows} rows, "
+          f"depth bound {route8.depth}; equal to the native collapse of the same device LBVH"
+          f"{' re-encoded in bf16' if kind == 'bf16-8' else ''}: {same}; host seconds on the "
+          f"LBVH's {tris_np.shape[0]} triangles: native collapse {native_s:.3f} s, Python "
+          f"collapse {python_s:.3f} s")
     _check(all(same.values()), f"the no-native route's BVH8 differs from the native collapse: "
            f"{same}")
-    print("path 12: " + _validate(bvh8_ops, route8, world_tris, "the route's BVH8 (Python "
-                                  "collapse)") + "; "
-          + _validate(bvh8_ops, lbvh8, world_tris, "the LBVH's native collapse"))
+    print("path 12: " + _validate(bvh8_ops, python8, world_tris, "the LBVH's Python collapse")
+          + "; " + _validate(bvh8_ops, lbvh8, world_tris, "the LBVH's native collapse"))
     return r, route8, lbvh, world_tris, lbvh8
 
 

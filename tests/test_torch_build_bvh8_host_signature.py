@@ -61,7 +61,19 @@ def test_reference_call_on_both_packages(scene, tree):
 
 
 def test_leaf_max_other_than_8_raises():
+    """A leaf width the row layout has no room for raises, as the
+    reference's assert does; 12, the reference's other width, builds its
+    rows (tests/test_torch_bvh_leaf12.py holds them against the reference)."""
     tris = np.array(jbvh.world_triangles(jgeo.to_world(jproc.cornell_box().buffers).position,
                                          jproc.cornell_box().buffers.tri_vertex))
-    with pytest.raises(ValueError, match="8-triangle"):
-        pbvh8.build_bvh8_sah_host(tris, leaf_max=12)
+    for leaf_max in (4, 16):
+        with pytest.raises(ValueError, match="8 or 12"):
+            pbvh8.build_bvh8_sah_host(tris, leaf_max=leaf_max)
+        with pytest.raises(AssertionError):
+            jbvh8.build_bvh8_host(jnative.build_sah_host(tris), jnp.asarray(tris),
+                                  leaf_max=leaf_max)
+    j = jbvh8.build_bvh8_host(jnative.build_sah_host(tris), jnp.asarray(tris), leaf_max=12)
+    p = pbvh8.build_bvh8_sah_host(tris, leaf_max=12)
+    for f in META:
+        assert np.array_equal(getattr(p, f).numpy(), np.asarray(getattr(j, f))), f
+    assert p.depth == j.depth and p.leaf_max == j.leaf_max == 12

@@ -119,8 +119,8 @@ def test_unported_paths_and_options_raise():
     """The raytraced and rayquery paths render (test_ported_paths_render),
     animated too (a BVH Refit pass), and the rayquery path with the brute
     rasterizer; the binned raster with another depth preset raises the
-    reference's NotImplementedError, and the TPU-only BVH options raise
-    ValueError."""
+    reference's NotImplementedError.  The BVH table knobs are held to the
+    reference's by test_bvh_table_knobs_as_reference."""
     for path in ("raytraced", "rayquery"):
         r = prenderer.Renderer(pproc.cornell_box(),
                                pcfg.RenderConfig(width=W, height=H, alpha_raster="off",
@@ -136,10 +136,30 @@ def test_unported_paths_and_options_raise():
         prenderer.Renderer(pproc.cornell_box(), pcfg.RenderConfig(
             width=W, height=H, raster_state=pcfg.RasterState(depth_clear=1.0)),
             path="rayquery", device="cpu").render_frame()
-    with pytest.raises(ValueError):
-        pcfg.RenderConfig(bvh_dtype="bf16")
-    with pytest.raises(ValueError):
-        pcfg.RenderConfig(bvh_leaf_max=12)
+
+
+@pytest.mark.parametrize("animated", [False, True])
+@pytest.mark.parametrize("leaf_max", [0, 8, 12, 4])
+@pytest.mark.parametrize("dtype", ["auto", "f32", "bf16", "fp8"])
+def test_bvh_table_knobs_as_reference(dtype, leaf_max, animated):
+    """RenderConfig's bvh_dtype, bvh_leaf_max and animated: the port
+    accepts exactly the combinations the reference accepts (dtype in auto /
+    f32 / bf16, leaf_max in 0 / 8 / 12, bf16 neither with 12 nor animated)
+    and raises ValueError on the others, as the reference does; both
+    default to ("auto", 0)."""
+    kw = dict(bvh_dtype=dtype, bvh_leaf_max=leaf_max, animated=animated)
+    accepted = []
+    for m in (jcfg, pcfg):
+        try:
+            m.RenderConfig(**kw)
+            accepted.append(True)
+        except ValueError:
+            accepted.append(False)
+    assert accepted[0] == accepted[1]
+    assert accepted[1] == (dtype != "fp8" and leaf_max != 4
+                           and not (dtype == "bf16" and (leaf_max == 12 or animated)))
+    for m in (jcfg, pcfg):
+        assert (m.RenderConfig().bvh_dtype, m.RenderConfig().bvh_leaf_max) == ("auto", 0)
 
 
 def test_render_graph_order_and_errors():

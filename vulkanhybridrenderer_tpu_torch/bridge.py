@@ -67,12 +67,16 @@ def bvh_from_numpy(fields: Mapping[str, Any], leaf_size: int) -> BVH:
 
 
 def bvh8_from_numpy(rows, depth: int, leaf_max: int) -> BVH8:
-    """A BVH8 over an (N, 128) float32 row table built elsewhere, with its
-    refit metadata read from the rows."""
-    if leaf_max != 8:
-        raise ValueError("the port traces 8-triangle leaf rows only")
-    rows = torch.from_numpy(np.array(rows, np.float32))  # a writable copy
-    return BVH8.from_rows(rows, int(depth), int(leaf_max))
+    """A BVH8 over an (N, 128) row table built elsewhere, with its refit
+    metadata read from the rows: float32 rows with leaf_max 8 or 12, or a
+    bf16 table as its uint16 bit patterns (a bfloat16 numpy array's
+    ``.view(np.uint16)``) with leaf_max 8, which become bfloat16 rows."""
+    a = np.array(rows)  # a writable copy
+    if a.dtype == np.uint16:
+        t = torch.from_numpy(a).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.astype(np.float32, copy=False))
+    return BVH8.from_rows(t, int(depth), int(leaf_max))
 
 
 def temporal_state_from_numpy(shadow_ao_history, moments_history,

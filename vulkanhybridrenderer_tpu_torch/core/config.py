@@ -1,11 +1,14 @@
 """Render configuration (port of ``vulkanhybridrenderer_tpu/core/config.py``).
 
 Same enums, dataclasses and field names as the reference, so one set of knobs
-reads the same in both packages.  The bf16 BVH table and the VMEM-budget leaf
-auto-select are TPU residency levers and are not ported: the port accepts
-only ``bvh_dtype="f32"`` and ``bvh_leaf_max`` 0 or 8 (0 means 8).  So the
-reference's one check on ``animated`` (a bf16 table cannot be refit) is
-always met: every table the port traces is f32 and can be refit.
+reads the same in both packages and accepts and refuses the same
+combinations.  The BVH8 table has the reference's three kinds (ops/bvh8.py):
+f32 rows with 8-triangle leaves, f32 rows with 12-triangle leaves, and bf16
+rows (``table_to_bf16``) with 8-triangle leaves; ``bvh_dtype`` and
+``bvh_leaf_max`` choose among them, by default ("auto", 0) by the
+reference's table-size rule (runtime/renderer.Renderer._get_bvh).  A bf16
+table cannot be refit, so it refuses ``animated``, and its id lanes leave
+no room for 12 triangles a leaf.
 """
 from __future__ import annotations
 
@@ -101,9 +104,15 @@ class RenderConfig:
     #: RT shadow rays through "bvh8" (K2) or "grid", the light-space shadow
     #: grid (K3): the same hit / miss answers
     shadow_accel: str = "bvh8"
-    #: triangles per BVH8 leaf row: 0 (= 8) or 8
+    #: triangles per BVH8 leaf row: 8 or 12, or 0: chosen by the table's
+    #: size (runtime/renderer.Renderer._get_bvh)
     bvh_leaf_max: int = 0
-    bvh_dtype: str = "f32"
+    #: BVH8 row element type: "f32"; "bf16" (ops/bvh8.table_to_bf16: boxes
+    #: rounded outwards, exact integer lanes, leaf vertices rounded relative
+    #: to the leaf's centroid; static scenes only); "auto": bf16 where the
+    #: f32 table is past ops/bvh8.TABLE_BUDGET_BYTES and the bf16 one is not,
+    #: on a static scene
+    bvh_dtype: str = "auto"
     ao_rays: int = 2
     raster_state: RasterState = dataclasses.field(default_factory=RasterState)
     hybrid: HybridSettings = dataclasses.field(default_factory=HybridSettings)
@@ -112,12 +121,23 @@ class RenderConfig:
     rayquery: RayquerySettings = dataclasses.field(default_factory=RayquerySettings)
 
     def __post_init__(self):
-        if self.bvh_leaf_max not in (0, 8):
+        if self.bvh_leaf_max not in (0, 8, 12):
             raise ValueError(
-                f"bvh_leaf_max={self.bvh_leaf_max}: the port builds 8-triangle "
-                "leaf rows only (0 means 8)"
+                f"bvh_leaf_max={self.bvh_leaf_max}: the BVH8 row layout "
+                "supports 8 or 12 triangles per leaf (128-float rows), "
+                "or 0 = chosen by the table's size"
             )
-        if self.bvh_dtype != "f32":
+        if self.bvh_dtype not in ("auto", "f32", "bf16"):
             raise ValueError(
-                f"bvh_dtype={self.bvh_dtype!r}: the port traces f32 tables only"
+                f"bvh_dtype={self.bvh_dtype!r}: expected 'auto', 'f32' or 'bf16'"
+            )
+        if self.bvh_dtype == "bf16" and self.bvh_leaf_max == 12:
+            raise ValueError(
+                "bvh_dtype='bf16' needs leaf_max 8 (or 0): the 12-triangle "
+                "row has no free lanes for the 3x8-bit id pieces"
+            )
+        if self.bvh_dtype == "bf16" and self.animated:
+            raise ValueError(
+                "bvh_dtype='bf16' is for static scenes; animated scenes refit "
+                "f32 rows every frame (use 'f32' or 'auto')"
             )

@@ -72,6 +72,24 @@
 // lanes, leaf rows batched across the warp, leaf-only planes loaded once the
 // row kind is known.
 //
+// Row kinds (kKind; ops/bvh8.py, the reference's three tables).  kF32x8,
+// the (N, 128) f32 table with 8-triangle leaves: the code above.  kF32x12,
+// f32 rows whose leaves hold 12 triangles: internal rows as kF32x8's, leaf
+// rows with 9 coordinate planes of 12 at [0:108) and the ids at [108:120); a
+// step loads planes 0..6 and the flag as kF32x8 does, and only where a ray
+// stands on a leaf row does each lane load its three leaf slots 3s..3s+2 of
+// the ten planes (scalar loads: a second round trip on leaf steps).  kBf16x8,
+// table_to_bf16's (N, 128) bf16 rows, 256 bytes, walked in place: lane s
+// loads its two slots of the 12 planes [0:96) (one 4-byte load a plane, 8
+// slots of a plane being 16 bytes), the centroid [96:104) (16 bytes, the
+// same for the group) and the flag [127], and decodes in registers as
+// ops/traverse.decode_rows does: bf16 to f32 exactly (the bits shifted up),
+// the centroid c_hi + c_lo added to planes 0..8 (a zero centroid on
+// internal rows), the first child row and offset map as lo + mid * 256 +
+// hi * 65536 of the 8-bit pieces at [48:51) and [51:54) (slots 0..5 of plane
+// 6: the lanes of chunks 0, 1 and 2, by shuffles), a slot's triangle id as
+// that of planes 9..11 minus 1.  No f32 copy of the table exists.
+//
 // Built with --fmad=false so every product rounds like the plain PyTorch
 // version and hit / miss decisions on triangle edges agree.
 
@@ -86,9 +104,16 @@ constexpr int kMaxDepth = 64;  // stack entries per ray (BVH8.depth bound)
 constexpr int kGroup = 4;  // lanes per ray
 constexpr int kSpl = 2;  // adjacent slots per lane: one 8-byte load a plane
 constexpr int kThreads = 128;  // threads per block: 32 rays
-template <bool kAnyHit, bool kFilter>
+// row kinds: f32 rows with 8-triangle leaves, with 12, bf16 rows with 8
+constexpr int kF32x8 = 0, kF32x12 = 1, kBf16x8 = 2;
+
+// a bf16's f32 value: its bits in the high half
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+template <int kKind, bool kAnyHit, bool kFilter>
 __global__ void __launch_bounds__(kThreads)
-bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
+bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
                   const float* __restrict__ origin,
                   const float* __restrict__ direction,
                   const float* __restrict__ tmin_a,
@@ -131,22 +156,50 @@ bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
     const int jflip = oct & 1;
     const int base_lane = oct >> 1;
 
+    // the planes a step loads at this lane's chunk: kF32x8 [0:80), kF32x12
+    // the internal layout's [0:56), kBf16x8 [0:96)
+    constexpr int kPlanes = kKind == kF32x8 ? 10 : kKind == kF32x12 ? 7 : 12;
+    const float* rows = static_cast<const float*>(table);
+    const unsigned short* rows16 = static_cast<const unsigned short*>(table);
     int node = (have_ray && !(t_best < tmin)) ? 0 : -1;  // root row, or done
     int sp = 0;
     for (int step = 0;; ++step) {
         const bool live = node >= 0 && step < max_steps;
         if (!__any_sync(kFull, live)) break;
-        // every load of the step before any use: planes 0..9 at this lane's
+        // every load of the step before any use: the planes at this lane's
         // slots, and the leaf flag.  A ray that has ended reads row 0.
         const float* row = rows + (size_t)(live ? node : 0) * 128;
-        float p[10][kSpl];
+        float p[kPlanes][kSpl];
+        float flag;
+        if constexpr (kKind == kBf16x8) {
+            const unsigned short* row16 = rows16 + (size_t)(live ? node : 0) * 128;
+            unsigned w[kPlanes];
 #pragma unroll
-        for (int k = 0; k < 10; ++k) {
-            const float2 v = __ldg(reinterpret_cast<const float2*>(row + 8 * k) + chunk);
-            p[k][0] = v.x;
-            p[k][1] = v.y;
+            for (int k = 0; k < kPlanes; ++k)
+                w[k] = __ldg(reinterpret_cast<const unsigned*>(row16 + 8 * k) + chunk);
+            const uint4 c = __ldg(reinterpret_cast<const uint4*>(row16 + 96));
+            flag = bf16_lo(__ldg(row16 + 127));
+            // centroid c_hi + c_lo: [96] + [99], [97] + [100], [98] + [101]
+            const float cen[3] = {bf16_lo(c.x) + bf16_hi(c.y), bf16_hi(c.x) + bf16_lo(c.z),
+                                  bf16_lo(c.y) + bf16_hi(c.z)};
+#pragma unroll
+            for (int k = 0; k < kPlanes; ++k) {
+                p[k][0] = bf16_lo(w[k]);
+                p[k][1] = bf16_hi(w[k]);
+                if (k < 9) {
+                    p[k][0] = p[k][0] + cen[k % 3];
+                    p[k][1] = p[k][1] + cen[k % 3];
+                }
+            }
+        } else {
+#pragma unroll
+            for (int k = 0; k < kPlanes; ++k) {
+                const float2 v = __ldg(reinterpret_cast<const float2*>(row + 8 * k) + chunk);
+                p[k][0] = v.x;
+                p[k][1] = v.y;
+            }
+            flag = __ldg(row + 127);
         }
-        const float flag = __ldg(row + 127);
         const bool leaf = live && flag > 0.5f;
         const bool internal = live && !(flag > 0.5f);
         bool next = false;  // the ray has its next row (a child), or is done
@@ -169,8 +222,22 @@ bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
 #pragma unroll
             for (int off = 1; off < kGroup; off *= 2)
                 mask |= __shfl_xor_sync(kFull, mask, off, kGroup);
-            const int base = (int)__shfl_sync(kFull, p[6][0], base_lane, kGroup);
-            const int offmap = (int)__shfl_sync(kFull, p[6][1], base_lane, kGroup);
+            int base, offmap;
+            if constexpr (kKind == kBf16x8) {
+                // 8-bit pieces at slots 0..5 of plane 6: chunks 0, 1, 2
+                const int l1 = base_lane ^ 1, l2 = base_lane ^ 2;
+                const float b0 = __shfl_sync(kFull, p[6][0], base_lane, kGroup);
+                const float b1 = __shfl_sync(kFull, p[6][1], base_lane, kGroup);
+                const float b2 = __shfl_sync(kFull, p[6][0], l1, kGroup);
+                const float o0 = __shfl_sync(kFull, p[6][1], l1, kGroup);
+                const float o1 = __shfl_sync(kFull, p[6][0], l2, kGroup);
+                const float o2 = __shfl_sync(kFull, p[6][1], l2, kGroup);
+                base = (int)(b0 + b1 * 256.0f + b2 * 65536.0f);
+                offmap = (int)(o0 + o1 * 256.0f + o2 * 65536.0f);
+            } else {
+                base = (int)__shfl_sync(kFull, p[6][0], base_lane, kGroup);
+                offmap = (int)__shfl_sync(kFull, p[6][1], base_lane, kGroup);
+            }
             if (internal && mask != 0) {
                 const int k = __ffs(mask) - 1;  // the next child's visit position
                 const int slot = k ^ oct;
@@ -186,15 +253,39 @@ bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
         if (__any_sync(kFull, leaf)) {
             // leaf row: Moller-Trumbore of this lane's slots against the
             // pre-leaf t_best; the lane's first minimum
+            constexpr int kLeafSpl = kKind == kF32x12 ? 3 : kSpl;  // slots a lane
+            constexpr int kNoSlot = kGroup * kLeafSpl;  // the row's slots
+            float lv[9][kLeafSpl];
+            int32_t lt[kLeafSpl];
+            if constexpr (kKind == kF32x12) {
+                // slots 3s..3s+2 of the 12-lane planes [0:108) and ids [108:120)
+                const float* lr = row + kLeafSpl * s;
+#pragma unroll
+                for (int j = 0; j < kLeafSpl; ++j) {
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) lv[k][j] = __ldg(lr + 12 * k + j);
+                    lt[j] = (int32_t)__ldg(lr + 108 + j);
+                }
+            } else {
+#pragma unroll
+                for (int j = 0; j < kLeafSpl; ++j) {
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) lv[k][j] = p[k][j];
+                    if constexpr (kKind == kBf16x8)
+                        lt[j] = (int32_t)(p[9][j] + p[10][j] * 256.0f + p[11][j] * 65536.0f) - 1;
+                    else
+                        lt[j] = (int32_t)p[9][j];
+                }
+            }
             float tl = __int_as_float(0x7f800000), ul = 0.0f, vl = 0.0f;
-            int slot_l = 8;  // 8: no candidate
+            int slot_l = kNoSlot;  // no candidate
             int32_t tri_l = -1;
 #pragma unroll
-            for (int j = 0; j < kSpl; ++j) {
-                const int32_t tri = (int32_t)p[9][j];
-                const float v0x = p[0][j], v0y = p[1][j], v0z = p[2][j];
-                const float e1x = p[3][j] - v0x, e1y = p[4][j] - v0y, e1z = p[5][j] - v0z;
-                const float e2x = p[6][j] - v0x, e2y = p[7][j] - v0y, e2z = p[8][j] - v0z;
+            for (int j = 0; j < kLeafSpl; ++j) {
+                const int32_t tri = lt[j];
+                const float v0x = lv[0][j], v0y = lv[1][j], v0z = lv[2][j];
+                const float e1x = lv[3][j] - v0x, e1y = lv[4][j] - v0y, e1z = lv[5][j] - v0z;
+                const float e2x = lv[6][j] - v0x, e2y = lv[7][j] - v0y, e2z = lv[8][j] - v0z;
                 const float px = dy * e2z - dz * e2y;
                 const float py = dz * e2x - dx * e2z;
                 const float pz = dx * e2y - dy * e2x;
@@ -218,10 +309,10 @@ bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
                     ul = u;
                     vl = v;
                     tri_l = tri;
-                    slot_l = kSpl * chunk + j;
+                    slot_l = (kKind == kF32x12 ? s : chunk) * kLeafSpl + j;
                 }
             }
-            if (__any_sync(kFull, slot_l < 8)) {
+            if (__any_sync(kFull, slot_l < kNoSlot)) {
                 // the group's lexicographic minimum of (t, slot)
 #pragma unroll
                 for (int off = 1; off < kGroup; off *= 2) {
@@ -238,7 +329,7 @@ bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
                         tri_l = otri;
                     }
                 }
-                if (slot_l < 8) {
+                if (slot_l < kNoSlot) {
                     t_best = tl;
                     tri_best = tri_l;
                     u_best = ul;
@@ -284,31 +375,44 @@ bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
 
 extern "C" int bvh8_trace_max_depth() { return kMaxDepth; }
 
-extern "C" int bvh8_trace_launch(const float* rows, const float* origin,
+extern "C" int bvh8_trace_launch(const void* rows, const float* origin,
                                  const float* direction, const float* tmin,
                                  const float* tmax, int n_rays, int max_steps,
-                                 int anyhit, int depth, const float* tri_static,
-                                 const float* atlas_q, int atlas_rows, int atlas_w,
-                                 float* out_t, int32_t* out_tri, float* out_u,
-                                 float* out_v, void* stream) {
+                                 int anyhit, int depth, int kind,
+                                 const float* tri_static, const float* atlas_q,
+                                 int atlas_rows, int atlas_w, float* out_t,
+                                 int32_t* out_tri, float* out_u, float* out_v,
+                                 void* stream) {
     // tri_static == nullptr: no alpha filter.  depth: the stack's entries
-    // per ray (BVH8.depth, at most kMaxDepth)
+    // per ray (BVH8.depth, at most kMaxDepth).  kind: the rows' kind, kF32x8
+    // (float rows, 8-triangle leaves), kF32x12 or kBf16x8 (bf16 rows)
     if (depth < 1 || depth > kMaxDepth) return (int)cudaErrorInvalidValue;
+    if (kind != kF32x8 && kind != kF32x12 && kind != kBf16x8)
+        return (int)cudaErrorInvalidValue;
     if (n_rays > 0) {
         const long long threads = (long long)n_rays * kGroup;
         const int blocks = (int)((threads + kThreads - 1) / kThreads);
         const size_t smem = (size_t)(kThreads / kGroup) * depth * sizeof(int2);
         cudaStream_t s = (cudaStream_t)stream;
         const AlphaTables at{tri_static, atlas_q, atlas_rows, atlas_w};
-#define K2_LAUNCH(ANY, FILT)                                                     \
-    bvh8_trace_kernel<ANY, FILT><<<blocks, kThreads, smem, s>>>(                 \
+#define K2_LAUNCH(KIND, ANY, FILT)                                               \
+    bvh8_trace_kernel<KIND, ANY, FILT><<<blocks, kThreads, smem, s>>>(           \
         at, rows, origin, direction, tmin, tmax, n_rays, max_steps, depth,      \
         out_t, out_tri, out_u, out_v)
+#define K2_MODES(KIND)                                                           \
+    if (anyhit && filt) K2_LAUNCH(KIND, true, true);                             \
+    else if (anyhit) K2_LAUNCH(KIND, true, false);                               \
+    else if (filt) K2_LAUNCH(KIND, false, true);                                 \
+    else K2_LAUNCH(KIND, false, false)
         const bool filt = tri_static != nullptr;
-        if (anyhit && filt) K2_LAUNCH(true, true);
-        else if (anyhit) K2_LAUNCH(true, false);
-        else if (filt) K2_LAUNCH(false, true);
-        else K2_LAUNCH(false, false);
+        if (kind == kF32x8) {
+            K2_MODES(kF32x8);
+        } else if (kind == kF32x12) {
+            K2_MODES(kF32x12);
+        } else {
+            K2_MODES(kBf16x8);
+        }
+#undef K2_MODES
 #undef K2_LAUNCH
     }
     return (int)cudaGetLastError();

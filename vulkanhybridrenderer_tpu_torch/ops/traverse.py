@@ -3,14 +3,18 @@
 ``trace(bvh8, origin, direction, tmin, tmax, anyhit)`` walks the BVH8 table of
 ops/bvh8.py once per ray with the semantics of the reference's per-ray walk
 (``_trace8``): near-first slot ^ octant child order, 8-wide slab tests with
-empty slots masked, 8-wide Moller-Trumbore leaves without culling, any-hit
-stopping at the first accepted hit, at most ``min(4 * rows + 4, 32768)``
-steps per ray.  With ``alpha_tables`` (the scene's ShadeTables) the alpha
+empty slots masked, leaf_max-wide Moller-Trumbore leaves without culling,
+any-hit stopping at the first accepted hit, at most ``min(4 * rows + 4,
+32768)`` steps per ray.  It walks each of the table's three kinds in place:
+f32 rows with 8- or 12-triangle leaves, and bf16 rows, which
+``decode_rows`` (the reference's ``_decode_row``) reads as f32 rows and
+exact integers.  With ``alpha_tables`` (the scene's ShadeTables) the alpha
 any-hit filter (``make_alpha_hit_filter``) rejects leaf candidates whose
 base-color alpha at the hit is below the material's cutoff.  On CUDA tensors
-it launches the hand-written kernel csrc/bvh8_trace.cu, which walks each ray
-with a group of four lanes, two slots of the row each, so that a step reads
-its row as whole 32-byte sectors; on CPU tensors it runs ``trace_plain``, a
+it launches the hand-written kernel csrc/bvh8_trace.cu, instantiated for
+the table's kind, which walks each ray with a group of four lanes, two
+slots of the row each (three of a 12-triangle leaf), so that a step reads
+its row as whole sectors; on CPU tensors it runs ``trace_plain``, a
 lockstep port of ``_trace8`` that drops finished rays between steps and can
 count the rows and slots each ray visits.  The reference's TPU schedules (strips,
 packets, compaction, ray sorting, unrolling) have no counterpart.
@@ -58,6 +62,40 @@ class Visits:
     boxes: Any  # (R,) int64 non-empty slots (lo.x <= hi.x) of those internal rows
     triangles: Any  # (R,) int64 non-empty slots (tri >= 0) of those leaf rows
     filtered: Any  # (R,) int64 alpha filter evaluations (geometric candidates)
+
+
+#: K2's instantiation for each table kind (BVH8.kind): csrc/bvh8_trace.cu's kKind
+KERNEL_KINDS = {"f32-8": 0, "f32-12": 1, "bf16-8": 2}
+
+
+def decode_rows(rows, leaf_max: int = 8):
+    """Gathered BVH8 rows (..., 128) as (f32 rows, child base, offset map,
+    triangle ids (..., leaf_max)): the reference's ``_decode_row``.  An f32
+    table holds its integer lanes as exact floats, [48], [49] and [9*lm :
+    10*lm].  A bf16 table (ops/bvh8.table_to_bf16) holds each integer as
+    three 8-bit pieces, lo + mid * 256 + hi * 65536 exact in f32: the base
+    at [48:51], the offset map at [51:54], triangle id + 1 at [9*lm :
+    12*lm] in planes of lm; and its leaf vertices relative to the centroid
+    c_hi + c_lo ([96:99] + [99:102]), which is added to lanes [0:72] of
+    every row (internal rows hold a zero centroid).  A leaf row's base and
+    offset map and an internal row's ids are meaningless in either kind:
+    the walk masks them by the [127] flag."""
+    lm = leaf_max
+    if rows.dtype != torch.bfloat16:
+        return (rows, rows[..., 48].to(torch.int32), rows[..., 49].to(torch.int32),
+                rows[..., 9 * lm:10 * lm].to(torch.int32))
+    rf = rows.to(torch.float32)
+
+    def i3(lo, mid, hi):
+        return (lo + mid * 256.0 + hi * 65536.0).to(torch.int32)
+
+    base = i3(rf[..., 48], rf[..., 49], rf[..., 50])
+    offmap = i3(rf[..., 51], rf[..., 52], rf[..., 53])
+    tri = i3(rf[..., 9 * lm:10 * lm], rf[..., 10 * lm:11 * lm], rf[..., 11 * lm:12 * lm]) - 1
+    cen = rf[..., 96:99] + rf[..., 99:102]
+    cexp = cen[..., [k % 3 for k in range(9)]].repeat_interleave(lm, dim=-1)
+    rf = torch.cat([rf[..., 0:72] + cexp, rf[..., 72:]], dim=-1)
+    return rf, base, offmap, tri
 
 
 def default_max_steps(bvh: BVH8) -> int:
@@ -144,9 +182,12 @@ def make_alpha_hit_filter(scene, tables: shadetab.ShadeTables | None = None):
 
 
 def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
-                anyhit: bool, max_steps: int, hit_filter=None, visits: bool = False):
+                anyhit: bool, max_steps: int, hit_filter=None, visits: bool = False,
+                leaf_max: int = 8):
     """Plain PyTorch K2: ``_trace8`` stepped in lockstep over the live rays.
-    rows (N, 128) f32; origin / direction (R, 3); tmin / tmax (R,).
+    rows (N, 128), f32 with leaf_max 8 or 12 or bf16 with 8, each gathered
+    row read through ``decode_rows``; origin / direction (R, 3); tmin /
+    tmax (R,).
     hit_filter(tri, u, v) -> accept mask is ANDed into the leaf candidates
     before the nearest is picked (``_trace8:264-270``); it is asked only
     about candidates that pass the geometric test.  Returns a HitRecord, or
@@ -191,9 +232,10 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
         if visits:
             counts_out[ids[~keep]] = counts[~keep]
 
+    lm = leaf_max
     steps = 0
     while n > 0 and steps < max_steps:
-        row = rows[node.long()]  # (n, 128)
+        row, base, offmap, tri8 = decode_rows(rows[node.long()], lm)  # (n, 128) f32
         is_leaf = row[:, 127] > 0.5
         ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
         ix, iy, iz = inv[:, 0:1], inv[:, 1:2], inv[:, 2:3]
@@ -216,12 +258,9 @@ def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
         hit8 = torch.maximum(tnear, tn_[:, None]) <= torch.minimum(tfar, tb[:, None])
         hit8 &= row[:, 0:8] <= row[:, 24:32]
         mask = torch.sum(torch.where(hit8, 1 << slots8, 0), dim=-1, dtype=torch.int32)
-        base = row[:, 48].to(torch.int32)
-        offmap = row[:, 49].to(torch.int32)
 
-        # leaf: 8-wide Moller-Trumbore
-        g = lambda k: row[:, 8 * k:8 * (k + 1)]  # noqa: E731
-        tri8 = row[:, 72:80].to(torch.int32)
+        # leaf: leaf_max-wide Moller-Trumbore
+        g = lambda k: row[:, lm * k:lm * (k + 1)]  # noqa: E731
         t8, u8, v8, ok8 = moller_trumbore(
             (g(0), g(1), g(2)), (g(3), g(4), g(5)), (g(6), g(7), g(8)), (ox, oy, oz),
             (d[:, 0:1], d[:, 1:2], d[:, 2:3]))
@@ -298,7 +337,7 @@ def load_kernel():
     fn = lib.bvh8_trace_launch
     fn.restype = ctypes.c_int
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
     )
     lib.bvh8_trace_max_depth.restype = ctypes.c_int
@@ -349,7 +388,8 @@ def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: b
     """Trace rays through `bvh`.  origin / direction: (R, 3) float32;
     tmin / tmax: scalars or (R,).  alpha_tables: the scene's shade tables,
     to apply the alpha any-hit filter (None: every geometric hit counts).
-    A BVH8 goes to K2, where rays with tmax < tmin miss at once; a binary
+    A BVH8 of any of the three kinds goes to K2, instantiated for its kind
+    (BVH8.kind), where rays with tmax < tmin miss at once; a binary
     BVH goes to the threaded walk, K4 (``trace_flat``), which needs the
     (T, 3, 3) triangles `tri_verts` (ignored otherwise) and packs them with
     the tree on every call; pack_flat's tables, packed once per tree, go to
@@ -366,17 +406,17 @@ def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: b
     tmin_a, tmax_a = _ray_bounds(origin, tmin, tmax)
     if max_steps is None:
         max_steps = default_max_steps(bvh)
-    if bvh.leaf_max != 8:
-        raise ValueError("trace: the port's BVH8 rows hold 8-triangle leaves")
+    kind = bvh.kind
     if dev.type == "cpu":
         return trace_plain(
             bvh.rows, bvh.depth, origin, direction, tmin_a, tmax_a, anyhit, max_steps,
-            None if alpha_tables is None else make_alpha_hit_filter(None, alpha_tables))
+            None if alpha_tables is None else make_alpha_hit_filter(None, alpha_tables),
+            leaf_max=bvh.leaf_max)
     if dev.type != "cuda":
         raise ValueError(f"trace: unsupported device {dev}")
     f32 = torch.float32
     _check_tensors("trace", [("origin", origin, (r, 3), f32),
-                             ("rows", bvh.rows, (bvh.num_rows, 128), f32),
+                             ("rows", bvh.rows, (bvh.num_rows, 128), bvh.rows.dtype),
                              ("direction", direction, (r, 3), f32)]
                    + _table_checks(alpha_tables))
     fn, max_depth = load_kernel()
@@ -393,19 +433,21 @@ def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: b
         err = fn(
             bvh.rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
             tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit),
-            max(bvh.depth, 1), *_table_args(alpha_tables),
+            max(bvh.depth, 1), KERNEL_KINDS[kind], *_table_args(alpha_tables),
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),
             out_v.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"bvh8_trace kernel launch failed: CUDA error {err}")
     mode = "any-hit" if anyhit else "closest-hit"
-    trace.launches[mode if alpha_tables is None else f"filtered {mode}"] += 1
+    mode = mode if alpha_tables is None else f"filtered {mode}"
+    trace.launches[mode if kind == "f32-8" else f"{kind} {mode}"] += 1
     return HitRecord(t=out_t, tri=out_tri, u=out_u, v=out_v)
 
 
 #: launches of the kernel by mode: "any-hit", "closest-hit", "filtered
-#: any-hit", "filtered closest-hit"
+#: any-hit", "filtered closest-hit" on f32 leaf-8 tables, and each mode
+#: after its kind on the others ("bf16-8 any-hit", "f32-12 closest-hit", ...)
 trace.launches = collections.Counter()
 
 
@@ -420,8 +462,8 @@ def trace_rows(bvhs, origin, direction, tmin, tmax, anyhit: bool,
     AO wavefront).  R must divide into the N shards: slab s holds pixels
     s*R/N to (s+1)*R/N, so whole rows when the image's height divides.
     Each slab's rays (its pixels from every block of `direction`) go to its
-    BVH8's device, where K2 traces them; each ray is computed as the whole
-    wavefront's trace computes it."""
+    BVH8's device, where K2 traces them (any of its kinds); each ray is
+    computed as the whole wavefront's trace computes it."""
     n = len(bvhs)
     r, k = origin.shape[0], rays_per_pixel
     if r % n:

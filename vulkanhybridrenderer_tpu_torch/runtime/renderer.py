@@ -152,11 +152,18 @@ class Renderer:
         return pfd
 
     def _get_bvh(self):
-        """BVH8 over the world triangles, built once (f32 rows, 8-triangle
-        leaves) and uploaded: the host SAH build and the native collapse
-        where the native build is available, else, as the reference's
-        (runtime/renderer.py:200-203), the LBVH built on the renderer's
-        device and collapsed in Python."""
+        """BVH8 over the world triangles, built once on the host and
+        uploaded: the host SAH build where the native build is available,
+        else, as the reference's (runtime/renderer.py:200-203), the LBVH
+        built on the renderer's device; collapsed into the table kind the
+        reference's rule picks (runtime/renderer.py:204-232) from
+        config.bvh_leaf_max and bvh_dtype.  With leaf_max 0 on a static
+        scene and a dtype other than "f32": bf16 leaf-8 rows when bvh_dtype
+        is "bf16" or when the f32 leaf-8 table is past
+        bvh8.TABLE_BUDGET_BYTES and the bf16 one is not; past it both, the
+        f32 leaf-12 rows where they are not, else the leaf-8 ones; else the
+        f32 leaf-8 rows.  leaf_max 0 otherwise: build_bvh8_auto.  A leaf_max
+        of 8 or 12: those rows, in bf16 where asked."""
         if self._bvh is None:
             from vulkanhybridrenderer_tpu_torch import native_bridge
             from vulkanhybridrenderer_tpu_torch.ops import bvh as bvh_ops
@@ -166,11 +173,29 @@ class Renderer:
             world = to_world(self.buffers, self.prim_transform)
             tris = bvh_ops.world_triangles(world.position, self.buffers.tri_vertex)
             if native_bridge.native_available():
-                b8 = bvh8_ops.build_bvh8_sah_host(tris.cpu().numpy())
+                binary = native_bridge.build_sah_host(tris.cpu().numpy())
             else:
-                b8 = bvh8_ops.build_bvh8_host(bvh_ops.build(tris, leaf_size=1),
-                                              tris.cpu().numpy())
-            self._bvh = b8.to(self.device)
+                binary = bvh_ops.build(tris, leaf_size=1)
+            tris = tris.cpu().numpy()
+            lm = self.config.bvh_leaf_max
+            dt = self.config.bvh_dtype
+            if lm == 0 and dt != "f32" and not self.config.animated:
+                b8 = bvh8_ops.build_bvh8_host(binary, tris, leaf_max=8)
+                budget = bvh8_ops.TABLE_BUDGET_BYTES
+                if dt == "bf16" or (b8.num_rows * 512 > budget and b8.num_rows * 256 <= budget):
+                    b = bvh8_ops.table_to_bf16(b8)
+                elif b8.num_rows * 512 > budget:
+                    b12 = bvh8_ops.build_bvh8_host(binary, tris, leaf_max=12)
+                    b = b12 if b12.num_rows * 512 <= budget else b8
+                else:
+                    b = b8
+            elif lm == 0:
+                b = bvh8_ops.build_bvh8_auto(binary, tris)
+            else:
+                b = bvh8_ops.build_bvh8_host(binary, tris, leaf_max=lm)
+                if dt == "bf16":
+                    b = bvh8_ops.table_to_bf16(b)
+            self._bvh = b.to(self.device)
         return self._bvh
 
     def _get_shadow_grid(self):
