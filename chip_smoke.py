@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --profile    # and a torch.profiler window of main paths 2-11
-    python3 chip_smoke.py --parent DIR # and K2 (f32 leaf-8), K3, K4, the toy and the
+    python3 chip_smoke.py --parent DIR # and K2 (each row kind), K3, K4, the toy and the
                                        # probe's thread-row, warp-row, lane and rows-acc
                                        # walks against DIR's (another checkout's)
                                        # kernels, in turns
@@ -13,8 +13,9 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 (no CUDA: fail)
   2. build    - nvcc builds csrc/raster_tile.cu (K1a, K1b, K1c, K1d),
                 csrc/bvh8_trace.cu (K2, four lanes a ray, with and without
-                the alpha filter, for each row kind: f32 rows with 8- or
-                12-triangle leaves, bf16 rows), csrc/shadow_grid.cu (K3, the shadow
+                the alpha filter, for each row kind: f32 rows with 8-triangle
+                leaves in place, with 12 or bf16 rows through their
+                lane-major copy, traverse.pack_rows), csrc/shadow_grid.cu (K3, the shadow
                 grid's trace: a block's live rays queued in shared memory,
                 its cells' lists staged there, the big tier first),
                 csrc/bvh_flat_trace.cu (K4,
@@ -90,11 +91,15 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 and AO rays, closest-hit on the reflection rays, and both
                 through the alpha filter (shadow, reflection), each with t,
                 tri, u and v equal to its plain version on every ray, its
-                bound (bytes at 256 a bf16 row, the operations
-                trace_plain(visits=True) counts plus the bf16 decode's) and
-                its time beside the f32 leaf-8 kernel's on the same rays;
-                with --parent, DIR's K2 on the f32 leaf-8 table, equal
-                outputs and timed in turns with this one.  Kernel and plain times by CUDA
+                bound (the bytes of the table it reads, the packed copy's:
+                256 a bf16 row, 512 an f32 one; the operations
+                trace_plain(visits=True) counts plus, on bf16 rows, the
+                centroid's add to each triangle's 9 coordinates) and its
+                time beside the f32 leaf-8 kernel's on the same rays; with
+                --parent, DIR's K2 of the same kind (on the reference's
+                table: the packed copy is this checkout's) and on the f32
+                leaf-8 table, equal outputs and timed in turns with this
+                one.  Kernel and plain times by CUDA
                 events, each kernel's bound (K2's from the rows and filter
                 evaluations trace_plain counts on the same rays, printed per
                 wavefront with the bound's share of the kernel's time and the
@@ -182,7 +187,8 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 no-native route: both renderers built with the port's
                 native_available() returning False, each BVH8 the LBVH of
                 its own device collapsed in Python, the two equal; the
-                full frame's gate).  The stages of the forward
+                full frame's gate) and path 8's on realglb's bf16 atlas
+                over 2 frames (the full frame's gate).  The stages of the forward
                 frame: clip-space vertices and triangle setups must agree on
                 every value
   6. main     - native_available() must be True (paths 1-11 are the SAH
@@ -215,7 +221,10 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   bvh_leaf_max=0), which must pick bf16 rows (the f32 and
                   bf16 table bytes printed): K1a, K1b, K1c, K2 bf16-8
                   any-hit and closest-hit, its breakdown, its ms/frame
-                  beside path 2's;
+                  beside path 2's; then the same on realglb loaded with
+                  atlas_dtype=torch.bfloat16 (its atlas bytes against the
+                  f32 atlas's, printed in phase 2b with its load seconds;
+                  its ms/frame beside path 8's);
                   9. path 4's configuration with raster="brute" on
                   cornell_box() (the 4096^2 brute prepass included): no hand
                   kernel launches; its visibility against the binned raster
@@ -363,13 +372,14 @@ FP32_LANES_PER_SM = 128  # Hopper: one non-FMA FP32 instruction per lane per clo
 K2_OPS_BOX, K2_OPS_TRI, K2_OPS_EMPTY, K2_OPS_FILTER = 26, 59, 1, 53
 #: K2's row kinds, in the order of csrc/bvh8_trace.cu's kKind (ops/traverse.KERNEL_KINDS)
 K2_KINDS = ("f32-8", "f32-12", "bf16-8")
-#: the bf16 decode's FP32 operations a visited row (csrc/bvh8_trace.cu,
-#: ops/traverse.decode_rows): the centroid c_hi + c_lo, 3 FADD, and its add to
-#: the planes the row's test reads, 48 of an internal row's, 72 of a leaf
-#: row's; an internal row's child base and offset map from their 8-bit
-#: pieces, 2 x (2 FMUL + 2 FADD); a leaf row's 8 triangle ids, 8 x (2 FMUL +
-#: 2 FADD).  The bf16 to f32 conversions are integer shifts.
-K2_OPS_DECODE_INTERNAL, K2_OPS_DECODE_LEAF = 3 + 48 + 8, 3 + 72 + 32
+#: the bf16 decode's FP32 operations a triangle (a non-empty slot of a
+#: visited leaf row) on the packed copy K2 reads (ops/traverse.pack_rows):
+#: its centroid c_hi + c_lo added to its 9 coordinates, as
+#: ops/traverse.decode_rows adds it.  The packing decodes the child base,
+#: offset map, triangle ids and the centroid's sum once per table; an
+#: internal row's planes need no operation (a bf16's f32 value is its bits
+#: shifted up, an integer operation).
+K2_OPS_DECODE_TRI = 9
 #: K3's FP32 operations per test, by the test at which its early-returning
 #: Moller-Trumbore (csrc/shadow_grid.cu row_hit) ends, from K2's 59: at det
 #: 21 (the edges 6, p 9, det 5, its compare 1), at u 33 (+ 1/det 1, tv 3,
@@ -673,10 +683,12 @@ def _bind(params, own_params, own_args, extra=None) -> list:
     return out
 
 
-def _k2_parent(other, b8, label, o, d, tmin, tmax, anyhit, tables) -> str:
-    """K2 on the f32 leaf-8 table b8 against another checkout's K2 (whose
-    launch function is bound by its prototype's parameter names): equal
-    outputs on every ray, and the two kernels alone timed in turns."""
+def _k2_parent(other, b, label, o, d, tmin, tmax, anyhit, tables) -> str:
+    """K2 on the BVH8 b (any kind) against another checkout's K2 of the same
+    kind (its launch function bound by its prototype's parameter names,
+    given b's reference rows, which it walks as its own sources say; this
+    checkout's launch gets traverse.kernel_table(b)): equal outputs on
+    every ray, and the two kernels alone timed in turns."""
     from vulkanhybridrenderer_tpu_torch.ops import traverse
     from vulkanhybridrenderer_tpu_torch.utils import build
 
@@ -689,18 +701,20 @@ def _k2_parent(other, b8, label, o, d, tmin, tmax, anyhit, tables) -> str:
                 for t in (torch.float32, torch.int32, torch.float32, torch.float32)]
 
     mine_out, other_out = outs(), outs()
-    head = [b8.rows.data_ptr(), o.data_ptr(), d.data_ptr(), tmin_a.data_ptr(), tmax.data_ptr(),
-            n, traverse.default_max_steps(b8), int(anyhit), b8.depth, 0,
+    head = [o.data_ptr(), d.data_ptr(), tmin_a.data_ptr(), tmax.data_ptr(),
+            n, traverse.default_max_steps(b), int(anyhit), b.depth, traverse.KERNEL_KINDS[b.kind],
             *traverse._table_args(tables)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = head + [x.data_ptr() for x in mine_out] + [stream]
+    args = ([traverse.kernel_table(b).data_ptr()] + head + [x.data_ptr() for x in mine_out]
+            + [stream])
     own_params = _c_params(build.CSRC_DIR / "bvh8_trace.cu", "bvh8_trace_launch")
     pfn, pparams = other
-    pargs = _bind(pparams, own_params, head + [x.data_ptr() for x in other_out] + [stream])
+    pargs = _bind(pparams, own_params,
+                  [b.rows.data_ptr()] + head + [x.data_ptr() for x in other_out] + [stream])
     _check(fn(*args) == 0 and pfn(*pargs) == 0, "a K2 launch against the other checkout failed")
-    same = all(torch.equal(a, b) for a, b in zip(mine_out, other_out))
-    _check(same, f"K2 f32-8 differs from the other checkout's on the {label} rays")
-    return _in_turns(f"K2 f32-8 ({'filtered ' * (tables is not None)}"
+    same = all(torch.equal(a, c) for a, c in zip(mine_out, other_out))
+    _check(same, f"K2 {b.kind} differs from the other checkout's on the {label} rays")
+    return _in_turns(f"K2 {b.kind} ({'filtered ' * (tables is not None)}"
                      f"{'any-hit' if anyhit else 'closest-hit'}), {label} rays: the other "
                      f"checkout's kernel alone against this one's, outputs equal",
                      lambda: pfn(*pargs), lambda: fn(*args), 10)
@@ -788,8 +802,9 @@ def main() -> int:
                                 "msaa_kernelILi2E": "K1d 2 samples",
                                 "msaa_kernelILi4E": "K1d 4 and 8 samples"})
                  + _ptxas_report(build_log("bvh8_trace.cu"), {
-                     f"ILi{k}ELb{a}ELb{f}E": _k2_name(kind, f"{'filtered ' * f}"
-                                                              f"{'any-hit' if a else 'closest-hit'}")
+                     (f"bvh8_trace_kernelILb{a}ELb{f}E" if k == 0
+                      else f"bvh8_trace_packedILi{k}ELb{a}ELb{f}E"):
+                     _k2_name(kind, f"{'filtered ' * f}{'any-hit' if a else 'closest-hit'}")
                      for k, kind in enumerate(K2_KINDS) for f in (0, 1) for a in (0, 1)})
                  + _ptxas_report(build_log("bvh_flat_trace.cu"), {
                      f"ILb{a}ELb{f}ELb{c}E": f"K4 {'filtered ' * f}"
@@ -929,7 +944,20 @@ def main() -> int:
     print(f"PNG round trip of a 1024x1024 RGBA image: encode {enc_s:.3f} s, decode "
           f"{dec_s:.3f} s, equal {np.array_equal(back, img)}")
     _check(np.array_equal(back, img), "the PNG round trip is not exact")
-    del host, world_tris, rg_bvh, img, back
+    # the same asset with the reference's atlas_dtype=bf16: half the atlas's
+    # bytes, every sampler reading it back as float32
+    t = time.perf_counter()
+    realglb16 = gltf.load_scene(app.REALGLB_PATH, atlas_dtype=torch.bfloat16)
+    load16_s = time.perf_counter() - t
+    a32, a16 = realglb.buffers.atlas.data, realglb16.buffers.atlas.data
+    atlas_bytes = (a32.nbytes, a16.numel() * a16.element_size())
+    print(f"realglb with atlas_dtype=torch.bfloat16: load_scene {load16_s:.3f} s, atlas "
+          f"{tuple(a16.shape)} {a16.dtype}: {atlas_bytes[1]} bytes against {atlas_bytes[0]} in "
+          f"float32")
+    _check(a16.dtype == torch.bfloat16 and atlas_bytes[1] * 2 == atlas_bytes[0]
+           and torch.equal(a16, torch.from_numpy(a32).to(torch.bfloat16)),
+           "the bf16 atlas is not the f32 atlas rounded to nearest, at half its bytes")
+    del host, world_tris, rg_bvh, img, back, a32, a16
     _phase("asset", t0)
 
     # ---- 2c. jpeg kinds: the JPEGs beyond Huffman DCT that the reference reads ----
@@ -1217,10 +1245,13 @@ def main() -> int:
         ops = (boxes * K2_OPS_BOX + tris * K2_OPS_TRI + empty * K2_OPS_EMPTY
                + evals * K2_OPS_FILTER)
         if kind == "bf16-8":
-            ops += internal * K2_OPS_DECODE_INTERNAL + leaf * K2_OPS_DECODE_LEAF
+            ops += tris * K2_OPS_DECODE_TRI
         # bytes: rays in (origin, direction, tmin, tmax), hits out, the table
-        # once (512 bytes a row in f32, 256 in bf16)
-        nbytes = n * (12 + 12 + 4 + 4) + n * 16 + bvh.table_bytes + extra_bytes
+        # the kernel reads once (the f32 leaf-8 rows, or the other kinds'
+        # packed copy: 512 bytes a row in f32, 256 in bf16)
+        table = traverse.kernel_table(bvh)
+        nbytes = (n * (12 + 12 + 4 + 4) + n * 16 + table.numel() * table.element_size()
+                  + extra_bytes)
         b_ms, b_by = bound(ops, nbytes)
         live = int((tmax >= tmin_a).sum())
         rows_live[label] = (internal + leaf) / max(live, 1)
@@ -1276,9 +1307,12 @@ def main() -> int:
                                                         anyhit=anyhit, alpha_tables=tabs), 10)
                 print(f"K2 {kind} against f32-8 on the {label} {w} rays: {entry['ms']:.4f} ms "
                       f"against {f8_ms:.4f} ms (ratio {entry['ms'] / f8_ms:.3f})")
-                if other_k2 is not None and kind == "bf16-8":
-                    print(_k2_parent(other_k2, b8, f"{label} {w}", o, d, raygen.SHADOW_TMIN,
+                if other_k2 is not None:
+                    print(_k2_parent(other_k2, b, f"{label} {w}", o, d, raygen.SHADOW_TMIN,
                                      tmax, anyhit, tabs))
+                    if kind == "bf16-8":  # the f32 leaf-8 kernel on the same rays
+                        print(_k2_parent(other_k2, b8, f"{label} {w}", o, d,
+                                         raygen.SHADOW_TMIN, tmax, anyhit, tabs))
                 if record and w != "shadow":
                     mode = ("filtered " if tabs is not None else "") + (
                         "any-hit" if anyhit else "closest-hit")
@@ -1525,10 +1559,13 @@ def main() -> int:
              RenderConfig(width=320, height=180, animated=True, shadow_accel="grid", hybrid=full),
              3, GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False),
             ("path 12, realglb full through the device LBVH", "hybrid", small_full, 3,
-             GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False)):
+             GPU_CPU_FULL_TOL, GPU_CPU_FULL_SHARE, False),
+            ("path 8 on a bf16 atlas", "hybrid", small_full, 2, GPU_CPU_FULL_TOL,
+             GPU_CPU_FULL_SHARE, False)):
         frame_scene = {"realglb full": realglb, "path 9, brute raster-mode hybrid": cornell,
                        "path 11, animated pica": pica,
-                       "path 12, realglb full through the device LBVH": realglb}.get(name, scene)
+                       "path 12, realglb full through the device LBVH": realglb,
+                       "path 8 on a bf16 atlas": realglb16}.get(name, scene)
         route = name.startswith("path 12")
         with _no_native(native_bridge) if route else contextlib.nullcontext():
             gr = Renderer(frame_scene, small_cfg, path=path, device=dev)
@@ -1743,6 +1780,19 @@ def main() -> int:
     _breakdown(r, full)
     if profile:
         _profile(r, "realglb full")
+    del r
+
+    # path 8 on the bf16 atlas (load_scene(atlas_dtype=torch.bfloat16)): the
+    # same kernels, the samplers and the alpha filter reading the bf16
+    # atlas through float32 tables
+    r = Renderer(realglb16, full_cfg, device=dev)
+    ms_frame, launches8a = drive(r)
+    for name in ("K1a", "K1b", "K1c", "K2 bf16-8 any-hit", "K2 bf16-8 closest-hit"):
+        _check(launches8a[name] >= 10,
+               f"{name} launched {launches8a[name]} times in the bf16-atlas frame's 10 frames")
+    print(f"main path 8 on a bf16 atlas ({r.buffers.atlas.data.dtype}, {atlas_bytes[1]} bytes "
+          f"against {atlas_bytes[0]} in float32): {ms_frame:.3f} ms/frame over 10 frames, "
+          f"path 8 {ms_flagship:.3f} | launches {launches8a}")
     del r
 
     # main path 9: cell 4's configuration (rasterized shadows + SSAO, alpha

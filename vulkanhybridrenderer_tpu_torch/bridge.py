@@ -8,6 +8,7 @@ arrays.  Nothing in this module imports JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Mapping
 
 import numpy as np
@@ -41,9 +42,16 @@ def scene_from_numpy(name: str, buffers: Mapping[str, Any],
                      camera: Mapping[str, Any], light: Mapping[str, Any]) -> Scene:
     """buffers: the SceneBuffers fields by name, with "materials" and "atlas"
     as nested mappings of their fields; camera: Camera fields; light:
-    DirectionalLight fields.  Returns the port's host Scene."""
+    DirectionalLight fields.  A bf16 atlas (the reference's
+    atlas_dtype=jnp.bfloat16) comes as its uint16 bit patterns (``.view(
+    np.uint16)``) or as a numpy bfloat16 array, and stays bf16: a bfloat16
+    tensor, as build_atlas(dtype=torch.bfloat16) makes it.  Returns the
+    port's host Scene."""
     materials = _arrays(MaterialsSoA, buffers["materials"])
     atlas = _arrays(TextureAtlas, buffers["atlas"])
+    if atlas.data.dtype == np.uint16 or atlas.data.dtype.name == "bfloat16":
+        bits = np.array(atlas.data).view(np.uint16)  # a writable copy
+        atlas = dataclasses.replace(atlas, data=torch.from_numpy(bits).view(torch.bfloat16))
     sb = _arrays(SceneBuffers, buffers, materials=materials, atlas=atlas)
     cam = Camera(**{
         k: (np.asarray(v, np.float32) if k == "position" else float(v))

@@ -91,7 +91,7 @@ class TextureAtlas(_Movable):
     """All scene textures packed into one (4, AH, AW) array; texture t's texel
     = uv_offset[t] + wrap(uv) * uv_scale[t] (in texels)."""
 
-    data: Any  # (4, AH, AW) float32, linear color
+    data: Any  # (4, AH, AW) linear color, float32 or bfloat16 (read back as float32)
     uv_offset: Any  # (N, 2) f32
     uv_scale: Any  # (N, 2) f32
 
@@ -158,12 +158,14 @@ class TemporalState(_Movable):
     prev_normal_oid: Any  # (4, H, W) previous frame's world normals + object id
 
 
-def make_temporal_state(height: int, width: int, device="cpu") -> TemporalState:
-    """Empty history: zeros, and object id / normals -1 (matches nothing)."""
+def make_temporal_state(height: int, width: int, dtype=torch.float32,
+                        device="cpu") -> TemporalState:
+    """Empty history of `dtype` (the reference's signature): zeros, and
+    object id / normals -1 (matches nothing)."""
     return TemporalState(
-        shadow_ao_history=torch.zeros((2, height, width), device=device),
-        moments_history=torch.zeros((4, height, width), device=device),
-        prev_normal_oid=torch.full((4, height, width), -1.0, device=device),
+        shadow_ao_history=torch.zeros((2, height, width), dtype=dtype, device=device),
+        moments_history=torch.zeros((4, height, width), dtype=dtype, device=device),
+        prev_normal_oid=torch.full((4, height, width), -1.0, dtype=dtype, device=device),
     )
 
 

@@ -33,15 +33,17 @@
 // (~10 MB for the 108k-triangle benchmark scene) stays in the 50 MB L2, and
 // the bytes a launch must move (rays in, hits out, the table once) take
 // 0.03-0.06 ms at 3.35 TB/s.  The least work is the walk's FP32 operations,
-// which depend on the rays: 208 per internal row (8 slots x 26: 6 FADD + 6
-// FMUL of the slab planes, 10 min / max, the interval's 2 min / max and 2
-// compares), 472 per leaf row (8 slots x 59 of Moller-Trumbore) and 53 per
-// filter evaluation; chip_smoke.py prices each launch from the rows
-// trace_plain(visits=True) counts.  What holds the kernel far above that is
-// the instructions around those operations (loads, shuffles, the stack, the
-// branch each row kind takes) and lanes that idle: a warp walks until the
-// longest of its rays ends, and runs the leaf code for every ray whenever
-// one of them stands on a leaf.
+// which depend on the rays, priced per slot of a visited row: 26 a box (an
+// internal row's non-empty slot: 6 FADD + 6 FMUL of the slab planes, 10 min
+// / max, the interval's 2 min / max and 2 compares), 59 a triangle (a leaf
+// row's non-empty slot: Moller-Trumbore), 1 an empty slot (the compare that
+// rejects it), 53 a filter evaluation, and on bf16 rows the decode the
+// kernel still does (below: 9 a triangle); chip_smoke.py prices each launch
+// from the rows and slots trace_plain(visits=True) counts.  What holds the
+// kernel far above that is the instructions around those operations (loads,
+// shuffles, the stack, the branch each row kind takes) and lanes that idle:
+// a warp walks until the longest of its rays ends, and runs the leaf code
+// for every ray whenever one of them stands on a leaf.
 //
 // The design: four lanes a ray, eight rays a warp.  The table is slot-major
 // in SoA planes of 8 floats, and lane s holds two adjacent slots of every
@@ -73,22 +75,47 @@
 // row kind is known.
 //
 // Row kinds (kKind; ops/bvh8.py, the reference's three tables).  kF32x8,
-// the (N, 128) f32 table with 8-triangle leaves: the code above.  kF32x12,
-// f32 rows whose leaves hold 12 triangles: internal rows as kF32x8's, leaf
-// rows with 9 coordinate planes of 12 at [0:108) and the ids at [108:120); a
-// step loads planes 0..6 and the flag as kF32x8 does, and only where a ray
-// stands on a leaf row does each lane load its three leaf slots 3s..3s+2 of
-// the ten planes (scalar loads: a second round trip on leaf steps).  kBf16x8,
-// table_to_bf16's (N, 128) bf16 rows, 256 bytes, walked in place: lane s
-// loads its two slots of the 12 planes [0:96) (one 4-byte load a plane, 8
-// slots of a plane being 16 bytes), the centroid [96:104) (16 bytes, the
-// same for the group) and the flag [127], and decodes in registers as
-// ops/traverse.decode_rows does: bf16 to f32 exactly (the bits shifted up),
-// the centroid c_hi + c_lo added to planes 0..8 (a zero centroid on
-// internal rows), the first child row and offset map as lo + mid * 256 +
-// hi * 65536 of the 8-bit pieces at [48:51) and [51:54) (slots 0..5 of plane
-// 6: the lanes of chunks 0, 1 and 2, by shuffles), a slot's triangle id as
-// that of planes 9..11 minus 1.  No f32 copy of the table exists.
+// the (N, 128) f32 table with 8-triangle leaves: bvh8_trace_kernel, the
+// code above, walking the table in place.  kF32x12 (f32 rows whose leaves
+// hold 12 triangles) and kBf16x8 (table_to_bf16's 256-byte bf16 rows):
+// bvh8_trace_packed, over the lane-major copy ops/traverse.pack_rows makes
+// once per table on its device, at the table's bytes (BVH8.rows stays the
+// reference's).  Walked in place, these tables would spend a step's time on
+// what their layout asks: for bf16 rows 14 loads a lane (a plane each, the
+// centroid, the flag), a decode of every row whatever its kind (24
+// unpacks, 18 centroid adds) and six shuffles to gather the child base's
+// and offset map's 8-bit pieces; for leaf-12 rows 30 scalar loads a lane
+// on every leaf step, after the flag.  A packed row is four
+// regions, one a lane's chunk c, interleaved by 16 bytes (granule v of
+// region c is the row's 4v + c: the group's v-th loads read 64 contiguous
+// bytes), each holding every word its lane reads:
+//   internal rows (both kinds): the slab planes of slots 2c, 2c + 1 in f32
+//     (w[2k + j]; a bf16 row's values widened, exactly: an internal step
+//     decodes nothing), w12 the first child row, w13 the offset map;
+//   bf16 leaf rows (16 words, 64 B): w0..w8 the bf16 pairs of the vertex
+//     planes at slots 2c, 2c + 1 as the row holds them, w9, w10 their
+//     triangle ids, w11..w13 the centroid c_hi + c_lo summed in f32;
+//   leaf-12 rows (32 words, 128 B): the vertex planes of slots c + 4j at
+//     word 9j + k and their ids at 27 + j, skipping w15;
+//   w15 the flag.
+// A bf16 step issues its region's 4 loads of 16 bytes before any use: one
+// round trip.  A leaf-12 step issues the first 4 (an internal row's words
+// and the flag) and, where a ray of the warp stands on a leaf, the other 4
+// in the leaf code; slots 8..11 (a lane's third) are tested only where a
+// ray of the warp has a triangle there.  The decode left is what the
+// reference's arithmetic asks of a bf16 leaf: each vertex coordinate,
+// exact in f32 from its bf16 bits (a shift or a mask), plus its centroid
+// (decode_rows' FADD).  Every lane reads the child base and offset map from
+// its own region: no shuffle.  The slab tests, Moller-Trumbore, the
+// group's reductions, the warp-uniform control and the shared-memory stack
+// are bvh8_trace_kernel's.  Development runs on realglb's and
+// SponzaProxy's wavefronts held other designs against this one in turns
+// (PERF.md §6): regions one after another (a load of the group touching
+// four 128-byte lines), each step loading half a region where the parent
+// row's per-slot leaf bits said the next row was internal (slower for both
+// kinds), a leaf-12 region loaded whole in one round trip (slower than the
+// split), 64 or 72 registers forced by __launch_bounds__ (slower for bf16,
+// mixed for leaf-12), and leaf-12 slots without the vote (slower).
 //
 // Built with --fmad=false so every product rounds like the plain PyTorch
 // version and hit / miss decisions on triangle edges agree.
@@ -106,14 +133,54 @@ constexpr int kSpl = 2;  // adjacent slots per lane: one 8-byte load a plane
 constexpr int kThreads = 128;  // threads per block: 32 rays
 // row kinds: f32 rows with 8-triangle leaves, with 12, bf16 rows with 8
 constexpr int kF32x8 = 0, kF32x12 = 1, kBf16x8 = 2;
+constexpr unsigned kFull = 0xffffffffu;
 
 // a bf16's f32 value: its bits in the high half
 __device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
 __device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
 
-template <int kKind, bool kAnyHit, bool kFilter>
+// Moller-Trumbore of one slot in the reference's operation order; ok: the
+// geometric hit before the t and id tests.  Only a leaf row divides by its
+// det: an internal row's planes (3e38 in empty slots) would take the
+// division's slow path.
+__device__ __forceinline__ void slot_mt(const float (&lv)[9], float ox, float oy, float oz,
+                                        float dx, float dy, float dz, bool leaf, float& t,
+                                        float& u, float& v, bool& ok) {
+    const float v0x = lv[0], v0y = lv[1], v0z = lv[2];
+    const float e1x = lv[3] - v0x, e1y = lv[4] - v0y, e1z = lv[5] - v0z;
+    const float e2x = lv[6] - v0x, e2y = lv[7] - v0y, e2z = lv[8] - v0z;
+    const float px = dy * e2z - dz * e2y;
+    const float py = dz * e2x - dx * e2z;
+    const float pz = dx * e2y - dy * e2x;
+    const float det = e1x * px + e1y * py + e1z * pz;
+    const bool okd = fabsf(det) > 1e-9f;
+    const float invdet = 1.0f / ((okd && leaf) ? det : 1.0f);
+    const float tvx = ox - v0x, tvy = oy - v0y, tvz = oz - v0z;
+    u = (tvx * px + tvy * py + tvz * pz) * invdet;
+    const float qx = tvy * e1z - tvz * e1y;
+    const float qy = tvz * e1x - tvx * e1z;
+    const float qz = tvx * e1y - tvy * e1x;
+    v = (dx * qx + dy * qy + dz * qz) * invdet;
+    t = (e2x * qx + e2y * qy + e2z * qz) * invdet;
+    ok = okd && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+// one slot's slab test in the reference's operation order
+__device__ __forceinline__ bool slot_slab(float lox, float loy, float loz, float hix,
+                                          float hiy, float hiz, float ox, float oy, float oz,
+                                          float ix, float iy, float iz, float tmin,
+                                          float t_best) {
+    const float t0x = (lox - ox) * ix, t1x = (hix - ox) * ix;
+    const float t0y = (loy - oy) * iy, t1y = (hiy - oy) * iy;
+    const float t0z = (loz - oz) * iz, t1z = (hiz - oz) * iz;
+    const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    return (fmaxf(tn, tmin) <= fminf(tf, t_best)) && (lox <= hix);
+}
+
+template <bool kAnyHit, bool kFilter>
 __global__ void __launch_bounds__(kThreads)
-bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
+bvh8_trace_kernel(AlphaTables at, const float* __restrict__ rows,
                   const float* __restrict__ origin,
                   const float* __restrict__ direction,
                   const float* __restrict__ tmin_a,
@@ -121,7 +188,6 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
                   int depth, float* __restrict__ out_t,
                   int32_t* __restrict__ out_tri, float* __restrict__ out_u,
                   float* __restrict__ out_v) {
-    constexpr unsigned kFull = 0xffffffffu;
     extern __shared__ int2 stacks[];  // (32 rays, depth) of (a, b) entries
     const int s = threadIdx.x & (kGroup - 1);
     const long long r = ((long long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
@@ -156,11 +222,8 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
     const int jflip = oct & 1;
     const int base_lane = oct >> 1;
 
-    // the planes a step loads at this lane's chunk: kF32x8 [0:80), kF32x12
-    // the internal layout's [0:56), kBf16x8 [0:96)
-    constexpr int kPlanes = kKind == kF32x8 ? 10 : kKind == kF32x12 ? 7 : 12;
-    const float* rows = static_cast<const float*>(table);
-    const unsigned short* rows16 = static_cast<const unsigned short*>(table);
+    // the planes a step loads at this lane's chunk, [0:80)
+    constexpr int kPlanes = 10;
     int node = (have_ray && !(t_best < tmin)) ? 0 : -1;  // root row, or done
     int sp = 0;
     for (int step = 0;; ++step) {
@@ -170,36 +233,13 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
         // slots, and the leaf flag.  A ray that has ended reads row 0.
         const float* row = rows + (size_t)(live ? node : 0) * 128;
         float p[kPlanes][kSpl];
-        float flag;
-        if constexpr (kKind == kBf16x8) {
-            const unsigned short* row16 = rows16 + (size_t)(live ? node : 0) * 128;
-            unsigned w[kPlanes];
 #pragma unroll
-            for (int k = 0; k < kPlanes; ++k)
-                w[k] = __ldg(reinterpret_cast<const unsigned*>(row16 + 8 * k) + chunk);
-            const uint4 c = __ldg(reinterpret_cast<const uint4*>(row16 + 96));
-            flag = bf16_lo(__ldg(row16 + 127));
-            // centroid c_hi + c_lo: [96] + [99], [97] + [100], [98] + [101]
-            const float cen[3] = {bf16_lo(c.x) + bf16_hi(c.y), bf16_hi(c.x) + bf16_lo(c.z),
-                                  bf16_lo(c.y) + bf16_hi(c.z)};
-#pragma unroll
-            for (int k = 0; k < kPlanes; ++k) {
-                p[k][0] = bf16_lo(w[k]);
-                p[k][1] = bf16_hi(w[k]);
-                if (k < 9) {
-                    p[k][0] = p[k][0] + cen[k % 3];
-                    p[k][1] = p[k][1] + cen[k % 3];
-                }
-            }
-        } else {
-#pragma unroll
-            for (int k = 0; k < kPlanes; ++k) {
-                const float2 v = __ldg(reinterpret_cast<const float2*>(row + 8 * k) + chunk);
-                p[k][0] = v.x;
-                p[k][1] = v.y;
-            }
-            flag = __ldg(row + 127);
+        for (int k = 0; k < kPlanes; ++k) {
+            const float2 v = __ldg(reinterpret_cast<const float2*>(row + 8 * k) + chunk);
+            p[k][0] = v.x;
+            p[k][1] = v.y;
         }
+        const float flag = __ldg(row + 127);
         const bool leaf = live && flag > 0.5f;
         const bool internal = live && !(flag > 0.5f);
         bool next = false;  // the ray has its next row (a child), or is done
@@ -222,22 +262,8 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
 #pragma unroll
             for (int off = 1; off < kGroup; off *= 2)
                 mask |= __shfl_xor_sync(kFull, mask, off, kGroup);
-            int base, offmap;
-            if constexpr (kKind == kBf16x8) {
-                // 8-bit pieces at slots 0..5 of plane 6: chunks 0, 1, 2
-                const int l1 = base_lane ^ 1, l2 = base_lane ^ 2;
-                const float b0 = __shfl_sync(kFull, p[6][0], base_lane, kGroup);
-                const float b1 = __shfl_sync(kFull, p[6][1], base_lane, kGroup);
-                const float b2 = __shfl_sync(kFull, p[6][0], l1, kGroup);
-                const float o0 = __shfl_sync(kFull, p[6][1], l1, kGroup);
-                const float o1 = __shfl_sync(kFull, p[6][0], l2, kGroup);
-                const float o2 = __shfl_sync(kFull, p[6][1], l2, kGroup);
-                base = (int)(b0 + b1 * 256.0f + b2 * 65536.0f);
-                offmap = (int)(o0 + o1 * 256.0f + o2 * 65536.0f);
-            } else {
-                base = (int)__shfl_sync(kFull, p[6][0], base_lane, kGroup);
-                offmap = (int)__shfl_sync(kFull, p[6][1], base_lane, kGroup);
-            }
+            const int base = (int)__shfl_sync(kFull, p[6][0], base_lane, kGroup);
+            const int offmap = (int)__shfl_sync(kFull, p[6][1], base_lane, kGroup);
             if (internal && mask != 0) {
                 const int k = __ffs(mask) - 1;  // the next child's visit position
                 const int slot = k ^ oct;
@@ -253,39 +279,16 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
         if (__any_sync(kFull, leaf)) {
             // leaf row: Moller-Trumbore of this lane's slots against the
             // pre-leaf t_best; the lane's first minimum
-            constexpr int kLeafSpl = kKind == kF32x12 ? 3 : kSpl;  // slots a lane
-            constexpr int kNoSlot = kGroup * kLeafSpl;  // the row's slots
-            float lv[9][kLeafSpl];
-            int32_t lt[kLeafSpl];
-            if constexpr (kKind == kF32x12) {
-                // slots 3s..3s+2 of the 12-lane planes [0:108) and ids [108:120)
-                const float* lr = row + kLeafSpl * s;
-#pragma unroll
-                for (int j = 0; j < kLeafSpl; ++j) {
-#pragma unroll
-                    for (int k = 0; k < 9; ++k) lv[k][j] = __ldg(lr + 12 * k + j);
-                    lt[j] = (int32_t)__ldg(lr + 108 + j);
-                }
-            } else {
-#pragma unroll
-                for (int j = 0; j < kLeafSpl; ++j) {
-#pragma unroll
-                    for (int k = 0; k < 9; ++k) lv[k][j] = p[k][j];
-                    if constexpr (kKind == kBf16x8)
-                        lt[j] = (int32_t)(p[9][j] + p[10][j] * 256.0f + p[11][j] * 65536.0f) - 1;
-                    else
-                        lt[j] = (int32_t)p[9][j];
-                }
-            }
+            constexpr int kNoSlot = kGroup * kSpl;  // the row's slots
             float tl = __int_as_float(0x7f800000), ul = 0.0f, vl = 0.0f;
             int slot_l = kNoSlot;  // no candidate
             int32_t tri_l = -1;
 #pragma unroll
-            for (int j = 0; j < kLeafSpl; ++j) {
-                const int32_t tri = lt[j];
-                const float v0x = lv[0][j], v0y = lv[1][j], v0z = lv[2][j];
-                const float e1x = lv[3][j] - v0x, e1y = lv[4][j] - v0y, e1z = lv[5][j] - v0z;
-                const float e2x = lv[6][j] - v0x, e2y = lv[7][j] - v0y, e2z = lv[8][j] - v0z;
+            for (int j = 0; j < kSpl; ++j) {
+                const int32_t tri = (int32_t)p[9][j];
+                const float v0x = p[0][j], v0y = p[1][j], v0z = p[2][j];
+                const float e1x = p[3][j] - v0x, e1y = p[4][j] - v0y, e1z = p[5][j] - v0z;
+                const float e2x = p[6][j] - v0x, e2y = p[7][j] - v0y, e2z = p[8][j] - v0z;
                 const float px = dy * e2z - dz * e2y;
                 const float py = dz * e2x - dx * e2z;
                 const float pz = dx * e2y - dy * e2x;
@@ -309,7 +312,7 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
                     ul = u;
                     vl = v;
                     tri_l = tri;
-                    slot_l = (kKind == kF32x12 ? s : chunk) * kLeafSpl + j;
+                    slot_l = chunk * kSpl + j;
                 }
             }
             if (__any_sync(kFull, slot_l < kNoSlot)) {
@@ -371,6 +374,249 @@ bvh8_trace_kernel(AlphaTables at, const void* __restrict__ table,
     }
 }
 
+// the packed regions' words (ops/traverse.pack_rows; the note above)
+template <int kKind>
+struct Packed {
+    static constexpr int kWords = kKind == kBf16x8 ? 16 : 32;  // a region
+    static constexpr int kVec = kWords / 4;  // 16-byte loads of a leaf row
+    // 16-byte loads a step issues before its flag is known: all of a bf16
+    // region; the first half of a leaf-12 one (an internal row's words and
+    // the flag), its second half only where a ray stands on a leaf
+    static constexpr int kStepVec = kKind == kF32x12 ? 4 : kVec;
+    static constexpr int kFlag = 15;
+    static constexpr int kBase = 12;  // first child row
+    static constexpr int kOffmap = 13;  // offset map
+    static constexpr int kLeafSpl = kKind == kBf16x8 ? 2 : 3;  // leaf slots a lane
+    // region c's leaf slot j: 2c + j in bf16 rows, c + 4j in leaf-12 rows
+    static __device__ __forceinline__ constexpr int leaf_slot(int c, int j) {
+        return kKind == kBf16x8 ? 2 * c + j : c + kGroup * j;
+    }
+    static constexpr int kCen = 11;  // bf16: the centroid, 3 words
+    // a leaf-12 region's logical word i (planes 9j + k, ids 27 + j) skips w15
+    static __device__ __forceinline__ constexpr int leaf(int i) { return i < kFlag ? i : i + 1; }
+};
+
+template <int kKind, bool kAnyHit, bool kFilter>
+__global__ void __launch_bounds__(kThreads)
+bvh8_trace_packed(AlphaTables at, const uint4* __restrict__ packed,
+                  const float* __restrict__ origin,
+                  const float* __restrict__ direction,
+                  const float* __restrict__ tmin_a,
+                  const float* __restrict__ tmax_a, int n_rays, int max_steps,
+                  int depth, float* __restrict__ out_t,
+                  int32_t* __restrict__ out_tri, float* __restrict__ out_u,
+                  float* __restrict__ out_v) {
+    using P = Packed<kKind>;
+    extern __shared__ int2 stacks[];  // (32 rays, depth) of (a, b) entries
+    const int s = threadIdx.x & (kGroup - 1);
+    const long long r = ((long long)blockIdx.x * kThreads + threadIdx.x) / kGroup;
+    const bool have_ray = r < n_rays;
+    int2* stack = stacks + (threadIdx.x / kGroup) * depth;
+
+    float ox = 0.0f, oy = 0.0f, oz = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f;
+    float tmin = 0.0f, t_best = -1.0f;
+    if (have_ray) {
+        ox = origin[3 * r];
+        oy = origin[3 * r + 1];
+        oz = origin[3 * r + 2];
+        dx = direction[3 * r];
+        dy = direction[3 * r + 1];
+        dz = direction[3 * r + 2];
+        tmin = tmin_a[r];
+        t_best = tmax_a[r];
+    }
+    int32_t tri_best = -1;
+    float u_best = 0.0f, v_best = 0.0f;
+    const float sdx = fabsf(dx) < 1e-12f ? (dx >= 0.0f ? 1e-12f : -1e-12f) : dx;
+    const float sdy = fabsf(dy) < 1e-12f ? (dy >= 0.0f ? 1e-12f : -1e-12f) : dy;
+    const float sdz = fabsf(dz) < 1e-12f ? (dz >= 0.0f ? 1e-12f : -1e-12f) : dz;
+    const float ix = 1.0f / sdx, iy = 1.0f / sdy, iz = 1.0f / sdz;
+    const int oct = ((dx < 0.0f) << 2) | ((dy < 0.0f) << 1) | (dz < 0.0f);
+    // lane s reads region c = s ^ (oct >> 1): an internal row's slots 2c and
+    // 2c + 1, visited at positions 2s + (j ^ (oct & 1)), as bvh8_trace_kernel
+    const int chunk = s ^ (oct >> 1);
+    const int jflip = oct & 1;
+
+    int node = (have_ray && !(t_best < tmin)) ? 0 : -1;  // root row, or done
+    int sp = 0;
+    for (int step = 0;; ++step) {
+        const bool live = node >= 0 && step < max_steps;
+        if (!__any_sync(kFull, live)) break;
+        // every load of the step before any use: the lane's region of the
+        // row, whose 16-byte granule v is the row's (4v + c)-th, so that a
+        // load v of the group's four lanes reads 64 contiguous bytes.  A
+        // ray that has ended reads row 0.
+        const uint4* reg = packed + (size_t)(live ? node : 0) * (kGroup * P::kVec) + chunk;
+        unsigned w[P::kWords];
+#pragma unroll
+        for (int v = 0; v < P::kStepVec; ++v) {
+            const uint4 q = __ldg(reg + kGroup * v);
+            w[4 * v] = q.x;
+            w[4 * v + 1] = q.y;
+            w[4 * v + 2] = q.z;
+            w[4 * v + 3] = q.w;
+        }
+        const bool leaf = live && w[P::kFlag] != 0u;
+        const bool internal = live && w[P::kFlag] == 0u;
+        bool next = false;  // the ray has its next row (a child), or is done
+        if (__any_sync(kFull, internal)) {
+            // internal row: the slab tests of this lane's slots
+            int mask = 0;
+#pragma unroll
+            for (int j = 0; j < kSpl; ++j) {
+                float pl[6];
+#pragma unroll
+                for (int k = 0; k < 6; ++k) pl[k] = __uint_as_float(w[2 * k + j]);
+                const bool hit = slot_slab(pl[0], pl[1], pl[2], pl[3], pl[4], pl[5], ox, oy,
+                                           oz, ix, iy, iz, tmin, t_best);
+                mask |= (int)hit << (kSpl * s + (j ^ jflip));
+            }
+#pragma unroll
+            for (int off = 1; off < kGroup; off *= 2)
+                mask |= __shfl_xor_sync(kFull, mask, off, kGroup);
+            if (internal && mask != 0) {
+                const int base = (int)w[P::kBase];
+                const int offmap = (int)w[P::kOffmap];
+                const int k = __ffs(mask) - 1;  // the next child's visit position
+                const int slot = k ^ oct;
+                const int remaining = mask & ~(1 << k);
+                if (remaining != 0) {
+                    stack[sp] = make_int2(base * 256 + remaining, offmap);
+                    ++sp;
+                }
+                node = base + ((offmap >> (3 * slot)) & 7);
+                next = true;
+            }
+        }
+        if (__any_sync(kFull, leaf)) {
+            // leaf row: Moller-Trumbore of this lane's slots against the
+            // pre-leaf t_best; the lane's first minimum
+            constexpr int kNoSlot = kGroup * P::kLeafSpl;  // the row's slots
+            // a leaf-12 region's second half (every lane: the warp runs
+            // this code when any of its rays stands on a leaf)
+#pragma unroll
+            for (int v = P::kStepVec; v < P::kVec; ++v) {
+                const uint4 q = __ldg(reg + kGroup * v);
+                w[4 * v] = q.x;
+                w[4 * v + 1] = q.y;
+                w[4 * v + 2] = q.z;
+                w[4 * v + 3] = q.w;
+            }
+            float tl = __int_as_float(0x7f800000), ul = 0.0f, vl = 0.0f;
+            int slot_l = kNoSlot;  // no candidate
+            int32_t tri_l = -1;
+#pragma unroll
+            for (int j = 0; j < P::kLeafSpl; ++j) {
+                float lv[9];
+                int32_t tri;
+                if constexpr (kKind == kBf16x8) {
+                    // the decode_rows order: the bf16 value, then + (c_hi + c_lo)
+                    const float cen[3] = {__uint_as_float(w[P::kCen]),
+                                          __uint_as_float(w[P::kCen + 1]),
+                                          __uint_as_float(w[P::kCen + 2])};
+#pragma unroll
+                    for (int k = 0; k < 9; ++k)
+                        lv[k] = (j == 0 ? bf16_lo(w[k]) : bf16_hi(w[k])) + cen[k % 3];
+                    tri = (int32_t)w[9 + j];
+                } else {
+                    tri = (int32_t)w[P::leaf(27 + j)];
+                    // slots 8..11: tested where a ray of the warp has a
+                    // triangle there
+                    if (j == 2 && !__any_sync(kFull, leaf && tri >= 0)) continue;
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) lv[k] = __uint_as_float(w[P::leaf(9 * j + k)]);
+                }
+                float t, u, v;
+                bool ok;
+                slot_mt(lv, ox, oy, oz, dx, dy, dz, leaf, t, u, v, ok);
+                ok = leaf && ok && tri >= 0 && t >= tmin && t < t_best;
+                if (kFilter && ok) ok = alpha_accept(at, tri, u, v);
+                if (ok && t < tl) {  // slots ascend with j: the first minimum
+                    tl = t;
+                    ul = u;
+                    vl = v;
+                    tri_l = tri;
+                    slot_l = P::leaf_slot(chunk, j);
+                }
+            }
+            if (__any_sync(kFull, slot_l < kNoSlot)) {
+                // the group's lexicographic minimum of (t, slot)
+#pragma unroll
+                for (int off = 1; off < kGroup; off *= 2) {
+                    const float ot = __shfl_xor_sync(kFull, tl, off, kGroup);
+                    const int os = __shfl_xor_sync(kFull, slot_l, off, kGroup);
+                    const float ou = __shfl_xor_sync(kFull, ul, off, kGroup);
+                    const float ov = __shfl_xor_sync(kFull, vl, off, kGroup);
+                    const int otri = __shfl_xor_sync(kFull, tri_l, off, kGroup);
+                    if (ot < tl || (ot == tl && os < slot_l)) {
+                        tl = ot;
+                        slot_l = os;
+                        ul = ou;
+                        vl = ov;
+                        tri_l = otri;
+                    }
+                }
+                if (slot_l < kNoSlot) {
+                    t_best = tl;
+                    tri_best = tri_l;
+                    u_best = ul;
+                    v_best = vl;
+                    if (kAnyHit) {  // terminate on the first accepted hit
+                        node = -1;
+                        next = true;
+                    }
+                }
+            }
+        }
+        // leaf, or internal row with no box hit: pop the next sibling, as
+        // bvh8_trace_kernel
+        const bool pop = live && !next;
+        const int2 top = stack[sp > 0 ? sp - 1 : 0];
+        __syncwarp(kFull);
+        if (pop) {
+            if (sp == 0) {
+                node = -1;
+            } else {
+                const int k = __ffs(top.x & 255) - 1;
+                const int pslot = k ^ oct;
+                const int prem = (top.x & 255) & ~(1 << k);
+                node = (top.x >> 8) + ((top.y >> (3 * pslot)) & 7);
+                if (prem == 0) {
+                    --sp;
+                } else {
+                    stack[sp - 1].x = (top.x & ~255) | prem;
+                }
+            }
+        }
+    }
+    if (have_ray && s == 0) {
+        out_t[r] = t_best;
+        out_tri[r] = tri_best;
+        out_u[r] = u_best;
+        out_v[r] = v_best;
+    }
+}
+
+// one launch of the kind's kernel in one mode
+template <bool kAnyHit, bool kFilter>
+void launch_mode(int kind, int blocks, size_t smem, cudaStream_t stream, const AlphaTables& at,
+                 const void* rows, const float* origin, const float* direction,
+                 const float* tmin, const float* tmax, int n_rays, int max_steps, int depth,
+                 float* out_t, int32_t* out_tri, float* out_u, float* out_v) {
+    if (kind == kF32x8)
+        bvh8_trace_kernel<kAnyHit, kFilter><<<blocks, kThreads, smem, stream>>>(
+            at, static_cast<const float*>(rows), origin, direction, tmin, tmax, n_rays,
+            max_steps, depth, out_t, out_tri, out_u, out_v);
+    else if (kind == kF32x12)
+        bvh8_trace_packed<kF32x12, kAnyHit, kFilter><<<blocks, kThreads, smem, stream>>>(
+            at, static_cast<const uint4*>(rows), origin, direction, tmin, tmax, n_rays,
+            max_steps, depth, out_t, out_tri, out_u, out_v);
+    else
+        bvh8_trace_packed<kBf16x8, kAnyHit, kFilter><<<blocks, kThreads, smem, stream>>>(
+            at, static_cast<const uint4*>(rows), origin, direction, tmin, tmax, n_rays,
+            max_steps, depth, out_t, out_tri, out_u, out_v);
+}
+
 }  // namespace
 
 extern "C" int bvh8_trace_max_depth() { return kMaxDepth; }
@@ -385,35 +631,24 @@ extern "C" int bvh8_trace_launch(const void* rows, const float* origin,
                                  void* stream) {
     // tri_static == nullptr: no alpha filter.  depth: the stack's entries
     // per ray (BVH8.depth, at most kMaxDepth).  kind: the rows' kind, kF32x8
-    // (float rows, 8-triangle leaves), kF32x12 or kBf16x8 (bf16 rows)
+    // (rows: the (N, 128) float table), or kF32x12 or kBf16x8 (rows: the
+    // table's pack_rows copy, 16-byte aligned)
     if (depth < 1 || depth > kMaxDepth) return (int)cudaErrorInvalidValue;
     if (kind != kF32x8 && kind != kF32x12 && kind != kBf16x8)
         return (int)cudaErrorInvalidValue;
+    if (kind != kF32x8 && (reinterpret_cast<uintptr_t>(rows) & 15) != 0)
+        return (int)cudaErrorMisalignedAddress;
     if (n_rays > 0) {
         const long long threads = (long long)n_rays * kGroup;
         const int blocks = (int)((threads + kThreads - 1) / kThreads);
         const size_t smem = (size_t)(kThreads / kGroup) * depth * sizeof(int2);
         cudaStream_t s = (cudaStream_t)stream;
         const AlphaTables at{tri_static, atlas_q, atlas_rows, atlas_w};
-#define K2_LAUNCH(KIND, ANY, FILT)                                               \
-    bvh8_trace_kernel<KIND, ANY, FILT><<<blocks, kThreads, smem, s>>>(           \
-        at, rows, origin, direction, tmin, tmax, n_rays, max_steps, depth,      \
-        out_t, out_tri, out_u, out_v)
-#define K2_MODES(KIND)                                                           \
-    if (anyhit && filt) K2_LAUNCH(KIND, true, true);                             \
-    else if (anyhit) K2_LAUNCH(KIND, true, false);                               \
-    else if (filt) K2_LAUNCH(KIND, false, true);                                 \
-    else K2_LAUNCH(KIND, false, false)
         const bool filt = tri_static != nullptr;
-        if (kind == kF32x8) {
-            K2_MODES(kF32x8);
-        } else if (kind == kF32x12) {
-            K2_MODES(kF32x12);
-        } else {
-            K2_MODES(kBf16x8);
-        }
-#undef K2_MODES
-#undef K2_LAUNCH
+        auto* launch = anyhit ? (filt ? launch_mode<true, true> : launch_mode<true, false>)
+                              : (filt ? launch_mode<false, true> : launch_mode<false, false>);
+        launch(kind, blocks, smem, s, at, rows, origin, direction, tmin, tmax, n_rays,
+               max_steps, depth, out_t, out_tri, out_u, out_v);
     }
     return (int)cudaGetLastError();
 }

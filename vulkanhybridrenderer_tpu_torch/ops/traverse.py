@@ -14,7 +14,9 @@ base-color alpha at the hit is below the material's cutoff.  On CUDA tensors
 it launches the hand-written kernel csrc/bvh8_trace.cu, instantiated for
 the table's kind, which walks each ray with a group of four lanes, two
 slots of the row each (three of a 12-triangle leaf), so that a step reads
-its row as whole sectors; on CPU tensors it runs ``trace_plain``, a
+its row as whole sectors: the f32 leaf-8 table in place, the other kinds
+through the lane-major copy ``pack_rows`` makes once per table
+(``kernel_table``); on CPU tensors it runs ``trace_plain``, a
 lockstep port of ``_trace8`` that drops finished rays between steps and can
 count the rows and slots each ray visits.  The reference's TPU schedules (strips,
 packets, compaction, ray sorting, unrolling) have no counterpart.
@@ -32,6 +34,7 @@ import collections
 import ctypes
 import dataclasses
 import functools
+import weakref
 from typing import Any
 
 import torch
@@ -98,6 +101,105 @@ def decode_rows(rows, leaf_max: int = 8):
     return rf, base, offmap, tri
 
 
+#: 32-bit words a lane's region of a packed row holds (csrc/bvh8_trace.cu's
+#: Packed::kWords), by kind
+PACKED_WORDS = {"f32-12": 32, "bf16-8": 16}
+
+
+def pack_rows(rows, leaf_max: int = 8):
+    """The lane-major copy of a bf16 or f32 leaf-12 table that K2 walks
+    (csrc/bvh8_trace.cu's bvh8_trace_packed): (N, 4 * W) int32, row n's
+    region c (W = PACKED_WORDS[kind] words) holding what the lane of chunk
+    c reads, every integer decoded (decode_rows) and a bf16 leaf's
+    centroid summed.  The regions interleave by 16 bytes: words 4v..4v+3
+    of region c are the row's words 16v + 4c..16v + 4c + 3, so that the
+    four lanes' v-th loads read 64 contiguous bytes.  Region words:
+      internal rows, both kinds: word 2k + j plane k (lo.xyz, hi.xyz) of
+        slot 2c + j in f32 (a bf16 row's value widened, exact); 12 the
+        first child row; 13 the offset map.
+      bf16-8 leaf rows, W = 16: words 0..8 the bf16 pairs of the vertex
+        planes at slots 2c, 2c + 1 (the row's words 4k + c, slot 2c in the
+        low half); 9, 10 their triangle ids (-1: empty); 11..13 the
+        centroid c_hi + c_lo's f32 bits.
+      f32-12 leaf rows, W = 32: logical word 9j + k plane k of slot c +
+        4j, 27 + j its id, stored at that index below 15 and one past it
+        from 15.
+      Word 15 the flag (1: [127] > 0.5).
+    Unused words are 0."""
+    n = rows.shape[0]
+    i64 = torch.int64
+    rf = rows.to(torch.float32)
+    leaf = rf[:, 127] > 0.5
+    internal = ~leaf[:, None]
+    bf16 = rows.dtype == torch.bfloat16
+    if bf16:
+        # decode_rows' integers from their 8-bit pieces, on the rows that hold them
+        pieces = torch.where(internal, rf[:, 48:54], 0.0)
+        base = (pieces[:, 0] + pieces[:, 1] * 256.0 + pieces[:, 2] * 65536.0).to(i64)
+        offmap = (pieces[:, 3] + pieces[:, 4] * 256.0 + pieces[:, 5] * 65536.0).to(i64)
+        ids = torch.where(~internal, rf[:, 72:96], 0.0)
+        tri = (ids[:, 0:8] + ids[:, 8:16] * 256.0 + ids[:, 16:24] * 65536.0).to(i64) - 1
+        cen = rf[:, 96:99] + rf[:, 99:102]
+        half = rows.view(torch.int16).to(i64) & 0xFFFF
+        words = half[:, 0::2] | (half[:, 1::2] << 16)  # (N, 64): the row's words
+    else:
+        base = torch.where(leaf, 0.0, rf[:, 48]).to(i64)
+        offmap = torch.where(leaf, 0.0, rf[:, 49]).to(i64)
+        tri = torch.where(~internal, rf[:, 108:120], 0.0).to(i64)
+        words = rows.view(torch.int32).to(i64) & 0xFFFFFFFF  # (N, 128)
+    planes = rf[:, 0:48].contiguous().view(torch.int32).to(i64) & 0xFFFFFFFF
+    flag = leaf.to(i64)
+    zero = torch.zeros(n, dtype=i64, device=rows.device)
+    w = PACKED_WORDS["bf16-8" if bf16 else "f32-12"]
+    regions = []
+    for c in range(4):
+        # internal: the f32 planes (a bf16 row's exactly widened)
+        inner = ([planes[:, 8 * k + 2 * c + j] for k in range(6) for j in range(2)]
+                 + [base, offmap, zero] + [zero] * (w - 16))
+        if bf16:
+            outer = ([words[:, 4 * k + c] for k in range(9)] + [tri[:, 2 * c], tri[:, 2 * c + 1]]
+                     + [cen[:, a].contiguous().view(torch.int32).to(i64) & 0xFFFFFFFF
+                        for a in range(3)] + [zero])
+        else:
+            logical = ([words[:, 12 * k + c + 4 * j] for j in range(3) for k in range(9)]
+                       + [tri[:, c + 4 * j] for j in range(3)])
+            outer = logical + [zero]
+        region_i = torch.stack(inner[:15] + [flag] + inner[15:], dim=1)
+        region_l = torch.stack(outer[:15] + [flag] + outer[15:], dim=1)
+        regions.append(torch.where(leaf[:, None], region_l, region_i))
+    # 16-byte granule v of region c at granule 4v + c of the row
+    packed = torch.stack(regions, dim=1).reshape(n, 4, w // 4, 4).transpose(1, 2)
+    packed = packed.reshape(n, 4 * w) & 0xFFFFFFFF
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed).to(torch.int32)
+
+
+#: each packed table K2 walks: id(rows) -> (weakref to the rows, their
+#: version counter at packing, the pack_rows copy)
+_PACKED: dict = {}
+
+
+def kernel_table(bvh: BVH8):
+    """The table K2's launch reads for `bvh`: f32 leaf-8 rows as they are;
+    the other kinds' pack_rows copy, made on the rows' device at the first
+    trace of the table and kept while the rows live and are not written in
+    place (a refit8 or a new table packs anew)."""
+    rows = bvh.rows
+    if bvh.kind == "f32-8":
+        return rows
+    key = id(rows)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is rows and hit[1] == rows._version:
+        return hit[2]
+
+    def drop(ref, key=key):
+        if _PACKED.get(key, (None,))[0] is ref:
+            del _PACKED[key]
+
+    packed = pack_rows(rows, bvh.leaf_max)
+    _PACKED[key] = (weakref.ref(rows, drop), rows._version, packed)
+    return packed
+
+
 def default_max_steps(bvh: BVH8) -> int:
     return min(4 * bvh.num_rows + 4, 32768)
 
@@ -121,18 +223,18 @@ def _first_slot(mask, oct_):
     return slot, mask & ~(1 << slot)
 
 
-def moller_trumbore(v0, v1, v2, o, d, eps: float = 1e-9, stage: bool = False):
+def moller_trumbore(v0, v1, v2, origin, direction, eps: float = 1e-9, stage: bool = False):
     """Moller-Trumbore without culling (the reference's moller_trumbore,
-    traverse.py:679), each product rounded, in the operation order of K2's
-    and K3's kernels.  v0, v1, v2 (the triangle), o and d (the ray) are
-    (..., 3) tensors, as the reference takes them, or (x, y, z) triples of
-    broadcastable tensors; returns (t, u, v, ok), ok the geometric hit
+    traverse.py:679, and its argument names), each product rounded, in the
+    operation order of K2's and K3's kernels.  v0, v1, v2 (the triangle),
+    origin and direction (the ray) are (..., 3) tensors, as the reference
+    takes them, or (x, y, z) triples of broadcastable tensors; returns (t, u, v, ok), ok the geometric hit
     (|det| > eps) before any t test.  The kernels compile eps = 1e-9 in,
     and their plain walks never pass another.  With `stage` also the int64
     test at which an early-returning walk (K3's) rejects the pair: 0 at
     det, 1 at u, 2 at v, 3 past them all (a full test)."""
     v0, v1, v2, o, d = (x.unbind(-1) if isinstance(x, torch.Tensor) else x
-                        for x in (v0, v1, v2, o, d))
+                        for x in (v0, v1, v2, origin, direction))
     (v0x, v0y, v0z), (ox, oy, oz), (dx, dy, dz) = v0, o, d
     e1x, e1y, e1z = v1[0] - v0x, v1[1] - v0y, v1[2] - v0z
     e2x, e2y, e2z = v2[0] - v0x, v2[1] - v0y, v2[2] - v0z
@@ -424,6 +526,7 @@ def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: b
         raise ValueError(
             f"trace: BVH depth {bvh.depth} exceeds the kernel's stack of {max_depth}"
         )
+    table = kernel_table(bvh)
     out_t = torch.empty(r, dtype=torch.float32, device=dev)
     out_tri = torch.empty(r, dtype=torch.int32, device=dev)
     out_u = torch.empty(r, dtype=torch.float32, device=dev)
@@ -431,7 +534,7 @@ def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: b
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
-            bvh.rows.data_ptr(), origin.data_ptr(), direction.data_ptr(),
+            table.data_ptr(), origin.data_ptr(), direction.data_ptr(),
             tmin_a.data_ptr(), tmax_a.data_ptr(), r, max_steps, int(anyhit),
             max(bvh.depth, 1), KERNEL_KINDS[kind], *_table_args(alpha_tables),
             out_t.data_ptr(), out_tri.data_ptr(), out_u.data_ptr(),

@@ -110,7 +110,7 @@ class Renderer:
         return -(-self.config.height // rs), -(-self.config.width // rs)
 
     def _new_temporal_state(self):
-        return make_temporal_state(*self._temporal_dims(), self.device)
+        return make_temporal_state(*self._temporal_dims(), device=self.device)
 
     def _get_graph(self, name: str, config: RenderConfig):
         """(path, graph) of one (path name, config), built on first use."""

@@ -1,7 +1,8 @@
 """Texture atlas packing on the host (port of ``scene/atlas.py``).
 
-All textures are shelf-packed into one (4, AH, AW) float32 array; sRGB
-textures are linearized at packing time.  Each texture carries a 1-texel wrap
+All textures are shelf-packed into one (4, AH, AW) array, float32 or, as
+the reference allows, bfloat16 (half the bytes); sRGB textures are
+linearized at packing time.  Each texture carries a 1-texel wrap
 border (first column copied to the right, first row below, plus the corner),
 so a texel's atlas-space +1 neighbor is its REPEAT-wrap neighbor: the bilinear
 sampler (ops/shadetab.py) relies on it.
@@ -9,6 +10,7 @@ sampler (ops/shadetab.py) relies on it.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from vulkanhybridrenderer_tpu_torch.core.types import TextureAtlas
 
@@ -46,14 +48,26 @@ def _round_up(v: int, m: int) -> int:
     return ((v + m - 1) // m) * m
 
 
-def build_atlas(images: list[np.ndarray], srgb: list[bool] | None = None
-                ) -> TextureAtlas:
+def _atlas_data(planes: np.ndarray, dtype):
+    """The (4, AH, AW) float32 planes in `dtype`: the numpy array itself in
+    float32, a CPU bfloat16 tensor rounded to nearest even (as the
+    reference's jnp.asarray(x, jnp.bfloat16)) in bfloat16."""
+    if dtype == torch.float32:
+        return np.ascontiguousarray(planes, np.float32)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(np.ascontiguousarray(planes, np.float32)).to(torch.bfloat16)
+    raise ValueError(f"build_atlas: dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+
+
+def build_atlas(images: list[np.ndarray], srgb: list[bool] | None = None,
+                dtype=torch.float32) -> TextureAtlas:
     """Pack RGBA images ((H, W, 4) uint8 or float in [0, 1]) into a host
-    TextureAtlas of numpy arrays."""
+    TextureAtlas of numpy arrays; with dtype torch.bfloat16 its data is a
+    bfloat16 tensor, which every sampler reads back as float32."""
     n = len(images)
     if n == 0:
         return TextureAtlas(
-            data=np.ones((4, 8, 128), np.float32),
+            data=_atlas_data(np.ones((4, 8, 128), np.float32), dtype),
             uv_offset=np.zeros((1, 2), np.float32),
             uv_scale=np.ones((1, 2), np.float32),
         )
@@ -86,7 +100,7 @@ def build_atlas(images: list[np.ndarray], srgb: list[bool] | None = None
         offsets[i] = (x, y)
         scales[i] = (w, h)
     return TextureAtlas(
-        data=np.ascontiguousarray(atlas.transpose(2, 0, 1)),
+        data=_atlas_data(atlas.transpose(2, 0, 1), dtype),
         uv_offset=offsets,
         uv_scale=scales,
     )

@@ -30,6 +30,7 @@ import struct
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from vulkanhybridrenderer_tpu_torch.core.types import (
     DirectionalLight,
@@ -116,10 +117,11 @@ def build_scene_buffers(
     primitives: list[dict],
     images: list[np.ndarray] | None = None,
     srgb: list[bool] | None = None,
+    atlas_dtype=torch.float32,
 ) -> SceneBuffers:
     """Assemble host SceneBuffers.  primitives: dicts with transform (4, 4),
     vertex_offset, index_offset, index_count and the material fields
-    (glsl_common.h:94-99)."""
+    (glsl_common.h:94-99).  atlas_dtype: the atlas's dtype (build_atlas)."""
     num_prims = len(primitives)
     prim_transform = np.stack(
         [np.asarray(p["transform"], np.float32) for p in primitives]
@@ -186,7 +188,7 @@ def build_scene_buffers(
         prim_transform=prim_transform,
         prim_normal_mat=prim_normal,
         materials=materials,
-        atlas=build_atlas(images or [], srgb),
+        atlas=build_atlas(images or [], srgb, dtype=atlas_dtype),
         alpha_tri_idx=alpha_tri_idx,
         has_alpha_mask=bool(alpha_tri_idx.size),
         has_normal_maps=bool((materials.normal_map >= 0).any()),
@@ -358,9 +360,10 @@ def _node_world_transforms(doc: dict) -> list[np.ndarray]:
     return [world(i) for i in range(len(nodes))]
 
 
-def load_scene(path: str | Path) -> Scene:
+def load_scene(path: str | Path, atlas_dtype=torch.float32) -> Scene:
     """Load a .gltf / .glb file into a host Scene (the reference's
-    SceneLoader::LoadScene)."""
+    SceneLoader::LoadScene); atlas_dtype torch.bfloat16 stores the texture
+    atlas in bf16."""
     path = Path(path)
     g = _Gltf(path)
     doc = g.json
@@ -474,5 +477,6 @@ def load_scene(path: str | Path) -> Scene:
     buffers = build_scene_buffers(
         cat(positions, 3), cat(normals, 3), cat(tangents, 4), cat(uv0s, 2),
         cat(uv1s, 2), cat(indices, 0, np.int32), prims, images, srgb_flags,
+        atlas_dtype=atlas_dtype,
     )
     return Scene(name=name, buffers=buffers, camera=camera, light=light)

@@ -234,7 +234,10 @@ class SceneBuilder:
         self._i += len(idx)
         return len(self.prims) - 1
 
-    def build(self, name, camera, light) -> Scene:
+    def build(self, name, camera, light, atlas_dtype=None) -> Scene:
+        """The host Scene; atlas_dtype None keeps build_scene_buffers'
+        default (float32)."""
+        kwargs = {} if atlas_dtype is None else {"atlas_dtype": atlas_dtype}
         buffers = build_scene_buffers(
             np.concatenate(self.positions),
             np.concatenate(self.normals),
@@ -245,6 +248,7 @@ class SceneBuilder:
             self.prims,
             self.images,
             self.srgb,
+            **kwargs,
         )
         return Scene(name=name, buffers=buffers, camera=camera, light=light)
 
@@ -302,7 +306,7 @@ def checker_quad(alpha_leaf=False) -> Scene:
 
 
 def sponza_proxy(columns=12, segments=48, extra_boxes=600, grid_res=128, seed=7,
-                 name="SponzaProxy") -> Scene:
+                 atlas_dtype=None, name="SponzaProxy") -> Scene:
     """Colonnade hall, the perf stand-in for Sponza (BASELINE.md configs).
 
     Default params yield ~200k triangles (real Sponza is ~262k): displaced-grid
@@ -388,14 +392,14 @@ def sponza_proxy(columns=12, segments=48, extra_boxes=600, grid_res=128, seed=7,
         position=np.array([-L / 2 + 1.5, 2.2, 0.0], np.float32),
     )
     light = make_directional_light([0.3, -0.85, 0.25], intensity=30.0)
-    return b.build(name, cam, light)
+    return b.build(name, cam, light, atlas_dtype=atlas_dtype)
 
 
-def bistro_proxy() -> Scene:
+def bistro_proxy(atlas_dtype=None) -> Scene:
     """High-triangle-count stand-in for Bistro (BASELINE.md config 5):
     dense colonnades and high-res displaced surfaces, 434,460 triangles."""
     return sponza_proxy(columns=28, segments=96, extra_boxes=2400, grid_res=256, seed=11,
-                        name="BistroProxy")
+                        atlas_dtype=atlas_dtype, name="BistroProxy")
 
 
 def pica_proxy(grid=6) -> Scene:
