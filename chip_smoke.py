@@ -75,10 +75,13 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 product separately): K1a on every triangle and on the full
                 frame's opaque stream; K1b on the alpha-masked stream, round
                 1's bound and the real round-2 bound; K1c on round 2's live
-                tiles, also against K1b's full-width round 2 (and round 2
-                must have a live tile); K1c's kernel is timed alone, into
-                outputs filled before the timing window, and its wrapper
-                (fill + kernel) beside it.  Each K1 bound counts the (entry,
+                tiles as the peel lists them (live_tiles: a slot for every
+                tile of the image, the live ones first, their count on the
+                device; a block a slot), also against K1b's full-width round
+                2 and against K1c over the list cut to its live slots (and
+                round 2 must have a live tile); K1c's kernel is timed alone
+                on both lists, into outputs filled before the timing window,
+                and its wrapper (fill + kernel) beside it.  Each K1 bound counts the (entry,
                 8x4 sub-tile) pairs that pass the kernels' corner test
                 (rt.subtile_masks, priced by rt.raster_ops),
                 printed beside the dense bound of every (entry, pixel) pair;
@@ -196,8 +199,11 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 thirteen paths at 1920x1080, SponzaProxy but paths 8, 9,
                 11, 12 and 14, each driven with the
                 launch counters set to 0 just before its 10 timed frames (after
-                2 warm-up frames) and read just after; every kernel of the
-                slice must rise by >= 1 per frame; finite output; per-pass ms:
+                2 warm-up frames: with the default dispatch="fused" the
+                first runs eagerly and the second captures the frame, so
+                the 10 replay CUDA graphs) and read just after; every kernel
+                of the slice must rise by >= 1 per frame; finite output;
+                per-pass ms; each path then runs phase 6d below:
                   the RT-shadows frame (HybridSettings(), alpha off): K1a, K2;
                   the full frame (RT shadows + RT AO + RT reflections + SVGF,
                   alpha_raster="brute", 4 peel rounds, temporal state carried):
@@ -208,8 +214,8 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   K1c, K1d;
                   the raster-mode hybrid (rasterized shadows + SSAO, alpha
                   off): K1a twice a frame (G-buffer and prepass, counted
-                  apart by the image each rasters in 10 more frames: 10
-                  each); and one time_passes of it with SSR on;
+                  apart by the image each rasters in 10 more eager frames:
+                  10 each); and one time_passes of it with SSR on;
                   5. the raytraced frame with test_alpha: filtered K2
                   closest-hit and any-hit;
                   6. the rayquery frame: K1a, K2 any-hit;
@@ -266,6 +272,29 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   the default table (K2 bf16-8 filtered any-hit and
                   closest-hit) and with bvh_leaf_max=12 (K2 f32-12
                   filtered); each must trace its kind
+  6d. dispatch - on each of those paths, at its configuration, on the BVH8,
+                shade tables and shadow grid of the path's renderer: one
+                eager frame with every pass under
+                torch.cuda.set_sync_debug_mode("warn"), where only the
+                passes the graph declares host-sized may sync; a
+                dispatch="fused", a "per_pass" (precompile_passes first) and
+                an eager (graph.run) renderer in lockstep over 4 frames, the
+                temporal state carried, frames bit-equal; the graphs a frame,
+                the host-sized passes run between them and the capture
+                seconds of both modes; ms/frame of fused and per_pass in
+                turns (fused, per_pass, per_pass, fused; 10 frames each)
+                beside 10 eager frames; launches per 10 frames, where the
+                counts a captured frame adds at each replay (those of its
+                capture) must equal the eager frames', which the wrappers
+                count, and drive()'s on the path (the JSON line's);
+                on paths 2 and 8 a torch.profiler window of 5 frames of each
+                (device busy share).  After path 4: the viewer's
+                ssao_radius slider over 8 values (a config and a per_pass
+                capture each) must leave torch.cuda.memory_reserved where
+                the second value left it.  After path 9: cornell_box() with the
+                entry cap patched to 64 must raise check_binning's error at
+                its first frame and give a NaN-poisoned next frame, whose
+                first non-finite pass is the G-Buffer Pass
   6b. surface - realglb's full frame at 320x180: list_resources is the set
                 of the graph's outputs, debug_dump's PNG decodes to
                 to_uint8_image, find_nonfinite_pass() is None, stats.table()
@@ -338,6 +367,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1069,7 +1099,8 @@ def main() -> int:
         of the pairs rt.subtile_masks passes (K1d: on some sample), against
         those of testing every (entry, pixel) pair."""
         keep = None if listed is None else torch.isin(rt.entry_tiles(bins), listed.long())
-        ids = bins.entry_tri if keep is None else bins.entry_tri[keep]
+        live = rt.live_entry_tri(bins)  # offsets[-1] of the cap's entries
+        ids = live if keep is None else live[keep]
         masks = rt.subtile_masks(planes_, bins, samples=samples if mode == "K1d" else None)
         if mode == "K1d":
             masks = functools.reduce(torch.bitwise_or, masks.unbind(0))
@@ -1156,33 +1187,51 @@ def main() -> int:
             kernels["K1b"] = dict(max_abs_err=max(err1, err2), ms=ms, plain_ms=plain_ms, **kb)
         k1_line(f"{label}K1b raster_tile peel bound, round 1, masked stream", kb, ms, plain_ms)
 
-        tiles = rt.live_tiles(killed, mbins.ntx, mbins.nty)
-        _check(tiles.shape[0] > 0, f"{label}round 2 of the peel has no live tile on this scene: "
+        # the peel's list: every tile's slot, the live ones first, their count
+        # on the device; K1c launches a block a slot
+        tiles, n_live = rt.live_tiles(killed, mbins.ntx, mbins.nty)
+        n_tiles = int(n_live)
+        _check(n_tiles > 0, f"{label}round 2 of the peel has no live tile on this scene: "
                "K1c would never launch")
-        v2c = rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)
+        v2c = rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles, n_live)
         c_err = max(k1_equal(f"{label}K1c raster_tile compact, round 2's live tiles", v2c,
-                             rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles)),
+                             rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles,
+                                                   n_live)),
                     k1_equal(f"{label}K1c against K1b's full-width round 2", v2c, v2))
+        # a list cut to its live slots (the launch shape before the count
+        # moved to the device) gives the same pixels
+        short, n_short = tiles[:n_tiles].contiguous(), n_live.clone()
+        c_err = max(c_err, k1_equal(f"{label}K1c over the list cut to its {n_tiles} live slots",
+                                    rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2,
+                                                            tc2, short, n_short), v2c))
         # the kernel alone: the wrapper's clear of the whole image (20 bytes a
         # pixel) is made once, before the timing window; re-launching into it
         # rewrites the listed tiles with the same values
         pre = rt.clear_visibility(WIDTH, HEIGHT, dev)
         ms = _cuda_ms(lambda: rt.launch("K1c", planes, mbins, WIDTH, HEIGHT, pre, zc2, tc2,
-                                        tiles), 20)
+                                        tiles, n_live=n_live), 20)
+        short_ms = _cuda_ms(lambda: rt.launch("K1c", planes, mbins, WIDTH, HEIGHT, pre, zc2, tc2,
+                                              short, n_live=n_short), 20)
         wrapper_ms = _cuda_ms(
-            lambda: rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles), 20)
+            lambda: rt.raster_tiles_compact(planes, mbins, WIDTH, HEIGHT, zc2, tc2, tiles,
+                                            n_live), 20)
         _check(same(pre, v2c), "K1c's timed launches changed its output")
         plain_ms = _cuda_ms(lambda: rt.raster_tiles_plain(planes, mbins, WIDTH, HEIGHT, zc2, tc2,
-                                                          tiles), 2)
-        kb = k1_bound("K1c", planes, mbins, tiles.shape[0] * 1024, listed=tiles)
+                                                          tiles, n_live), 2)
+        kb = k1_bound("K1c", planes, mbins, n_tiles * 1024, listed=tiles)
         if record:
             kernels["K1c"] = dict(max_abs_err=c_err, ms=ms, plain_ms=plain_ms, **kb)
-        k1_line(f"{label}K1c raster_tile compact, {tiles.shape[0]} live tiles of round 2", kb,
-                ms, plain_ms)
+        k1_line(f"{label}K1c raster_tile compact, {n_tiles} live tiles of round 2 in a list of "
+                f"{tiles.shape[0]} slots (a block a slot)", kb, ms, plain_ms)
+        print(f"{label}K1c over the list cut to its {n_tiles} live slots: {short_ms:.4f} ms "
+              f"(the full list's {tiles.shape[0] - n_tiles} idle blocks cost "
+              f"{ms - short_ms:.4f} ms)")
         print(f"{label}K1c wrapper (clear of {WIDTH * HEIGHT * 20} bytes + kernel) "
               f"{wrapper_ms:.4f} ms")
         trace = []
-        rt.rasterize_alpha_peeled(buffers, setup, WIDTH, HEIGHT, tables, rounds=4, trace=trace)
+        _, overflow_m = rt.rasterize_alpha_peeled(buffers, setup, WIDTH, HEIGHT, tables,
+                                                  rounds=4, trace=trace)
+        _check(int(overflow_m[0]) == 0, f"{label}the masked stream's binning overflowed")
         print(f"{label}peel rounds: " + "; ".join(
             f"round {t['round']}: {t['tiles']} tiles rastered, {t['killed']} pixels killed"
             for t in trace))
@@ -1467,7 +1516,7 @@ def main() -> int:
         cull_backface=rq_cfg.raster_state.cull_mode == "back", alpha=False)
     vis = rt.raster_tiles(qsetup.planes, qbins, WIDTH, HEIGHT)
     err_q = k1_equal(f"K1a raster_tile, rayquery frame's entry stream "
-                     f"({int(qbins.entry_tri.shape[0])} entries)", vis,
+                     f"({int(qbins.offsets[-1])} entries)", vis,
                      rt.raster_tiles_plain(qsetup.planes, qbins, WIDTH, HEIGHT))
     kernels["K1a"]["max_abs_err"] = max(kernels["K1a"]["max_abs_err"], err_q)
     attrs = shade.resolve_forward_attributes(res["scene"], res["shade_tables"], res["TriRows"],
@@ -1638,6 +1687,115 @@ def main() -> int:
         _check(bool(torch.isfinite(frame).all()), "main-path frame not finite")
         return start.elapsed_time(end) / frames, launches
 
+    def dispatch(label, base, scene_, cfg_, path="hybrid", before=None, busy=False,
+                 drove=None):
+        """Phase 6d on one main path, its configuration on base's BVH8,
+        shade tables and shadow grid: syncs of one eager frame's passes
+        (only declared host-sized passes may sync); a fused, a per_pass and
+        an eager (graph.run) renderer in lockstep over 4 frames, the temporal
+        state carried, held bit-equal; capture seconds, graphs a frame and
+        the passes run between them; ms/frame of fused and per_pass in turns
+        (fused, per_pass, per_pass, fused; 10 frames each) beside 10 eager
+        frames.  Launches per 10 frames: a captured frame's replays call no
+        wrapper, so they add the counts each graph's capture recorded
+        (runtime/dispatch.py); the eager frames' are the wrappers' own
+        counts, measured here, and the fused and per_pass counts must
+        equal them, as must drove, the counts drive() read on this path
+        (the kernels line's launches).  With `busy`, the device busy share
+        of a 5-frame window of each.  before(r, f) ahead of frame f (the
+        animated path's transforms)."""
+        step = before or (lambda r, f: None)
+
+        def make(**kw):
+            r = Renderer(scene_, cfg_, path=path, device=dev, **kw)
+            r._bvh, r._shade_tables = base._bvh, base._shade_tables
+            r._shadow_grid = base._shadow_grid
+            return r
+
+        rf, rp, reng = make(), make(dispatch="per_pass"), make()
+        # the sync check on the second eager frame: the first may make a
+        # device constant (utils/consts.py), a copy from the host once
+        syncs = {}
+        step(reng, 0)
+        eager = [_eager_frame(reng)]
+        step(reng, 1)
+        eager.append(_eager_frame(reng, syncs))
+        late = {n: s for n, s in syncs.items() if s and not reng.graph.passes[n].host_sized}
+        _check(not late, f"dispatch {label}: passes that sync but are not declared host-sized: "
+               f"{late}")
+        t = time.perf_counter()
+        pre = rp.precompile_passes()
+        pre_s = time.perf_counter() - t
+        fused, per_pass = [], []
+        for f in range(4):
+            step(rf, f)
+            fused.append(rf.render_frame())
+            step(rp, f)
+            per_pass.append(rp.render_frame())
+            if f > 1:
+                step(reng, f)
+                eager.append(_eager_frame(reng))
+        torch.cuda.synchronize()
+        diffs = [(_max_abs(a - c), _max_abs(b - c), int((a != c).sum()), int((b != c).sum()))
+                 for a, b, c in zip(fused, per_pass, eager)]
+        same_f = all(torch.equal(a, c) for a, c in zip(fused, eager))
+        same_p = all(torch.equal(b, c) for b, c in zip(per_pass, eager))
+        cf, cp = rf._captured, rp._captured
+        _check(cf.key == ("fused", path, cfg_) and cp.key == ("per_pass", path, cfg_)
+               and cf.captured and cp.captured, f"dispatch {label}: a frame was not captured")
+
+        def window(r, first, n=10):
+            torch.cuda.synchronize()
+            rt.raster_tiles.launches = rt.raster_tiles_peel.launches = 0
+            rt.raster_tiles_compact.launches = rt.raster_tiles_msaa.launches = 0
+            traverse.trace.launches.clear()
+            traverse.trace_flat.launches.clear()
+            shadowgrid.trace_shadow.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for i in range(n):
+                step(r, first + i)
+                if r is reng:
+                    _eager_frame(r)
+                else:
+                    r.render_frame(sync=False)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / n, {k: v() for k, v in counters.items() if v()}
+
+        f1, lf = window(rf, 4)
+        p1, lp = window(rp, 4)
+        p2, _ = window(rp, 14)
+        f2, _ = window(rf, 14)
+        e_ms, le = window(reng, 4)
+        print(f"dispatch {label}: fused: {cf.n_graphs} CUDA graph(s) replayed a frame, "
+              f"host-sized passes run between them {cf.eager_passes}, capture "
+              f"{sum(cf.capture_s.values()):.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in cf.capture_s.items())}); "
+              f"per_pass: {cp.n_graphs} graphs, precompile_passes {pre_s:.3f} s (eager frame "
+              f"{pre['__trace_s__']:.3f} s, captures "
+              f"{sum(v for k, v in pre.items() if not k.startswith('__')):.3f} s)")
+        print(f"dispatch {label}: frames 1-4 against graph.run's: fused "
+              f"{'bit-equal' if same_f else 'DIFFER'}, per_pass {'bit-equal' if same_p else 'DIFFER'} "
+              f"(max |diff|, differing values per frame: "
+              + "; ".join(f"{a:.3g}/{b:.3g}, {m}/{n}" for a, b, m, n in diffs) + ")")
+        print(f"dispatch {label}: ms/frame in turns: fused {(f1 + f2) / 2:.3f} ({f1:.3f}, {f2:.3f}), "
+              f"per_pass {(p1 + p2) / 2:.3f} ({p1:.3f}, {p2:.3f}), eager graph.run {e_ms:.3f} | "
+              f"launches per 10 frames: fused {lf}, per_pass {lp}, eager (counted by the "
+              f"wrappers) {le} | card: {smi}")
+        _check(same_f and same_p, f"dispatch {label}: a captured frame differs from graph.run's")
+        _check(lf == le and lp == le, f"dispatch {label}: launches per 10 frames fused {lf}, "
+               f"per_pass {lp}, eager {le}: the counts added at replay are not the launches")
+        if drove is not None:
+            ran = {k: v for k, v in drove.items() if v}
+            _check(ran == le, f"dispatch {label}: drive's launches {ran} != the eager frames' {le}")
+        if busy:
+            _profile(rf, f"{label} fused")
+            _profile(rp, f"{label} per_pass")
+        dispatch_ms[label] = ((f1 + f2) / 2, (p1 + p2) / 2, e_ms)
+        del rf, rp, reng, fused, per_pass, eager
+
+    dispatch_ms = {}
     t0 = time.perf_counter()
     # paths 1-11 and their recorded numbers are the SAH tree's: without the
     # native build the renderer would quietly take the LBVH's, so fail
@@ -1656,6 +1814,7 @@ def main() -> int:
           f"{ms_frame:.3f} ms/frame over 10 frames | launches {launches} | shadowed share "
           f"{float((shadow == 0.0).float().mean()):.4f}")
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
+    dispatch("path 1", r, scene, r.config, drove=launches)
     del r
 
     r = Renderer(scene, full_cfg, device=dev)
@@ -1673,6 +1832,7 @@ def main() -> int:
     _breakdown(r, full)
     if profile:
         _profile(r, "full")
+    dispatch("path 2", r, scene, full_cfg, busy=True, drove=launches)
     del r
 
     r = Renderer(scene, fwd_cfg, path="forward", device=dev)
@@ -1687,6 +1847,7 @@ def main() -> int:
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     if profile:
         _profile(r, "forward coverage-MSAA 4x")
+    dispatch("path 3", r, scene, fwd_cfg, path="forward", drove=launches3)
     del r
 
     raster_cfg = RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off", hybrid=raster_hs)
@@ -1700,13 +1861,38 @@ def main() -> int:
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     # 10 more frames with K1a's launches split by the image each rasters:
     # the G-buffer's and the Depth Prepass's shadow map
-    k1a_split = _k1a_by_shape(rt, lambda: [r.render_frame(sync=False) for _ in range(10)])
+    # (eager frames: a captured frame's replays call no wrapper; phase 6d
+    # holds the counts they add equal to 10 eager frames' own)
+    k1a_split = _k1a_by_shape(rt, lambda: [_eager_frame(r) for _ in range(10)])
     map_shape = f"{raster_cfg.shadow_map_size}x{raster_cfg.shadow_map_size}"
     print(f"path 4's K1a launches in 10 more frames by image: {k1a_split}")
     _check(k1a_split == {f"{WIDTH}x{HEIGHT}": 10, map_shape: 10},
            f"path 4's K1a launches by image {k1a_split}: want 10 G-buffer and 10 prepass")
     if profile:
         _profile(r, "raster-mode hybrid")
+    dispatch("path 4", r, scene, raster_cfg, drove=launches4)
+    # the viewer's ssao_radius slider on path 4's frame (per_pass, as the
+    # viewer renders; a config a value): a renderer keeps only the active
+    # key's captured frame, so the memory the caching allocator holds stays
+    # where the second value left it
+    from vulkanhybridrenderer_tpu_torch.runtime.viewer import ViewerState
+
+    state = ViewerState(scene, raster_cfg, "hybrid", device=dev)
+    state.renderer._bvh, state.renderer._shade_tables = r._bvh, r._shade_tables
+    reserved = []
+    for i in range(8):
+        state.set_param("ssao_radius", 0.3 + 0.05 * i)
+        state.renderer.render_frame()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    held = state.renderer._captured
+    print(f"viewer slider: ssao_radius over 8 values on path 4 (per_pass, captured a value): "
+          f"reserved MiB after each value {[round(x / 2**20, 1) for x in reserved]}; the "
+          f"renderer holds the last value's frame only: "
+          f"{held.key == ('per_pass', 'hybrid', state.renderer.config)} | card: {smi}")
+    _check(max(reserved[2:]) <= reserved[1]
+           and held.key == ("per_pass", "hybrid", state.renderer.config),
+           f"dragging the viewer's slider grew the reserved memory: {reserved}")
+    del state, held
     r.set_config(dataclasses.replace(raster_cfg, hybrid=raster_ssr))
     passes = r.time_passes(iters=1)
     print("per-pass ms with SSR (1 run after a warm-up): "
@@ -1725,6 +1911,7 @@ def main() -> int:
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     if profile:
         _profile(r, "raytraced test_alpha")
+    dispatch("path 5", r, scene, rt_cfg, path="raytraced", drove=launches5)
     del r
 
     r = Renderer(scene, rq_cfg, path="rayquery", device=dev)
@@ -1738,6 +1925,7 @@ def main() -> int:
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     if profile:
         _profile(r, "rayquery")
+    dispatch("path 6", r, scene, rq_cfg, path="rayquery", drove=launches6)
     del r
 
     r = Renderer(scene, half_cfg, device=dev)
@@ -1752,6 +1940,7 @@ def main() -> int:
     print("per-pass ms: " + ", ".join(f"{k} {v:.3f}" for k, v in passes.items()))
     if profile:
         _profile(r, "full at rt_scale=2")
+    dispatch("path 7", r, scene, half_cfg, drove=launches7)
     del r
 
     # main path 8: bench.py's flagship as written, on realglb, with the
@@ -1780,6 +1969,7 @@ def main() -> int:
     _breakdown(r, full)
     if profile:
         _profile(r, "realglb full")
+    dispatch("path 8", r, realglb, full_cfg, busy=True, drove=launches8)
     del r
 
     # path 8 on the bf16 atlas (load_scene(atlas_dtype=torch.bfloat16)): the
@@ -1830,6 +2020,28 @@ def main() -> int:
           f"{brute_cfg.shadow_map_size}^2 {prepass_ms:.3f} ms")
     _check(mism <= 0.002 and nearer and torch.equal(res[hybrid_path.DEPTH], vb.depth),
            f"path 9's brute visibility: mismatch share {mism}, less_equal nearer {nearer}")
+    dispatch("path 9", r, cornell, brute_cfg, drove=launches9)
+    # check_binning: an entry cap far below cornell_box()'s entries raises at
+    # the first frame; later frames are guarded on the device (NaN depth)
+    real_cap = rt.default_e_cap
+    rt.default_e_cap = lambda t, npix: 64
+    try:
+        rr = Renderer(cornell, RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off"),
+                      device=dev)
+        try:
+            rr.render_frame()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+        poisoned = bool(torch.isfinite(rr.render_frame()).all())
+        nonfinite = rr.find_nonfinite_pass()
+    finally:
+        rt.default_e_cap = real_cap
+    print(f"check_binning with an entry cap of 64 on {cornell.name}: the first frame raised "
+          f"{raised!r}; the next frame finite {poisoned}, its first non-finite pass {nonfinite}")
+    _check("entry overflow" in raised and not poisoned and nonfinite == "G-Buffer Pass",
+           "check_binning or the overflow poison did not trip")
+    del rr
     del r, res, setup, vb, vk, le
 
     # main path 10: cell 1's configuration with shadow_accel="grid": the
@@ -1857,6 +2069,7 @@ def main() -> int:
     print(f"path 10's frame equals path 1's of the same renderer state: "
           f"{torch.equal(grid_frame, bvh_frame)}")
     _check(torch.equal(grid_frame, bvh_frame), "path 10's frame differs from path 1's")
+    dispatch("path 10", r, scene, grid_cfg, drove=launches10)
     del r, grid_frame, bvh_frame
 
     # main path 11: pica_proxy() animated, the full hybrid configuration with
@@ -1891,6 +2104,9 @@ def main() -> int:
                                   "output after its last frame"))
     if profile:
         _profile(r, "animated pica", before=animate)
+    dispatch("path 11", r, pica, pica_cfg,
+             before=lambda rr, f: rr.animate(procedural.animate_pica(pica, f / 60.0)),
+             drove=launches11)
     del r, a
     _animated_wavefronts(pica, pica_cfg, dev, bound)
 
@@ -1940,6 +2156,7 @@ def main() -> int:
           f"{k4_launches}; hit flags differing from K2 over the LBVH's BVH8 {same_tree}")
     _check(k4_launches.get("any-hit", 0) >= 2 and k4_launches.get("closest-hit", 0) >= 1,
            f"K4's path launched it {k4_launches}")
+    dispatch("path 12", r, realglb, full_cfg, drove=launches12)
     del r, res, rays, waves, flat, lbvh, lbvh_tables, world_tris, lbvh8, route8
 
     # main path 14: the table kinds path 8 does not trace, through the entry
@@ -1967,6 +2184,7 @@ def main() -> int:
         print(f"main path 14: {realglb.name} {WIDTH}x{HEIGHT} {label}: {kind14} rows "
               f"({r._bvh.num_rows} rows, {r._bvh.table_bytes} bytes): {ms_frame:.3f} ms/frame "
               f"over 10 frames | launches { {k: v for k, v in counts.items() if v} }")
+        dispatch(f"path 14 ({label})", r, realglb, cfg14, path=path, drove=counts)
         del r
     print(f"card: {smi}")
     _phase("main", t0)
@@ -2068,6 +2286,36 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _eager_frame(r, syncs=None):
+    """One frame of renderer r through its graph's passes eagerly (graph.run,
+    no capture), advancing its frame index and temporal state as
+    render_frame does; returns RENDER_OUTPUT.  With `syncs` (a dict), each
+    pass runs under torch.cuda.set_sync_debug_mode("warn") and syncs[pass]
+    receives the file:line of every synchronizing call it made."""
+    from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
+
+    res = r._resources(r._make_pfd())
+    for name in r.graph.find_execution_order():
+        p = r.graph.passes[name]
+        if syncs is None:
+            produced = p.fn(res)
+        else:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    produced = p.fn(res)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            syncs[name] = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                                  if "synchronizing CUDA operation" in str(w.message)})
+        res.update({k: produced[k] for k in p.outputs})
+    if r.path.uses_temporal_state:
+        r.temporal_state = res["TemporalStateOut"]
+    r.frame_index += 1
+    return res[RENDER_OUTPUT]
 
 
 def _k1a_by_shape(rt, run) -> dict:

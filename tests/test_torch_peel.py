@@ -90,7 +90,9 @@ def check_peel_matches_jax(case):
     j = jrt.rasterize_scene(case["js"].buffers, case["clip"], w, h, interpret=True, alpha=True)
     trace = []
     setup = prast.triangle_setup(case["pclip"], case["pb"].tri_vertex, w, h)
-    peeled = prt.rasterize_alpha_peeled(case["pb"], setup, w, h, case["tables"], trace=trace)
+    peeled, overflow = prt.rasterize_alpha_peeled(case["pb"], setup, w, h, case["tables"],
+                                                  trace=trace)
+    assert overflow.tolist() == [0]
     p = prt.rasterize_scene(case["pb"], case["pclip"], w, h, alpha=True, tables=case["tables"])
     _assert_matches(p, j)
     masked = set(case["pb"].alpha_tri_idx.tolist())
@@ -135,14 +137,15 @@ def test_compact_rounds_equal_full_width_rounds(monkeypatch):
     w, h = case["w"], case["h"]
     setup = prast.triangle_setup(case["pclip"], case["pb"].tri_vertex, w, h)
     trace = []
-    compact = prt.rasterize_alpha_peeled(case["pb"], setup, w, h, case["tables"], trace=trace)
+    compact, _ = prt.rasterize_alpha_peeled(case["pb"], setup, w, h, case["tables"],
+                                            trace=trace)
     assert len(trace) >= 3 and trace[1]["tiles"] < prt.bin_triangles(setup, w, h).offsets.shape[0] - 1
     monkeypatch.setattr(
         prt, "raster_tiles_compact",
-        lambda planes, bins, w_, h_, zcap, captid, tile_ids: prt.raster_tiles_peel(
+        lambda planes, bins, w_, h_, zcap, captid, tile_ids, n_live=None: prt.raster_tiles_peel(
             planes, bins, w_, h_, zcap, captid),
     )
-    full = prt.rasterize_alpha_peeled(case["pb"], setup, w, h, case["tables"])
+    full, _ = prt.rasterize_alpha_peeled(case["pb"], setup, w, h, case["tables"])
     for f in ("tri_id", "depth", "bary"):
         assert torch.equal(getattr(compact, f), getattr(full, f)), f
 
@@ -164,7 +167,8 @@ def test_peel_kernels_plain_on_cpu():
     tiles = torch.tensor([1, 4], dtype=torch.int32)
     before = (prt.raster_tiles_peel.launches, prt.raster_tiles_compact.launches)
     peel = prt.raster_tiles_peel(setup.planes, bins, w, h, zcap, captid)
-    comp = prt.raster_tiles_compact(setup.planes, bins, w, h, zcap, captid, tiles)
+    comp = prt.raster_tiles_compact(setup.planes, bins, w, h, zcap, captid, tiles,
+                                  torch.tensor([len(tiles)], dtype=torch.int32))
     assert (prt.raster_tiles_peel.launches, prt.raster_tiles_compact.launches) == before
     assert ((peel.tri_id != full.tri_id) & (full.tri_id >= 0)).any()  # the bound bites
     listed = torch.zeros((h, w), dtype=torch.bool)

@@ -88,7 +88,7 @@ def test_binning_matches(case):
         want = ids[offs[t]:offs[t] + counts[t]].astype(np.int32)
         got = p.entry_tri[p.offsets[t]:p.offsets[t + 1]].numpy()
         np.testing.assert_array_equal(got, want)
-    assert p.entry_tri.shape[0] > 0
+    assert int(p.offsets[-1]) > 0
 
 
 def test_visibility_buffer(case):

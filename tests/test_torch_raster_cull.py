@@ -59,7 +59,7 @@ def _needed(planes, bins):
     lx, ly = local % rt.TILE_W, local // rt.TILE_W
     px = ((tile_of % bins.ntx) * rt.TILE_W)[:, None].float() + lx.float() + 0.5
     py = ((tile_of // bins.ntx) * rt.TILE_H)[:, None].float() + ly.float() + 0.5
-    p = planes[bins.entry_tri.long()]
+    p = planes[rt.live_entry_tri(bins).long()]
     l0, l1, l2, z = (px * p[:, k, None] + py * p[:, k + 1, None] + p[:, k + 2, None]
                      for k in (0, 3, 6, 9))
     covered = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0) & (z <= 1)
@@ -89,7 +89,7 @@ def _raster_passing(planes, bins, w, h, masks, zcap=None, captid=None, tile_ids=
         keep = ((masks >> s) & 1).bool()
         counts = torch.bincount(tile_of[keep], minlength=bins.ntx * bins.nty)
         offsets = torch.cat([torch.zeros(1, dtype=torch.int64), counts.cumsum(0)])
-        sb = rt.Bins(entry_tri=bins.entry_tri[keep], offsets=offsets.to(torch.int32),
+        sb = rt.Bins(entry_tri=rt.live_entry_tri(bins)[keep], offsets=offsets.to(torch.int32),
                      ntx=bins.ntx, nty=bins.nty)
         v = rt.raster_tiles_plain(planes, sb, w, h, zcap, captid, tile_ids)
         if out is None:
@@ -104,7 +104,7 @@ def _check_exact(planes, bins, w, h, zcap=None, captid=None, masks=None):
     """Both properties on one input; returns the masks."""
     if masks is None:
         masks = rt.subtile_masks(planes, bins)
-    assert masks.dtype == torch.int64 and masks.shape == bins.entry_tri.shape
+    assert masks.dtype == torch.int64 and masks.shape == (int(bins.offsets[-1]),)
     missed = _needed(planes, bins) & ~_bits(masks)
     assert not missed.any(), f"{int(missed.sum())} culled pairs hold a covered pixel"
     dense = rt.raster_tiles_plain(planes, bins, w, h, zcap, captid)
@@ -117,7 +117,7 @@ def _check_exact(planes, bins, w, h, zcap=None, captid=None, masks=None):
 def test_culling_exact_on_scene(name):
     _, setup, w, h = _setup(name)
     bins = rt.bin_triangles(setup, w, h)
-    assert bins.entry_tri.shape[0] > 0
+    assert int(bins.offsets[-1]) > 0
     _check_exact(setup.planes, bins, w, h)
 
 
@@ -150,7 +150,7 @@ def test_culling_exact_under_peel_bound():
     assert killed.any()
     zc2, tc2 = rt.peel_bound(v1, killed)
     _check_exact(setup.planes, bins, w, h, zc2, tc2, masks=masks)
-    tiles = rt.live_tiles(killed, bins.ntx, bins.nty)
+    tiles, _ = rt.live_tiles(killed, bins.ntx, bins.nty)  # -1 past the live ones
     dense = rt.raster_tiles_plain(setup.planes, bins, w, h, zc2, tc2, tiles)
     culled = _raster_passing(setup.planes, bins, w, h, masks, zc2, tc2, tiles)
     assert _same(dense, culled)
@@ -164,7 +164,7 @@ def test_culling_exact_per_msaa_sample(samples):
     _, setup, w, h = _setup("sponza")
     bins = rt.bin_triangles(setup, w, h)
     per_sample = rt.subtile_masks(setup.planes, bins, samples=samples)
-    assert per_sample.shape == (samples, bins.entry_tri.shape[0])
+    assert per_sample.shape == (samples, int(bins.offsets[-1]))
     union = per_sample[0]
     for m in per_sample[1:]:
         union = union | m
@@ -244,7 +244,7 @@ def test_raster_pairs_prices_the_bound():
     _, setup, w, h = _setup("sponza")
     bins = rt.bin_triangles(setup, w, h)
     masks = rt.subtile_masks(setup.planes, bins)
-    n_e, n_pass = int(bins.entry_tri.shape[0]), rt.passing_pairs(masks)
+    n_e, n_pass = int(bins.offsets[-1]), rt.passing_pairs(masks)
     assert n_pass == int(_bits(masks).sum())
     ops, dense = rt.raster_ops(n_e, n_pass, "K1a")
     assert dense == n_e * 1024 * rt.RASTER_OPS

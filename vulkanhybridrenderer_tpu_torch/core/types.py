@@ -63,8 +63,11 @@ class PerFrameData(_Movable):
     directional_light: DirectionalLight
     display_size: Any  # (2,) f32 (w, h)
     display_size_inverse: Any  # (2,) f32
-    frame_index: int  # uint32 value as a Python int
-    blue_noise_index: int = 0
+    #: () int64 tensor holding the uint32 frame index, on the frame's device
+    #: (the reference's traced uint32: a captured frame reads it, so
+    #: replaying the frame does not freeze it)
+    frame_index: Any
+    blue_noise_index: Any = 0  # () int64 tensor, frame_index % 4
 
     @property
     def camera_position(self):
@@ -169,6 +172,82 @@ def make_temporal_state(height: int, width: int, dtype=torch.float32,
     )
 
 
+#: PerFrameData's float fields in pack_per_frame_data's flat layout:
+#: (name, shape) in order, the light's four after the camera's seven
+_PFD_FLOATS = (
+    ("camera_view", (4, 4)), ("camera_proj", (4, 4)), ("camera_view_inverse", (4, 4)),
+    ("camera_proj_inverse", (4, 4)), ("camera_viewproj_inverse", (4, 4)),
+    ("camera_view_prev_frame", (4, 4)), ("camera_proj_prev_frame", (4, 4)),
+    ("projview", (4, 4)), ("direction", (4,)), ("color", (4,)), ("intensity", (4,)),
+    ("display_size", (2,)), ("display_size_inverse", (2,)),
+)
+_LIGHT_FIELDS = ("projview", "direction", "color", "intensity")
+#: length of pack_per_frame_data's float array
+PER_FRAME_FLOATS = sum(int(np.prod(shape)) for _, shape in _PFD_FLOATS)
+
+
+def pack_per_frame_data(
+    view: np.ndarray,
+    proj: np.ndarray,
+    light: DirectionalLight,
+    width: int,
+    height: int,
+    frame_index: int = 0,
+    prev_view: np.ndarray | None = None,
+    prev_proj: np.ndarray | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """PerFrameData like Renderer::Render (renderer.cpp:187-205), on the
+    host: (float32 flat array of _PFD_FLOATS' fields, int64 [frame index
+    as uint32, frame index % 4]).  Inverses in float32, previous-frame
+    matrices default to the current."""
+    view = np.asarray(view, np.float32)
+    proj = np.asarray(proj, np.float32)
+    viewproj = proj @ view
+
+    def host(a):
+        return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a, np.float32)
+
+    fields = {
+        "camera_view": view,
+        "camera_proj": proj,
+        "camera_view_inverse": np.linalg.inv(view).astype(np.float32),
+        "camera_proj_inverse": np.linalg.inv(proj).astype(np.float32),
+        "camera_viewproj_inverse": np.linalg.inv(viewproj).astype(np.float32),
+        "camera_view_prev_frame": view if prev_view is None else prev_view,
+        "camera_proj_prev_frame": proj if prev_proj is None else prev_proj,
+        **{f: getattr(light, f) for f in _LIGHT_FIELDS},
+        "display_size": np.array([width, height], np.float32),
+        "display_size_inverse": np.array([1.0 / width, 1.0 / height], np.float32),
+    }
+    flat = np.concatenate([host(fields[name]).reshape(-1) for name, _ in _PFD_FLOATS])
+    ints = np.array([int(frame_index) & 0xFFFFFFFF, int(frame_index) % 4], np.int64)
+    return flat, ints
+
+
+def per_frame_data_from_flat(flat, ints) -> PerFrameData:
+    """The PerFrameData whose fields are views of pack_per_frame_data's two
+    arrays as tensors (on any device): a frame that reads it reads those
+    two buffers, which a captured frame refills every frame."""
+    views, at = {}, 0
+    for name, shape in _PFD_FLOATS:
+        n = int(np.prod(shape))
+        views[name] = flat[at:at + n].view(shape)
+        at += n
+    light = DirectionalLight(**{f: views.pop(f) for f in _LIGHT_FIELDS})
+    return PerFrameData(**views, directional_light=light, frame_index=ints[0],
+                        blue_noise_index=ints[1])
+
+
+def upload_per_frame_data(flat: np.ndarray, ints: np.ndarray, device="cpu"):
+    """pack_per_frame_data's arrays as tensors on `device`; to a GPU
+    through pinned memory, queued on the current stream without waiting
+    (the pinned blocks are not reused before their copies finish)."""
+    pair = (torch.from_numpy(flat), torch.from_numpy(ints))
+    if torch.device(device).type == "cpu":
+        return pair
+    return tuple(t.pin_memory().to(device, non_blocking=True) for t in pair)
+
+
 def make_per_frame_data(
     view: np.ndarray,
     proj: np.ndarray,
@@ -181,25 +260,8 @@ def make_per_frame_data(
     device="cpu",
 ) -> PerFrameData:
     """PerFrameData like Renderer::Render (renderer.cpp:187-205): inverses on
-    the host in float32, previous-frame matrices default to the current."""
-    view = np.asarray(view, np.float32)
-    proj = np.asarray(proj, np.float32)
-    viewproj = proj @ view
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
-
-    return PerFrameData(
-        camera_view=t(view),
-        camera_proj=t(proj),
-        camera_view_inverse=t(np.linalg.inv(view).astype(np.float32)),
-        camera_proj_inverse=t(np.linalg.inv(proj).astype(np.float32)),
-        camera_viewproj_inverse=t(np.linalg.inv(viewproj).astype(np.float32)),
-        camera_view_prev_frame=t(view if prev_view is None else prev_view),
-        camera_proj_prev_frame=t(proj if prev_proj is None else prev_proj),
-        directional_light=light.to(device),
-        display_size=t(np.array([width, height], np.float32)),
-        display_size_inverse=t(np.array([1.0 / width, 1.0 / height], np.float32)),
-        frame_index=int(frame_index) & 0xFFFFFFFF,
-        blue_noise_index=int(frame_index) % 4,
-    )
+    the host in float32, previous-frame matrices default to the current;
+    every field a tensor on `device`, the frame index too."""
+    packed = pack_per_frame_data(view, proj, light, width, height, frame_index,
+                                 prev_view, prev_proj)
+    return per_frame_data_from_flat(*upload_per_frame_data(*packed, device=device))

@@ -24,7 +24,11 @@
 //        only that tile's pixels (the reference's tile_ids remap mode,
 //        :301-305, :453-455).  The caller pre-fills the outputs with the
 //        clear values, so on the listed tiles the result equals K1b's
-//        full-width round bit for bit, and elsewhere it stays clear.
+//        full-width round bit for bit, and elsewhere it stays clear.  The
+//        list's length is counted on the device: the grid covers every slot
+//        of the buffer (one per tile of the image), and a block whose slot
+//        is at or past *n_live, or holds -1, exits before its first load of
+//        the tile, so the peel never waits for the host to size a round.
 // K1d (raster_tile_msaa_launch) is a kernel of its own, templated on the
 // sample count: K1a at the 2, 4 or 8 standard Vulkan sample positions, where
 // the reference runs its kernel once per sample on C-shifted entry copies
@@ -235,13 +239,18 @@ raster_tile_kernel(const float* __restrict__ planes,
                    const int32_t* __restrict__ entry_tri,
                    const int32_t* __restrict__ offsets,
                    const int32_t* __restrict__ tile_ids,
+                   const int32_t* __restrict__ n_live,
                    const float* __restrict__ zcap,
                    const int32_t* __restrict__ captid, int ntx, int width,
                    int height, float* __restrict__ depth,
                    int32_t* __restrict__ tri, float* __restrict__ bary) {
     __shared__ Stage st;
 
+    // K1c: a slot past the device count, or a sentinel, rasters nothing (the
+    // whole block leaves before any barrier)
+    if (kList && (int)blockIdx.x >= *n_live) return;
     const int tile = kList ? tile_ids[blockIdx.x] : blockIdx.x;
+    if (tile < 0) return;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int tx0 = (tile % ntx) * kTileW, ty0 = (tile / ntx) * kTileH;
     const uint32_t mine = warp_bits(warp);
@@ -507,14 +516,15 @@ bool bad_shape(int tile_w, int tile_h, const float* planes) {
 
 template <bool kCap, bool kList>
 int launch(int nblocks, const float* planes, const int32_t* entry_tri,
-           const int32_t* offsets, const int32_t* tile_ids, const float* zcap,
+           const int32_t* offsets, const int32_t* tile_ids, const int32_t* n_live,
+           const float* zcap,
            const int32_t* captid, int tile_w, int tile_h, int ntx, int width,
            int height, float* depth, int32_t* tri, float* bary, void* stream) {
     if (bad_shape(tile_w, tile_h, planes)) return (int)cudaErrorInvalidValue;
     if (nblocks > 0) {
         raster_tile_kernel<kCap, kList><<<nblocks, kThreads, 0, (cudaStream_t)stream>>>(
-            planes, entry_tri, offsets, tile_ids, zcap, captid, ntx, width, height, depth,
-            tri, bary);
+            planes, entry_tri, offsets, tile_ids, n_live, zcap, captid, ntx, width, height,
+            depth, tri, bary);
     }
     return (int)cudaGetLastError();
 }
@@ -547,7 +557,7 @@ extern "C" int raster_tile_launch(const float* planes, const int32_t* entry_tri,
                                   float* depth, int32_t* tri, float* bary,
                                   void* stream) {
     return launch<false, false>(ntx * nty, planes, entry_tri, offsets, nullptr,
-                                nullptr, nullptr, tile_w, tile_h, ntx, width,
+                                nullptr, nullptr, nullptr, tile_w, tile_h, ntx, width,
                                 height, depth, tri, bary, stream);
 }
 
@@ -560,16 +570,19 @@ extern "C" int raster_tile_peel_launch(const float* planes,
                                        int width, int height, float* depth,
                                        int32_t* tri, float* bary, void* stream) {
     return launch<true, false>(ntx * nty, planes, entry_tri, offsets, nullptr,
-                               zcap, captid, tile_w, tile_h, ntx, width, height,
+                               nullptr, zcap, captid, tile_w, tile_h, ntx, width, height,
                                depth, tri, bary, stream);
 }
 
-// K1c: the n_tiles physical tiles of tile_ids, bounded like K1b; writes only
-// those tiles' pixels of the caller's pre-filled outputs.
+// K1c: the physical tiles of tile_ids' n_tiles slots, bounded like K1b;
+// writes only those tiles' pixels of the caller's pre-filled outputs.  A
+// block a slot; slots at or past the device count *n_live, and slots
+// holding -1, list nothing.
 extern "C" int raster_tile_compact_launch(const float* planes,
                                           const int32_t* entry_tri,
                                           const int32_t* offsets,
                                           const int32_t* tile_ids, int n_tiles,
+                                          const int32_t* n_live,
                                           const float* zcap,
                                           const int32_t* captid, int tile_w,
                                           int tile_h, int ntx, int width,
@@ -577,7 +590,7 @@ extern "C" int raster_tile_compact_launch(const float* planes,
                                           int32_t* tri, float* bary,
                                           void* stream) {
     return launch<true, true>(n_tiles, planes, entry_tri, offsets, tile_ids,
-                              zcap, captid, tile_w, tile_h, ntx, width, height,
+                              n_live, zcap, captid, tile_w, tile_h, ntx, width, height,
                               depth, tri, bary, stream);
 }
 

@@ -4,7 +4,11 @@ Passes are functions over named resources; dependencies are data flow.  The
 execution order is the reference's FindExecutionOrder: a backward walk from
 the unique writer of RENDER_OUTPUT, so passes that feed nothing are pruned.
 There is no jit: ``run`` calls the passes in order and PyTorch queues their
-work on the device.
+work on the device; ``make_frame_fn`` closes over ``run`` as the reference's
+does, and the renderer captures it into CUDA graphs (runtime/dispatch.py).
+A pass registered with ``host_sized=True`` sizes its work on the host from
+values on the device (a sync): the capture leaves it out and runs it
+eagerly between the graphs.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ class Pass:
     fn: Callable[[dict], dict]
     inputs: tuple[str, ...]
     outputs: tuple[str, ...]
+    #: the pass reads device values back to size its work: never captured
+    host_sized: bool = False
 
 
 class RenderGraph:
@@ -37,12 +43,13 @@ class RenderGraph:
     def passes(self) -> dict[str, Pass]:
         return self._passes
 
-    def add_pass(self, name: str, fn, inputs, outputs):
+    def add_pass(self, name: str, fn, inputs, outputs, host_sized: bool = False):
         """Register a pass: `fn(res: dict) -> dict` returns exactly its
-        declared outputs."""
+        declared outputs.  host_sized: the pass waits for device values to
+        size its work (see the module docstring)."""
         if name in self._passes:
             raise GraphError(f"duplicate pass {name!r}")
-        self._passes[name] = Pass(name, fn, tuple(inputs), tuple(outputs))
+        self._passes[name] = Pass(name, fn, tuple(inputs), tuple(outputs), host_sized)
         return self
 
     def writers(self) -> dict[str, str]:
@@ -104,6 +111,17 @@ class RenderGraph:
                 raise GraphError(f"pass {name!r} did not produce {missing}")
             res.update({k: produced[k] for k in p.outputs})
         return res
+
+    def make_frame_fn(self, target: str = RENDER_OUTPUT, keep: tuple[str, ...] = ()):
+        """The reference's frame function: frame_fn(resources) -> a dict of
+        `target` and the `keep` resources only, a plain function over run."""
+        wanted = (target,) + tuple(keep)
+
+        def frame_fn(resources: dict) -> dict:
+            res = self.run(resources, target)
+            return {k: res[k] for k in wanted}
+
+        return frame_fn
 
     def time_passes(self, resources: dict, device, target: str = RENDER_OUTPUT,
                     iters: int = 5) -> dict[str, float]:

@@ -19,6 +19,7 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
+    host_sized_raster,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
@@ -55,5 +56,5 @@ class RayqueryPath(RenderPath):
         graph.add_pass(
             "Rayquery Pass", rayquery_pass,
             inputs=("scene", "pfd", "Clip", "BVH", "shade_tables", "TriRows"),
-            outputs=(RENDER_OUTPUT,),
+            outputs=(RENDER_OUTPUT,), host_sized=host_sized_raster(cfg),
         )

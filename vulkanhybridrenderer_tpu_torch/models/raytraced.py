@@ -24,6 +24,7 @@ from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT, Ren
 from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import add_bvh_pass, add_geometry_pass
 from vulkanhybridrenderer_tpu_torch.ops import rt_shade, screen, traverse
+from vulkanhybridrenderer_tpu_torch.utils.consts import device_constant
 from vulkanhybridrenderer_tpu_torch.utils.math3d import (
     normalize,
     transform_directions,
@@ -77,7 +78,7 @@ class RaytracedPath(RenderPath):
                 scene, tables, res["TriRows"], pfd, rec.tri, rec.u, rec.v, ~shadow.hit,
                 test_alpha=test_alpha,
             )
-            sky = torch.tensor(SKY, dtype=torch.float32, device=shaded.device)
+            sky = device_constant(SKY, device=shaded.device)
             img = torch.where(rec.hit[:, None], shaded, sky)
             return {OUTPUT: img.reshape(h, w, 4).permute(2, 0, 1).contiguous()}
 

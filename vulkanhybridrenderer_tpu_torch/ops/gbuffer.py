@@ -14,6 +14,7 @@ import torch
 from vulkanhybridrenderer_tpu_torch.core.types import GBuffer, PerFrameData
 from vulkanhybridrenderer_tpu_torch.ops import screen, shadetab
 from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer, weights_from_bary
+from vulkanhybridrenderer_tpu_torch.utils.consts import device_constant
 from vulkanhybridrenderer_tpu_torch.utils.math3d import (
     cross,
     matmul4,
@@ -135,7 +136,7 @@ def resolve_gbuffer(scene, tables, tri_rows, vis: VisibilityBuffer,
     normal_oid = torch.where(
         vf, torch.cat([n_world, tr["prim"][..., None].to(torch.float32)], -1), 0.0
     )
-    mr_clear = torch.tensor([0.0, 0.0, -1.0, -1.0], device=dev)
+    mr_clear = device_constant([0.0, 0.0, -1.0, -1.0], device=dev)
     motion_mr = torch.where(
         vf, torch.cat([motion, metallic[..., None], roughness[..., None]], -1),
         mr_clear,

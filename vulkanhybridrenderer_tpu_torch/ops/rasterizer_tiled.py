@@ -1,15 +1,20 @@
 """Binned tile rasterizer (port of ``ops/rasterizer_tiled.py``).
 
 1. ``bin_triangles``: per-triangle screen bbox -> covered range of 8x128-pixel
-   tiles; one entry per (triangle, tile), enumerated with repeat_interleave,
-   stable-sorted by tile (so each tile's entries stay in triangle-id order)
-   and cut into per-tile ranges with searchsorted.  Culling matches the
-   reference: non-degenerate and some w > eps, then front-facing, then
+   tiles; one entry per (triangle, tile), enumerated into buffers of the
+   reference's static size (``default_e_cap``; the alpha stream's
+   max(8192, 8 A)): entry e belongs to the triangle whose cumulative span
+   first passes e (searchsorted), entries past the true count get the
+   sentinel tile and sort last, and a stable sort by tile (each tile's
+   entries stay in triangle-id order) is cut into per-tile ranges with
+   searchsorted.  The live count is ``offsets[-1]``, on the device: binning
+   never waits for the host.  Entries past the cap are dropped, as the
+   reference's are, and counted in ``Bins.overflow``; ``rasterize_scene``
+   and ``rasterize_scene_msaa`` then NaN-poison the depth on the device and
+   ``Renderer.check_binning`` raises on the first frame.  Culling matches
+   the reference: non-degenerate and some w > eps, then front-facing, then
    on-screen, then the caller's include mask (the opaque and alpha-masked
-   streams).  Entries keep GLOBAL triangle ids in both streams.  Buffers are
-   sized by the true entry count (one host sync per call), so binning can
-   never overflow and the reference's static entry cap and NaN-poison guard
-   have no counterpart here.
+   streams).  Entries keep GLOBAL triangle ids in both streams.
 2. The tile depth test, hand-written CUDA (csrc/raster_tile.cu) on the GPU, in
    four modes: ``raster_tiles`` (K1a, every tile), ``raster_tiles_peel``
    (K1b, every tile under a per-pixel (z, id) depth-peel bound),
@@ -66,12 +71,21 @@ MSAA_PATTERNS = {
 }
 
 
+def default_e_cap(t: int, npix: int) -> int:
+    """The reference's static entry capacity of a binning of t triangles at
+    npix pixels: max(65536, 4 t) up to 2^22 pixels, else max(65536, 10 t)."""
+    mult = 4 if npix <= (1 << 22) else 10
+    return max(65536, mult * t)
+
+
 @dataclasses.dataclass(frozen=True)
 class Bins:
-    entry_tri: Any  # (E,) int32 global triangle id per entry, tile-major
-    offsets: Any  # (ntiles + 1,) int32 start of each tile's entries
+    entry_tri: Any  # (E,) int32 global triangle id per entry, tile-major; E the cap
+    offsets: Any  # (ntiles + 1,) int32 start of each tile's entries; [-1] the live count
     ntx: int
     nty: int
+    #: (1,) int32 entries past the cap (dropped); None for bins made by hand
+    overflow: Any = None
 
 
 def _tile_counts(width: int, height: int):
@@ -79,12 +93,18 @@ def _tile_counts(width: int, height: int):
 
 
 def bin_triangles(setup: TriangleSetup, width: int, height: int,
-                  cull_backface: bool = True, include=None) -> Bins:
+                  cull_backface: bool = True, include=None, e_cap: int | None = None) -> Bins:
     """include: optional (T,) bool; only those triangles are binned (the
-    reference's exclude_mask, and its alpha subset binned with global ids)."""
+    reference's exclude_mask, and its alpha subset binned with global ids).
+    e_cap: the entry buffers' length, default_e_cap(T, width * height) by
+    default.  Entries past the live count hold -1 and the sentinel tile,
+    so no tile's range reaches them; nothing here reads a value back."""
     ntx, nty = _tile_counts(width, height)
     ntiles = ntx * nty
     dev = setup.planes.device
+    t = setup.planes.shape[0]
+    if e_cap is None:
+        e_cap = default_e_cap(t, width * height)
     alive = setup.valid & setup.w_any
     if cull_backface:
         alive &= setup.front
@@ -104,23 +124,34 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     ty1 = tile_index(ymax, TILE_H, nty)
     wspan = tx1 - tx0 + 1
     span = torch.where(alive, wspan * (ty1 - ty0 + 1), 0)
-
-    tri_of = torch.repeat_interleave(
-        torch.arange(span.shape[0], device=dev), span
-    )  # (E,) owning triangle per entry (one host sync for E)
-    starts = torch.cumsum(span, 0) - span
-    k = torch.arange(tri_of.shape[0], device=dev) - starts[tri_of]
-    ws = wspan[tri_of]
-    tile = (ty0 * ntx + tx0)[tri_of] + torch.div(k, ws, rounding_mode="floor") * ntx + (k % ws)
+    cum = torch.cumsum(span, 0)  # inclusive: entry e's triangle is the first with cum > e
+    total = cum[-1:] if t else torch.zeros(1, dtype=torch.int64, device=dev)
+    overflow = torch.clamp(total - e_cap, min=0).to(torch.int32)
+    e = torch.arange(e_cap, device=dev)
+    tri_of = torch.clamp(torch.searchsorted(cum, e, right=True), max=max(t - 1, 0))
+    live = e < total
+    if t:
+        k = e - (cum[tri_of] - span[tri_of])
+        ws = torch.clamp(wspan[tri_of], min=1)  # >= 1 wherever an entry is live
+        tile = ((ty0 * ntx + tx0)[tri_of] + torch.div(k, ws, rounding_mode="floor") * ntx
+                + k % ws)
+    else:
+        tile = e
+    tile = torch.where(live, tile, ntiles)
     tile_sorted, perm = torch.sort(tile, stable=True)
-    offsets = torch.searchsorted(
-        tile_sorted, torch.arange(ntiles + 1, device=dev)
-    )
+    offsets = torch.searchsorted(tile_sorted, torch.arange(ntiles + 1, device=dev))
     return Bins(
-        entry_tri=tri_of[perm].to(torch.int32).contiguous(),
+        entry_tri=torch.where(tile_sorted < ntiles, tri_of[perm], -1).to(torch.int32),
         offsets=offsets.to(torch.int32).contiguous(),
-        ntx=ntx, nty=nty,
+        ntx=ntx, nty=nty, overflow=overflow,
     )
+
+
+def live_entry_tri(bins: Bins):
+    """(n,) the live entries of `bins` (offsets[-1] of them; one host sync
+    on a GPU): for the plain versions, the bound's pricing and the tests,
+    never the render path."""
+    return bins.entry_tri[:int(bins.offsets[-1])]
 
 
 def clear_visibility(width: int, height: int, device) -> VisibilityBuffer:
@@ -135,27 +166,34 @@ def clear_visibility(width: int, height: int, device) -> VisibilityBuffer:
 
 
 def entry_tiles(bins: Bins):
-    """(E,) int64: the tile of each entry."""
+    """(n,) int64: the tile of each live entry (live_entry_tri's)."""
     counts = (bins.offsets[1:] - bins.offsets[:-1]).long()
     return torch.repeat_interleave(torch.arange(counts.shape[0], device=counts.device), counts)
 
 
 def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
-                       zcap=None, captid=None, tile_ids=None,
+                       zcap=None, captid=None, tile_ids=None, n_live=None,
                        chunk: int = 2048) -> VisibilityBuffer:
-    """Plain PyTorch K1a / K1b / K1c: every entry against every pixel of its
-    tile, in chunks of entries; per pixel the lexicographic max of (z, id)
-    wins.  zcap / captid: (H, W) float32 / int32 peel bound (K1b); tile_ids:
-    (L,) int32 tiles to raster, the others keep the clear values (K1c)."""
+    """Plain PyTorch K1a / K1b / K1c: every live entry against every pixel
+    of its tile, in chunks of entries; per pixel the lexicographic max of
+    (z, id) wins.  zcap / captid: (H, W) float32 / int32 peel bound (K1b);
+    tile_ids: (L,) int32 tiles to raster, the others keep the clear values
+    (K1c), where a slot holding -1, or at or past the (1,) int32 count
+    n_live when one is given, lists nothing."""
     dev = planes.device
     npx = TILE_W * TILE_H
     hp, wp = bins.nty * TILE_H, bins.ntx * TILE_W  # tile-padded image
     tile_of = entry_tiles(bins)
-    entry_tri = bins.entry_tri
+    entry_tri = live_entry_tri(bins)
     if tile_ids is not None:
-        listed = torch.zeros(bins.ntx * bins.nty, dtype=torch.bool, device=dev)
-        listed[tile_ids.long()] = True
-        keep = listed[tile_of]
+        ntiles = bins.ntx * bins.nty
+        ids = tile_ids.long()
+        slot_live = ids >= 0
+        if n_live is not None:
+            slot_live &= torch.arange(ids.shape[0], device=dev) < n_live.to(dev)
+        listed = torch.zeros(ntiles + 1, dtype=torch.bool, device=dev)
+        listed[torch.where(slot_live, ids, ntiles)] = True
+        keep = listed[:ntiles][tile_of]
         tile_of, entry_tri = tile_of[keep], entry_tri[keep]
     if zcap is not None:
         # pixels of the padding never take a fragment, like the kernel's
@@ -214,15 +252,15 @@ def raster_tiles_plain(planes, bins: Bins, width: int, height: int,
 
 def subtile_masks(planes, bins: Bins, samples: int | None = None,
                   chunk: int = 65536):
-    """The kernels' exact sub-tile culling in plain PyTorch: (E,) int64,
-    bit s of entry e set unless the corner test proves that no pixel centre
+    """The kernels' exact sub-tile culling in plain PyTorch: (n,) int64 over
+    the live entries, bit s of entry e set unless the corner test proves that no pixel centre
     of sub-tile s of its tile passes e's coverage test.  A plane's value
     fl(fl(fl(px*A) + fl(py*B)) + C) is monotone in px and py, so over the
     sub-tile its max is at the corner picked by the signs of A and B and its
     min at the opposite one; a pair is culled when some l_k's max < 0, z's
     max < 0 or z's min > 1 (a NaN keeps it).  csrc/raster_tile.cu makes the
     same masks with the same operations while it stages a batch.  With
-    samples: (samples, E), the masks of each sample position of
+    samples: (samples, n), the masks of each sample position of
     MSAA_PATTERNS[samples] (on offset_planes, which round the shifted
     constants as K1d does); K1d tests a pair when any sample's bit is set.
     Nothing on the render path calls it: chip_smoke.py prices the kernels'
@@ -234,6 +272,7 @@ def subtile_masks(planes, bins: Bins, samples: int | None = None,
                             for sx, sy in MSAA_PATTERNS[samples]])
     dev = planes.device
     tile_of = entry_tiles(bins)
+    entry_tri = live_entry_tri(bins)
     sub = torch.arange(N_SUBTILES, device=dev)
     sub_x = (sub % (TILE_W // SUB_W)) * SUB_W
     sub_y = (sub // (TILE_W // SUB_W)) * SUB_H
@@ -245,7 +284,7 @@ def subtile_masks(planes, bins: Bins, samples: int | None = None,
         y0 = ((tl // bins.ntx) * TILE_H)[:, None] + sub_y[None, :]
         xl, xh = x0.to(torch.float32) + 0.5, (x0 + SUB_W - 1).to(torch.float32) + 0.5
         yl, yh = y0.to(torch.float32) + 0.5, (y0 + SUB_H - 1).to(torch.float32) + 0.5
-        p = planes[bins.entry_tri[s:s + chunk].long()]
+        p = planes[entry_tri[s:s + chunk].long()]
 
         def corner(k, top):
             """Plane k at its max (top) or min corner of each sub-tile."""
@@ -288,7 +327,7 @@ def passing_pairs(masks) -> int:
 
 def raster_ops(n_entries: int, n_pass: int, mode: str, samples: int = 1):
     """(FP32 instructions after the culling, those of the dense test) of
-    one raster call: n_entries entries, of which n_pass (entry, sub-tile)
+    one raster call: n_entries live entries (offsets[-1]), of which n_pass (entry, sub-tile)
     pairs pass the corner test (K1d: on some sample).  mode: "K1a", "K1b",
     "K1c" or "K1d"."""
     if mode == "K1d":
@@ -313,7 +352,7 @@ def load_kernel():
     signatures = {
         "raster_tile_launch": [ptr] * 3 + [num] * 6 + [ptr] * 4,
         "raster_tile_peel_launch": [ptr] * 5 + [num] * 6 + [ptr] * 4,
-        "raster_tile_compact_launch": [ptr] * 4 + [num] + [ptr] * 2 + [num] * 5 + [ptr] * 4,
+        "raster_tile_compact_launch": [ptr] * 4 + [num] + [ptr] * 3 + [num] * 5 + [ptr] * 4,
         "raster_tile_msaa_launch": ([ptr] * 3 + [ctypes.POINTER(ctypes.c_float)]
                                     + [num] * 7 + [ptr] * 4),
     }
@@ -348,12 +387,13 @@ def _empty_visibility(width: int, height: int, device, samples=()) -> Visibility
 
 def launch(mode: str, planes, bins: Bins, width: int, height: int,
            out: VisibilityBuffer, zcap=None, captid=None, tile_ids=None,
-           samples: int = 1) -> None:
+           samples: int = 1, n_live=None) -> None:
     """Check the inputs and launch one kernel mode ("K1a", "K1b", "K1c",
     "K1d") on the current stream, writing into `out`, which K1c expects
     pre-filled (it writes the listed tiles only) and K1d expects with a
-    leading (samples,) dimension.  Counts nothing: the wrappers below
-    allocate the outputs and count their launches."""
+    leading (samples,) dimension.  K1c launches a block a slot of tile_ids
+    and reads the (1,) int32 count n_live on the device.  Counts nothing:
+    the wrappers below allocate the outputs and count their launches."""
     if planes.device.type != "cuda":
         raise ValueError(f"raster_tiles: unsupported device {planes.device}")
     dev = planes.device
@@ -372,6 +412,7 @@ def launch(mode: str, planes, bins: Bins, width: int, height: int,
         _check("captid", captid, torch.int32, dev, (height, width))
     if tile_ids is not None:
         _check("tile_ids", tile_ids, torch.int32, dev)
+        _check("n_live", n_live, torch.int32, dev, (1,))
     shape = (samples, height, width) if mode == "K1d" else (height, width)
     _check("out depth", out.depth, torch.float32, dev, shape)
     _check("out tri_id", out.tri_id, torch.int32, dev, shape)
@@ -392,7 +433,8 @@ def launch(mode: str, planes, bins: Bins, width: int, height: int,
         elif mode == "K1c":
             err = k1c(planes.data_ptr(), bins.entry_tri.data_ptr(),
                       bins.offsets.data_ptr(), tile_ids.data_ptr(),
-                      tile_ids.shape[0], zcap.data_ptr(), captid.data_ptr(),
+                      tile_ids.shape[0], n_live.data_ptr(), zcap.data_ptr(),
+                      captid.data_ptr(),
                       *common, width, height, *outs, stream)
         else:
             dxdy = [v / 16.0 for xy in MSAA_PATTERNS[samples] for v in xy]
@@ -429,14 +471,16 @@ def raster_tiles_peel(planes, bins: Bins, width: int, height: int,
 
 
 def raster_tiles_compact(planes, bins: Bins, width: int, height: int,
-                         zcap, captid, tile_ids) -> VisibilityBuffer:
-    """K1c: K1b over the (L,) int32 physical tiles `tile_ids` only; every
-    other pixel keeps the clear values, which is what K1b gives where the
-    bound admits nothing."""
+                         zcap, captid, tile_ids, n_live) -> VisibilityBuffer:
+    """K1c: K1b over the physical tiles listed in the (L,) int32 `tile_ids`
+    only; every other pixel keeps the clear values, which is what K1b gives
+    where the bound admits nothing.  A slot holding -1, or at or past the
+    (1,) int32 device count n_live, lists nothing: the peel hands it
+    live_tiles' list of every tile, sized on the device."""
     if planes.device.type == "cpu":
-        return raster_tiles_plain(planes, bins, width, height, zcap, captid, tile_ids)
+        return raster_tiles_plain(planes, bins, width, height, zcap, captid, tile_ids, n_live)
     out = clear_visibility(width, height, planes.device)
-    launch("K1c", planes, bins, width, height, out, zcap, captid, tile_ids)
+    launch("K1c", planes, bins, width, height, out, zcap, captid, tile_ids, n_live=n_live)
     raster_tiles_compact.launches += 1
     return out
 
@@ -485,20 +529,20 @@ raster_tiles_msaa.launches = 0
 
 def alpha_test(tables, vis: VisibilityBuffer):
     """The fragment alpha kill (gbuf.frag:22-32) of each pixel's winner:
-    returns (accept, killed), (H, W) bool.  Only covered pixels are tested
-    (one host sync sizes them)."""
+    returns (accept, killed), (H, W) bool.  Every pixel is tested (an
+    uncovered one reads triangle 0's row) and the uncovered ones masked
+    out, so nothing waits for the host; a covered pixel's test is the same
+    arithmetic as on a list of covered pixels.  The gathers read only what
+    the test needs: 13 columns of each static row, the alpha of each tap."""
     flat = vis.tri_id.reshape(-1)
     covered = flat >= 0
-    idx = torch.nonzero(covered).squeeze(1)
-    pm = shadetab.fetch_tri_static(tables, flat[idx])
-    wts = weights_from_bary(vis.bary.reshape(-1, 3)[idx])
+    pm = shadetab.fetch_alpha_fields(tables, torch.clamp(flat, min=0))
+    wts = weights_from_bary(vis.bary.reshape(-1, 3))
     uv = shadetab.interpolate3(pm["uv0"], wts)
-    alpha = shadetab.sample_atlas4(
-        tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], uv
-    )[..., 3]
+    alpha = shadetab.sample_atlas_alpha(
+        tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], uv)
     needs = (pm["alpha_mask"] == 1.0) & (pm["base_tex"] >= 0)
-    killed = torch.zeros_like(covered)
-    killed[idx] = needs & (alpha < pm["alpha_cutoff"])
+    killed = covered & needs & (alpha < pm["alpha_cutoff"])
     shape = vis.tri_id.shape
     return (covered & ~killed).reshape(shape), killed.reshape(shape)
 
@@ -512,56 +556,67 @@ def peel_bound(vis: VisibilityBuffer, killed):
 
 
 def live_tiles(killed, ntx: int, nty: int):
-    """(L,) int32 ids of the tiles holding a killed pixel (one host sync)."""
+    """The tiles holding a killed pixel, listed on the device: (tile_ids,
+    n_live), tile_ids the (ntx * nty,) int32 ids of those tiles in
+    ascending order, then -1 in every slot past them, and n_live their
+    (1,) int32 count."""
     h, w = killed.shape
     pad = torch.zeros((nty * TILE_H, ntx * TILE_W), dtype=torch.bool, device=killed.device)
     pad[:h, :w] = killed
-    per_tile = pad.reshape(nty, TILE_H, ntx, TILE_W).any(dim=3).any(dim=1)
-    return torch.nonzero(per_tile.reshape(-1)).squeeze(1).to(torch.int32)
+    per_tile = pad.reshape(nty, TILE_H, ntx, TILE_W).any(dim=3).any(dim=1).reshape(-1)
+    n_live = per_tile.sum().to(torch.int32).reshape(1)
+    order = torch.sort((~per_tile).to(torch.uint8), stable=True).indices
+    slot = torch.arange(per_tile.shape[0], device=killed.device)
+    return torch.where(slot < n_live, order, -1).to(torch.int32), n_live
 
 
 def rasterize_alpha_peeled(scene, setup: TriangleSetup, width: int, height: int,
                            tables, rounds: int = 4, cull_backface: bool = True,
-                           trace: list | None = None) -> VisibilityBuffer:
+                           trace: list | None = None):
     """Binned raster of the alpha-MASK triangles with the per-fragment alpha
-    kill, by depth peeling (the reference's rasterize_alpha_peeled).
+    kill, by depth peeling (the reference's rasterize_alpha_peeled); returns
+    (VisibilityBuffer, the masked stream's binning overflow), as the
+    reference's does.
 
     Round 1 rasters the masked stream over every tile with a bound that
     admits every fragment (K1b) and alpha-tests each pixel's winner.  A
     passing winner is final: nothing deeper can win.  A killed pixel gets
     its winner's (z, id) as the next round's bound, so the next-deepest
     fragment surfaces.  Rounds 2..`rounds` raster only the tiles that hold a
-    killed pixel (K1c), and stop once no pixel was killed.  A pixel with
-    more than `rounds` rejected fragments stays uncovered, as in the
-    reference.
+    killed pixel (K1c).  A pixel with more than `rounds` rejected fragments
+    stays uncovered, as in the reference.  The masked stream is binned with
+    the reference's cap, max(8192, 8 A) entries for A masked triangles.
 
-    The reference sizes its live-tile list and the list's entry blocks with
-    static caps (l_cap, sb_cap) and falls back to a full-width round through
-    lax.cond when one overflows.  Here the list is sized by the true count
-    (one host sync per round, like the binning), so there are no caps and no
-    fallback.  trace: optional list that receives one dict per round run
-    (round, tiles rastered, killed pixels).
+    Nothing here waits for the host: every round runs, over live_tiles'
+    list of every tile with its count on the device, and a round with no
+    killed pixel before it rasters no tile and changes nothing.  The
+    reference caps its live-tile list and the list's entry blocks (l_cap,
+    sb_cap) and falls back to a full-width round through lax.cond when one
+    overflows; a list as long as the image's tiles needs neither, and gives
+    the same frames.  trace: optional list that receives, once the rounds
+    are queued, one dict per round up to the first that had no tile to
+    raster (round, tiles rastered, killed pixels): reading it waits for the
+    device.
     """
     dev = setup.planes.device
-    include = torch.zeros(setup.planes.shape[0], dtype=torch.bool, device=dev)
-    include[scene.alpha_tri_idx.long()] = True
+    # index_fill_, not include[idx] = True: that copies the True from the host
+    include = torch.zeros(setup.planes.shape[0], dtype=torch.bool, device=dev).index_fill_(
+        0, scene.alpha_tri_idx.long(), True)
     bins = bin_triangles(setup, width, height, cull_backface=cull_backface,
-                         include=include)
+                         include=include, e_cap=max(8192, 8 * scene.alpha_tri_idx.shape[0]))
     final = clear_visibility(width, height, dev)
     zcap = torch.full((height, width), BIG, dtype=torch.float32, device=dev)
     captid = torch.full((height, width), _INT32_MAX, dtype=torch.int32, device=dev)
     killed = None
+    rounds_seen = []
     for r in range(rounds):
         if r == 0:
             vis = raster_tiles_peel(setup.planes, bins, width, height, zcap, captid)
             n_tiles = bins.ntx * bins.nty
         else:
-            tile_ids = live_tiles(killed, bins.ntx, bins.nty)
-            n_tiles = tile_ids.shape[0]
-            if n_tiles == 0:
-                break
+            tile_ids, n_tiles = live_tiles(killed, bins.ntx, bins.nty)
             vis = raster_tiles_compact(setup.planes, bins, width, height,
-                                       zcap, captid, tile_ids)
+                                       zcap, captid, tile_ids, n_tiles)
         accept, killed = alpha_test(tables, vis)
         final = VisibilityBuffer(
             tri_id=torch.where(accept, vis.tri_id, final.tri_id),
@@ -570,9 +625,12 @@ def rasterize_alpha_peeled(scene, setup: TriangleSetup, width: int, height: int,
         )
         zcap, captid = peel_bound(vis, killed)
         if trace is not None:
-            trace.append(dict(round=r + 1, tiles=int(n_tiles),
-                              killed=int(killed.sum())))
-    return final
+            rounds_seen.append((r + 1, n_tiles, killed.sum()))
+    for r, n_tiles, n_killed in rounds_seen:
+        if r > 1 and int(n_tiles) == 0:
+            break
+        trace.append(dict(round=r, tiles=int(n_tiles), killed=int(n_killed)))
+    return final, bins.overflow
 
 
 def merge_visibility(a: VisibilityBuffer, b: VisibilityBuffer) -> VisibilityBuffer:
@@ -607,6 +665,14 @@ def _opaque_stream(scene, clip, width: int, height: int, cull_backface: bool,
     return setup, bins, use_alpha
 
 
+def poison(vis: VisibilityBuffer, overflow) -> VisibilityBuffer:
+    """The reference's every-frame overflow guard: the depth times NaN where
+    the (1,) `overflow` is positive (entries were dropped), else times 1
+    (the same bits), on the device."""
+    return dataclasses.replace(
+        vis, depth=vis.depth * torch.where(overflow > 0, torch.nan, 1.0))
+
+
 def rasterize_scene(scene, clip, width: int, height: int,
                     cull_backface: bool = True, alpha: bool = True,
                     tables=None, alpha_rounds: int = 4) -> VisibilityBuffer:
@@ -614,17 +680,19 @@ def rasterize_scene(scene, clip, width: int, height: int,
     by depth.  With alpha (and a scene that has alpha-masked triangles) the
     opaque stream excludes the masked triangles (K1a) and the masked stream
     is depth-peeled with the alpha kill (K1b, K1c); without, every triangle
-    rasters solid through K1a (alpha_raster="off")."""
+    rasters solid through K1a (alpha_raster="off").  A stream whose binning
+    overflowed its cap NaN-poisons the depth, the masked one after the
+    merge (a NaN would lose the merge's compare), as the reference's."""
     setup, bins, use_alpha = _opaque_stream(scene, clip, width, height, cull_backface,
                                             alpha)
-    vis = raster_tiles(setup.planes, bins, width, height)
+    vis = poison(raster_tiles(setup.planes, bins, width, height), bins.overflow)
     if use_alpha:
         if tables is None:
             tables = shadetab.build_shade_tables(scene)
-        vis_m = rasterize_alpha_peeled(scene, setup, width, height, tables,
-                                       rounds=alpha_rounds,
-                                       cull_backface=cull_backface)
-        vis = merge_visibility(vis, vis_m)
+        vis_m, overflow_m = rasterize_alpha_peeled(scene, setup, width, height, tables,
+                                                   rounds=alpha_rounds,
+                                                   cull_backface=cull_backface)
+        vis = poison(merge_visibility(vis, vis_m), overflow_m)
     return vis
 
 
@@ -654,14 +722,16 @@ def rasterize_scene_msaa(scene, clip, width: int, height: int, samples: int,
     rasterize_scene_msaa).  Triangle setup and the opaque binning run once;
     the opaque stream goes through K1d.  With alpha (and masked triangles in
     the scene) each sample then peels the masked stream on its offset setup
-    (K1b, K1c) and merges it over its opaque buffer.  The reference passes
+    (K1b, K1c) and merges it over its opaque buffer.  Overflow poisons the
+    depth as in rasterize_scene.  The reference passes
     no round count to that peel, so it runs the default 4 rounds whatever
     alpha_peel_rounds says; so does this."""
     if samples not in MSAA_PATTERNS:
         raise ValueError(f"msaa_samples must be one of {sorted(MSAA_PATTERNS)}")
     setup, bins, use_alpha = _opaque_stream(scene, clip, width, height, cull_backface,
                                             alpha)
-    vises = raster_tiles_msaa(setup.planes, bins, width, height, samples)
+    vises = [poison(v, bins.overflow)
+             for v in raster_tiles_msaa(setup.planes, bins, width, height, samples)]
     if not use_alpha:
         return vises
     if tables is None:
@@ -670,7 +740,7 @@ def rasterize_scene_msaa(scene, clip, width: int, height: int, samples: int,
     for (sx, sy), vis in zip(MSAA_PATTERNS[samples], vises):
         shifted = dataclasses.replace(
             setup, planes=offset_planes(setup.planes, sx / 16.0, sy / 16.0))
-        vis_m = rasterize_alpha_peeled(scene, shifted, width, height, tables,
-                                       cull_backface=cull_backface)
-        out.append(merge_visibility(vis, vis_m))
+        vis_m, overflow_m = rasterize_alpha_peeled(scene, shifted, width, height, tables,
+                                                   cull_backface=cull_backface)
+        out.append(poison(merge_visibility(vis, vis_m), overflow_m))
     return out

@@ -16,6 +16,7 @@ import torch
 
 from vulkanhybridrenderer_tpu_torch.ops import rasterizer
 from vulkanhybridrenderer_tpu_torch.ops.filters import quad4_rows
+from vulkanhybridrenderer_tpu_torch.utils.consts import device_constant
 from vulkanhybridrenderer_tpu_torch.utils.math3d import (
     SHADOW_BIAS_MATRIX,
     matmul4,
@@ -44,7 +45,7 @@ def _sample_nearest(shadow_map, uv):
 
 def shadow_coords(light_projview, world_pos):
     """(..., 3): uv and reverse-Z depth of world positions in light space."""
-    bias = torch.from_numpy(SHADOW_BIAS_MATRIX).to(light_projview.device)
+    bias = device_constant(SHADOW_BIAS_MATRIX, device=light_projview.device)
     h = transform_points(matmul4(bias, light_projview), world_pos)
     return h[..., :3] / h[..., 3:4]
 
@@ -73,8 +74,7 @@ def shadow_pcf16(shadow_map, light_projview, world_pos, bias: float = 1e-4):
         scale = 1.0 / 4096.0
         for oy in PCF_OFFSETS:
             for ox in PCF_OFFSETS:
-                off = torch.tensor([ox * scale, oy * scale], dtype=torch.float32,
-                                   device=sc.device)
+                off = device_constant([ox * scale, oy * scale], device=sc.device)
                 d = _sample_nearest(shadow_map, sc[..., :2] + off)
                 acc = acc + torch.where(z < d - bias, 0.0, 1.0)
         return acc / 16.0

@@ -449,10 +449,16 @@ def load_kernel():
 
 def _ray_bounds(origin, tmin, tmax):
     """tmin / tmax (scalars or (R,)) as contiguous float32 (R,) tensors on
-    the rays' device."""
+    the rays' device; a number is filled in there, never copied from the
+    host."""
     dev, r = origin.device, origin.shape[0]
-    return (torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r).contiguous(),
-            torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r).contiguous())
+
+    def rays(t):
+        if torch.is_tensor(t):
+            return t.to(dev, torch.float32).expand(r).contiguous()
+        return torch.full((r,), float(t), dtype=torch.float32, device=dev)
+
+    return rays(tmin), rays(tmax)
 
 
 def _check_tensors(fn: str, checks) -> None:

@@ -177,10 +177,11 @@ def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
     With alpha (and masked triangles in the scene) the masked stream is
     peeled once on the primary over the whole setup and merged, as in the
     reference, which calls its peel with the default 4 rounds and back-face
-    culling whatever the configuration says; so does this.  The reference
-    also NaN-poisons the depth when a shard's binning overflows its static
-    entry cap; bin_triangles sizes its buffers by the true count and cannot
-    overflow, so there is nothing to poison here."""
+    culling whatever the configuration says; so does this.  As the
+    reference's, each shard bins with the static cap of its own triangle
+    count, and the composited depth is NaN-poisoned when any shard's binning
+    overflowed (the sum of their overflows), the masked stream's after its
+    merge."""
     n = mesh.devices.size
     if height % n:
         raise ValueError(f"rasterize_scene_sharded: {height} rows do not divide into "
@@ -197,6 +198,7 @@ def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
     per = (t + pad) // n
 
     partials = []
+    overflow = torch.zeros(1, dtype=torch.int32, device=mesh.primary)
     for i, dev in enumerate(mesh.devices):
         rows = slice(i * per, (i + 1) * per)
         sub = TriangleSetup(**{f.name: getattr(setup, f.name)[rows].to(dev)
@@ -204,6 +206,7 @@ def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
         bins = rasterizer_tiled.bin_triangles(sub, width, height, cull_backface=cull_backface,
                                               include=opaque[rows].to(dev))
         vis = rasterizer_tiled.raster_tiles(sub.planes, bins, width, height)
+        overflow = overflow + bins.overflow.to(mesh.primary)
         tri = torch.where(vis.tri_id >= 0, vis.tri_id + i * per, -1)
         partials.append((vis.depth, tri, vis.bary))
 
@@ -220,14 +223,16 @@ def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
             bary = torch.where(take[..., None], b_i, bary)
         bands.append((z, tri, bary))
     primary = mesh.primary
-    vis = VisibilityBuffer(
+    vis = rasterizer_tiled.poison(VisibilityBuffer(
         tri_id=torch.cat([b[1].to(primary) for b in bands]),
         depth=torch.cat([b[0].to(primary) for b in bands]),
         bary=torch.cat([b[2].to(primary) for b in bands]),
-    )
+    ), overflow)
     if use_alpha:
         if tables is None:
             tables = shadetab.build_shade_tables(scene)
-        vis_m = rasterizer_tiled.rasterize_alpha_peeled(scene, setup, width, height, tables)
-        vis = rasterizer_tiled.merge_visibility(vis, vis_m)
+        vis_m, overflow_m = rasterizer_tiled.rasterize_alpha_peeled(scene, setup, width,
+                                                                    height, tables)
+        vis = rasterizer_tiled.poison(rasterizer_tiled.merge_visibility(vis, vis_m),
+                                      overflow_m)
     return vis

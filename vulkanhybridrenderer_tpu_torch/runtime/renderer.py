@@ -6,14 +6,25 @@ state.  ``animate`` sets the primitive transforms of the next frames; a
 configuration with ``animated=True`` refits the BVH8 (and rebuilds the
 shadow grid) every frame, and its graph is kept apart from the static one,
 since graphs are keyed on the whole configuration.
-``render_frame(sync=True, srgb8=False)``, the reference's signature, runs the
-active graph eagerly on ``device``; nothing is compiled ahead of time.  With
-a ``mesh`` (parallel/mesh.py) the frame's raster and raytrace passes split
-their work across the mesh's devices and the rest runs on its primary,
-where the frame is returned.  A
-graph is built once per (path, config), as the reference caches its compiled
-frame functions, so switching back with ``set_path`` / ``set_config`` reuses
-it.  The temporal state lives at trace
+``render_frame(sync=True, srgb8=False)``, the reference's signature, runs
+the active graph on ``device`` the way ``dispatch`` says (runtime/dispatch.py).
+On a CUDA device "fused", the default, runs a (path, config)'s first frame
+eagerly, captures the frame function (``RenderGraph.make_frame_fn``) into
+CUDA graphs at its second (one graph a frame, or one per run of passes
+between host-sized passes, which run eagerly between them) and replays them
+from then on; "per_pass" captures one graph per pass, all of a key's at its
+first frame with ``auto_precompile`` (``precompile_passes``), else at its
+second.  On the CPU (the tests) both call the frame function directly.
+With a ``mesh`` (parallel/mesh.py) the frame's raster and raytrace passes
+split their work across the mesh's devices and the rest runs on its
+primary, where the frame is returned; that frame runs eagerly
+(``make_sharded_frame_fn``) in either mode.  The first frame checks the
+binning against its static entry cap (``check_binning``).  A graph is built
+once per (path, config), as the reference caches its compiled frame
+functions, so switching back with ``set_path`` / ``set_config`` reuses it;
+the captured frame is kept for the active (dispatch, path, config) only,
+since it holds a whole frame's device buffers: a switch releases it at the
+next frame, and switching back captures again.  The temporal state lives at trace
 resolution (1/rt_scale of the frame on the hybrid path): it is made at
 construction, passed into the graph as "temporal_state", replaced by the
 graph's "TemporalStateOut" after each rendered frame, and made anew when
@@ -37,8 +48,10 @@ import torch
 from vulkanhybridrenderer_tpu_torch.core.config import RenderConfig
 from vulkanhybridrenderer_tpu_torch.core.types import (
     PerFrameData,
-    make_per_frame_data,
     make_temporal_state,
+    pack_per_frame_data,
+    per_frame_data_from_flat,
+    upload_per_frame_data,
 )
 from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT, PassStats
 from vulkanhybridrenderer_tpu_torch.models.base import get_path
@@ -60,15 +73,23 @@ def _encode_srgb8(planar):
 
 class Renderer:
     def __init__(self, scene: Scene, config: RenderConfig | None = None,
-                 path: str = "hybrid", mesh=None, device=None):
+                 path: str = "hybrid", mesh=None, dispatch: str = "fused",
+                 auto_precompile: bool = True, device=None):
         """mesh: optional parallel.mesh.Mesh, the frame over its devices
         (the reference's row-sharded frame); None renders on one device.
-        device: where the frame runs, "cuda" by default, the mesh's primary
-        with a mesh.  The scene is uploaded once; the BVH is built on the
-        host at the first frame."""
+        dispatch: "fused" (default) or "per_pass", the reference's modes
+        (module docstring); auto_precompile: in "per_pass", capture every
+        pass of a new (path, config) at its first frame.  device: where the
+        frame runs, "cuda" by default, the mesh's primary with a mesh.  The
+        scene is uploaded once; the BVH is built on the host at the first
+        frame."""
+        if dispatch not in ("fused", "per_pass"):
+            raise ValueError(f"dispatch={dispatch!r}: 'fused' or 'per_pass'")
         self.scene = scene
         self.config = config or RenderConfig()
         self.mesh = mesh
+        self.dispatch = dispatch
+        self.auto_precompile = auto_precompile
         if mesh is None:
             self.device = torch.device("cuda" if device is None else device)
         else:
@@ -90,6 +111,10 @@ class Renderer:
         self.prim_transform = self.buffers.prim_transform
         self.path_name = path
         self._graphs: dict = {}
+        #: the active (dispatch, path, config)'s runtime.dispatch.CapturedFrame
+        #: (CUDA only; one at a time, see _captured_frame)
+        self._captured = None
+        self._binning_checked = False
         self.temporal_state = self._new_temporal_state()
         self.frame_index = 0
         self._prev_view: np.ndarray | None = None
@@ -139,17 +164,23 @@ class Renderer:
         """The fly camera (runtime/camera.py) on the scene's camera."""
         cam_ctl.update_camera(self.scene.camera, dt, keys, mouse_delta, mouse_down)
 
-    def _make_pfd(self) -> PerFrameData:
+    def _pack_pfd(self):
+        """This frame's PerFrameData as pack_per_frame_data's host arrays;
+        the current camera becomes the previous view."""
         cam = self.scene.camera
         view = cam.view()
         proj = cam.projection(aspect=self.config.width / self.config.height)
-        pfd = make_per_frame_data(
+        packed = pack_per_frame_data(
             view, proj, self.scene.light, self.config.width, self.config.height,
             frame_index=self.frame_index, prev_view=self._prev_view,
-            prev_proj=self._prev_proj, device=self.device,
+            prev_proj=self._prev_proj,
         )
         self._prev_view, self._prev_proj = view, proj
-        return pfd
+        return packed
+
+    def _make_pfd(self) -> PerFrameData:
+        return per_frame_data_from_flat(*upload_per_frame_data(*self._pack_pfd(),
+                                                               device=self.device))
 
     def _get_bvh(self):
         """BVH8 over the world triangles, built once on the host and
@@ -285,16 +316,152 @@ class Renderer:
             start, end = self._frame_events.popleft()
             self._stats.update_frame(start.elapsed_time(end))
 
+    def check_binning(self, pfd=None) -> None:
+        """The reference's host-side check that the binned raster's static
+        entry cap (rasterizer_tiled.default_e_cap) holds every tile entry of
+        the camera's view and, where the frame rasters the shadow map (a
+        Depth Prepass), the light's: raises otherwise, with the reference's
+        text.  (The reference checks the light's view on every frame, so its
+        first frame raises for a map no pass draws.)  Called once, at the
+        first frame (one sync); later frames are guarded on the device,
+        where an overflow NaN-poisons the depth (rasterize_scene)."""
+        if self.config.raster != "binned":
+            return
+        from vulkanhybridrenderer_tpu_torch.ops import geometry, rasterizer
+        from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled as rt
+        from vulkanhybridrenderer_tpu_torch.utils.math3d import matmul4
+
+        pfd = pfd if pfd is not None else self._make_pfd()
+        world = geometry.to_world(self.buffers, self.prim_transform)
+        size = self.config.shadow_map_size
+        views = [(matmul4(pfd.camera_proj, pfd.camera_view), self.config.width,
+                  self.config.height)]
+        if "Depth Prepass" in self.graph.find_execution_order():
+            views.append((pfd.directional_light.projview, size, size))
+        for vp, w, h in views:
+            clip = geometry.to_clip(world.position, vp)
+            setup = rasterizer.triangle_setup(clip, self.buffers.tri_vertex, w, h)
+            ov = int(rt.bin_triangles(setup, w, h).overflow[0])
+            if ov > 0:
+                raise RuntimeError(
+                    f"binned rasterizer entry overflow at {w}x{h}: "
+                    f"{ov} tile entries over the static e_cap — "
+                    "triangles would be dropped; raise e_cap "
+                    "(ops/rasterizer_tiled.default_e_cap) for this scene"
+                )
+
+    def _consts(self) -> dict:
+        """The resources a captured frame reads where they lie."""
+        res = self._resources(None)
+        return {k: v for k, v in res.items()
+                if k not in ("pfd", "prim_transform", "temporal_state")}
+
+    def _captured_frame(self, per_pass: bool):
+        """This key's CapturedFrame.  Only the active key's is kept: each
+        holds its graphs' memory pool, every pass's output buffers and its
+        inputs, a frame's worth of device memory, so a viewer's slider,
+        which makes a config a value, would otherwise pin a frame a value.
+        A new key, or a resource the frame reads in place being replaced (a
+        new shadow grid for a turned light), releases the old one first
+        (one device sync) and captures anew."""
+        from vulkanhybridrenderer_tpu_torch.runtime.dispatch import CapturedFrame
+
+        key = ("per_pass" if per_pass else "fused", self.path_name, self.config)
+        consts = self._consts()
+        cf = self._captured
+        if cf is None or cf.key != key or not cf.matches(consts):
+            if cf is not None:
+                self._captured = None
+                cf.release()
+            keep = ("TemporalStateOut",) if self.path.uses_temporal_state else ()
+            cf = self._captured = CapturedFrame(
+                key, self.graph, RENDER_OUTPUT, keep, per_pass, self.device, consts,
+                self.buffers.num_primitives,
+                self.temporal_state if self.path.uses_temporal_state else None)
+        return cf
+
+    def precompile_passes(self, max_workers: int | None = None) -> dict[str, float]:
+        """The reference's precompile_passes: build every pass of the active
+        (path, config) for dispatch="per_pass" ahead of its frames.  On a
+        CUDA device one eager frame builds the kernels and caches, then each
+        pass is captured into its CUDA graph (a host-sized pass stays
+        eager); returns {pass: capture seconds} (0.0 for an eager pass),
+        "__trace_s__" (the eager frame) and "__wall_s__" (the whole).  The
+        frame index, previous view and temporal state are left as they
+        were.  On the CPU nothing is built and every value is 0.0.
+        max_workers: accepted for the reference's signature; captures run
+        one after another on one stream.  The per-pass graphs become the
+        renderer's one captured frame (_captured_frame), in place of
+        whatever it held."""
+        order = self.graph.find_execution_order()
+        if self.device.type != "cuda" or self.mesh is not None:
+            return {**{n: 0.0 for n in order}, "__trace_s__": 0.0, "__wall_s__": 0.0}
+        t0 = time.perf_counter()
+        cf = self._captured_frame(per_pass=True)
+        prev = (self._prev_view, self._prev_proj)
+        cf.load(self._pack_pfd(), self.prim_transform, self.temporal_state)
+        self._prev_view, self._prev_proj = prev
+        saved = cf.save_state()
+        cf.warm()
+        torch.cuda.synchronize(self.device)
+        trace_s = time.perf_counter() - t0
+        seconds = cf.capture()
+        cf.restore_state(saved)
+        if cf.state is not None:
+            self.temporal_state = cf.state
+        torch.cuda.synchronize(self.device)
+        return {**{n: seconds.get(n, 0.0) for n in order}, "__trace_s__": trace_s,
+                "__wall_s__": time.perf_counter() - t0}
+
+    def _frame_fn(self):
+        keep = ("TemporalStateOut",) if self.path.uses_temporal_state else ()
+        if self.mesh is not None:
+            from vulkanhybridrenderer_tpu_torch.parallel.mesh import make_sharded_frame_fn
+
+            return make_sharded_frame_fn(self.graph, self.mesh, self.config.height,
+                                         self.config.width, RENDER_OUTPUT, keep=keep)
+        return self.graph.make_frame_fn(RENDER_OUTPUT, keep=keep)
+
+    def _run_frame(self, packed) -> dict:
+        """One frame's resources out (RENDER_OUTPUT, and TemporalStateOut
+        where the path carries state), dispatched as `dispatch` says."""
+        if self.device.type != "cuda" or self.mesh is not None:
+            return self._frame_fn()(self._resources(per_frame_data_from_flat(
+                *upload_per_frame_data(*packed, device=self.device))))
+        per_pass = self.dispatch == "per_pass"
+        cf = self._captured_frame(per_pass)
+        if per_pass and self.auto_precompile and not cf.captured:
+            self.precompile_passes()
+        cf.load(packed, self.prim_transform, self.temporal_state)
+        if cf.captured:
+            res = cf.replay()
+        elif not cf.warmed:
+            res = cf.warm()
+        else:
+            cf.capture()
+            res = cf.res
+        out = {RENDER_OUTPUT: res[RENDER_OUTPUT].clone()}
+        if cf.state is not None:
+            out["TemporalStateOut"] = cf.state
+        return out
+
     def render_frame(self, sync: bool = True, srgb8: bool = False):
         """Render one frame; returns the (4, H, W) linear RENDER_OUTPUT on the
-        device, or with srgb8=True the (H, W, 4) uint8 sRGB image.  The work
-        is queued on the device's current stream (over a mesh, on each of its
-        devices' current streams: they wait for the frame's start on the
-        primary's, and the primary's waits for their end before the frame's
-        end, so the frame's time and sync=True cover every device); with
-        sync=True (the reference's jax.block_until_ready) it returns once the
-        frame has finished there, with sync=False once it is queued.  Both
-        give the same frame."""
+        device, or with srgb8=True the (H, W, 4) uint8 sRGB image, a tensor
+        of its own (a captured frame's output buffer is copied, since the
+        next replay overwrites it).  The work is queued on the device's
+        current stream (over a mesh, on each of its devices' current
+        streams: they wait for the frame's start on the primary's, and the
+        primary's waits for their end before the frame's end, so the
+        frame's time and sync=True cover every device); with sync=True (the
+        reference's jax.block_until_ready) it returns once the frame has
+        finished there, with sync=False once it is queued.  Both give the
+        same frame, and so do both dispatch modes."""
+        packed = self._pack_pfd()
+        if not self._binning_checked:
+            self._binning_checked = True
+            self.check_binning(per_frame_data_from_flat(
+                *upload_per_frame_data(*packed, device=self.device)))
         cuda = self.device.type == "cuda"
         if cuda:
             self._read_frame_times()
@@ -307,7 +474,7 @@ class Renderer:
                 s.wait_event(start)
         else:
             t0 = time.perf_counter()
-        res = self.graph.run(self._resources(self._make_pfd()))
+        res = self._run_frame(packed)
         if self.path.uses_temporal_state:
             self.temporal_state = res["TemporalStateOut"]
         self.frame_index += 1

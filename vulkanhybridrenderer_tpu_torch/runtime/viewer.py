@@ -141,7 +141,10 @@ loop();
 class ViewerState:
     def __init__(self, scene, config, path, device="cuda"):
         self.lock = threading.Lock()
-        self.renderer = Renderer(scene, config, path=path, device=device)
+        # per-pass dispatch, as the reference's viewer: a mode switch
+        # captures its passes' graphs, not a whole frame's
+        self.renderer = Renderer(scene, config, path=path, dispatch="per_pass",
+                                 device=device)
         self.resource = ""  # "" = RENDER_OUTPUT
         self.last_t = time.time()
 

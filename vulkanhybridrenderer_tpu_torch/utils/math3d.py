@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vulkanhybridrenderer_tpu_torch.utils.consts import device_constant
+
 PI = 3.14159265358979323846264
 TWO_PI = 6.28318530717958647692528
 PI_INVERSE = 0.31830988618379067153776
@@ -226,8 +228,8 @@ def onb_from_unit_vector(n):
     b = -nx * ny * a
     t0 = torch.stack([1.0 - nx * nx * a, b, -nx], dim=-1)
     b0 = torch.stack([b, 1.0 - ny * ny * a, -ny], dim=-1)
-    t_deg = torch.tensor([0.0, -1.0, 0.0], dtype=n.dtype, device=n.device)
-    b_deg = torch.tensor([-1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+    t_deg = device_constant([0.0, -1.0, 0.0], dtype=n.dtype, device=n.device)
+    b_deg = device_constant([-1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
     deg = degenerate[..., None]
     return torch.where(deg, t_deg, t0), torch.where(deg, b_deg, b0), n
 
