@@ -170,8 +170,10 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 (also at stage_rows 0 and 512), the wrapper's, the
                 filtered kernel's, the plain version's and K2 any-hit's
                 (unfiltered and filtered), and the (R,) tmin copy the
-                earlier wrapper made; the grid's entries, num_big and
-                overflow (which must be 0)
+                earlier wrapper made; the static grid's rows, live rows,
+                bytes, num_big and overflow (which must be 0); the blocks
+                of K3 an SM holds at stage_rows 0, 128 and 512 (num_big is
+                read on the device, so a block reserves BIG_CAP big rows)
   5. gpu-cpu  - SponzaProxy at 320x180 on the GPU and on the CPU (plain
                 versions): the RT-shadows frame within 1e-4 on >= 99.9% of
                 pixels; the full configuration over 3 frames within
@@ -244,7 +246,9 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   frame), the full configuration with shadow_accel="grid":
                   K1a, K2 any-hit and closest-hit, K3, BVH Refit and Shadow
                   Grid Build every frame, consecutive frames differ; on
-                  frame 5, K3's mask equals K2 any-hit on the refit BVH8
+                  frame 5, the rebuilt grid's bytes, K3 timed (and with
+                  --parent in turns with DIR's) and checked as on path 10's
+                  rays, K3's mask equals K2 any-hit on the refit BVH8
                   and on a fresh host build, closest hits agree (t within
                   1e-4, the triangle but on equal-t ties), and the refit
                   rows equal refit8 run again on the card and the CPU;
@@ -265,7 +269,10 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                   ms/frame, busy share); then K4's path: the frame's three
                   wavefronts through trace(pack_flat(LBVH, WorldTris)) with
                   the counters set to 0 just before, hit flags against K2
-                  over the LBVH's BVH8;
+                  over the LBVH's BVH8; the reference's positional
+                  trace(bvh, tri_verts, o, d, tmin, tmax) on the binary
+                  LBVH and on its BVH8, equal to the keyword form, and
+                  graph.time_passes(res, iters=2);
                   14. the table kinds path 8 does not trace, on realglb:
                   the full frame with bvh_leaf_max=12 (K2 f32-12 any-hit
                   and closest-hit), the raytraced frame with test_alpha on
@@ -275,20 +282,23 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
   6d. dispatch - on each of those paths, at its configuration, on the BVH8,
                 shade tables and shadow grid of the path's renderer: one
                 eager frame with every pass under
-                torch.cuda.set_sync_debug_mode("warn"), where only the
-                passes the graph declares host-sized may sync; a
-                dispatch="fused", a "per_pass" (precompile_passes first) and
+                torch.cuda.set_sync_debug_mode("error"), where no pass may
+                sync; a dispatch="fused", a "per_pass" (precompile_passes
+                first) and
                 an eager (graph.run) renderer in lockstep over 4 frames, the
-                temporal state carried, frames bit-equal; the graphs a frame,
-                the host-sized passes run between them and the capture
-                seconds of both modes; ms/frame of fused and per_pass in
+                temporal state carried, frames bit-equal; the graphs a frame
+                (fused 1, per_pass one a pass, else the run fails) and the
+                capture seconds of both modes; on paths 9 and 11 the device
+                ms of the brute G-Buffer Pass and Depth Prepass, and of the
+                Shadow Grid Build and Raytrace Pass, each pass's per_pass
+                graph replayed alone; ms/frame of fused and per_pass in
                 turns (fused, per_pass, per_pass, fused; 10 frames each)
                 beside 10 eager frames; launches per 10 frames, where the
                 counts a captured frame adds at each replay (those of its
                 capture) must equal the eager frames', which the wrappers
                 count, and drive()'s on the path (the JSON line's);
-                on paths 2 and 8 a torch.profiler window of 5 frames of each
-                (device busy share).  After path 4: the viewer's
+                on paths 2, 8, 9 and 11 a torch.profiler window of 5 frames
+                of each (device busy share).  After path 4: the viewer's
                 ssao_radius slider over 8 values (a config and a per_pass
                 capture each) must leave torch.cuda.memory_reserved where
                 the second value left it.  After path 9: cornell_box() with the
@@ -367,7 +377,6 @@ import re
 import subprocess
 import sys
 import time
-import warnings
 from pathlib import Path
 
 import numpy as np
@@ -683,9 +692,16 @@ def _rows_acc_sass(build) -> str:
 def _other_launch(csrc: Path, source: str, symbol: str):
     """(launch function, its parameters) of another checkout's
     csrc/<source>, built beside this checkout's from that csrc/'s source
-    and headers, its prototype read from the source."""
+    and headers, its prototype read from the source; None where the source
+    and headers are this checkout's own (nothing to compare)."""
     from vulkanhybridrenderer_tpu_torch.utils import build
 
+    mine = [build.CSRC_DIR / source] + sorted(build.CSRC_DIR.glob("*.cuh"))
+    theirs = [csrc / source] + sorted(csrc.glob("*.cuh"))
+    if [p.name for p in mine] == [p.name for p in theirs] and all(
+            a.read_bytes() == b.read_bytes() for a, b in zip(mine, theirs)):
+        print(f"--parent: {source} is this checkout's own: not compared")
+        return None
     params = _c_params(csrc / source, symbol)
     lib = build.build_library(f"other_{Path(source).stem}", [build.nvcc_path()] + build.NVCC_FLAGS,
                               [csrc / source], headers=sorted(csrc.glob("*.cuh")))
@@ -698,8 +714,9 @@ def _other_launch(csrc: Path, source: str, symbol: str):
 def _bind(params, own_params, own_args, extra=None) -> list:
     """Another launch function's arguments, by name: this checkout's value of
     the same name and kind (own_params beside own_args), else `extra`'s
-    (name -> a pointer) for a pointer only the other takes.  A name neither
-    gives fails the run."""
+    (name -> a value) for a parameter only the other takes, or takes as
+    another kind (a count by value where this one reads it on the device).
+    A name neither gives fails the run."""
     own = {name: (t, a) for (name, t), a in zip(own_params, own_args)}
     out = []
     for name, t in params:
@@ -707,16 +724,17 @@ def _bind(params, own_params, own_args, extra=None) -> list:
         if mine is not None and (mine[0] is t or (mine[0] in _C_INTS and t in _C_INTS)):
             out.append(mine[1])
         else:
-            _check(t is ctypes.c_void_p and name in (extra or {}),
+            _check(name in (extra or {}),
                    f"no value for the other launch function's argument {name}")
             out.append(extra[name])
     return out
 
 
-def _k2_parent(other, b, label, o, d, tmin, tmax, anyhit, tables) -> str:
+def _k2_parent(other, b, label, o, d, tmin, tmax, anyhit, tables, packed=True) -> str:
     """K2 on the BVH8 b (any kind) against another checkout's K2 of the same
     kind (its launch function bound by its prototype's parameter names,
-    given b's reference rows, which it walks as its own sources say; this
+    given the table its own sources walk: traverse.kernel_table(b) where
+    they have the packed kernel (`packed`), else b's reference rows; this
     checkout's launch gets traverse.kernel_table(b)): equal outputs on
     every ray, and the two kernels alone timed in turns."""
     from vulkanhybridrenderer_tpu_torch.ops import traverse
@@ -740,7 +758,8 @@ def _k2_parent(other, b, label, o, d, tmin, tmax, anyhit, tables) -> str:
     own_params = _c_params(build.CSRC_DIR / "bvh8_trace.cu", "bvh8_trace_launch")
     pfn, pparams = other
     pargs = _bind(pparams, own_params,
-                  [b.rows.data_ptr()] + head + [x.data_ptr() for x in other_out] + [stream])
+                  [(traverse.kernel_table(b) if packed else b.rows).data_ptr()] + head
+                  + [x.data_ptr() for x in other_out] + [stream])
     _check(fn(*args) == 0 and pfn(*pargs) == 0, "a K2 launch against the other checkout failed")
     same = all(torch.equal(a, c) for a, c in zip(mine_out, other_out))
     _check(same, f"K2 {b.kind} differs from the other checkout's on the {label} rays")
@@ -822,6 +841,7 @@ def main() -> int:
     other_k2 = other_k3 = other_toy = other_k4 = other_probe = None
     if other_csrc is not None:
         other_k2 = _other_launch(other_csrc, "bvh8_trace.cu", "bvh8_trace_launch")
+        k2_packed = "bvh8_trace_packed" in (other_csrc / "bvh8_trace.cu").read_text()
         other_k3 = _other_launch(other_csrc, "shadow_grid.cu", "shadow_grid_trace_launch")
         other_toy = _other_launch(other_csrc, "toy_scale.cu", "toy_scale_launch")
         other_k4 = _other_launch(other_csrc, "bvh_flat_trace.cu", "bvh_flat_trace_launch")
@@ -1267,7 +1287,7 @@ def main() -> int:
         kind = bvh.kind
         mode = ("filtered " if tables is not None else "") + ("any-hit" if anyhit else "closest-hit")
         name = _k2_name(kind, mode)
-        k = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=anyhit, alpha_tables=tables)
+        k = traverse.trace(bvh, None, o, d, tmin_a, tmax, anyhit=anyhit, alpha_tables=tables)
         p, vis = traverse.trace_plain(bvh.rows, bvh.depth, o, d, tmin_a, tmax, anyhit, steps,
                                       filt, visits=True, leaf_max=bvh.leaf_max)
         if anyhit and not all_fields:
@@ -1282,7 +1302,7 @@ def main() -> int:
             _check(not any(diff.values()),
                    f"{name} differs from its plain version on the {label} rays: {diff}")
         k2_errs[name] = max(k2_errs.get(name, 0.0), err)
-        ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=anyhit,
+        ms = _cuda_ms(lambda: traverse.trace(bvh, None, o, d, tmin_a, tmax, anyhit=anyhit,
                                              alpha_tables=tables), 10)
         plain_ms = None
         if plain_timed:
@@ -1352,16 +1372,16 @@ def main() -> int:
             for w, (o, d, tmax, anyhit, tabs) in waves.items():
                 entry = k2_wave(b, f"{label} {kind} {w}", o, d, raygen.SHADOW_TMIN, tmax,
                                 anyhit, tabs, plain_timed=True, all_fields=True)
-                f8_ms = _cuda_ms(lambda: traverse.trace(b8, o, d, raygen.SHADOW_TMIN, tmax,
+                f8_ms = _cuda_ms(lambda: traverse.trace(b8, None, o, d, raygen.SHADOW_TMIN, tmax,
                                                         anyhit=anyhit, alpha_tables=tabs), 10)
                 print(f"K2 {kind} against f32-8 on the {label} {w} rays: {entry['ms']:.4f} ms "
                       f"against {f8_ms:.4f} ms (ratio {entry['ms'] / f8_ms:.3f})")
                 if other_k2 is not None:
                     print(_k2_parent(other_k2, b, f"{label} {w}", o, d, raygen.SHADOW_TMIN,
-                                     tmax, anyhit, tabs))
+                                     tmax, anyhit, tabs, k2_packed))
                     if kind == "bf16-8":  # the f32 leaf-8 kernel on the same rays
                         print(_k2_parent(other_k2, b8, f"{label} {w}", o, d,
-                                         raygen.SHADOW_TMIN, tmax, anyhit, tabs))
+                                         raygen.SHADOW_TMIN, tmax, anyhit, tabs, k2_packed))
                 if record and w != "shadow":
                     mode = ("filtered " if tabs is not None else "") + (
                         "any-hit" if anyhit else "closest-hit")
@@ -1463,15 +1483,15 @@ def main() -> int:
     o, d = raytraced_path.primary_rays(pfd, HEIGHT, WIDTH)
     n = o.shape[0]
     p_tmax = torch.full((n,), raytraced_path.TMAX, device=dev)
-    u = traverse.trace(bvh, o, d, raytraced_path.PRIMARY_TMIN, p_tmax)
-    k = traverse.trace(bvh, o, d, raytraced_path.PRIMARY_TMIN, p_tmax, alpha_tables=tables)
+    u = traverse.trace(bvh, None, o, d, raytraced_path.PRIMARY_TMIN, p_tmax)
+    k = traverse.trace(bvh, None, o, d, raytraced_path.PRIMARY_TMIN, p_tmax, alpha_tables=tables)
     rejected = int((k.tri != u.tri).sum())
     pos = rt_shade.interpolate_hit_attributes(tables, res["TriRows"], k.tri, k.u,
                                               k.v)["position"].contiguous()
     s_dir = (-pfd.directional_light.direction[:3]).expand(pos.shape).contiguous()
     s_tmax = torch.where(k.hit, raytraced_path.TMAX, -1.0)
-    us = traverse.trace(bvh, pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, anyhit=True)
-    ks = traverse.trace(bvh, pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, anyhit=True,
+    us = traverse.trace(bvh, None, pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, anyhit=True)
+    ks = traverse.trace(bvh, None, pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, anyhit=True,
                         alpha_tables=tables)
     # the bound's bytes add the tri_static rows (240 bytes) of the triangles
     # hit with or without the filter, each read at least once (a lower bound:
@@ -1484,7 +1504,7 @@ def main() -> int:
         entry = k2_wave(bvh, f"raytraced frame's {'shadow' if anyhit else 'primary'}", oo, dd,
                         tmin, tmax, anyhit, tables, plain_timed=True,
                         extra_bytes=int((tris >= 0).sum()) * 240)
-        u_ms = _cuda_ms(lambda: traverse.trace(bvh, oo, dd, tmin, tmax, anyhit=anyhit), 10)
+        u_ms = _cuda_ms(lambda: traverse.trace(bvh, None, oo, dd, tmin, tmax, anyhit=anyhit), 10)
         kernels[f"K2 {name}"] = entry
         print(f"K2 {name}: hits {int(kk.hit.sum())}, unfiltered {int(uu.hit.sum())}; unfiltered "
               f"kernel on the same rays {u_ms:.4f} ms")
@@ -1556,10 +1576,10 @@ def main() -> int:
                          width=WIDTH, timed=True, other_k3=other_k3)
         if wave_scene is scene:
             kernels["K3"] = entry
-        print(f"K3 grid of {wave_scene.name}: {sg.grid}x{sg.grid} cells, {sg.num_entries} "
-              f"entries ({sg.num_entries * 48} bytes), num_big {sg.num_big}, overflow "
-              f"{sg.overflow}")
-        _check(sg.overflow == 0, f"the shadow grid overflowed by {sg.overflow} triangles")
+        print(f"K3 grid of {wave_scene.name} (static, built at load): {_grid_bytes(sg)} | "
+              f"card: {smi}")
+        _check(int(sg.overflow) == 0, f"the shadow grid overflowed by {int(sg.overflow)} "
+               "triangles")
         del r, res, rays, sg
         torch.cuda.empty_cache()
     _phase("kernels", t0)
@@ -1688,13 +1708,15 @@ def main() -> int:
         return start.elapsed_time(end) / frames, launches
 
     def dispatch(label, base, scene_, cfg_, path="hybrid", before=None, busy=False,
-                 drove=None):
+                 drove=None, pass_ms=()):
         """Phase 6d on one main path, its configuration on base's BVH8,
-        shade tables and shadow grid: syncs of one eager frame's passes
-        (only declared host-sized passes may sync); a fused, a per_pass and
-        an eager (graph.run) renderer in lockstep over 4 frames, the temporal
-        state carried, held bit-equal; capture seconds, graphs a frame and
-        the passes run between them; ms/frame of fused and per_pass in turns
+        shade tables and shadow grid: one eager frame's passes under
+        set_sync_debug_mode("error"), where no pass may sync; a fused, a
+        per_pass and an eager (graph.run) renderer in lockstep over 4
+        frames, the temporal state carried, held bit-equal; capture seconds
+        and graphs a frame (fused 1, per_pass one a pass); the device ms of
+        each pass in `pass_ms`, its per_pass graph replayed alone between
+        CUDA events (20 replays); ms/frame of fused and per_pass in turns
         (fused, per_pass, per_pass, fused; 10 frames each) beside 10 eager
         frames.  Launches per 10 frames: a captured frame's replays call no
         wrapper, so they add the counts each graph's capture recorded
@@ -1720,9 +1742,10 @@ def main() -> int:
         eager = [_eager_frame(reng)]
         step(reng, 1)
         eager.append(_eager_frame(reng, syncs))
-        late = {n: s for n, s in syncs.items() if s and not reng.graph.passes[n].host_sized}
-        _check(not late, f"dispatch {label}: passes that sync but are not declared host-sized: "
-               f"{late}")
+        late = {n: s for n, s in syncs.items() if s is not None}
+        print(f"dispatch {label}: eager frame under set_sync_debug_mode('error'): "
+              f"{len(syncs)} passes, {len(late)} synced {late}")
+        _check(not late, f"dispatch {label}: passes that sync: {late}")
         t = time.perf_counter()
         pre = rp.precompile_passes()
         pre_s = time.perf_counter() - t
@@ -1743,6 +1766,18 @@ def main() -> int:
         cf, cp = rf._captured, rp._captured
         _check(cf.key == ("fused", path, cfg_) and cp.key == ("per_pass", path, cfg_)
                and cf.captured and cp.captured, f"dispatch {label}: a frame was not captured")
+        order = reng.graph.find_execution_order()
+        _check(cf.n_graphs == 1 and cp.n_graphs == len(order)
+               and [s[0] for s in cp.segments] == order,
+               f"dispatch {label}: fused {cf.n_graphs} graphs a frame, per_pass {cp.n_graphs} "
+               f"for {len(order)} passes")
+        in_graph = {}
+        for name in pass_ms:
+            g = cp.graphs[order.index(name)]
+            in_graph[name] = _cuda_ms(g.replay, 20)
+        if in_graph:
+            print(f"dispatch {label}: device ms of a pass's per_pass graph replayed alone: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in in_graph.items()) + f" | card: {smi}")
 
         def window(r, first, n=10):
             torch.cuda.synchronize()
@@ -1769,8 +1804,7 @@ def main() -> int:
         p2, _ = window(rp, 14)
         f2, _ = window(rf, 14)
         e_ms, le = window(reng, 4)
-        print(f"dispatch {label}: fused: {cf.n_graphs} CUDA graph(s) replayed a frame, "
-              f"host-sized passes run between them {cf.eager_passes}, capture "
+        print(f"dispatch {label}: fused: {cf.n_graphs} CUDA graph(s) replayed a frame, capture "
               f"{sum(cf.capture_s.values()):.3f} s ({', '.join(f'{k} {v:.3f}' for k, v in cf.capture_s.items())}); "
               f"per_pass: {cp.n_graphs} graphs, precompile_passes {pre_s:.3f} s (eager frame "
               f"{pre['__trace_s__']:.3f} s, captures "
@@ -2020,7 +2054,8 @@ def main() -> int:
           f"{brute_cfg.shadow_map_size}^2 {prepass_ms:.3f} ms")
     _check(mism <= 0.002 and nearer and torch.equal(res[hybrid_path.DEPTH], vb.depth),
            f"path 9's brute visibility: mismatch share {mism}, less_equal nearer {nearer}")
-    dispatch("path 9", r, cornell, brute_cfg, drove=launches9)
+    dispatch("path 9", r, cornell, brute_cfg, drove=launches9, busy=True,
+             pass_ms=("G-Buffer Pass", "Depth Prepass"))
     # check_binning: an entry cap far below cornell_box()'s entries raises at
     # the first frame; later frames are guarded on the device (NaN depth)
     real_cap = rt.default_e_cap
@@ -2106,9 +2141,9 @@ def main() -> int:
         _profile(r, "animated pica", before=animate)
     dispatch("path 11", r, pica, pica_cfg,
              before=lambda rr, f: rr.animate(procedural.animate_pica(pica, f / 60.0)),
-             drove=launches11)
+             drove=launches11, busy=True, pass_ms=("Shadow Grid Build", "Raytrace Pass"))
     del r, a
-    _animated_wavefronts(pica, pica_cfg, dev, bound)
+    _animated_wavefronts(pica, pica_cfg, dev, bound, other_k3)
 
     # main path 12: path 8's flagship frame through the renderer's own route
     # without a native build (the reference's _get_bvh, runtime/renderer.py:
@@ -2145,17 +2180,35 @@ def main() -> int:
     waves = hybrid_wavefronts(rays, full_cfg.ao_rays)
     lbvh_tables = traverse.pack_flat(lbvh, world_tris)  # once per tree
     traverse.trace_flat.launches.clear()
-    flat = {w: traverse.trace(lbvh_tables, o, d, raygen.SHADOW_TMIN, tmax, anyhit=ah)
+    flat = {w: traverse.trace(lbvh_tables, None, o, d, raygen.SHADOW_TMIN, tmax, anyhit=ah)
             for w, (o, d, tmax, ah) in waves.items()}
     torch.cuda.synchronize()
     k4_launches = dict(traverse.trace_flat.launches)
-    same_tree = {w: int((flat[w].hit != traverse.trace(r._bvh, o, d, raygen.SHADOW_TMIN, tmax,
+    same_tree = {w: int((flat[w].hit != traverse.trace(r._bvh, None, o, d, raygen.SHADOW_TMIN, tmax,
                                                        anyhit=ah).hit).sum())
                  for w, (o, d, tmax, ah) in waves.items()}
     print(f"K4 path: path 12's frame's wavefronts through trace(pack_flat(LBVH, ...)): launches "
           f"{k4_launches}; hit flags differing from K2 over the LBVH's BVH8 {same_tree}")
     _check(k4_launches.get("any-hit", 0) >= 2 and k4_launches.get("closest-hit", 0) >= 1,
            f"K4's path launched it {k4_launches}")
+    # the reference's own positional calls on the card: trace(bvh, tri_verts,
+    # origin, direction, tmin, tmax) on the binary LBVH (packed from tri_verts
+    # on the call) and on its BVH8 (tri_verts unread), each against the
+    # keyword form; graph.time_passes(res, iters=2) without a device
+    o, d, tmax, _ = waves["reflection"]
+    pos_same = {}
+    for name, tree, form in (("binary LBVH", lbvh, lbvh_tables), ("BVH8", r._bvh, r._bvh)):
+        pos = traverse.trace(tree, world_tris, o, d, raygen.SHADOW_TMIN, tmax)
+        kw = traverse.trace(form, None, o, d, raygen.SHADOW_TMIN, tmax, anyhit=False)
+        pos_same[name] = all(torch.equal(getattr(pos, f), getattr(kw, f))
+                         for f in ("t", "tri", "u", "v"))
+    timed = r.graph.time_passes(r._resources(r._make_pfd()), iters=2)
+    print(f"reference positional calls on the card: trace(bvh, tri_verts, o, d, tmin, tmax) "
+          f"equal to the keyword form on realglb's reflection rays {pos_same}; "
+          f"graph.time_passes(res, iters=2): {len(timed)} passes, "
+          f"{sum(timed.values()):.3f} ms | card: {smi}")
+    _check(all(pos_same.values()) and list(timed) == r.graph.find_execution_order(),
+           f"the reference's positional calls: {pos_same}, {list(timed)}")
     dispatch("path 12", r, realglb, full_cfg, drove=launches12)
     del r, res, rays, waves, flat, lbvh, lbvh_tables, world_tris, lbvh8, route8
 
@@ -2292,8 +2345,9 @@ def _eager_frame(r, syncs=None):
     """One frame of renderer r through its graph's passes eagerly (graph.run,
     no capture), advancing its frame index and temporal state as
     render_frame does; returns RENDER_OUTPUT.  With `syncs` (a dict), each
-    pass runs under torch.cuda.set_sync_debug_mode("warn") and syncs[pass]
-    receives the file:line of every synchronizing call it made."""
+    pass runs under torch.cuda.set_sync_debug_mode("error") and syncs[pass]
+    receives the error of the first synchronizing call it made (the pass is
+    then run again without the mode, to finish the frame), else None."""
     from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
 
     res = r._resources(r._make_pfd())
@@ -2302,15 +2356,18 @@ def _eager_frame(r, syncs=None):
         if syncs is None:
             produced = p.fn(res)
         else:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    produced = p.fn(res)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-            syncs[name] = sorted({f"{Path(w.filename).name}:{w.lineno}" for w in caught
-                                  if "synchronizing CUDA operation" in str(w.message)})
+            syncs[name] = None
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                produced = p.fn(res)
+            except RuntimeError as e:
+                if "synchronizing" not in str(e):
+                    raise
+                syncs[name] = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            if syncs[name] is not None:
+                produced = p.fn(res)
         res.update({k: produced[k] for k in p.outputs})
     if r.path.uses_temporal_state:
         r.temporal_state = res["TemporalStateOut"]
@@ -2503,9 +2560,10 @@ def _parent_walk(other, build, dev):
     return walk
 
 
-def _animated_wavefronts(pica, cfg, dev, bound):
-    """Path 11's frame 5 (animate_pica(pica, i / 60) before frame i): K3's
-    shadow mask against its plain version, K2 any-hit on the refit BVH8 and
+def _animated_wavefronts(pica, cfg, dev, bound, other_k3=None):
+    """Path 11's frame 5 (animate_pica(pica, i / 60) before frame i): the
+    in-frame grid's bytes; K3's shadow mask against its plain version
+    (timed, and with other_k3 in turns with it), K2 any-hit on the refit BVH8 and
     K2 any-hit on a fresh host BVH8 of the moved triangles; AO any-hit and
     reflection closest-hit through the refit tree against the fresh one
     (closest hits: t within 1e-4, the triangle equal but where two hits tie
@@ -2527,21 +2585,23 @@ def _animated_wavefronts(pica, cfg, dev, bound):
     fresh = bvh8_ops.build_bvh8_sah_host(tris.cpu().numpy()).to(dev)
     rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
                              cfg.hybrid, ao_rays=cfg.ao_rays)
+    print(f"K3 grid of path 11's frame 5 (rebuilt in the frame): {_grid_bytes(res['ShadowGrid'])}")
     _k3_wave(refit, res["ShadowGrid"], rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
-             rays.shadow_tmax, bound, "path 11's frame 5 shadow (refit BVH8)", width=cfg.width)
+             rays.shadow_tmax, bound, "path 11's frame 5 shadow (refit BVH8)", width=cfg.width,
+             timed=True, other_k3=other_k3, long_lists=False)
     k3 = shadowgrid.trace_shadow(res["ShadowGrid"], rays.origin, rays.shadow_dir,
                                  raygen.SHADOW_TMIN, rays.shadow_tmax, width=cfg.width)
-    fresh_hit = traverse.trace(fresh, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
+    fresh_hit = traverse.trace(fresh, None, rays.origin, rays.shadow_dir, raygen.SHADOW_TMIN,
                                rays.shadow_tmax, anyhit=True).hit
     fresh_diff = int((k3 != fresh_hit).sum())
     o_ao = rays.origin.repeat(cfg.ao_rays, 1)
     t_ao = rays.ao_tmax.repeat(cfg.ao_rays)
-    ao_diff = int((traverse.trace(refit, o_ao, rays.ao_dir, raygen.SHADOW_TMIN, t_ao,
+    ao_diff = int((traverse.trace(refit, None, o_ao, rays.ao_dir, raygen.SHADOW_TMIN, t_ao,
                                   anyhit=True).hit
-                   != traverse.trace(fresh, o_ao, rays.ao_dir, raygen.SHADOW_TMIN, t_ao,
+                   != traverse.trace(fresh, None, o_ao, rays.ao_dir, raygen.SHADOW_TMIN, t_ao,
                                      anyhit=True).hit).sum())
-    a = traverse.trace(refit, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN, rays.refl_tmax)
-    f = traverse.trace(fresh, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN, rays.refl_tmax)
+    a = traverse.trace(refit, None, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN, rays.refl_tmax)
+    f = traverse.trace(fresh, None, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN, rays.refl_tmax)
     t_err = _max_abs(a.t - f.t)
     tri_diff = a.tri != f.tri
     ties = tri_diff & a.hit & f.hit & (a.t == f.t)
@@ -2767,7 +2827,7 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
                                                            alpha_tables=tables), 20)
         plain_ms = _cuda_ms(lambda: traverse.trace_flat_plain(flat, o, d, tmin, tmax, anyhit,
                                                               steps), 1)
-        k2_ms = _cuda_ms(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit), 20)
+        k2_ms = _cuda_ms(lambda: traverse.trace(sah, None, o, d, tmin, tmax, anyhit=anyhit), 20)
         internal, tested = int(vis.internal.sum()), int(vis.triangles.sum())
         ops = internal * K2_OPS_BOX + tested * K2_OPS_TRI
         # bytes: the node rows and leaf slots once, the rays in (origin,
@@ -2814,7 +2874,7 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
                                                            lambda: fn(*args), 20)))
 
         # the oracle: K2 over the SAH BVH8 on the same rays
-        k2 = traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit)
+        k2 = traverse.trace(sah, None, o, d, tmin, tmax, anyhit=anyhit)
         share, bad = oracle(k, k2, live, anyhit)
         print(f"oracle, K4 on the LBVH against K2 on the SAH BVH8, realglb {name} rays: agree on "
               f"{share:.6f} of live rays (limit 0.9999), {bad.numel()} disagree"
@@ -2838,7 +2898,7 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
         s_ops = int(vis_s.internal.sum()) * K2_OPS_BOX + int(vis_s.triangles.sum()) * K2_OPS_TRI
         s_bound = bound(s_ops, (flat_sah.nodes.numel() + flat_sah.leaf_tris.numel()) * 4
                         + n * (32 + 16))[0]
-        t = turns(lambda: traverse.trace(sah, o, d, tmin, tmax, anyhit=anyhit),
+        t = turns(lambda: traverse.trace(sah, None, o, d, tmin, tmax, anyhit=anyhit),
                    lambda: traverse.trace_flat(flat_sah, o, d, tmin, tmax, anyhit=anyhit), 20)
         s_alone = _cuda_ms(lambda: fn(*sargs), 20)
         print(f"K4 {mode} over the SAH binary tree, realglb {name} rays: equal to its plain "
@@ -2862,10 +2922,10 @@ def _lbvh_oracle(tris, sah, wavefronts, bound, tables, other_k4=None):
     mism = {}
     for name, (o, d, tmax, anyhit) in wavefronts.items():
         om = o + offset
-        mism[name] = int((traverse.trace(refit, om, d, raygen.SHADOW_TMIN, tmax, anyhit=anyhit,
-                                         tri_verts=moved).hit
-                          != traverse.trace(fresh, om, d, raygen.SHADOW_TMIN, tmax,
-                                            anyhit=anyhit, tri_verts=moved).hit).sum())
+        mism[name] = int((traverse.trace(refit, moved, om, d, raygen.SHADOW_TMIN, tmax,
+                                         anyhit=anyhit).hit
+                          != traverse.trace(fresh, moved, om, d, raygen.SHADOW_TMIN, tmax,
+                                            anyhit=anyhit).hit).sum())
     print(f"LBVH refit for the triangles moved by {offset.tolist()}: {refit_ms:.3f} ms on the "
           f"card; the fresh build's topology is the same: {topo}; K4 hit masks refit against "
           f"fresh, mismatched rays {mism}")
@@ -2883,8 +2943,17 @@ def _pixel_lane_share(tested, live) -> float:
     return float(t.sum()) / max(float(groups.amax(1).sum()) * 32, 1.0)
 
 
+def _grid_bytes(sg) -> str:
+    """A shadow grid's static tables: rows, live rows, bytes."""
+    tables = (sg.entries, sg.offsets, sg.big, sg.num_big, sg.frame)
+    nbytes = sum(t.numel() * t.element_size() for t in tables)
+    return (f"{sg.grid}x{sg.grid} cells, {sg.num_entries} entry rows ({int(sg.offsets[-1])} "
+            f"live), {nbytes} bytes ({sg.entries.numel() * 4} of entry rows), num_big "
+            f"{int(sg.num_big)}, overflow {int(sg.overflow)}")
+
+
 def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, timed=False,
-             other_k3=None):
+             other_k3=None, long_lists=True):
     """K3 on one shadow wavefront (`tmin` a float, `tmax` (R,); `width` the
     image's, as the render path passes it) against its plain version and K2
     any-hit on the same rays, unfiltered and, with the scene's shade
@@ -2902,9 +2971,12 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
     larger.  With `timed`: the
     kernel alone (the C launch on prepared arguments; also at stage_rows 0
     and 512), the wrapper, the filtered kernel, the plain version and K2
-    any-hit, by CUDA events; `other_k3` (another checkout's K3, _other_launch)
-    is checked and timed in turns with it.  Returns the JSON line's fields
-    (the kernel alone's time, the bound of K3's order)."""
+    any-hit, by CUDA events, and the blocks of K3 an SM holds at each
+    staging capacity; `other_k3` (another checkout's K3, _other_launch) is
+    checked and timed in turns with it.  long_lists: the timed wavefront's
+    longest cell list must pass the forced staging capacity (path 11's
+    small grid need not).  Returns the JSON line's fields (the kernel
+    alone's time, the bound of K3's order)."""
     from vulkanhybridrenderer_tpu_torch.ops import shadowgrid, traverse
     from vulkanhybridrenderer_tpu_torch.utils import build
 
@@ -2916,8 +2988,8 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
     # a staging capacity below the longest list of the timed wavefronts: the
     # rest of a list is read from device memory (at 0, every row is)
     small = 16
-    _check(longest > small or not timed, f"{label}: the longest cell list ({longest} rows) "
-           f"fits the forced staging capacity of {small} rows")
+    _check(longest > small or not (timed and long_lists), f"{label}: the longest cell list "
+           f"({longest} rows) fits the forced staging capacity of {small} rows")
     counts, ended, err = {}, {}, 0
     for filtered in (False, True) if tables is not None else (False,):
         tab = tables if filtered else None
@@ -2932,7 +3004,7 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
             err = max(err, diff)
             _check(diff == 0, f"K3 hit masks differ from its plain version on {diff} {what} "
                    f"rays (big_first={big_first})")
-        k2 = traverse.trace(bvh, o, d, tmin_a, tmax, anyhit=True, alpha_tables=tab).hit
+        k2 = traverse.trace(bvh, None, o, d, tmin_a, tmax, anyhit=True, alpha_tables=tab).hit
         k2_diff = int((k != k2).sum())
         _check(k2_diff == 0, f"K3 hit masks differ from K2 any-hit on {k2_diff} {what} rays")
         other = {form: int((shadowgrid.trace_shadow(sg, o, d, t0, tmax, alpha_tables=tab,
@@ -2956,9 +3028,10 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
         # the bytes this order needs: tmax in and the flag out a ray, a live
         # ray's origin and direction, its cell's two offsets, and each row the
         # walks reach (a cell's longest walk, the big rows a walk reaches) once
-        cell_rows = (per.long() - sg.num_big).clamp(min=0) if big_first else torch.minimum(
+        num_big = int(sg.num_big)
+        cell_rows = (per.long() - num_big).clamp(min=0) if big_first else torch.minimum(
             per.long(), lists)
-        big_rows = (per.long() if big_first else per.long() - cell_rows).clamp(0, sg.num_big)
+        big_rows = (per.long() if big_first else per.long() - cell_rows).clamp(0, num_big)
         reach = torch.zeros(sg.grid * sg.grid, dtype=torch.int64, device=o.device)
         reach.scatter_reduce_(0, cell, cell_rows, reduce="amax")
         nbytes = (n * 5 + int(live.sum()) * 24 + int(torch.unique(cell).numel()) * 8
@@ -2991,7 +3064,7 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
             for rows in (0, 512)}
         wrapper_ms = _cuda_ms(lambda: shadowgrid.trace_shadow(sg, o, d, tmin, tmax, width=width),
                               20)
-        k2_ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=True), 20)
+        k2_ms = _cuda_ms(lambda: traverse.trace(bvh, None, o, d, tmin, tmax, anyhit=True), 20)
         # what the earlier wrapper added to every call: tmin as an (R,) copy
         copy_ms = _cuda_ms(lambda: torch.as_tensor(tmin, dtype=torch.float32, device=o.device)
                            .expand(n).contiguous(), 20)
@@ -3001,7 +3074,7 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
         if tables is not None:
             fargs = shadowgrid.launch_args(sg, o, d, tmin, tmax, out, alpha_tables=tables,
                                            width=width)
-            k2f_ms = _cuda_ms(lambda: traverse.trace(bvh, o, d, tmin, tmax, anyhit=True,
+            k2f_ms = _cuda_ms(lambda: traverse.trace(bvh, None, o, d, tmin, tmax, anyhit=True,
                                                      alpha_tables=tables), 20)
             extra = (f", filtered kernel {_cuda_ms(lambda: fn(*fargs), 20):.4f} ms, filtered "
                      f"K2 any-hit {k2f_ms:.4f} ms")
@@ -3011,11 +3084,26 @@ def _k3_wave(bvh, sg, o, d, tmin, tmax, bound, label, tables=None, width=None, t
             pargs = _bind(pparams, _c_params(build.CSRC_DIR / "shadow_grid.cu",
                                              "shadow_grid_trace_launch"), args[:-4]
                           + (pout.data_ptr(),) + args[-3:],
-                          {"tmin": tmin_a.data_ptr(), "tmax": tmax.data_ptr()})
+                          {"tmin": tmin_a.data_ptr(), "tmax": tmax.data_ptr(),
+                           "num_big": int(sg.num_big)})
             _check(fn(*args) == 0 and pfn(*pargs) == 0 and torch.equal(pout, out),
                    f"the other checkout's K3 differs on {label}")
             print(_in_turns(f"K3 {label} rays, the other checkout's kernel alone against "
                             f"this one's", lambda: pfn(*pargs), lambda: fn(*args), 20))
+        occ = build.load_cuda_library("shadow_grid.cu").shadow_grid_occupancy
+        occ.restype = ctypes.c_int
+        occ.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        fits = []
+        for rows in (0, shadowgrid.STAGE_ROWS, 512):
+            for filt in (0, 1):
+                blocks, smem = ctypes.c_int(), ctypes.c_int()
+                _check(occ(rows, filt, o.device.index, ctypes.byref(blocks),
+                           ctypes.byref(smem)) == 0, "K3's occupancy query failed")
+                # the parent sized the big tier's rows by num_big on the host
+                fits.append(f"stage_rows {rows}{' filtered' * filt}: {blocks.value} blocks/SM, "
+                            f"{smem.value} B shared (the parent's "
+                            f"{smem.value - (shadowgrid.BIG_CAP - int(sg.num_big)) * 48} B)")
+        print(f"K3 {label}: blocks an SM holds at once, " + "; ".join(fits))
         print(f"K3 {label} rays: kernel alone {line['ms']:.4f} ms (stage_rows "
               f"{shadowgrid.STAGE_ROWS}; 0: {staged[0]:.4f} ms, 512: {staged[512]:.4f} ms), "
               f"wrapper {wrapper_ms:.4f} ms (the earlier wrapper also copied tmin to an (R,) "
@@ -3095,7 +3183,7 @@ def _breakdown(r, settings):
     bins = rt.bin_triangles(setup, w, h, include=opaque)
     vis = rt.rasterize_scene(b, res["Clip"], w, h, tables=tables)
     rays = raygen.Wavefronts(pfd, depth, normals, settings, ao_rays=cfg.ao_rays)
-    rec = traverse.trace(bvh, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN,
+    rec = traverse.trace(bvh, None, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN,
                          rays.refl_tmax, anyhit=False)
     integrated, _ = svgf.temporal(normals, res[hybrid_path.MOTION_MR],
                                   res[hybrid_path.RT_SHADOW_AO], r.temporal_state)
@@ -3108,12 +3196,12 @@ def _breakdown(r, settings):
         "resolve": lambda: gbuffer.resolve_gbuffer(b, tables, res["TriRows"], vis, pfd),
         "ray generation": lambda: raygen.Wavefronts(pfd, depth, normals, settings,
                                                     ao_rays=cfg.ao_rays),
-        "K2 shadow": lambda: traverse.trace(bvh, rays.origin, rays.shadow_dir,
+        "K2 shadow": lambda: traverse.trace(bvh, None, rays.origin, rays.shadow_dir,
                                             raygen.SHADOW_TMIN, rays.shadow_tmax, anyhit=True),
-        "K2 AO": lambda: traverse.trace(bvh, rays.origin.repeat(cfg.ao_rays, 1), rays.ao_dir,
+        "K2 AO": lambda: traverse.trace(bvh, None, rays.origin.repeat(cfg.ao_rays, 1), rays.ao_dir,
                                         raygen.SHADOW_TMIN, rays.ao_tmax.repeat(cfg.ao_rays),
                                         anyhit=True),
-        "K2 reflection": lambda: traverse.trace(bvh, rays.origin, rays.refl_dir,
+        "K2 reflection": lambda: traverse.trace(bvh, None, rays.origin, rays.refl_dir,
                                                 raygen.SHADOW_TMIN, rays.refl_tmax,
                                                 anyhit=False),
         "reflection shading": lambda: rt_shade.reflection_hit_shade(

@@ -82,8 +82,8 @@ def _both(s, anyhit):
                     hit_filter=filt,
                     packets=0)
     o, d, tmax = (torch.from_numpy(s[k]) for k in ("o", "d", "tmax"))
-    p = ptrav.trace(s["pbvh"], o, d, 0.01, tmax, anyhit=anyhit, alpha_tables=s["ptables"])
-    u = ptrav.trace(s["pbvh"], o, d, 0.01, tmax, anyhit=anyhit)
+    p = ptrav.trace(s["pbvh"], None, o, d, 0.01, tmax, anyhit=anyhit, alpha_tables=s["ptables"])
+    u = ptrav.trace(s["pbvh"], None, o, d, 0.01, tmax, anyhit=anyhit)
     return j, p, u
 
 

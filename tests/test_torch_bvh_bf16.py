@@ -169,7 +169,7 @@ def walks(tables):
             with jax.disable_jit():
                 j = jtrav.trace(j16, jnp.asarray(tris), jnp.asarray(o), jnp.asarray(d), 0.01,
                                 jnp.asarray(tmax), anyhit=anyhit, hit_filter=filt, packets=0)
-            p = ptrav.trace(p16, torch.from_numpy(o), torch.from_numpy(d), 0.01,
+            p = ptrav.trace(p16, None, torch.from_numpy(o), torch.from_numpy(d), 0.01,
                             torch.from_numpy(tmax), anyhit=anyhit,
                             alpha_tables=ptables if filtered else None)
             out[anyhit, filtered] = (j, p)
@@ -220,6 +220,6 @@ def test_trace_rows_carries_bf16(tables, anyhit):
     tmax = torch.full((n,), 1000.0)
     copies = [dataclasses.replace(p16, rows=p16.rows.clone()) for _ in range(4)]
     got = ptrav.trace_rows(copies, o, d, 0.01, tmax, anyhit)
-    want = ptrav.trace(p16, o, d, 0.01, tmax, anyhit=anyhit)
+    want = ptrav.trace(p16, None, o, d, 0.01, tmax, anyhit=anyhit)
     for f in ("t", "tri", "u", "v"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -118,7 +118,7 @@ def test_trace_equals_reference(built, scene, anyhit):
     with jax.disable_jit():
         jh = jtrav.trace(j, jnp.asarray(tris), jnp.asarray(o), jnp.asarray(d), 0.01,
                          jnp.asarray(tmax), anyhit=anyhit, packets=0)
-    ph = ptrav.trace(native, torch.from_numpy(o), torch.from_numpy(d), 0.01,
+    ph = ptrav.trace(native, None, torch.from_numpy(o), torch.from_numpy(d), 0.01,
                      torch.from_numpy(tmax), anyhit=anyhit)
     assert int(ph.hit.sum()) > N_RAYS // 4
     for f in ("t", "tri", "u", "v"):

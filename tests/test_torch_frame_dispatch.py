@@ -128,29 +128,55 @@ def test_auto_precompile_off_gives_the_fused_frame(path):
         assert torch.equal(a.render_frame(), b.render_frame())
 
 
-def test_host_sized_passes_are_declared():
-    """The passes that size their work on the host are declared where they
-    are added, never found by an error: the brute raster's and the animated
-    grid's, none on the binned paths."""
-    def declared(cfg, path="hybrid"):
-        r = Renderer(pproc.cornell_box(), cfg, path=path, device="cpu")
-        return [n for n in r.graph.find_execution_order() if r.graph.passes[n].host_sized]
+def test_add_pass_signature_matches_reference():
+    """RenderGraph.add_pass takes the reference's parameters in its order
+    and nothing else: no pass is declared apart for the capture, since
+    every pass sizes its work from shapes alone."""
+    from vulkanhybridrenderer_tpu.graph import render_graph as jgraph
+    from vulkanhybridrenderer_tpu_torch.graph import render_graph as pgraph
 
-    full = pcfg.HybridSettings(shadow_mode=pcfg.ShadowMode.RAYTRACED,
-                               ao_mode=pcfg.AmbientOcclusionMode.RAYTRACED,
-                               reflection_mode=pcfg.ReflectionMode.RAYTRACED, denoise=True)
-    raster = pcfg.HybridSettings(shadow_mode=pcfg.ShadowMode.RASTERIZED,
+    ref = inspect.signature(jgraph.RenderGraph.add_pass).parameters
+    port = inspect.signature(pgraph.RenderGraph.add_pass).parameters
+    assert list(port) == list(ref) == ["self", "name", "fn", "inputs", "outputs"]
+    assert [f.name for f in dataclasses.fields(pgraph.Pass)] == [
+        "name", "fn", "inputs", "outputs"]
+
+
+def _animate(r, f):
+    r.animate(pproc.animate_pica(r.scene, f / 4.0))
+
+
+@pytest.mark.parametrize("case", ["brute", "animated grid"])
+def test_static_passes_fused_equals_per_pass(case):
+    """The two kinds of pass once sized on the host, now sized statically:
+    the brute raster (G-Buffer Pass and Depth Prepass) and the animated
+    grid's rebuild with the Raytrace Pass that reads it.  Fused and
+    per_pass frames are equal over 3 frames, the temporal state carried and
+    the scene moved between frames."""
+    if case == "brute":
+        sc = pproc.cornell_box()
+        hs = pcfg.HybridSettings(shadow_mode=pcfg.ShadowMode.RASTERIZED,
                                  ao_mode=pcfg.AmbientOcclusionMode.SSAO)
-    assert declared(_cfg(full)) == []
-    assert declared(_cfg(raster)) == []
-    assert declared(dataclasses.replace(_cfg(raster), raster="brute")) == [
-        "G-Buffer Pass", "Depth Prepass"]
-    assert declared(dataclasses.replace(_cfg(full), shadow_accel="grid")) == []
-    assert declared(dataclasses.replace(_cfg(pcfg.HybridSettings()), shadow_accel="grid",
-                                        animated=True)) == ["Shadow Grid Build", "Raytrace Pass"]
-    for path in ("forward", "rayquery"):
-        assert declared(_cfg(full), path) == []
-        assert declared(dataclasses.replace(_cfg(full), raster="brute"), path) != []
+        cfg, step = dataclasses.replace(_cfg(hs), raster="brute"), None
+    else:
+        sc = pproc.pica_proxy()
+        hs = pcfg.HybridSettings(shadow_mode=pcfg.ShadowMode.RAYTRACED,
+                                 ao_mode=pcfg.AmbientOcclusionMode.RAYTRACED, denoise=True)
+        cfg = dataclasses.replace(_cfg(hs), shadow_accel="grid", animated=True)
+        step = _animate
+    ra = Renderer(sc, cfg, device="cpu")
+    rb = Renderer(sc, cfg, dispatch="per_pass", device="cpu")
+    frames = []
+    for f in range(3):
+        for r in (ra, rb):
+            if step is not None:
+                step(r, f)
+        img_a, img_b = ra.render_frame(), rb.render_frame()
+        assert torch.equal(img_a, img_b) and bool(torch.isfinite(img_a).all())
+        frames.append(img_a)
+    assert not torch.equal(frames[1], frames[2]) or step is None
+    if step is not None:
+        assert "Shadow Grid Build" in ra.graph.find_execution_order()
 
 
 @pytest.mark.parametrize("frame", [0, 1, 7, 2**31 + 5, 2**32 - 1])

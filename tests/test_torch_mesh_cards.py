@@ -76,9 +76,9 @@ def test_flagship_over_every_card_equals_one_card(monkeypatch):
         cards[(mode, planes.device.index)] += 1
         return launch(mode, planes, *args, **kwargs)
 
-    def counted_trace(bvh, origin, *args, **kwargs):
+    def counted_trace(bvh, tri_verts, origin, *args, **kwargs):
         cards[("K2", origin.device.index)] += 1
-        return trace(bvh, origin, *args, **kwargs)
+        return trace(bvh, tri_verts, origin, *args, **kwargs)
 
     counted_trace.launches = trace.launches
 

@@ -86,9 +86,9 @@ def test_hybrid_raytrace_slabs(rt_scale, monkeypatch):
     calls = []
     trace = traverse.trace
 
-    def spy(bvh, origin, *a, **k):
+    def spy(bvh, tri_verts, origin, *a, **k):
         calls.append((origin.shape[0], k["anyhit"]))
-        return trace(bvh, origin, *a, **k)
+        return trace(bvh, tri_verts, origin, *a, **k)
 
     spy.launches = trace.launches  # trace's body counts into `trace.launches`
 
@@ -110,9 +110,9 @@ def test_hybrid_raytrace_undivided_rows_warns(monkeypatch):
     calls = []
     trace = traverse.trace
 
-    def spy(bvh, origin, *a, **k):
+    def spy(bvh, tri_verts, origin, *a, **k):
         calls.append(origin.shape[0])
-        return trace(bvh, origin, *a, **k)
+        return trace(bvh, tri_verts, origin, *a, **k)
 
     spy.launches = trace.launches
     monkeypatch.setattr(traverse, "trace", spy)

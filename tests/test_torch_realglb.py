@@ -149,7 +149,7 @@ def test_reflection_shading_equals_reference_unfused(renderers):
                              hybrid_path.NORMALS)
     rays = raygen.Wavefronts(res["pfd"], res[hybrid_path.DEPTH], res[hybrid_path.NORMALS],
                              pr.config.hybrid, ao_rays=2)
-    hits = traverse.trace(res["BVH"], rays.origin, rays.refl_dir, raygen.SHADOW_TMIN,
+    hits = traverse.trace(res["BVH"], None, rays.origin, rays.refl_dir, raygen.SHADOW_TMIN,
                           rays.refl_tmax, anyhit=False)
     assert int(hits.hit.sum()) > 100
     got = rt_shade.reflection_hit_shade(pr.buffers, res["shade_tables"], res["TriRows"],

@@ -103,12 +103,12 @@ def test_refit_traces_like_a_fresh_build():
     o = o + torch.tensor([0.0, 40.0, 0.0])
     aim = moved[torch.from_numpy(np.random.default_rng(3).integers(0, 900, 256))].mean(dim=1)
     d[:256] = torch.nn.functional.normalize(aim - o[:256], dim=-1)
-    a, f = ptrav.trace(refit, o, d, 0.01, 1e4), ptrav.trace(fresh, o, d, 0.01, 1e4)
+    a, f = ptrav.trace(refit, None, o, d, 0.01, 1e4), ptrav.trace(fresh, None, o, d, 0.01, 1e4)
     assert torch.equal(a.tri, f.tri) and int(a.hit.sum()) > 200
     assert float((a.t - f.t).abs().max()) <= 1e-4
-    assert torch.equal(ptrav.trace(refit, o, d, 0.01, 1e4, anyhit=True).hit,
-                       ptrav.trace(fresh, o, d, 0.01, 1e4, anyhit=True).hit)
-    bad = ptrav.trace(pbvh8.refit8(b, moved, sweeps=1), o, d, 0.01, 1e4)
+    assert torch.equal(ptrav.trace(refit, None, o, d, 0.01, 1e4, anyhit=True).hit,
+                       ptrav.trace(fresh, None, o, d, 0.01, 1e4, anyhit=True).hit)
+    bad = ptrav.trace(pbvh8.refit8(b, moved, sweeps=1), None, o, d, 0.01, 1e4)
     assert bool((bad.tri != f.tri).any())
 
 

@@ -92,17 +92,16 @@ def test_walk_equals_reference(n, leaf_size, anyhit, max_steps):
     tris, j, p = _setup(n, leaf_size, seed=n + leaf_size)
     o, d, tmax = _rays(tris, seed=n)
     ref = _reference(j, tris, o, d, tmax, anyhit, max_steps)
-    got = ptrav.trace(p, torch.from_numpy(o), torch.from_numpy(d), 0.01, torch.from_numpy(tmax),
-                      anyhit=anyhit, max_steps=max_steps, tri_verts=torch.from_numpy(tris))
+    got = ptrav.trace(p, torch.from_numpy(tris), torch.from_numpy(o), torch.from_numpy(d), 0.01,
+                      torch.from_numpy(tmax), anyhit=anyhit, max_steps=max_steps)
     _assert_same(got, ref)
     hits = int((ref["tri"] >= 0).sum())
     assert hits > N_RAYS // 8 and not (ref["tri"][::6] >= 0).any()
     if max_steps is not None:
         # the cap bites: the uncapped walk finds more (measured 68 of 110,
         # 35 of 110)
-        full = ptrav.trace(p, torch.from_numpy(o), torch.from_numpy(d), 0.01,
-                           torch.from_numpy(tmax), anyhit=anyhit,
-                           tri_verts=torch.from_numpy(tris))
+        full = ptrav.trace(p, torch.from_numpy(tris), torch.from_numpy(o), torch.from_numpy(d),
+                           0.01, torch.from_numpy(tmax), anyhit=anyhit)
         assert int(full.hit.sum()) > hits
 
 
@@ -139,10 +138,9 @@ def test_alpha_filter_equals_reference(sponza, name, anyhit):
     filt = jtrav.make_alpha_hit_filter(s["js"].buffers, s["jtables"])
     ref = _reference(j, tris, o, d, tmax, anyhit, hit_filter=filt)
     args = (torch.from_numpy(o), torch.from_numpy(d), 0.01, torch.from_numpy(tmax))
-    got = ptrav.trace(p, *args, anyhit=anyhit, alpha_tables=s["ptables"],
-                      tri_verts=torch.from_numpy(tris))
+    got = ptrav.trace(p, torch.from_numpy(tris), *args, anyhit=anyhit, alpha_tables=s["ptables"])
     _assert_same(got, ref)
-    solid = ptrav.trace(p, *args, anyhit=anyhit, tri_verts=torch.from_numpy(tris))
+    solid = ptrav.trace(p, torch.from_numpy(tris), *args, anyhit=anyhit)
     assert int((solid.tri != got.tri).sum()) > 0
 
 
@@ -153,15 +151,15 @@ def test_closest_hits_equal_k2_on_sah_bvh8(sponza):
     lbvh = pbvh.build(torch.from_numpy(tris))
     sah = pbvh8.build_bvh8_sah_host(tris)
     o, d, tmax = (torch.from_numpy(a) for a in _rays(tris, seed=4))
-    flat = ptrav.trace(lbvh, o, d, 0.01, tmax, tri_verts=torch.from_numpy(tris))
-    wide = ptrav.trace(sah, o, d, 0.01, tmax)
+    flat = ptrav.trace(lbvh, torch.from_numpy(tris), o, d, 0.01, tmax)
+    wide = ptrav.trace(sah, None, o, d, 0.01, tmax)
     # two triangles at exactly the same t (a shared edge) may each be the
     # nearest: the only disagreement allowed
     assert torch.equal(flat.tri != wide.tri, (flat.tri != wide.tri) & (flat.t == wide.t))
     assert int((flat.tri != wide.tri).sum()) <= 2 and int(flat.hit.sum()) > N_RAYS // 3
     assert float((flat.t - wide.t).abs().max()) <= 1e-4
-    any_flat = ptrav.trace(lbvh, o, d, 0.01, tmax, anyhit=True, tri_verts=torch.from_numpy(tris))
-    assert torch.equal(any_flat.hit, ptrav.trace(sah, o, d, 0.01, tmax, anyhit=True).hit)
+    any_flat = ptrav.trace(lbvh, torch.from_numpy(tris), o, d, 0.01, tmax, anyhit=True)
+    assert torch.equal(any_flat.hit, ptrav.trace(sah, None, o, d, 0.01, tmax, anyhit=True).hit)
 
 
 def _walk_one(nodes, tris9, order, leaf_size, root, o, d, tmin, tmax, anyhit, max_steps):
@@ -231,7 +229,7 @@ def test_k4_wrapper_contract(tmp_path, monkeypatch):
     p = pbvh.build(torch.from_numpy(tris))
     o = torch.zeros((4, 3))
     with pytest.raises(ValueError, match="tri_verts"):
-        ptrav.trace(p, o, o, 0.01, 1e4)
+        ptrav.trace(p, None, o, o, 0.01, 1e4)
     meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ptrav.trace_flat(ptrav.pack_nodes(p).to("meta"), meta, p.order.to("meta"), 1, 0, meta,

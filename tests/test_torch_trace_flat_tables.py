@@ -163,7 +163,7 @@ def test_one_leaf_tree():
     o, d, tmax = _rays(tris, seed=11)
     for anyhit in (False, True):
         ref = _reference(j, tris, o, d, tmax, anyhit)
-        _assert_same(ptrav.trace(tables, torch.from_numpy(o), torch.from_numpy(d), 0.01,
+        _assert_same(ptrav.trace(tables, None, torch.from_numpy(o), torch.from_numpy(d), 0.01,
                                  torch.from_numpy(tmax), anyhit=anyhit), ref)
         assert int((ref["tri"] >= 0).sum()) > 0
 
@@ -204,16 +204,16 @@ def test_tables_walk_equals_reference(n, leaf_size, anyhit, max_steps):
     ref = _reference(j, tris, o, d, tmax, anyhit, max_steps)
     tables = ptrav.pack_flat(p, torch.from_numpy(tris))
     args = (torch.from_numpy(o), torch.from_numpy(d), 0.01, torch.from_numpy(tmax))
-    _assert_same(ptrav.trace(tables, *args, anyhit=anyhit, max_steps=max_steps), ref)
+    _assert_same(ptrav.trace(tables, None, *args, anyhit=anyhit, max_steps=max_steps), ref)
     _assert_same(ptrav.trace_flat(ptrav.pack_nodes(p), ptrav.pack_tris(torch.from_numpy(tris)),
                                   p.order, leaf_size, p.root, *args, anyhit=anyhit,
                                   max_steps=max_steps), ref)
-    _assert_same(ptrav.trace(p, *args, anyhit=anyhit, max_steps=max_steps,
-                             tri_verts=torch.from_numpy(tris)), ref)
+    _assert_same(ptrav.trace(p, torch.from_numpy(tris), *args, anyhit=anyhit,
+                             max_steps=max_steps), ref)
     assert int((ref["tri"] >= 0).sum()) > N_RAYS // 8
     assert not (ref["tri"][::6] >= 0).any() and (ref["t"][::6] == -1.0).all()
     if max_steps is not None:  # the cap bites: the uncapped walk finds more
-        assert int(ptrav.trace(tables, *args, anyhit=anyhit).hit.sum()) > int(
+        assert int(ptrav.trace(tables, None, *args, anyhit=anyhit).hit.sum()) > int(
             (ref["tri"] >= 0).sum())
 
 
@@ -265,7 +265,7 @@ def test_wrapper_contract():
     with pytest.raises(ValueError, match="unsupported device"):
         ptrav.trace_flat(meta_tables, meta, meta, 0.01, 1e4)
     with pytest.raises(ValueError, match="unsupported device"):
-        ptrav.trace(meta_tables, meta, meta, 0.01, 1e4)
+        ptrav.trace(meta_tables, None, meta, meta, 0.01, 1e4)
     with pytest.raises(ValueError, match="unsupported device"):
         ptrav.trace_flat(ptrav.pack_nodes(p).to("meta"), torch.empty((64, 9), device="meta"),
                          p.order.to("meta"), 1, p.root, meta, meta, 0.01, 1e4)

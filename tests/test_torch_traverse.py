@@ -56,7 +56,7 @@ def _both(s, anyhit, max_steps=None):
                     0.01, jnp.asarray(s["tmax"]), anyhit=anyhit, packets=0,
                     max_steps=max_steps)
     pb = bridge.bvh8_from_numpy(np.asarray(s["jb"].rows), s["jb"].depth, s["jb"].leaf_max)
-    p = ptrav.trace(pb, torch.from_numpy(s["o"]), torch.from_numpy(s["d"]), 0.01,
+    p = ptrav.trace(pb, None, torch.from_numpy(s["o"]), torch.from_numpy(s["d"]), 0.01,
                     torch.from_numpy(s["tmax"]), anyhit=anyhit, max_steps=max_steps)
     return j, p
 

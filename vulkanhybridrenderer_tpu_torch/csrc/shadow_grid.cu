@@ -11,7 +11,8 @@
 //     projections round every product, as ops/shadowgrid.origin_cells does;
 //   * Moller-Trumbore without culling, in K2's operation order, over the
 //     cell's entry rows [v0.xyz v1.xyz v2.xyz tri_id 0 0], at most
-//     max_steps of them, and over the num_big rows of the big tier;
+//     max_steps of them, and over the num_big rows of the big tier (num_big a
+//     device int32, as the grid's static build leaves it);
 //   * a hit needs tri >= 0, tmin <= t <= tmax and, with the alpha tables,
 //     alpha_accept (alpha_filter.cuh, shared with K2); the ray stops at the
 //     first;
@@ -84,8 +85,9 @@ static_assert(kTileW % kFootW == 0 && kFootW * kFootH == 32 && kMaxRays % kThrea
                   kHash >= kMaxRays,
               "a tile is whole footprints, a thread loads whole rays");
 
-// The block's shared memory: this, then the big tier's num_big rows, then
-// stage_rows rows of cell lists (dynamic, 48 bytes a row).
+// The block's shared memory: this, then kBigCap rows for the big tier (its
+// first num_big filled), then stage_rows rows of cell lists (dynamic, 48
+// bytes a row).  Sized without num_big, which only the device knows.
 struct Shared {
     int rid[kMaxRays];         // a queued ray's id
     int slot[kMaxRays];        // its cell's slot
@@ -96,7 +98,7 @@ struct Shared {
     int staged[kHash];         // how many rows of its list are staged
     unsigned long long bar_big, bar_cells;
     int warp_cnt[2][kWarps];
-    int head, ncells, stage_bytes;
+    int head, ncells, stage_bytes, num_big;
 };
 constexpr int kRowsOffset = (int)((sizeof(Shared) + 15) / 16 * 16);  // the rows follow
 
@@ -198,7 +200,8 @@ template <bool kFilter, bool kStats>
 __global__ void __launch_bounds__(kThreads)
 shadow_grid_trace_kernel(AlphaTables at, const float4* __restrict__ entries,
                          const int32_t* __restrict__ offsets, const float4* __restrict__ big,
-                         int num_big, int grid, const float* __restrict__ frame,
+                         const int32_t* __restrict__ num_big_p, int grid,
+                         const float* __restrict__ frame,
                          const float* __restrict__ origin,
                          const float* __restrict__ direction, const float* __restrict__ tmin_a,
                          float tmin_s, const float* __restrict__ tmax_a, float tmax_s,
@@ -207,7 +210,7 @@ shadow_grid_trace_kernel(AlphaTables at, const float4* __restrict__ entries,
     extern __shared__ __align__(16) unsigned char smem_raw[];
     Shared& sm = *reinterpret_cast<Shared*>(smem_raw);
     float4* big_s = reinterpret_cast<float4*>(smem_raw + kRowsOffset);
-    float4* cells = big_s + 3 * num_big;
+    float4* cells = big_s + 3 * kBigCap;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
     for (int i = tid; i < kHash; i += kThreads) sm.key[i] = -1;
@@ -218,8 +221,12 @@ shadow_grid_trace_kernel(AlphaTables at, const float4* __restrict__ entries,
         sm.head = 0;
         sm.ncells = 0;
         sm.stage_bytes = 0;
+        // the big tier's count, read once on the device: the copy's
+        // transaction bytes and every later use come from it
+        sm.num_big = min(max(__ldg(num_big_p), 0), kBigCap);
     }
     __syncthreads();
+    const int num_big = sm.num_big;
     if (tid == 0 && num_big > 0) {
         mbar_arrive_tx(&sm.bar_big, num_big * 48u);
         bulk_copy(big_s, big, num_big * 48u, &sm.bar_big);
@@ -341,7 +348,8 @@ shadow_grid_trace_kernel(AlphaTables at, const float4* __restrict__ entries,
     // of a ray: the big tier's k-th (k < num_big), then its cell list's, the
     // staged head (k < in_smem) from shared memory, the rest from device
     // memory.  The big tier and the staged rows are one shared array: row k
-    // of the ray is its row k below num_big, its row st + k from there.
+    // of the ray is its row k below num_big, its row st + k from there (st
+    // skips the big tier's unfilled rows).
     const float4* rows_s = big_s;
     int rid = -1, k = 0, nall = 0, in_smem = 0, st = 0;
     const float4* rows_g = nullptr;  // the ray's list, offset so row k is rows_g + 3 * k
@@ -371,7 +379,7 @@ shadow_grid_trace_kernel(AlphaTables at, const float4* __restrict__ entries,
                 k = 0;
                 nall = num_big + sm.count[s];
                 in_smem = num_big + sm.staged[s];
-                st = sm.stage[s];
+                st = sm.stage[s] + kBigCap - num_big;
                 rows_g = entries + 3 * ((long long)sm.first[s] - num_big);
                 if (nall == 0) {  // an empty cell and no big tier: a miss
                     out_hit[rid] = 0;
@@ -426,13 +434,19 @@ shadow_grid_trace_kernel(AlphaTables at, const float4* __restrict__ entries,
     }
 }
 
+// a block's dynamic shared memory: the fixed part, the big tier's kBigCap
+// rows and stage_rows rows of cell lists
+size_t shared_bytes(int stage_rows) {
+    return (size_t)kRowsOffset + (size_t)(kBigCap + stage_rows) * 48;
+}
+
 template <bool kFilter, bool kStats>
 cudaError_t launch(int blocks, size_t smem, cudaStream_t s, const AlphaTables& at,
-                   const float4* e, const int32_t* offsets, const float4* b, int num_big,
-                   int grid, const float* frame, const float* origin, const float* direction,
-                   const float* tmin_a, float tmin_s, const float* tmax_a, float tmax_s,
-                   int n_rays, int width, int max_steps, int stage_rows, uint8_t* out_hit,
-                   unsigned long long* stats) {
+                   const float4* e, const int32_t* offsets, const float4* b,
+                   const int32_t* num_big, int grid, const float* frame, const float* origin,
+                   const float* direction, const float* tmin_a, float tmin_s,
+                   const float* tmax_a, float tmax_s, int n_rays, int width, int max_steps,
+                   int stage_rows, uint8_t* out_hit, unsigned long long* stats) {
     static size_t opted = 48 * 1024;  // the dynamic shared memory this instance may take
     if (smem > opted) {
         const cudaError_t err = cudaFuncSetAttribute(
@@ -450,11 +464,11 @@ cudaError_t launch(int blocks, size_t smem, cudaStream_t s, const AlphaTables& a
 }  // namespace
 
 extern "C" int shadow_grid_trace_launch(
-    const float* entries, const int32_t* offsets, const float* big, int num_big, int grid,
-    const float* frame, const float* origin, const float* direction, const float* tmin_a,
-    float tmin_s, const float* tmax_a, float tmax_s, int n_rays, int width, int max_steps,
-    int stage_rows, const float* tri_static, const float* atlas_q, int atlas_rows,
-    int atlas_w, uint8_t* out_hit, unsigned long long* stats, int device, void* stream) {
+    const float* entries, const int32_t* offsets, const float* big, const int32_t* num_big,
+    int grid, const float* frame, const float* origin, const float* direction,
+    const float* tmin_a, float tmin_s, const float* tmax_a, float tmax_s, int n_rays,
+    int width, int max_steps, int stage_rows, const float* tri_static, const float* atlas_q,
+    int atlas_rows, int atlas_w, uint8_t* out_hit, unsigned long long* stats, int device, void* stream) {
     // tri_static == nullptr: no alpha filter; tmin_a / tmax_a == nullptr: the
     // scalar beside it for every ray.  width > 0: the rays are an image's
     // pixels, row-major, width a row, and a block takes a kTileW x kTileH
@@ -462,17 +476,19 @@ extern "C" int shadow_grid_trace_launch(
     // the cell rows a block stages in shared memory.  Rows are 12 floats (48
     // bytes), copied and read as float4: the tensors' allocations are 16-byte
     // aligned.  frame: the grid's 10 floats on the device, so no launch
-    // waits for a copy to the host.  stats: nullptr, or two counters the
-    // kernel adds its busy and all lane-steps to.  device: the tensors' card.
+    // waits for a copy to the host; num_big: the big tier's count on the
+    // device (clamped to [0, kBigCap] there), for the same reason.  stats:
+    // nullptr, or two counters the kernel adds its busy and all lane-steps
+    // to.  device: the tensors' card.
     if (n_rays <= 0) return (int)cudaGetLastError();
-    if (num_big < 0 || num_big > kBigCap || stage_rows < 0) return (int)cudaErrorInvalidValue;
+    if (stage_rows < 0) return (int)cudaErrorInvalidValue;
     const DeviceGuard guard(device);
     long long blocks = ((long long)n_rays + kMaxRays - 1) / kMaxRays;
     if (width > 0) {
         const long long rows = ((long long)n_rays + width - 1) / width;
         blocks = (long long)((width + kTileW - 1) / kTileW) * ((rows + kTileH - 1) / kTileH);
     }
-    const size_t smem = (size_t)kRowsOffset + (size_t)(num_big + stage_rows) * 48;
+    const size_t smem = shared_bytes(stage_rows);
     const AlphaTables at{tri_static, atlas_q, atlas_rows, atlas_w};
     const float4* e = reinterpret_cast<const float4*>(entries);
     const float4* b = reinterpret_cast<const float4*>(big);
@@ -485,4 +501,20 @@ extern "C" int shadow_grid_trace_launch(
     const bool filter = tri_static != nullptr, counted = stats != nullptr;
     return (int)(filter ? (counted ? go(&launch<true, true>) : go(&launch<true, false>))
                         : (counted ? go(&launch<false, true>) : go(&launch<false, false>)));
+}
+
+extern "C" int shadow_grid_occupancy(int stage_rows, int filter, int device, int* blocks,
+                                     int* smem_bytes) {
+    // the blocks of K3 (unfiltered or filtered, no counters) one SM holds at
+    // once at this staging capacity, and the shared memory a block takes
+    const DeviceGuard guard(device);
+    const size_t smem = shared_bytes(stage_rows);
+    *smem_bytes = (int)smem;
+    const auto kernel = filter ? shadow_grid_trace_kernel<true, false>
+                               : shadow_grid_trace_kernel<false, false>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+    return (int)err;
 }

@@ -5,10 +5,9 @@ execution order is the reference's FindExecutionOrder: a backward walk from
 the unique writer of RENDER_OUTPUT, so passes that feed nothing are pruned.
 There is no jit: ``run`` calls the passes in order and PyTorch queues their
 work on the device; ``make_frame_fn`` closes over ``run`` as the reference's
-does, and the renderer captures it into CUDA graphs (runtime/dispatch.py).
-A pass registered with ``host_sized=True`` sizes its work on the host from
-values on the device (a sync): the capture leaves it out and runs it
-eagerly between the graphs.
+does, and the renderer captures it into CUDA graphs (runtime/dispatch.py):
+every pass sizes its work from shapes alone, as the reference's static
+shapes do, so a frame on one device is one graph.
 """
 from __future__ import annotations
 
@@ -31,8 +30,20 @@ class Pass:
     fn: Callable[[dict], dict]
     inputs: tuple[str, ...]
     outputs: tuple[str, ...]
-    #: the pass reads device values back to size its work: never captured
-    host_sized: bool = False
+
+
+def tensors_of(obj) -> list:
+    """Every tensor in a resource (a tensor, or the fields and items of
+    dataclasses, dicts, lists and tuples), in a fixed order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return [t for f in dataclasses.fields(obj) for t in tensors_of(getattr(obj, f.name))]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in tensors_of(v)]
+    if isinstance(obj, (list, tuple)):
+        return [t for v in obj for t in tensors_of(v)]
+    return []
 
 
 class RenderGraph:
@@ -43,13 +54,12 @@ class RenderGraph:
     def passes(self) -> dict[str, Pass]:
         return self._passes
 
-    def add_pass(self, name: str, fn, inputs, outputs, host_sized: bool = False):
+    def add_pass(self, name: str, fn, inputs, outputs):
         """Register a pass: `fn(res: dict) -> dict` returns exactly its
-        declared outputs.  host_sized: the pass waits for device values to
-        size its work (see the module docstring)."""
+        declared outputs."""
         if name in self._passes:
             raise GraphError(f"duplicate pass {name!r}")
-        self._passes[name] = Pass(name, fn, tuple(inputs), tuple(outputs), host_sized)
+        self._passes[name] = Pass(name, fn, tuple(inputs), tuple(outputs))
         return self
 
     def writers(self) -> dict[str, str]:
@@ -123,14 +133,14 @@ class RenderGraph:
 
         return frame_fn
 
-    def time_passes(self, resources: dict, device, target: str = RENDER_OUTPUT,
+    def time_passes(self, resources: dict, target: str = RENDER_OUTPUT,
                     iters: int = 5) -> dict[str, float]:
         """Per-pass milliseconds: each pass runs once to warm up, then `iters`
-        times between device synchronizations (CUDA events on a GPU, the
-        host clock on the CPU)."""
+        times between device synchronizations (CUDA events where the
+        resources' tensors lie on a GPU, the host clock on the CPU)."""
         self.validate(set(resources), target)
         res = dict(resources)
-        cuda = torch.device(device).type == "cuda"
+        cuda = any(t.is_cuda for t in tensors_of(resources))
         timings: dict[str, float] = {}
         for name in self.find_execution_order(target):
             p = self._passes[name]

@@ -31,7 +31,6 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_geometry_pass,
     add_shadow_map_pass,
-    host_sized_raster,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled, shade
@@ -97,5 +96,5 @@ class ForwardRasterPath(RenderPath):
         graph.add_pass(
             "Forward Pass", forward_pass,
             inputs=("scene", "pfd", "Clip", "Shadow Map", "shade_tables", "TriRows"),
-            outputs=(RENDER_OUTPUT,), host_sized=host_sized_raster(cfg),
+            outputs=(RENDER_OUTPUT,),
         )

@@ -35,7 +35,6 @@ from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
     add_shadow_map_pass,
-    host_sized_raster,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import (
@@ -100,7 +99,7 @@ class HybridPath(RenderPath):
         graph.add_pass(
             "G-Buffer Pass", gbuffer_pass,
             inputs=("scene", "pfd", "Clip", "shade_tables", "TriRows"),
-            outputs=(ALBEDO, NORMALS, MOTION_MR, DEPTH), host_sized=host_sized_raster(cfg),
+            outputs=(ALBEDO, NORMALS, MOTION_MR, DEPTH),
         )
 
         comp_inputs = ["pfd", ALBEDO, NORMALS, MOTION_MR, DEPTH]
@@ -145,10 +144,11 @@ class HybridPath(RenderPath):
                     def grid_pass(res):
                         return {SHADOW_GRID: res["shadow_grid"]}
 
-                # the in-frame rebuild sizes the grid's tables on the host
+                # the in-frame rebuild sizes the grid's tables from the
+                # triangle count alone, as the load-time build does
                 graph.add_pass("Shadow Grid Build", grid_pass,
                                inputs=("WorldTris", "pfd", "shadow_grid"),
-                               outputs=(SHADOW_GRID,), host_sized=cfg.animated)
+                               outputs=(SHADOW_GRID,))
                 rt_inputs.append(SHADOW_GRID)
 
             def raytrace_pass(res):
@@ -160,11 +160,9 @@ class HybridPath(RenderPath):
                 )
                 return {RT_SHADOW_AO: shadow_ao, RT_REFLECTIONS: refl}
 
-            # K3 over a grid rebuilt in-frame reads tables of a size the
-            # host sets every frame: the pass runs between the graphs too
             graph.add_pass(
                 "Raytrace Pass", raytrace_pass, inputs=tuple(rt_inputs),
-                outputs=(RT_SHADOW_AO, RT_REFLECTIONS), host_sized=use_grid and cfg.animated,
+                outputs=(RT_SHADOW_AO, RT_REFLECTIONS),
             )
 
         if s.ao_mode == AmbientOcclusionMode.SSAO:

@@ -62,13 +62,6 @@ def rasterize_for_path(scene, clip, width, height, config, alpha: bool = True,
     )
 
 
-def host_sized_raster(config) -> bool:
-    """Whether rasterize_for_path sizes its work on the host: the brute
-    rasterizer lists each chunk's covered pixels (ops/rasterizer.py), the
-    binned raster does not."""
-    return config.raster != "binned"
-
-
 def add_geometry_pass(graph: RenderGraph):
     """Vertex transforms: object -> world -> camera and light clip space, the
     world triangles (what a BVH refit reads) and this frame's TriRow table:
@@ -111,10 +104,7 @@ def add_shadow_map_pass(graph: RenderGraph, size: int, config=None, chunk: int =
         return {"Shadow Map": shadowmap.render_shadow_map(
             res["LightClip"], res["scene"].tri_vertex, size, chunk=chunk)}
 
-    graph.add_pass(
-        "Depth Prepass", fn, inputs=("scene", "LightClip"), outputs=("Shadow Map",),
-        host_sized=config is None or host_sized_raster(config),
-    )
+    graph.add_pass("Depth Prepass", fn, inputs=("scene", "LightClip"), outputs=("Shadow Map",))
 
 
 def add_bvh_pass(graph: RenderGraph, animated: bool):

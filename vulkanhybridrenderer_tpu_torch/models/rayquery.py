@@ -19,7 +19,6 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
-    host_sized_raster,
     rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
@@ -49,12 +48,12 @@ class RayqueryPath(RenderPath):
             dirs = (-pfd.directional_light.direction[:3]).expand(origins.shape).contiguous()
             # a pixel without a triangle shades to 0: its shadow ray is dead
             tmax = torch.where(attrs["valid"].reshape(-1), SHADOW_TMAX, -1.0)
-            rec = traverse.trace(res["BVH"], origins, dirs, SHADOW_TMIN, tmax, anyhit=True)
+            rec = traverse.trace(res["BVH"], None, origins, dirs, SHADOW_TMIN, tmax, anyhit=True)
             in_shadow = torch.where(rec.hit, 0.0, 1.0).reshape(h, w)
             return {RENDER_OUTPUT: shade.rayquery_shade(attrs, pfd, in_shadow)}
 
         graph.add_pass(
             "Rayquery Pass", rayquery_pass,
             inputs=("scene", "pfd", "Clip", "BVH", "shade_tables", "TriRows"),
-            outputs=(RENDER_OUTPUT,), host_sized=host_sized_raster(cfg),
+            outputs=(RENDER_OUTPUT,),
         )

@@ -66,13 +66,13 @@ class RaytracedPath(RenderPath):
             # the filter changes nothing on a scene without masked materials
             alpha = tables if test_alpha and scene.has_alpha_mask else None
             o, d = primary_rays(pfd, h, w)
-            rec = traverse.trace(bvh, o, d, PRIMARY_TMIN, TMAX, alpha_tables=alpha)
+            rec = traverse.trace(bvh, None, o, d, PRIMARY_TMIN, TMAX, alpha_tables=alpha)
             pos = rt_shade.interpolate_hit_attributes(
                 tables, res["TriRows"], rec.tri, rec.u, rec.v)["position"]
             # a missed primary ray shows the sky: its shadow ray is dead
             sh_tmax = torch.where(rec.hit, TMAX, -1.0)
             sh_dir = (-pfd.directional_light.direction[:3]).expand(pos.shape).contiguous()
-            shadow = traverse.trace(bvh, pos.contiguous(), sh_dir, SHADOW_TMIN, sh_tmax,
+            shadow = traverse.trace(bvh, None, pos.contiguous(), sh_dir, SHADOW_TMIN, sh_tmax,
                                     anyhit=True, alpha_tables=alpha)
             shaded = rt_shade.primary_hit_shade(
                 scene, tables, res["TriRows"], pfd, rec.tri, rec.u, rec.v, ~shadow.hit,

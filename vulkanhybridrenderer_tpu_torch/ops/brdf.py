@@ -10,7 +10,7 @@ MIN_ROUGHNESS = 0.04  # composition.frag:121
 
 def fresnel_schlick(f0, h, v):
     """common.glsl:116-119 (five explicit multiplies, like the reference)."""
-    h_dot_v = torch.clamp(dot(h, v, keepdim=True), min=0.0)
+    h_dot_v = torch.clamp(dot(h, v, keepdims=True), min=0.0)
     m = 1.0 - h_dot_v
     return f0 + (1.0 - f0) * m * m * m * m * m
 

@@ -47,21 +47,25 @@ def make_alpha_frag_mask(scene, clip=None, tables=None):
     """The per-fragment alpha kill of the brute rasterizer (gbuf.frag:27-32,
     the reference's make_alpha_frag_mask): a fragment of an alpha-masked,
     textured material whose base-color alpha is below the cutoff is
-    discarded during the depth test.  Returns frag_mask(tri_ids (...),
-    wts (..., 3)) -> keep (...), where `wts` are perspective-correct vertex
-    weights; one tri_static row and one atlas quad row a fragment.  `clip`
-    is unused (the reference's signature); `tables=None` builds the shade
+    discarded during the depth test.  Returns frag_mask(tri_ids (C,),
+    wts (C, H, W, 3)) -> keep (C, H, W), as the reference's, where `wts` are
+    perspective-correct vertex weights; a triangle's fields come from one
+    gather of the 13 static-row columns the test reads, and each fragment
+    takes one alpha tap of the atlas (shadetab.fetch_alpha_fields,
+    sample_atlas_alpha: equal to the full row's and quad's).  `clip` is
+    unused (the reference's signature); `tables=None` builds the shade
     tables here."""
     if tables is None:
         tables = shadetab.build_shade_tables(scene)
 
     def frag_mask(tri_ids, wts):
-        pm = shadetab.fetch_tri_static(tables, tri_ids)
+        pm = shadetab.fetch_alpha_fields(tables, tri_ids)
         needs_test = (pm["alpha_mask"] == 1.0) & (pm["base_tex"] >= 0)
-        uv = shadetab.interpolate3(pm["uv0"], wts)
-        alpha = shadetab.sample_atlas4(
-            tables, pm["base_tex"], pm["base_scale"], pm["base_offset"], uv)[..., 3]
-        return ~(needs_test & (alpha < pm["alpha_cutoff"]))
+        uv = shadetab.interpolate3(pm["uv0"][:, None, None], wts)
+        alpha = shadetab.sample_atlas_alpha(
+            tables, pm["base_tex"][:, None, None], pm["base_scale"][:, None, None],
+            pm["base_offset"][:, None, None], uv)
+        return ~(needs_test[:, None, None] & (alpha < pm["alpha_cutoff"][:, None, None]))
 
     return frag_mask
 

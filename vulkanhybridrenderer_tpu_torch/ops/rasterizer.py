@@ -133,7 +133,8 @@ def triangle_setup(clip, tri_vertex, width: int, height: int) -> TriangleSetup:
 
 #: elements of one (triangles, rows, width) block of the brute rasterizer,
 #: which bounds its memory (each float32 plane of a block takes 4 bytes an
-#: element) and changes no value
+#: element; a block with a fragment mask takes a quarter as many elements,
+#: for the mask's atlas taps) and changes no value
 BRUTE_BLOCK_ELEMENTS = 1 << 26
 DEPTH_COMPARES = ("greater_equal", "less_equal", "always")
 
@@ -143,41 +144,56 @@ def rasterize(setup: TriangleSetup, width: int, height: int, chunk: int = 64,
               depth_compare: str = "greater_equal", depth_clear: float = 0.0
               ) -> VisibilityBuffer:
     """The brute reference rasterizer (the reference's ``rasterize``,
-    rasterizer.py:195-280): every kept triangle is tested at every pixel
-    centre, and the depth compare merges the fragments in submission order,
-    ties going to the later triangle.
+    rasterizer.py:195-280): every triangle is tested at every pixel centre,
+    and the depth compare merges the fragments in submission order, ties
+    going to the later triangle.
 
-    The reference merges one triangle at a time.  The merge here is one step
-    a block, with the same result: with greater_equal the last fragment to
-    pass is the lexicographic maximum of (z, triangle) over the covering
-    fragments with z >= the clear depth, with less_equal the minimum z with
-    the largest triangle, with always the last covering triangle.  A block
-    is `chunk` triangles by as many rows as keep it near
-    BRUTE_BLOCK_ELEMENTS elements, so memory stays bounded at any size (a
-    4096^2 shadow map never holds a (chunk, 4096, 4096) plane); `chunk`
-    changes no value.  Culled and degenerate triangles are dropped before
-    the loop.
+    Sized statically, as the reference is: the T triangles go in
+    ceil(T / chunk) chunks, padded to equal sizes (as even as the count
+    allows; the sizes come from T alone), and culled, degenerate and
+    padding lanes are masked (the reference's ``val & (tri_ids < T)``), so
+    nothing is read back from the device and a CUDA graph can hold the
+    whole raster.  The reference merges one triangle at a time.  The merge
+    here is one step a block, with the same result, since a masked lane
+    never wins: with greater_equal the last fragment to pass is the
+    lexicographic maximum of (z, triangle) over the covering fragments with
+    z >= the clear depth, with less_equal the minimum z with the largest
+    triangle, with always the last covering triangle.  A block is a chunk
+    of triangles by as many rows as keep it near BRUTE_BLOCK_ELEMENTS
+    elements, so memory stays bounded at any size (a 4096^2 shadow map
+    never holds a (chunk, 4096, 4096) plane); neither changes a value.
 
-    frag_mask_fn(tri_ids (N,), wts (N, 3)) -> keep (N,) bool: the optional
-    per-fragment kill (the alpha mask discard, gbuffer.make_alpha_frag_mask),
-    asked only about fragments that cover their pixel, with the
-    perspective-correct weights (l0, l1, l2) / (l0 + l1 + l2)."""
+    frag_mask_fn(tri_ids (C,), wts (C, rows, W, 3)) -> keep (C, rows, W)
+    bool: the optional per-fragment kill (the alpha mask discard,
+    gbuffer.make_alpha_frag_mask), evaluated densely over a block's
+    fragments as the reference's is over (C, H, W), with the
+    perspective-correct weights (l0, l1, l2) / (l0 + l1 + l2).  Padding
+    lanes are asked about the last triangle (the reference's gather clamps
+    their ids alike); their answer is masked."""
     if depth_compare not in DEPTH_COMPARES:
         raise ValueError(f"unknown depth_compare {depth_compare!r}")
     dev = setup.planes.device
+    t = setup.planes.shape[0]
     keep = setup.valid & setup.front if cull_backface else setup.valid
-    ids = torch.nonzero(keep).squeeze(1).to(torch.int32)
+    n_chunks = -(-t // chunk)
+    size = -(-t // n_chunks) if n_chunks else chunk  # lanes a chunk
+    pad = n_chunks * size - t
+    planes = torch.cat([setup.planes, setup.planes.new_zeros((pad, 12))])
+    val = torch.cat([keep, keep.new_zeros(pad)])  # padding lanes never cover
     best_z = torch.full((height, width), float(depth_clear), dtype=torch.float32, device=dev)
     best_tri = torch.full((height, width), -1, dtype=torch.int32, device=dev)
     best_b1 = torch.zeros((height, width), dtype=torch.float32, device=dev)
     best_b2 = torch.zeros((height, width), dtype=torch.float32, device=dev)
     best_s = torch.ones((height, width), dtype=torch.float32, device=dev)
     px = torch.arange(width, dtype=torch.float32, device=dev) + 0.5
-    n = ids.shape[0]
-    for c0 in range(0, n, chunk):
-        cids = ids[c0:c0 + chunk]
-        p = setup.planes[cids.long()][:, :, None, None]  # (C, 12, 1, 1)
-        band = max(1, BRUTE_BLOCK_ELEMENTS // (cids.shape[0] * width))
+    lanes = torch.arange(size, dtype=torch.int32, device=dev)
+    order = lanes + 1
+    block = BRUTE_BLOCK_ELEMENTS if frag_mask_fn is None else BRUTE_BLOCK_ELEMENTS // 4
+    band = max(1, block // (size * width))
+    for c0 in range(0, n_chunks * size, size):
+        cids = lanes + c0
+        p = planes[c0:c0 + size][:, :, None, None]  # (C, 12, 1, 1)
+        v = val[c0:c0 + size][:, None, None]
         for y0 in range(0, height, band):
             y1 = min(height, y0 + band)
             py = (torch.arange(y0, y1, dtype=torch.float32, device=dev) + 0.5)[:, None]
@@ -186,14 +202,12 @@ def rasterize(setup: TriangleSetup, width: int, height: int, chunk: int = 64,
                 return (p[:, k] * px + p[:, k + 1] * py) + p[:, k + 2]
 
             l0, l1, l2, z = ev(0), ev(3), ev(6), ev(9)  # (C, rows, W)
-            inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0.0) & (z <= 1.0)
+            inside = (l0 >= 0) & (l1 >= 0) & (l2 >= 0) & (z >= 0.0) & (z <= 1.0) & v
             if frag_mask_fn is not None:
-                ci, yi, xi = torch.nonzero(inside, as_tuple=True)
-                f0, f1, f2 = l0[ci, yi, xi], l1[ci, yi, xi], l2[ci, yi, xi]
-                s = (f0 + f1) + f2
+                s = (l0 + l1) + l2
                 inv = 1.0 / torch.where(torch.abs(s) > 1e-12, s, torch.ones_like(s))
-                wts = torch.stack([f0 * inv, f1 * inv, f2 * inv], dim=-1)
-                inside[ci, yi, xi] = frag_mask_fn(cids[ci], wts)
+                wts = torch.stack([l0 * inv, l1 * inv, l2 * inv], dim=-1)
+                inside &= frag_mask_fn(torch.clamp(cids, max=t - 1), wts)
             any_in = inside.any(dim=0)
             if depth_compare == "greater_equal":
                 zw = torch.where(inside, z, -torch.inf).amax(dim=0)
@@ -206,7 +220,6 @@ def rasterize(setup: TriangleSetup, width: int, height: int, chunk: int = 64,
             else:
                 cand, better = inside, any_in
             # the last candidate of the block in submission order
-            order = torch.arange(1, cids.shape[0] + 1, dtype=torch.int32, device=dev)
             j = (torch.where(cand, order[:, None, None], 0).amax(dim=0) - 1).clamp(min=0)
             pick = lambda a: a.gather(0, j[None].long())[0]  # noqa: E731
             w0, w1, w2 = pick(l0), pick(l1), pick(l2)

@@ -92,13 +92,27 @@ def _tile_counts(width: int, height: int):
     return math.ceil(width / TILE_W), math.ceil(height / TILE_H)
 
 
-def bin_triangles(setup: TriangleSetup, width: int, height: int,
-                  cull_backface: bool = True, include=None, e_cap: int | None = None) -> Bins:
-    """include: optional (T,) bool; only those triangles are binned (the
-    reference's exclude_mask, and its alpha subset binned with global ids).
-    e_cap: the entry buffers' length, default_e_cap(T, width * height) by
-    default.  Entries past the live count hold -1 and the sentinel tile,
-    so no tile's range reaches them; nothing here reads a value back."""
+def _check_tile(fn: str, tile_h: int, tile_w: int) -> None:
+    """The reference's tile_h / tile_w keywords: the port's kernels raster
+    TILE_H x TILE_W tiles only."""
+    if (tile_h, tile_w) != (TILE_H, TILE_W):
+        raise ValueError(f"{fn}: the port's tiles are {TILE_H}x{TILE_W}, got "
+                         f"tile_h={tile_h}, tile_w={tile_w}")
+
+
+def bin_triangles(setup: TriangleSetup, width: int, height: int, tile_h: int = TILE_H,
+                  tile_w: int = TILE_W, e_cap: int | None = None, cull_backface: bool = True,
+                  exclude_mask=None, tri_ids=None, *, include=None) -> Bins:
+    """The reference's bin_triangles.  tile_h / tile_w: the port's tile
+    only (another raises).  e_cap: the entry buffers' length,
+    default_e_cap(T, width * height) by default.  exclude_mask: optional (T,)
+    bool; those triangles are not binned (the port's keyword `include`, its
+    negation, keeps only the triangles it marks).  tri_ids: optional (T,)
+    ids the entries carry in place of 0..T-1 (the reference's global ids of
+    a subset's setup; a raster of such bins reads the planes those ids
+    index).  Entries past the live count hold -1 and the sentinel tile, so
+    no tile's range reaches them; nothing here reads a value back."""
+    _check_tile("bin_triangles", tile_h, tile_w)
     ntx, nty = _tile_counts(width, height)
     ntiles = ntx * nty
     dev = setup.planes.device
@@ -108,6 +122,8 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     alive = setup.valid & setup.w_any
     if cull_backface:
         alive &= setup.front
+    if exclude_mask is not None:
+        alive &= ~exclude_mask
     if include is not None:
         alive &= include
     xmin, ymin, xmax, ymax = setup.bbox.unbind(-1)
@@ -140,8 +156,9 @@ def bin_triangles(setup: TriangleSetup, width: int, height: int,
     tile = torch.where(live, tile, ntiles)
     tile_sorted, perm = torch.sort(tile, stable=True)
     offsets = torch.searchsorted(tile_sorted, torch.arange(ntiles + 1, device=dev))
+    tri = tri_of[perm] if tri_ids is None else tri_ids.long()[tri_of[perm]]
     return Bins(
-        entry_tri=torch.where(tile_sorted < ntiles, tri_of[perm], -1).to(torch.int32),
+        entry_tri=torch.where(tile_sorted < ntiles, tri, -1).to(torch.int32),
         offsets=offsets.to(torch.int32).contiguous(),
         ntx=ntx, nty=nty, overflow=overflow,
     )
@@ -571,12 +588,18 @@ def live_tiles(killed, ntx: int, nty: int):
 
 
 def rasterize_alpha_peeled(scene, setup: TriangleSetup, width: int, height: int,
-                           tables, rounds: int = 4, cull_backface: bool = True,
-                           trace: list | None = None):
+                           tables, rounds: int = 4, interpret: bool = False,
+                           cull_backface: bool = True, tile_h: int = TILE_H,
+                           tile_w: int = TILE_W, unroll_rounds: bool = True,
+                           compact_tiles: bool = True, live_tile_cap: int | None = None,
+                           sub_block_cap: int | None = None, *, trace: list | None = None):
     """Binned raster of the alpha-MASK triangles with the per-fragment alpha
-    kill, by depth peeling (the reference's rasterize_alpha_peeled); returns
-    (VisibilityBuffer, the masked stream's binning overflow), as the
-    reference's does.
+    kill, by depth peeling (the reference's rasterize_alpha_peeled, with its
+    signature); returns (VisibilityBuffer, the masked stream's binning
+    overflow), as the reference's does.  `interpret`, `unroll_rounds`,
+    `compact_tiles`, `live_tile_cap` and `sub_block_cap` only steer the
+    reference's TPU schedule (its frames are the same for every value) and
+    are ignored; tile_h / tile_w: the port's tile only.
 
     Round 1 rasters the masked stream over every tile with a bound that
     admits every fragment (K1b) and alpha-tests each pixel's winner.  A
@@ -598,6 +621,7 @@ def rasterize_alpha_peeled(scene, setup: TriangleSetup, width: int, height: int,
     raster (round, tiles rastered, killed pixels): reading it waits for the
     device.
     """
+    _check_tile("rasterize_alpha_peeled", tile_h, tile_w)
     dev = setup.planes.device
     # index_fill_, not include[idx] = True: that copies the True from the host
     include = torch.zeros(setup.planes.shape[0], dtype=torch.bool, device=dev).index_fill_(
@@ -673,16 +697,20 @@ def poison(vis: VisibilityBuffer, overflow) -> VisibilityBuffer:
         vis, depth=vis.depth * torch.where(overflow > 0, torch.nan, 1.0))
 
 
-def rasterize_scene(scene, clip, width: int, height: int,
-                    cull_backface: bool = True, alpha: bool = True,
-                    tables=None, alpha_rounds: int = 4) -> VisibilityBuffer:
-    """Full-scene visibility buffer: setup, then two binned streams merged
+def rasterize_scene(scene, clip, width: int, height: int, interpret: bool | None = None,
+                    tile_h: int = TILE_H, tile_w: int = TILE_W, alpha: bool = True,
+                    cull_backface: bool = True, tables=None,
+                    alpha_rounds: int = 4) -> VisibilityBuffer:
+    """Full-scene visibility buffer, with the reference's signature
+    (`interpret` only steers the TPU kernel and is ignored; tile_h /
+    tile_w: the port's tile only): setup, then two binned streams merged
     by depth.  With alpha (and a scene that has alpha-masked triangles) the
     opaque stream excludes the masked triangles (K1a) and the masked stream
     is depth-peeled with the alpha kill (K1b, K1c); without, every triangle
     rasters solid through K1a (alpha_raster="off").  A stream whose binning
     overflowed its cap NaN-poisons the depth, the masked one after the
     merge (a NaN would lose the merge's compare), as the reference's."""
+    _check_tile("rasterize_scene", tile_h, tile_w)
     setup, bins, use_alpha = _opaque_stream(scene, clip, width, height, cull_backface,
                                             alpha)
     vis = poison(raster_tiles(setup.planes, bins, width, height), bins.overflow)
@@ -715,11 +743,12 @@ def depth_ties(scene, clip, width: int, height: int, cull_backface: bool = True,
     return both & (gap > 0) & (gap <= rel * first.depth)
 
 def rasterize_scene_msaa(scene, clip, width: int, height: int, samples: int,
-                         alpha: bool = True, cull_backface: bool = True,
-                         tables=None) -> list[VisibilityBuffer]:
+                         interpret: bool | None = None, alpha: bool = True,
+                         cull_backface: bool = True, tables=None) -> list[VisibilityBuffer]:
     """Multisampled visibility: one VisibilityBuffer per sample position of
     MSAA_PATTERNS[samples], at the base resolution (the reference's
-    rasterize_scene_msaa).  Triangle setup and the opaque binning run once;
+    rasterize_scene_msaa, with its signature; `interpret` only steers the
+    TPU kernel and is ignored).  Triangle setup and the opaque binning run once;
     the opaque stream goes through K1d.  With alpha (and masked triangles in
     the scene) each sample then peels the masked stream on its offset setup
     (K1b, K1c) and merges it over its opaque buffer.  Overflow poisons the

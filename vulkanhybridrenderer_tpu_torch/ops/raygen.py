@@ -147,7 +147,7 @@ def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8 | None, tri_verts,
                                        tmax, anyhit, rays_per_pixel)
         if rays_per_pixel > 1:
             origin, tmax = origin.repeat(rays_per_pixel, 1), tmax.repeat(rays_per_pixel)
-        return traverse.trace(bvh, origin, direction, SHADOW_TMIN, tmax, anyhit=anyhit)
+        return traverse.trace(bvh, None, origin, direction, SHADOW_TMIN, tmax, anyhit=anyhit)
 
     if settings is None or settings.shadow_mode == ShadowMode.RAYTRACED:
         if shadow_grid is not None:

@@ -14,9 +14,11 @@ queries from that grid instead of the BVH8:
      medium tiers (at most max(4096, T / 8) and max(1024, T / 16)
      triangles); larger ones go to a global list of at most BIG_CAP rows
      that every ray tests.  Triangles beyond a tier's capacity are counted
-     in `overflow` and dropped, as in the reference.  The resolution is
-     sized on the host from the triangles (`grid_resolution`); animated
-     scenes rebuild at the same resolution every frame.
+     in `overflow` and dropped, as in the reference.  Every table is sized
+     from T alone, as the reference's: a row for every slot, padding
+     sorted last, so nothing is read back.  The resolution is sized on the
+     host from the triangles (`grid_resolution`); animated scenes rebuild
+     at the same resolution every frame, inside the frame's CUDA graph.
   2. ``trace_shadow``: a ray looks up its origin's cell and runs
      Moller-Trumbore (no culling) over the cell's entries, at most
      `max_steps` of them, and over the big rows, stopping at the first hit
@@ -29,8 +31,9 @@ csrc/shadow_grid.cu (the reference runs an XLA while_loop over the entries,
 which as eager PyTorch would be a round of launches a step): a block takes
 a pixel tile, queues its live rays in shared memory and stages the heads of
 their cells' entry lists there (`stage_rows` rows a block); a lane walks a
-ray, the big tier before the cell's entries (the reference tests it after
-them, and both orders test the same rows), and takes the next queued ray
+ray, the big tier (`num_big` rows, read on the device) before the cell's
+entries (the reference tests it after them, and both orders test the same
+rows), and takes the next queued ray
 as soon as its ray ends.  On CPU tensors it runs ``trace_shadow_plain``,
 the same tests stepped in lockstep over the live rays in either order,
 which can count the entries each ray tests and the test at which each
@@ -52,8 +55,13 @@ import numpy as np
 import torch
 
 from vulkanhybridrenderer_tpu_torch.ops import shadetab
-from vulkanhybridrenderer_tpu_torch.ops.traverse import make_alpha_hit_filter, moller_trumbore
+from vulkanhybridrenderer_tpu_torch.ops.traverse import (
+    filter_tables,
+    make_alpha_hit_filter,
+    moller_trumbore,
+)
 from vulkanhybridrenderer_tpu_torch.utils.build import current_stream, load_cuda_library
+from vulkanhybridrenderer_tpu_torch.utils.consts import device_constant
 from vulkanhybridrenderer_tpu_torch.utils.math3d import cross, normalize
 
 BIG_CAP = 128  # global big-tier capacity (huge occluders)
@@ -75,27 +83,41 @@ class ShadowGrid:
     origin_uv: Any  # (2,) the grid window's (u, v) minimum
     inv_cell: Any  # (2,) 1 / cell size
     big: Any  # (BIG_CAP, 12) rows of the big tier; rows past num_big hold tri -1
-    num_big: int  # valid rows of `big`
+    num_big: Any  # () int32: valid rows of `big`
     grid: int = 512
     span_cap: int = 16
-    overflow: int = 0  # triangles beyond a tier's capacity (dropped)
+    overflow: Any = None  # () int32: triangles beyond a tier's capacity (dropped)
     #: (10,) float32 [u_axis, v_axis, origin_uv, inv_cell] on the grid's
     #: device: what K3 reads of the frame, so a launch needs no host copy
     frame: Any = None
 
     @property
     def num_entries(self) -> int:
+        """The entry table's rows, a static count; offsets[-1] of them are
+        live, the rest padding (triangle 0's vertices, id -1)."""
         return self.entries.shape[0]
 
 
 def _light_frame(direction):
     """(d, u, v): the unit light direction and an orthonormal (u, v)
-    spanning the plane perpendicular to it."""
+    spanning the plane perpendicular to it (chosen on the device)."""
     d = normalize(torch.as_tensor(direction, dtype=torch.float32))
-    up = torch.tensor([0.0, 1.0, 0.0] if bool(torch.abs(d[1]) < 0.9) else [1.0, 0.0, 0.0],
-                      dtype=torch.float32, device=d.device)
+    up = torch.where(torch.abs(d[1]) < 0.9, device_constant([0.0, 1.0, 0.0], device=d.device),
+                     device_constant([1.0, 0.0, 0.0], device=d.device))
     u = normalize(cross(up, d))
     return d, u, cross(d, u)
+
+
+def _first_true(mask, cap: int):
+    """The reference's nonzero(mask, size=cap, fill_value=0) on the device:
+    (cap,) int64, the first `cap` indices where `mask` holds, in order, then
+    zeros.  A cumsum numbers the true entries; those past `cap` go to a
+    spare slot."""
+    pos = torch.cumsum(mask, 0) - 1
+    dest = torch.where(mask & (pos < cap), pos, cap)
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=mask.device)
+    idx.scatter_(0, dest, torch.arange(mask.shape[0], device=mask.device))
+    return idx[:cap]
 
 
 def _fma(a, b, c):
@@ -138,7 +160,16 @@ def build_shadow_grid(tri_verts, light_direction, cone_tan: float = CONE_TAN,
                       grid: int | None = None, span_cap: int = 16) -> ShadowGrid:
     """The grid over (T, 3, 3) world triangles for light travelling along
     `light_direction` (rays go along -light_direction), on the triangles'
-    device.  grid=None sizes it on the host (grid_resolution)."""
+    device.  grid=None sizes it on the host (grid_resolution).
+
+    The reference's ``_build_shadow_grid`` array for array, sized from T
+    alone: T * span_cap slots of the dense tier, med1_cap * MED1_SPAN and
+    med2_cap * MED2_SPAN of the medium lists, cell id grid^2 marking a slot
+    past a triangle's span or a list's count.  A stable sort puts those
+    last; every slot keeps a row (triangle 0's vertices and id -1 on
+    padding), and `offsets` (searchsorted) ends at the live count.
+    `num_big` and `overflow` stay on the device, so given `grid` nothing is
+    read back and a CUDA graph can hold the rebuild."""
     dev = tri_verts.device
     light = torch.as_tensor(light_direction, dtype=torch.float32, device=dev)
     if grid is None:
@@ -167,53 +198,51 @@ def build_shadow_grid(tri_verts, light_direction, cone_tan: float = CONE_TAN,
     span = wspan * (cv1 - cv0 + 1)
     ncells = grid * grid
 
-    def entries(idx, scap):
-        """(cell ids, triangle ids) of the first scap cells of triangles idx;
-        ncells marks a slot past a triangle's span."""
+    def slots(idx, live, scap):
+        """(cell ids, triangle ids) of the first scap cells of triangles
+        idx (only where `live`); ncells marks a slot past a span."""
         k = torch.arange(scap, device=dev)[None, :]
         ws = wspan[idx][:, None]
         cid = (cv0[idx][:, None] + k // ws) * grid + cu0[idx][:, None] + k % ws
-        cid = torch.where(k < span[idx][:, None], cid, ncells)
+        cid = torch.where(live[:, None] & (k < span[idx][:, None]), cid, ncells)
         return cid.reshape(-1), idx[:, None].expand(-1, scap).reshape(-1)
 
-    # tiers, like the raster binning: dense slots for small spans, compacted
-    # lists for medium ones (the first `cap` of each), a global list beyond
+    # tiers, like the raster binning: dense slots for small spans, lists of
+    # the first `cap` medium ones (in triangle order), a global list beyond
     ok = span <= span_cap
     med1 = (span > span_cap) & (span <= MED1_SPAN)
     med2 = (span > MED1_SPAN) & (span <= MED2_SPAN)
     big_mask = span > MED2_SPAN
     med1_cap, med2_cap = max(4096, t // 8), max(1024, t // 16)
-    m1 = torch.nonzero(med1).squeeze(1)
-    m2 = torch.nonzero(med2).squeeze(1)
-    bi = torch.nonzero(big_mask).squeeze(1)
-    overflow = (max(bi.shape[0] - BIG_CAP, 0) + max(m1.shape[0] - med1_cap, 0)
-                + max(m2.shape[0] - med2_cap, 0))
-    parts = [entries(torch.nonzero(ok).squeeze(1), span_cap), entries(m1[:med1_cap], MED1_SPAN),
-             entries(m2[:med2_cap], MED2_SPAN)]
-    cell_id = torch.cat([p[0] for p in parts])
+    n_big, n_med1, n_med2 = big_mask.sum(), med1.sum(), med2.sum()
+    overflow = (torch.clamp(n_big - BIG_CAP, min=0) + torch.clamp(n_med1 - med1_cap, min=0)
+                + torch.clamp(n_med2 - med2_cap, min=0)).to(torch.int32)
+    parts = [slots(torch.arange(t, device=dev), ok, span_cap)]
+    for mask, n, cap, scap in ((med1, n_med1, med1_cap, MED1_SPAN),
+                               (med2, n_med2, med2_cap, MED2_SPAN)):
+        parts.append(slots(_first_true(mask, cap), torch.arange(cap, device=dev) < n, scap))
+    cell_id = torch.cat([p[0] for p in parts]).to(torch.int32)
     tri_id = torch.cat([p[1] for p in parts])
-    keep = cell_id < ncells
-    cell_id, tri_id = cell_id[keep], tri_id[keep]
     cell_sorted, order = torch.sort(cell_id, stable=True)
     tri_sorted = tri_id[order]
-    counts = torch.bincount(cell_sorted, minlength=ncells)
-    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]).to(torch.int32)
+    offsets = torch.searchsorted(cell_sorted, torch.arange(ncells + 1, dtype=torch.int32,
+                                                           device=dev)).to(torch.int32)
 
     tv9 = tri_verts.reshape(t, 9)
 
     def rows(ids, valid):
-        return torch.cat([tv9[ids], torch.where(valid, ids, -1).to(torch.float32)[:, None],
+        """Entry rows of triangles ids: where not `valid`, triangle 0's
+        vertices and id -1, as the reference's padding rows."""
+        return torch.cat([tv9[torch.where(valid, ids, 0)],
+                          torch.where(valid, ids, -1).to(torch.float32)[:, None],
                           tv9.new_zeros((ids.shape[0], 2))], dim=1).contiguous()
 
-    num_big = min(bi.shape[0], BIG_CAP)
-    big_ids = torch.zeros(BIG_CAP, dtype=torch.int64, device=dev)
-    big_ids[:num_big] = bi[:num_big]
-    big_valid = torch.arange(BIG_CAP, device=dev) < num_big
+    num_big = torch.clamp(n_big, max=BIG_CAP).to(torch.int32)
     return ShadowGrid(
-        entries=rows(tri_sorted, torch.ones_like(tri_sorted, dtype=torch.bool)),
-        offsets=offsets.contiguous(), u_axis=u, v_axis=v, origin_uv=origin_uv,
-        inv_cell=inv_cell, big=rows(big_ids, big_valid), num_big=num_big, grid=grid,
-        span_cap=span_cap, overflow=overflow,
+        entries=rows(tri_sorted, cell_sorted < ncells), offsets=offsets.contiguous(),
+        u_axis=u, v_axis=v, origin_uv=origin_uv, inv_cell=inv_cell,
+        big=rows(_first_true(big_mask, BIG_CAP), torch.arange(BIG_CAP, device=dev) < num_big),
+        num_big=num_big, grid=grid, span_cap=span_cap, overflow=overflow,
         frame=torch.cat([u, v, origin_uv, inv_cell]).contiguous(),
     )
 
@@ -285,7 +314,7 @@ def trace_shadow_plain(sg: ShadowGrid, origin, direction, tmin, tmax,
             k += 1
 
     def big(rest):
-        for i in range(sg.num_big):
+        for i in range(int(sg.num_big)):
             if not rest.shape[0]:
                 break
             tested[rest] += 1
@@ -306,7 +335,7 @@ def load_kernel():
     fn = load_cuda_library("shadow_grid.cu").shadow_grid_trace_launch
     fn.restype = ctypes.c_int
     ptr, num, flt = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = ([ptr] * 3 + [num] * 2 + [ptr] * 3 + [ptr, flt, ptr, flt] + [num] * 4
+    fn.argtypes = ([ptr] * 4 + [num] + [ptr] * 3 + [ptr, flt, ptr, flt] + [num] * 4
                    + [ptr] * 2 + [num] * 2 + [ptr] * 2 + [num, ptr])
     return fn
 
@@ -316,9 +345,10 @@ def launch_args(sg: ShadowGrid, origin, direction, tmin, tmax, out,
                 width: int | None = None, stage_rows: int = STAGE_ROWS, stats=None):
     """The arguments of one K3 launch (load_kernel()(*args)) writing the
     (R,) bool `out`, on tensors trace_shadow has checked.  A Python float
-    tmin / tmax goes by value, a tensor by pointer.  `stats`: None, or a
-    (2,) int64 CUDA tensor the kernel adds its lane-steps that tested a row
-    and all its lane-steps to."""
+    tmin / tmax goes by value, a tensor by pointer; the grid's num_big by
+    pointer (the kernel reads it on the device).  `stats`: None, or a (2,)
+    int64 CUDA tensor the kernel adds its lane-steps that tested a row and
+    all its lane-steps to."""
     def scalar(t):
         return (t.data_ptr(), 0.0) if torch.is_tensor(t) else (None, float(t))
 
@@ -328,26 +358,32 @@ def launch_args(sg: ShadowGrid, origin, direction, tmin, tmax, out,
         tables = (alpha_tables.tri_static.data_ptr(), alpha_tables.atlas_q.data_ptr(),
                   alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
     dev = origin.device
-    return (sg.entries.data_ptr(), sg.offsets.data_ptr(), sg.big.data_ptr(), sg.num_big,
-            sg.grid, sg.frame.data_ptr(), origin.data_ptr(), direction.data_ptr(),
-            *scalar(tmin), *scalar(tmax), origin.shape[0], width or 0, max_steps, stage_rows,
-            *tables, out.data_ptr(), None if stats is None else stats.data_ptr(), dev.index,
-            current_stream(dev.index))
+    return (sg.entries.data_ptr(), sg.offsets.data_ptr(), sg.big.data_ptr(),
+            sg.num_big.data_ptr(), sg.grid, sg.frame.data_ptr(), origin.data_ptr(),
+            direction.data_ptr(), *scalar(tmin), *scalar(tmax), origin.shape[0], width or 0,
+            max_steps, stage_rows, *tables, out.data_ptr(),
+            None if stats is None else stats.data_ptr(), dev.index, current_stream(dev.index))
 
 
-def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, max_steps: int = MAX_STEPS,
+def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, hit_filter=None,
+                 strips: int = 32, max_steps: int = MAX_STEPS, *,
                  alpha_tables: shadetab.ShadeTables | None = None, width: int | None = None,
                  stage_rows: int = STAGE_ROWS):
-    """Any-hit occlusion of near-parallel rays through the grid: (R,) bool.
-    origin / direction (R, 3) float32; tmin / tmax Python floats (passed to
-    K3 by value) or (R,) float32 tensors.  alpha_tables: the scene's shade
-    tables, for the alpha any-hit filter (None: every geometric hit counts).
-    width: the rays are an image's pixels, row-major, `width` a row, and a
-    K3 block takes a pixel tile of them, as the render path passes them
-    (raygen); None, for callers of the reference's API that hold no image,
-    a block takes consecutive rays.  stage_rows: the cell rows a K3 block
-    stages in shared memory; the rest of a list is read from device
-    memory.  The mask is the same for every width and stage_rows."""
+    """Any-hit occlusion of near-parallel rays through the grid: (R,) bool,
+    with the reference's signature.  origin / direction (R, 3) float32;
+    tmin / tmax Python floats (passed to K3 by value) or (R,) float32
+    tensors.  hit_filter: None or a filter of traverse.make_alpha_hit_filter,
+    which stands for its shade tables (K3 runs the filter inside the walk);
+    `strips` only steers the reference's TPU loop and is ignored.  The
+    port's keywords: alpha_tables, the scene's shade tables for the alpha
+    any-hit filter (None: every geometric hit counts); width: the rays are
+    an image's pixels, row-major, `width` a row, and a K3 block takes a
+    pixel tile of them, as the render path passes them (raygen); None, for
+    callers of the reference's API that hold no image, a block takes
+    consecutive rays.  stage_rows: the cell rows a K3 block stages in shared
+    memory; the rest of a list is read from device memory.  The mask is the
+    same for every strips, width and stage_rows."""
+    alpha_tables = filter_tables("trace_shadow", hit_filter, alpha_tables)
     dev = origin.device
     r = origin.shape[0]
     if stage_rows < 0:
@@ -365,6 +401,7 @@ def trace_shadow(sg: ShadowGrid, origin, direction, tmin, tmax, max_steps: int =
     checks = [("entries", sg.entries, (sg.num_entries, ROW_W), torch.float32),
               ("offsets", sg.offsets, (sg.grid * sg.grid + 1,), torch.int32),
               ("big", sg.big, (BIG_CAP, ROW_W), torch.float32),
+              ("num_big", sg.num_big, (), torch.int32),
               ("frame", sg.frame, (10,), torch.float32),
               ("origin", origin, (r, 3), torch.float32),
               ("direction", direction, (r, 3), torch.float32)]

@@ -1,6 +1,7 @@
 """BVH8 ray traversal (port of ``ops/traverse.py``): kernel K2.
 
-``trace(bvh8, origin, direction, tmin, tmax, anyhit)`` walks the BVH8 table of
+``trace(bvh8, tri_verts, origin, direction, tmin, tmax, anyhit)``, in the
+reference's order (``tri_verts`` unread for a BVH8), walks the BVH8 table of
 ops/bvh8.py once per ray with the semantics of the reference's per-ray walk
 (``_trace8``): near-first slot ^ octant child order, 8-wide slab tests with
 empty slots masked, leaf_max-wide Moller-Trumbore leaves without culling,
@@ -19,7 +20,8 @@ through the lane-major copy ``pack_rows`` makes once per table
 (``kernel_table``); on CPU tensors it runs ``trace_plain``, a
 lockstep port of ``_trace8`` that drops finished rays between steps and can
 count the rows and slots each ray visits.  The reference's TPU schedules (strips,
-packets, compaction, ray sorting, unrolling) have no counterpart.
+packets, compaction, ray sorting, unrolling) have no counterpart: ``trace``
+takes their keywords and ignores them.
 
 Given a binary ``BVH`` (ops/bvh.py) and the triangles, or the tables
 ``pack_flat`` packs from them once per tree, ``trace`` runs the reference's
@@ -280,7 +282,24 @@ def make_alpha_hit_filter(scene, tables: shadetab.ShadeTables | None = None):
                   & (alpha < pm["alpha_cutoff"]))
         return ~reject
 
+    hit_filter.tables = tables  # what the kernels' filter reads (filter_tables)
     return hit_filter
+
+
+def filter_tables(fn: str, hit_filter, alpha_tables):
+    """The shade tables a trace filters with, from the reference's
+    `hit_filter` or the port's `alpha_tables` (at most one of them).  A
+    filter of make_alpha_hit_filter stands for its tables; the kernels run
+    that filter inside their walks, so any other callable raises."""
+    if hit_filter is None:
+        return alpha_tables
+    tables = getattr(hit_filter, "tables", None)
+    if not isinstance(tables, shadetab.ShadeTables):
+        raise ValueError(f"{fn}: hit_filter must come from make_alpha_hit_filter; the port "
+                         "filters inside the kernel, so it takes no other callable")
+    if alpha_tables is not None and alpha_tables is not tables:
+        raise ValueError(f"{fn}: both hit_filter and alpha_tables given")
+    return tables
 
 
 def trace_plain(rows, depth: int, origin, direction, tmin, tmax,
@@ -489,19 +508,25 @@ def _table_args(alpha_tables):
             alpha_tables.atlas_q.shape[0], alpha_tables.atlas_w)
 
 
-def trace(bvh: BVH8 | BVH | FlatTables, origin, direction, tmin, tmax, anyhit: bool = False,
-          max_steps: int | None = None,
-          alpha_tables: shadetab.ShadeTables | None = None,
-          tri_verts=None) -> HitRecord:
-    """Trace rays through `bvh`.  origin / direction: (R, 3) float32;
-    tmin / tmax: scalars or (R,).  alpha_tables: the scene's shade tables,
-    to apply the alpha any-hit filter (None: every geometric hit counts).
-    A BVH8 of any of the three kinds goes to K2, instantiated for its kind
-    (BVH8.kind), where rays with tmax < tmin miss at once; a binary
-    BVH goes to the threaded walk, K4 (``trace_flat``), which needs the
-    (T, 3, 3) triangles `tri_verts` (ignored otherwise) and packs them with
-    the tree on every call; pack_flat's tables, packed once per tree, go to
-    K4 as they are."""
+def trace(bvh: BVH8 | BVH | FlatTables, tri_verts, origin, direction, tmin, tmax,
+          anyhit: bool = False, hit_filter=None, max_steps: int | None = None,
+          strips: int = 32, compact: bool = False, sort_rays: bool = False, packets: int = 0,
+          packet_phases=((64, 8),), unroll: int = 1, *,
+          alpha_tables: shadetab.ShadeTables | None = None) -> HitRecord:
+    """Trace rays through `bvh`, with the reference's signature.  origin /
+    direction: (R, 3) float32; tmin / tmax: scalars or (R,).  The alpha
+    any-hit filter: the reference's `hit_filter`, a filter of
+    make_alpha_hit_filter (which stands for its shade tables), or the
+    port's keyword `alpha_tables`, the scene's shade tables (neither: every
+    geometric hit counts).  `strips`, `compact`, `sort_rays`, `packets`,
+    `packet_phases` and `unroll` only steer the reference's TPU schedules
+    and are ignored.  A BVH8 of any of the three kinds goes to K2,
+    instantiated for its kind (BVH8.kind), where rays with tmax < tmin miss
+    at once, and `tri_verts` is not read; a binary BVH goes to the threaded
+    walk, K4 (``trace_flat``), which needs the (T, 3, 3) triangles
+    `tri_verts` and packs them with the tree on every call; pack_flat's
+    tables, packed once per tree, go to K4 as they are."""
+    alpha_tables = filter_tables("trace", hit_filter, alpha_tables)
     if isinstance(bvh, BVH):
         if tri_verts is None:
             raise ValueError("trace: a binary BVH needs tri_verts, the (T, 3, 3) triangles")
@@ -563,7 +588,7 @@ trace.launches = collections.Counter()
 def trace_rows(bvhs, origin, direction, tmin, tmax, anyhit: bool,
                rays_per_pixel: int = 1) -> HitRecord:
     """``trace`` of one wavefront, one row slab per shard: the same
-    HitRecord as ``trace(bvh, origin.repeat(k, 1), direction, tmin,
+    HitRecord as ``trace(bvh, None, origin.repeat(k, 1), direction, tmin,
     tmax.repeat(k), anyhit)`` with k = `rays_per_pixel`, in image order on
     origin's device.  bvhs: the BVH8 on each shard's device, in shard order
     (a mesh's ``replicate(bvh)``).  origin (R, 3) and tmax (R,) per pixel in
@@ -586,7 +611,7 @@ def trace_rows(bvhs, origin, direction, tmin, tmax, anyhit: bool,
         o, tm = origin[px], tmax[px]
         if k > 1:
             o, tm = o.repeat(k, 1), tm.repeat(k)
-        slabs.append(trace(b, o.to(dev), dirs[:, px].reshape(-1, 3).to(dev), tmin,
+        slabs.append(trace(b, None, o.to(dev), dirs[:, px].reshape(-1, 3).to(dev), tmin,
                            tm.to(dev), anyhit=anyhit))
 
     def gather(field):

@@ -10,12 +10,16 @@ buffers: the per-frame data (``core/types.pack_per_frame_data``'s two
 arrays, the frame index among them), the primitive transforms and the SVGF
 temporal state.  Every frame refills them on its stream and replays.
 
-- "fused": one graph per run of passes between host-sized passes
-  (``RenderGraph.add_pass(host_sized=True)``), so one graph a frame where
-  the graph declares none; a declared pass runs eagerly between replays,
-  its outputs copied into the buffers the later graphs read.
-- "per_pass": one graph per pass (a host-sized one eagerly), sharing the
-  key's memory pool, so pass k's outputs are pass k + 1's fixed inputs.
+- "fused": one graph a frame.  Every pass sizes its work from shapes
+  alone (the brute raster's chunks, the shadow grid's tables, the binning's
+  entry cap), as the reference's static shapes do, so nothing in a frame
+  waits for the host.
+- "per_pass": one graph per pass, sharing the key's memory pool, so pass
+  k's outputs are pass k + 1's fixed inputs.
+
+A frame over a mesh queues work on several devices' streams, which one
+capture cannot hold: the renderer runs the mesh frame's function eagerly
+under both dispatches (runtime/renderer.py).
 
 The temporal state is carried as the reference donates it: the captured
 pass that makes "TemporalStateOut" ends by copying it into the state it
@@ -35,6 +39,7 @@ import warnings
 import torch
 
 from vulkanhybridrenderer_tpu_torch.core.types import PER_FRAME_FLOATS, per_frame_data_from_flat
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import tensors_of
 
 TEMPORAL_OUT = "TemporalStateOut"
 
@@ -68,22 +73,8 @@ def _add(delta: list) -> None:
             f.launches += d
 
 
-def _tensors(obj) -> list:
-    """Every tensor in a resource (a tensor, or the fields and items of
-    dataclasses, dicts, lists and tuples), in a fixed order."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return [t for f in dataclasses.fields(obj) for t in _tensors(getattr(obj, f.name))]
-    if isinstance(obj, dict):
-        return [t for v in obj.values() for t in _tensors(v)]
-    if isinstance(obj, (list, tuple)):
-        return [t for v in obj for t in _tensors(v)]
-    return []
-
-
 def _copy_into(dst, src) -> None:
-    for d, s in zip(_tensors(dst), _tensors(src)):
+    for d, s in zip(tensors_of(dst), tensors_of(src)):
         d.copy_(s)
 
 
@@ -101,16 +92,11 @@ class CapturedFrame:
         self.target, self.keep = target, tuple(keep)
         self.device = device
         self.consts = dict(consts)
-        segments: list[list[str]] = []
-        for name in graph.find_execution_order(target):
-            eager = graph.passes[name].host_sized
-            if per_pass or eager or not segments or graph.passes[segments[-1][0]].host_sized:
-                segments.append([name])
-            else:
-                segments[-1].append(name)
-        self.segments = segments
-        self.graphs: list = [None] * len(segments)
-        self.deltas: list = [None] * len(segments)
+        order = graph.find_execution_order(target)
+        #: the passes of each graph, in order: one graph a pass or a frame
+        self.segments = [[name] for name in order] if per_pass else [order]
+        self.graphs: list = [None] * len(self.segments)
+        self.deltas: list = [None] * len(self.segments)
         self.capture_s: dict[str, float] = {}
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
@@ -125,9 +111,6 @@ class CapturedFrame:
         self.res: dict | None = None  # the inputs and every output, once captured
         self.warmed = False
         self._warm: dict | None = None
-        #: outputs of eager passes that a graph reads: copied into place
-        self._pinned = {out for seg in segments if not self._eager(seg)
-                        for name in seg for out in graph.passes[name].inputs}
 
     @property
     def captured(self) -> bool:
@@ -135,14 +118,7 @@ class CapturedFrame:
 
     @property
     def n_graphs(self) -> int:
-        return sum(not self._eager(seg) for seg in self.segments)
-
-    @property
-    def eager_passes(self) -> list[str]:
-        return [seg[0] for seg in self.segments if self._eager(seg)]
-
-    def _eager(self, seg) -> bool:
-        return self.graph.passes[seg[0]].host_sized
+        return len(self.segments)
 
     def matches(self, consts: dict) -> bool:
         return consts.keys() == self.consts.keys() and all(
@@ -163,11 +139,11 @@ class CapturedFrame:
 
     def save_state(self):
         """A copy of the temporal state buffers (None without state)."""
-        return None if self.state is None else [t.clone() for t in _tensors(self.state)]
+        return None if self.state is None else [t.clone() for t in tensors_of(self.state)]
 
     def restore_state(self, saved) -> None:
         if saved is not None:
-            for d, t in zip(_tensors(self.state), saved):
+            for d, t in zip(tensors_of(self.state), saved):
                 d.copy_(t)
 
     def inputs(self) -> dict:
@@ -208,9 +184,9 @@ class CapturedFrame:
 
     def capture(self) -> dict[str, float]:
         """Capture every graph of the frame in order on the side stream,
-        replaying each right after its capture and running the eager passes
-        between, so this runs the frame once.  Returns the capture seconds
-        of each graph, keyed by its first pass."""
+        replaying each right after its capture, so this runs the frame once.
+        Returns the capture seconds of each graph, keyed by its first
+        pass."""
         torch.cuda.synchronize(self.device)
         self._warm = None
         res = self.inputs()
@@ -218,9 +194,6 @@ class CapturedFrame:
         main = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.stream):
             for i, seg in enumerate(self.segments):
-                if self._eager(seg):
-                    self._run_passes(seg, res)
-                    continue
                 g = torch.cuda.CUDAGraph()
                 before = _snapshot()
                 t0 = time.perf_counter()
@@ -262,24 +235,7 @@ class CapturedFrame:
 
     def replay(self) -> dict:
         """Run the captured frame on the current stream."""
-        res = self.res
-        for i, seg in enumerate(self.segments):
-            if self.graphs[i] is not None:
-                self.graphs[i].replay()
-                _add(self.deltas[i])
-                continue
-            p = self.graph.passes[seg[0]]
-            produced = p.fn(res)
-            for k in p.outputs:
-                if k not in self._pinned:
-                    res[k] = produced[k]
-                    continue
-                old, new = _tensors(res[k]), _tensors(produced[k])
-                if [(t.shape, t.dtype) for t in old] != [(t.shape, t.dtype) for t in new]:
-                    raise RuntimeError(
-                        f"{self.key}: host-sized pass {p.name!r} changed the shape of "
-                        f"{k!r}, which a captured pass reads; declare its readers "
-                        "host-sized too")
-                _copy_into(res[k], produced[k])
-            self._keep_state(p, produced)
-        return res
+        for g, delta in zip(self.graphs, self.deltas):
+            g.replay()
+            _add(delta)
+        return self.res

@@ -10,11 +10,9 @@ since graphs are keyed on the whole configuration.
 the active graph on ``device`` the way ``dispatch`` says (runtime/dispatch.py).
 On a CUDA device "fused", the default, runs a (path, config)'s first frame
 eagerly, captures the frame function (``RenderGraph.make_frame_fn``) into
-CUDA graphs at its second (one graph a frame, or one per run of passes
-between host-sized passes, which run eagerly between them) and replays them
-from then on; "per_pass" captures one graph per pass, all of a key's at its
-first frame with ``auto_precompile`` (``precompile_passes``), else at its
-second.  On the CPU (the tests) both call the frame function directly.
+one CUDA graph at its second and replays it from then on; "per_pass"
+captures one graph per pass, all of a key's at its first frame with
+``auto_precompile`` (``precompile_passes``), else at its second.  On the CPU (the tests) both call the frame function directly.
 With a ``mesh`` (parallel/mesh.py) the frame's raster and raytrace passes
 split their work across the mesh's devices and the rest runs on its
 primary, where the frame is returned; that frame runs eagerly
@@ -384,9 +382,9 @@ class Renderer:
         """The reference's precompile_passes: build every pass of the active
         (path, config) for dispatch="per_pass" ahead of its frames.  On a
         CUDA device one eager frame builds the kernels and caches, then each
-        pass is captured into its CUDA graph (a host-sized pass stays
-        eager); returns {pass: capture seconds} (0.0 for an eager pass),
-        "__trace_s__" (the eager frame) and "__wall_s__" (the whole).  The
+        pass is captured into its CUDA graph; returns {pass: capture
+        seconds}, "__trace_s__" (the eager frame) and "__wall_s__" (the
+        whole).  The
         frame index, previous view and temporal state are left as they
         were.  On the CPU nothing is built and every value is 0.0.
         max_workers: accepted for the reference's signature; captures run
@@ -514,7 +512,7 @@ class Renderer:
         nor the temporal state; as the reference's, the previous view
         becomes the current camera's."""
         pfd = self._make_pfd()
-        timings = self.graph.time_passes(self._resources(pfd), self.device, iters=iters)
+        timings = self.graph.time_passes(self._resources(pfd), iters=iters)
         self._stats.update(timings)
         return timings
 

@@ -37,14 +37,14 @@ def div(x, s: float):
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
-def normalize(v, dim: int = -1, eps: float = 1e-20):
-    """Normalize vectors along `dim` (safe at zero length)."""
-    n = torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True))
+def normalize(v, axis: int = -1, eps: float = 1e-20):
+    """Normalize vectors along `axis` (safe at zero length)."""
+    n = torch.sqrt(torch.sum(v * v, dim=axis, keepdim=True))
     return v / torch.clamp(n, min=eps)
 
 
-def dot(a, b, dim: int = -1, keepdim: bool = False):
-    return torch.sum(a * b, dim=dim, keepdim=keepdim)
+def dot(a, b, axis: int = -1, keepdims: bool = False):
+    return torch.sum(a * b, dim=axis, keepdim=keepdims)
 
 
 def cross(a, b):
@@ -58,7 +58,7 @@ def cross(a, b):
 
 def reflect(i, n):
     """GLSL reflect: i - 2*dot(n,i)*n."""
-    return i - 2.0 * dot(i, n, keepdim=True) * n
+    return i - 2.0 * dot(i, n, keepdims=True) * n
 
 
 def matmul4(a, b):
