@@ -309,22 +309,33 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 of the graph's outputs, debug_dump's PNG decodes to
                 to_uint8_image, find_nonfinite_pass() is None, stats.table()
                 printed, profile() writes a Chrome trace under _build/
-  6c. mesh    - main path 8 over a mesh (parallel/mesh.py): make_mesh()
-                where the machine has two cards or more, else a virtual
-                mesh of 4 shards on the one card (printed: real or
+  6c. mesh    - main path 8 and cell 4's raster mode (path 4's
+                configuration) on realglb at 1080p over a mesh
+                (parallel/mesh.py, the frame row-sharded: every image pass
+                a shard over its slab, with halo and gather exchanges):
+                make_mesh() where the machine has two cards or more, else a
+                virtual mesh of 4 shards on the one card (printed: real or
                 virtual).  The sort-last raster of realglb's 1080p frame
                 (1080 rows / 4 bands) equal to rasterize_scene on every
                 pixel, K1a launched once per shard; frames 1 and 2 of
                 Renderer(mesh=) equal (torch.equal) to the single-device
-                renderer's (both on path 8's bf16 table; its kind printed),
-                K1a once per shard and frame, K2 once per slab and
-                wavefront; ms/frame of both in turns (single, mesh,
-                mesh, single; CUDA events on the primary's stream, which
-                waits for every device of the mesh) with nvidia-smi's
-                line; K1a on shard 0's triangles and K2 on slab 0's AO and
-                reflection rays against their plain versions, timed, with
-                their bounds (the JSON line's mesh entries, their launches
-                the timed mesh frames').  Any failure fails the run
+                renderer's for both configurations (path 8 on its bf16
+                table; its kind printed), and frame 1 of the raster mode
+                with SSR too; K1a once per shard and frame, K2 once per
+                slab and wavefront; for each configuration a whole mesh
+                frame under set_sync_debug_mode("error") (no synchronizing
+                call), the bytes a frame moves between shards by kind
+                (halos, gathers, the raster's bands, replicas, the output),
+                each pass's device ms on each shard (CUDA events on the
+                shard's stream, parallel/mesh.ShardClock) beside one
+                card's time_passes, and ms/frame of both renderers in turns
+                (single, mesh, mesh, single; CUDA events on the primary's
+                stream, which waits for every device of the mesh) with
+                nvidia-smi's line; K1a on shard 0's triangles and K2 on
+                slab 0's AO and reflection rays against their plain
+                versions, timed, with their bounds (the JSON line's mesh
+                entries, their launches path 8's timed mesh frames').  Any
+                failure fails the run
   7. probe    - the row-gather probe (probes/gather.py), printed in full:
                 the yardstick (the delivered L1 and L2 read rates in TB/s
                 and bytes a clock an SM, their bit sums equal to a plain
@@ -2275,8 +2286,8 @@ def main() -> int:
 
     # ---- 6c. the frame over a mesh ---------------------------------------------------
     t0 = time.perf_counter()
-    kernels.update(_mesh_phase(realglb, full_cfg, dev, drive, k1_equal, k1_bound, k2_wave,
-                               smi, launches))
+    kernels.update(_mesh_phase(realglb, full_cfg, raster_cfg, dev, drive, k1_equal, k1_bound,
+                               k2_wave, smi, launches))
     _phase("mesh", t0)
 
     # ---- 7. the row-gather probe ---------------------------------------------------
@@ -2393,19 +2404,24 @@ def _k1a_by_shape(rt, run) -> dict:
     return dict(shapes)
 
 
-def _mesh_phase(realglb, cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi, launches):
-    """Phase 6c: main path 8 (cfg on realglb) over a mesh: make_mesh() where
-    the machine has two cards or more, else a virtual mesh of 4 shards on
-    `dev`.  (a) The sort-last raster of the frame's clip-space vertices
-    equal to rasterize_scene on every pixel, K1a launched once per shard;
-    (b) frames 1 and 2 equal to the single-device renderer's (torch.equal),
+def _mesh_phase(realglb, cfg, raster_cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi,
+                launches):
+    """Phase 6c: main path 8 (cfg on realglb) and cell 4's raster mode
+    (raster_cfg on realglb) over a mesh: make_mesh() where the machine has
+    two cards or more, else a virtual mesh of 4 shards on `dev`.  (a) The
+    sort-last raster of the frame's clip-space vertices equal to
+    rasterize_scene on every pixel, K1a launched once per shard; (b) path
+    8's frames 1 and 2 equal to the single-device renderer's (torch.equal),
     K1a launched once per shard and frame, K2 once per slab and wavefront;
     (c) ms/frame of both renderers in turns (single, mesh, mesh, single),
     by CUDA events on the primary's stream, which render_frame makes wait
-    for every device of the mesh.  Then K1a on shard 0's triangles and K2
-    on slab 0's AO and reflection rays against their plain versions, with
-    their times and bounds: the JSON line's mesh entries, whose launches
-    are the timed mesh frames'.  `launches` receives those counts."""
+    for every device of the mesh; (d) _mesh_frame's checks and times of
+    path 8, then of the raster mode.  Then K1a on shard 0's triangles and
+    K2 on slab 0's AO and reflection rays against their plain versions,
+    with their times and bounds: the JSON line's mesh entries, whose
+    launches are path 8's timed mesh frames'.  `launches` receives those
+    counts."""
+    from vulkanhybridrenderer_tpu_torch.core.config import ReflectionMode
     from vulkanhybridrenderer_tpu_torch.models import hybrid as hybrid_path
     from vulkanhybridrenderer_tpu_torch.ops import raygen, rasterizer_tiled as rt, traverse
     from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
@@ -2493,6 +2509,42 @@ def _mesh_phase(realglb, cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi, laun
           f"{'real' if n_cards >= 2 else 'virtual'} mesh of {n} {ms['mesh'][0]:.3f} / "
           f"{ms['mesh'][1]:.3f} | launches {mesh_launches} | card: {smi}")
 
+    # (d) path 8, then cell 4's raster mode: sync-free frame, bytes, per-shard
+    # pass times
+    _mesh_frame("path 8", single, meshed, mesh, sync_all, smi)
+    raster_one = Renderer(realglb, raster_cfg, device=dev)
+    raster_mesh = Renderer(realglb, raster_cfg, mesh=mesh)
+    for i in range(3):
+        a, m = raster_one.render_frame(), raster_mesh.render_frame()
+        if i:
+            eq = torch.equal(a, m)
+            print(f"mesh: cell 4's frame {i} over the mesh against the single-device frame: "
+                  + ("equal on every pixel" if eq else f"DIFFERS on "
+                     f"{int((a != m).any(dim=0).sum())} pixels (max {_max_abs(a - m):.3g})"))
+            _check(eq, f"cell 4's frame {i} over the mesh differs from the single-device frame")
+    del a, m
+    _mesh_frame("cell 4", raster_one, raster_mesh, mesh, sync_all, smi)
+    ms = {"single": [], "mesh": []}
+    for which in ("single", "mesh", "mesh", "single"):
+        ms[which].append(drive(raster_one if which == "single" else raster_mesh)[0])
+    print(f"mesh ms/frame (cell 4, realglb {WIDTH}x{HEIGHT}, 10 frames each, in turns single, "
+          f"mesh, mesh, single): single {ms['single'][0]:.3f} / {ms['single'][1]:.3f}, "
+          f"{'real' if n_cards >= 2 else 'virtual'} mesh of {n} {ms['mesh'][0]:.3f} / "
+          f"{ms['mesh'][1]:.3f} | card: {smi}")
+    del raster_one, raster_mesh
+    # SSR's march reads any row of four whole images: its frame 1 too, from
+    # two new renderers in lockstep (the frame index seeds SSAO's samples)
+    ssr_cfg = dataclasses.replace(raster_cfg, hybrid=dataclasses.replace(
+        raster_cfg.hybrid, reflection_mode=ReflectionMode.SSR))
+    pair = (Renderer(realglb, ssr_cfg, device=dev), Renderer(realglb, ssr_cfg, mesh=mesh))
+    a, m = [[r.render_frame() for _ in range(2)][1] for r in pair]
+    eq = torch.equal(a, m)
+    print("mesh: cell 4 with SSR, frame 1 over the mesh against the single-device frame: "
+          + ("equal on every pixel" if eq else f"DIFFERS on {int((a != m).any(dim=0).sum())} "
+             f"pixels (max {_max_abs(a - m):.3g})"))
+    _check(eq, "cell 4 with SSR over the mesh differs from the single-device frame")
+    del a, m, pair
+
     # the mesh's kernel instances against their plain versions: K1a on shard
     # 0's triangles (the whole frame), K2 on slab 0's AO and reflection rays
     entries = {}
@@ -2532,6 +2584,49 @@ def _mesh_phase(realglb, cfg, dev, drive, k1_equal, k1_bound, k2_wave, smi, laun
     del single, meshed
     torch.cuda.empty_cache()
     return entries
+
+
+def _mesh_frame(label, single, meshed, mesh, sync_all, smi):
+    """Phase 6c (d) on one configuration: a whole mesh frame queued under
+    torch.cuda.set_sync_debug_mode("error") (a synchronizing call raises);
+    the bytes a frame moves between shards, by kind; each pass's device ms
+    on each shard (parallel/mesh.ShardClock: CUDA events on each shard's
+    stream around its share of the pass) beside one card's time_passes."""
+    from vulkanhybridrenderer_tpu_torch.parallel import mesh as pmesh
+
+    meshed.render_frame()
+    sync_all()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frame = meshed.render_frame(sync=False)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    sync_all()
+    _check(bool(torch.isfinite(frame).all()), f"{label}'s mesh frame not finite")
+    print(f"mesh: {label}: a whole mesh frame under set_sync_debug_mode('error'): no "
+          "synchronizing call")
+    mesh.moved.clear()
+    meshed.render_frame()
+    sync_all()
+    moved = dict(mesh.moved)
+    print(f"mesh: {label}: bytes a frame moves between shards (as {mesh.devices.size} distinct "
+          f"cards would): " + ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in sorted(moved.items()))
+          + f"; halos {moved.get('halo', 0) / 1e6:.3f} MB, gathers "
+          f"{moved.get('gather', 0) / 1e6:.3f} MB")
+    _check(moved.get("halo", 0) > 0 and moved.get("gather", 0) > 0,
+           f"{label}'s mesh frame exchanged no halo or no gather: {moved}")
+    res = meshed._resources(meshed._make_pfd())
+    for _ in range(2):  # the second run timed
+        clock = pmesh.ShardClock(mesh)
+        pmesh.run_sharded(meshed.graph, mesh, res, HEIGHT, WIDTH, clock=clock)
+    per_shard = clock.ms()
+    one = single.time_passes(iters=3)
+    for name, shards in per_shard.items():
+        print(f"mesh: {label}: {name} device ms per shard "
+              f"{' / '.join(f'{x:.3f}' for x in shards)} (sum {sum(shards):.3f}); one card "
+              f"{one.get(name, float('nan')):.3f} (time_passes, 3 iterations) | card: {smi}")
+    want = {"G-Buffer Pass", "Composition Pass"}
+    _check(want <= set(per_shard), f"{label}: no per-shard time of {want - set(per_shard)}")
 
 
 def _parent_walk(other, build, dev):

@@ -208,8 +208,9 @@ def test_refit_and_validate_refuse_bf16(tables, scene):
 
 @pytest.mark.parametrize("anyhit", [False, True])
 def test_trace_rows_carries_bf16(tables, anyhit):
-    """trace_rows over row slabs of a bf16 table (a CPU mesh of 4 copies,
-    each its own tensor) equals trace of the whole wavefront."""
+    """A wavefront traced in 4 row slabs, each on its own copy of a bf16
+    table (as each shard of a mesh traces its slab on its replica, packed
+    for K2 apart), equals the trace of the whole wavefront."""
     _, tris, _, p16, _ = tables["sponza"]
     rng = np.random.default_rng(3)
     n = 512
@@ -219,7 +220,11 @@ def test_trace_rows_carries_bf16(tables, anyhit):
                                                        .astype(np.float32)), dim=1)
     tmax = torch.full((n,), 1000.0)
     copies = [dataclasses.replace(p16, rows=p16.rows.clone()) for _ in range(4)]
-    got = ptrav.trace_rows(copies, o, d, 0.01, tmax, anyhit)
+    slabs = [ptrav.trace(b, None, o[i * n // 4:(i + 1) * n // 4], d[i * n // 4:(i + 1) * n // 4],
+                         0.01, tmax[i * n // 4:(i + 1) * n // 4], anyhit=anyhit)
+             for i, b in enumerate(copies)]
+    got = ptrav.HitRecord(**{f: torch.cat([getattr(h, f) for h in slabs])
+                             for f in ("t", "tri", "u", "v")})
     want = ptrav.trace(p16, None, o, d, 0.01, tmax, anyhit=anyhit)
     for f in ("t", "tri", "u", "v"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f

@@ -1,7 +1,8 @@
 """The frame over a mesh of every CUDA card (``make_mesh()``) against the
 single-device frame, on a machine with two cards or more: the cross-card
-route, each shard's K1a and K2 on its own card, the partial frames and the
-slabs' hits moved between cards by device-to-device copies.
+route, each shard's K1a and K2 on its own card, every image pass of the
+hybrid path a card over its row slab, the raster's bands, the halos and the
+gathers moved between cards by device-to-device copies.
 
 Marked ``cuda``: it skips where the machine has fewer than two cards (this
 CPU-only build among them).  On a machine with several:
@@ -13,10 +14,16 @@ the cards' machine need not have it.)
 
 Checks: main path 8 (the flagship configuration on realglb at 1920x1080)
 frames 1 and 2 equal (torch.equal) to one card's; every card of the mesh
-launched its K1a shard and its K2 slabs; after ``render_frame(sync=True)``
-no card has queued work left.  Prints ms/frame of both renderers in turns
-(single, mesh, mesh, single; CUDA events on the primary's stream, which
-waits for every card) with nvidia-smi's name and power limit.  No JAX.
+launched its K1a shard and its K2 slabs; the temporal state's slabs lie on
+their cards; after ``render_frame(sync=True)`` no card has queued work
+left.  Cell 4's raster mode (rasterized shadows and the PCF, SSAO; then
+with SSR) on realglb at 1920x1080: frames 1 and 2 equal to one card's.
+Prints, for both, each pass's device ms on each card (CUDA events on the
+card's stream, ``parallel/mesh.ShardClock``) beside one card's
+``time_passes``, the bytes a frame moves between cards by kind, and
+ms/frame of both renderers in turns (single, mesh, mesh, single; CUDA
+events on the primary's stream, which waits for every card) with
+nvidia-smi's name and power limit.  No JAX.
 """
 import collections
 import subprocess
@@ -48,13 +55,47 @@ def _ms_per_frame(r, frames=10):
     return start.elapsed_time(end) / frames
 
 
-@pytest.mark.cuda
-def test_flagship_over_every_card_equals_one_card(monkeypatch):
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+
+
+def _report(label, one, meshed, mesh):
+    """Print each pass's device ms on each card beside one card's
+    time_passes, the bytes a frame moves between cards, and ms/frame of
+    both renderers in turns."""
+    res = meshed._resources(meshed._make_pfd())
+    for _ in range(2):  # the second run timed
+        clock = pmesh.ShardClock(mesh)
+        pmesh.run_sharded(meshed.graph, mesh, res, H, W, clock=clock)
+    per_card, single = clock.ms(), one.time_passes(iters=3)
+    mesh.moved.clear()
+    meshed.render_frame()
+    moved = ", ".join(f"{k} {v / 1e6:.3f} MB" for k, v in sorted(mesh.moved.items()))
+    ms = {"one": [], "mesh": []}
+    for which in ("one", "mesh", "mesh", "one"):
+        ms[which].append(_ms_per_frame(one if which == "one" else meshed))
+    print(f"\n{label} over {mesh.devices.size} cards, ms/frame in turns (one, mesh, mesh, one): "
+          f"one card {ms['one'][0]:.3f} / {ms['one'][1]:.3f}, mesh {ms['mesh'][0]:.3f} / "
+          f"{ms['mesh'][1]:.3f}; bytes a frame between cards: {moved}")
+    for name, cards in per_card.items():
+        print(f"  {name}: device ms per card {' / '.join(f'{x:.3f}' for x in cards)}; one card "
+              f"{single.get(name, float('nan')):.3f}")
+    print(_smi())
+
+
+def _mesh_or_skip():
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip(f"needs two CUDA cards or more; this machine has {n}")
     assert H % n == 0, f"{H} rows do not divide over {n} cards"
-    mesh = pmesh.make_mesh()
+    return pmesh.make_mesh()
+
+
+@pytest.mark.cuda
+def test_flagship_over_every_card_equals_one_card(monkeypatch):
+    mesh = _mesh_or_skip()
+    n = mesh.devices.size
     cfg = pcfg.RenderConfig(width=W, height=H, alpha_raster="brute", hybrid=pcfg.HybridSettings(
         shadow_mode=pcfg.ShadowMode.RAYTRACED, ao_mode=pcfg.AmbientOcclusionMode.RAYTRACED,
         reflection_mode=pcfg.ReflectionMode.RAYTRACED, denoise=True))
@@ -93,13 +134,27 @@ def test_flagship_over_every_card_equals_one_card(monkeypatch):
     for i in range(n):
         # a K1a shard a frame, a K2 slab a wavefront (shadow, AO, reflection)
         assert cards[("K1a", i)] == 2 and cards[("K2", i)] == 6, dict(cards)
+    # the temporal state stays on the cards, a slab each
+    for f in ("shadow_ao_history", "moments_history", "prev_normal_oid"):
+        parts = getattr(meshed.temporal_state, f).parts
+        assert [p.device for p in parts] == list(mesh.devices), f
+    print(f"\npath 8 frames 1-2 equal to one card's; launches by (kernel, card) {dict(cards)}")
+    _report("path 8", one, meshed, mesh)
 
-    ms = {"one": [], "mesh": []}
-    for which in ("one", "mesh", "mesh", "one"):
-        ms[which].append(_ms_per_frame(one if which == "one" else meshed))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(f"\nmesh over {n} cards: path 8 frames 1-2 equal to one card's; launches by "
-          f"(kernel, card) {dict(cards)}; ms/frame in turns (one, mesh, mesh, one): one card "
-          f"{ms['one'][0]:.3f} / {ms['one'][1]:.3f}, mesh {ms['mesh'][0]:.3f} / "
-          f"{ms['mesh'][1]:.3f}\n{smi.strip()}")
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ssr", [False, True], ids=["cell 4", "cell 4 with SSR"])
+def test_raster_mode_over_every_card_equals_one_card(ssr):
+    mesh = _mesh_or_skip()
+    cfg = pcfg.RenderConfig(width=W, height=H, alpha_raster="off", hybrid=pcfg.HybridSettings(
+        shadow_mode=pcfg.ShadowMode.RASTERIZED, ao_mode=pcfg.AmbientOcclusionMode.SSAO,
+        reflection_mode=pcfg.ReflectionMode.SSR if ssr else pcfg.ReflectionMode.OFF))
+    scene = app.load_any_scene("realglb")
+    one = Renderer(scene, cfg, device="cuda:0")
+    meshed = Renderer(scene, cfg, mesh=mesh)
+    for i in range(3):
+        a, m = one.render_frame(), meshed.render_frame()
+        if i:
+            assert m.device == torch.device("cuda", 0)
+            assert torch.equal(a, m), int((a != m).any(dim=0).sum())
+    _report("cell 4 with SSR" if ssr else "cell 4", one, meshed, mesh)

@@ -1,18 +1,22 @@
-"""The port's frame over a CPU mesh (``Renderer(mesh=make_mesh([cpu] * 8))``)
+"""The port's frame over a CPU mesh (``Renderer(mesh=make_mesh([cpu] * N))``)
 against its single-device frame: equal on every pixel.
 
-The mesh splits the raster (sort-last, K1a per shard) and the raytrace
-pass (K2 per row slab) and computes each pixel, each ray, as the
+The mesh row-shards the hybrid path's image passes (each shard computes its
+slab, with the halo and gather exchanges each pass declares), splits the
+raster (sort-last, K1a per shard) and computes each pixel, each ray, as the
 single-device frame does, so the frames are exactly equal: the flagship
-modes (RT shadows, AO and reflections, SVGF) on cornell_box at 96x64,
-frames 0 and 1, at rt_scale 1 and 2; the raytrace pass alone
+modes (RT shadows, AO and reflections, SVGF, the temporal state row-sharded
+between frames) on cornell_box at 96x64 over 2, 4 and 8 shards, frames 0-2,
+at rt_scale 1 and 2; the raster modes (the shadow-map prepass and the PCF,
+SSAO and its blur, SSR) likewise; a height the shards do not divide (each
+pass then runs on the primary and warns); the raytrace pass alone
 (``hybrid_raytrace(mesh=)``) against ``mesh=None``, with K2 called once
 per slab and wavefront; and the other paths and modes a mesh reaches (the
-alpha peel on the small SponzaProxy, the shadow-map prepass, the forward
-path's supersample MSAA, the rayquery path, an animated scene whose refit
-BVH8 each frame's slabs trace).  Coverage MSAA on a mesh raises, as in the
-reference.  No JAX: test_torch_mesh_jax.py holds the mesh frame against the
-JAX package's.
+alpha peel on the small SponzaProxy, the forward path's supersample MSAA,
+the rayquery path, an animated scene whose refit BVH8 each frame's slabs
+trace).  Coverage MSAA on a mesh raises, as in the reference.  No JAX:
+test_torch_mesh_jax.py and test_torch_mesh_jax_raster.py hold the mesh
+frame against the JAX package's.
 """
 import dataclasses
 import functools
@@ -41,24 +45,71 @@ def cpu_mesh(n=8):
     return pmesh.make_mesh([CPU] * n)
 
 
+RASTER = pcfg.HybridSettings(
+    shadow_mode=pcfg.ShadowMode.RASTERIZED, ao_mode=pcfg.AmbientOcclusionMode.SSAO,
+    reflection_mode=pcfg.ReflectionMode.SSR)
+
+
 @functools.cache
-def flagship_frames(rt_scale):
-    """Frames 0 and 1 of the flagship modes on cornell_box, (single-device,
-    mesh) each."""
-    cfg = pcfg.RenderConfig(width=W, height=H, alpha_raster="brute", alpha_peel_rounds=4,
-                            hybrid=dataclasses.replace(FULL, rt_scale=rt_scale))
-    one = Renderer(pproc.cornell_box(), cfg, device="cpu")
-    mesh = Renderer(pproc.cornell_box(), cfg, mesh=cpu_mesh())
-    return [(one.render_frame(), mesh.render_frame()) for _ in range(2)]
+def single_frames(settings):
+    """Frames 0-2 of `settings` on cornell_box on one device."""
+    r = Renderer(pproc.cornell_box(), _config(settings), device="cpu")
+    return [r.render_frame() for _ in range(3)]
 
 
-@pytest.mark.parametrize("frame", [0, 1])
+def _config(settings):
+    return pcfg.RenderConfig(width=W, height=H, alpha_raster="brute", alpha_peel_rounds=4,
+                             shadow_map_size=128, hybrid=settings)
+
+
+@functools.cache
+def mesh_frames(settings, n):
+    """Frames 0-2 over a CPU mesh of n shards, and the temporal state's
+    type after each."""
+    r = Renderer(pproc.cornell_box(), _config(settings), mesh=cpu_mesh(n))
+    out = []
+    for _ in range(3):
+        out.append((r.render_frame(), type(r.temporal_state.shadow_ao_history)))
+    return out
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2])
+@pytest.mark.parametrize("n", [2, 4, 8])
 @pytest.mark.parametrize("rt_scale", [1, 2])
-def test_flagship_mesh_frame_equals_single_device(rt_scale, frame):
-    one, mesh = flagship_frames(rt_scale)[frame]
+def test_flagship_mesh_frame_equals_single_device(rt_scale, n, frame):
+    """The flagship modes: the temporal state row-sharded from frame 0 on,
+    and each frame equal to one device's."""
+    settings = dataclasses.replace(FULL, rt_scale=rt_scale)
+    one = single_frames(settings)[frame]
+    mesh, state = mesh_frames(settings, n)[frame]
     assert mesh.device == CPU and mesh.shape == (4, H, W)
+    assert state is pmesh.Slabs
     assert torch.equal(one, mesh)
     assert one[:3].std() > 0.01  # a real image
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_raster_mode_mesh_frame_equals_single_device(n):
+    """Rasterized shadows (the prepass and the PCF), SSAO and its blur, SSR:
+    frames 0-2 equal to one device's."""
+    for one, (mesh, _) in zip(single_frames(RASTER), mesh_frames(RASTER, n)):
+        assert torch.equal(one, mesh)
+    assert one[:3].std() > 0.01
+
+
+def test_undivided_rows_warn_and_equal():
+    """60 rows over 8 shards: every image pass runs on the primary alone and
+    says so, and the frames equal one device's."""
+    cfg = pcfg.RenderConfig(width=W, height=60, hybrid=FULL)
+    one = Renderer(pproc.cornell_box(), cfg, device="cpu")
+    meshed = Renderer(pproc.cornell_box(), cfg, mesh=cpu_mesh())
+    for _ in range(2):
+        with pytest.warns(UserWarning) as caught:
+            got = meshed.render_frame()
+        assert torch.equal(one.render_frame(), got)
+    said = {str(w.message).split(":")[0] for w in caught if "do not divide" in str(w.message)}
+    assert said == {"rasterize_for_path", "G-Buffer Pass", "Raytrace Pass", "SVGF Denoise Pass",
+                    "Composition Pass"}
 
 
 def _raytrace_case(rt_scale):
@@ -78,8 +129,9 @@ def _raytrace_case(rt_scale):
 @pytest.mark.parametrize("rt_scale", [1, 2])
 def test_hybrid_raytrace_slabs(rt_scale, monkeypatch):
     """hybrid_raytrace(mesh=) gives mesh=None's outputs exactly; K2 runs
-    once per slab and wavefront (shadow, AO, reflection), each slab 1/8 of
-    the trace's rows (AO: its rows from both rays' blocks)."""
+    once per slab and wavefront, each slab 1/8 of the trace's rows (AO: its
+    rows from both rays' blocks), slab after slab: each slab's shadow, AO
+    and reflection rays are made, traced and shaded on its shard."""
     cfg, args = _raytrace_case(rt_scale)
     depth = args[6]
     want = raygen.hybrid_raytrace(*args, ao_rays=cfg.ao_rays, settings=cfg.hybrid)
@@ -98,7 +150,7 @@ def test_hybrid_raytrace_slabs(rt_scale, monkeypatch):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     slab = depth.numel() // 8
-    assert calls == ([(slab, True)] * 8 + [(2 * slab, True)] * 8 + [(slab, False)] * 8)
+    assert calls == [(slab, True), (2 * slab, True), (slab, False)] * 8
 
 
 def test_hybrid_raytrace_undivided_rows_warns(monkeypatch):
@@ -199,8 +251,10 @@ def test_coverage_msaa_on_a_mesh_raises():
 
 def test_renderer_device_and_frame_fn():
     """The renderer's device is the mesh's primary (another raises);
-    make_sharded_frame_fn returns RENDER_OUTPUT and the kept resources,
-    those of the graph run over the mesh."""
+    make_sharded_frame_fn returns RENDER_OUTPUT (whole, on the primary) and
+    the kept resources (the temporal state row-sharded), the frame equal to
+    the graph run over the mesh; shard_image_resources splits each image
+    into row slabs and leaves the rest."""
     mesh = cpu_mesh(4)
     cfg = pcfg.RenderConfig(width=W, height=H, hybrid=FULL)
     r = Renderer(pproc.cornell_box(), cfg, mesh=mesh)
@@ -213,9 +267,15 @@ def test_renderer_device_and_frame_fn():
                                      keep=("TemporalStateOut",))
     out = fn(resources)
     assert set(out) == {RENDER_OUTPUT, "TemporalStateOut"}
+    assert out[RENDER_OUTPUT].device == CPU and out[RENDER_OUTPUT].shape == (4, H, W)
+    assert isinstance(out["TemporalStateOut"].shadow_ao_history, pmesh.Slabs)
     assert torch.equal(out[RENDER_OUTPUT], r.graph.run(resources)[RENDER_OUTPUT])
-    placed = pmesh.shard_image_resources({"img": torch.zeros(4, H, W), "n": 3}, mesh, H, W)
-    assert placed["img"].device == CPU and placed["n"] == 3
+    img = torch.arange(4 * H * W, dtype=torch.float32).reshape(4, H, W)
+    placed = pmesh.shard_image_resources({"img": img, "n": 3}, mesh, H, W)
+    assert isinstance(placed["img"], pmesh.Slabs) and placed["n"] == 3
+    assert [p.device for p in placed["img"].parts] == [CPU] * 4
+    assert [torch.equal(p, img[:, i * H // 4:(i + 1) * H // 4])
+            for i, p in enumerate(placed["img"].parts)] == [True] * 4
 
 
 def test_replicate_copies_once_per_object_and_device():

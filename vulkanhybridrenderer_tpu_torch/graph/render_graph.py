@@ -49,6 +49,9 @@ def tensors_of(obj) -> list:
 class RenderGraph:
     def __init__(self):
         self._passes: dict[str, Pass] = {}
+        #: pass name -> its row plan over a device mesh, parallel.mesh.Step
+        #: s declared beside add_pass; a run on one device never reads it
+        self.row_plans: dict[str, tuple] = {}
 
     @property
     def passes(self) -> dict[str, Pass]:

@@ -36,11 +36,7 @@ def rasterize_for_path(scene, clip, width, height, config, alpha: bool = True,
     rs = config.raster_state
     cull = rs.cull_mode == "back"
     if config.raster == "binned":
-        if rs.depth_compare != "greater_equal" or rs.depth_clear != 0.0:
-            raise NotImplementedError(
-                "the binned kernel implements the reverse-Z greater_equal "
-                "preset; use config.raster='brute' for other depth states"
-            )
+        _check_binned_preset(config)
         if mesh is not None and height % mesh.devices.size == 0:
             return pmesh.rasterize_scene_sharded(scene, clip, width, height, mesh,
                                                  alpha=alpha, cull_backface=cull,
@@ -60,6 +56,30 @@ def rasterize_for_path(scene, clip, width, height, config, alpha: bool = True,
         setup, width, height, frag_mask_fn=mask_fn, cull_backface=cull,
         depth_compare=rs.depth_compare, depth_clear=rs.depth_clear,
     )
+
+
+def _check_binned_preset(config):
+    rs = config.raster_state
+    if rs.depth_compare != "greater_equal" or rs.depth_clear != 0.0:
+        raise NotImplementedError(
+            "the binned kernel implements the reverse-Z greater_equal "
+            "preset; use config.raster='brute' for other depth states"
+        )
+
+
+def rasterize_bands(scene, clip, width, height, config, mesh, tables=None):
+    """rasterize_for_path over `mesh` for a pass that keeps the frame
+    row-sharded: where the binned raster runs sort-last, its bands
+    (parallel/mesh.rasterize_scene_bands: a list of VisibilityBuffers, band
+    j on the mesh's device j), not gathered; elsewhere rasterize_for_path's
+    VisibilityBuffer."""
+    if config.raster != "binned" or height % mesh.devices.size:
+        return rasterize_for_path(scene, clip, width, height, config, mesh=mesh, tables=tables)
+    _check_binned_preset(config)
+    return pmesh.rasterize_scene_bands(scene, clip, width, height, mesh,
+                                       alpha=config.alpha_raster != "off",
+                                       cull_backface=config.raster_state.cull_mode == "back",
+                                       tables=tables)
 
 
 def add_geometry_pass(graph: RenderGraph):

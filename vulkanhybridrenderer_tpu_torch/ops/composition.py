@@ -22,15 +22,17 @@ from vulkanhybridrenderer_tpu_torch.utils.math3d import PI_INVERSE, normalize
 
 def compose(gbuf: GBuffer, pfd: PerFrameData, settings: HybridSettings,
             shadow_map=None, ssao_tex=None, ssr_tex=None,
-            rt_shadow_ao=None, rt_reflections=None):
+            rt_shadow_ao=None, rt_reflections=None, rows: screen.Rows | None = None):
     """shadow_map (S, S) when shadows are RASTERIZED; ssao_tex (H, W) when AO
     is SSAO; ssr_tex (4, H, W) when reflections are SSR; rt_shadow_ao
     (4, H, W) when any RT mode is on; rt_reflections (4, H, W) when
     reflections are RAYTRACED.  Returns the (4, H, W) linear frame (alpha
-    1)."""
+    1).  Per pixel: the images may be the `rows` of a taller frame (a mesh
+    shard's slab); the shadow map is whole."""
     h, w = gbuf.depth.shape
     dev = gbuf.depth.device
-    uv = screen.pixel_uv_grid(h, w, device=dev)
+    rows = rows or screen.Rows.whole(h)
+    uv = screen.pixel_uv_grid(rows.height, w, dev, rows.start, h)
     albedo = gbuf.albedo[:3].permute(1, 2, 0)
     p = screen.position_from_depth(gbuf.depth, uv, pfd.camera_viewproj_inverse)
     n = gbuf.normal_oid[:3].permute(1, 2, 0)

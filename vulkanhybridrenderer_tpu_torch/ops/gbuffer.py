@@ -84,10 +84,13 @@ def apply_normal_map(n_obj, tan_obj, nm_tex, ts_rgb):
 
 
 def resolve_gbuffer(scene, tables, tri_rows, vis: VisibilityBuffer,
-                    pfd: PerFrameData) -> GBuffer:
+                    pfd: PerFrameData, rows: screen.Rows | None = None) -> GBuffer:
     """vis -> GBuffer (albedo, world normal + object id, motion + metallic /
-    roughness, depth)."""
+    roughness, depth).  Per pixel: `vis` may be the `rows` of a taller
+    image (a mesh shard's band), whose motion vectors then use those rows'
+    screen coordinates."""
     h, w = vis.tri_id.shape
+    rows = rows or screen.Rows.whole(h)
     dev = vis.depth.device
     valid = vis.tri_id >= 0
     tr = shadetab.fetch_tri(tri_rows, torch.clamp(vis.tri_id, min=0))
@@ -118,7 +121,7 @@ def resolve_gbuffer(scene, tables, tri_rows, vis: VisibilityBuffer,
     )
 
     # motion vectors: current pixel uv - previous-frame uv of the surface
-    cur_uv = screen.pixel_uv_grid(h, w, device=dev)
+    cur_uv = screen.pixel_uv_grid(rows.height, w, dev, rows.start, h)
     prev_vp = matmul4(pfd.camera_proj_prev_frame, pfd.camera_view_prev_frame)
     prev_clip = transform_points(prev_vp, pos_world)
     prev_ndc = prev_clip[..., :2] / prev_clip[..., 3:4]

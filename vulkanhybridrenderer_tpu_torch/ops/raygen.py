@@ -53,11 +53,13 @@ SHADOW_TMAX = 10000.0
 AO_TMAX = 5.0
 
 
-def surface(pfd: PerFrameData, depth, normal_oid):
+def surface(pfd: PerFrameData, depth, normal_oid, rows: screen.Rows | None = None):
     """G-buffer surface per pixel: world position (H, W, 3), normal
-    (H, W, 3) and the sky mask (depth == 0)."""
+    (H, W, 3) and the sky mask (depth == 0); depth and normals may be the
+    `rows` of a taller image (a mesh shard's slab)."""
     h, w = depth.shape
-    uv = screen.pixel_uv_grid(h, w, device=depth.device)
+    rows = rows or screen.Rows.whole(h)
+    uv = screen.pixel_uv_grid(rows.height, w, depth.device, rows.start, h)
     p_world = screen.position_from_depth(depth, uv, pfd.camera_viewproj_inverse)
     n = normal_oid[:3].permute(1, 2, 0)
     return p_world, n, depth == 0.0
@@ -70,18 +72,22 @@ class Wavefronts:
     k * R + i, and `ao_tmax` (R,); the reflection rays' `refl_dir` (R, 3)
     and `refl_tmax` (R,).  tmax is -1 for dead rays.  The AO and reflection
     rays are made only when `settings` traces them (else None); `settings`
-    None traces all three kinds and keeps every lit pixel's shadow ray."""
+    None traces all three kinds and keeps every lit pixel's shadow ray.
+    With `rows`, depth and normals are those rows of a taller image (a mesh
+    shard's slab): its pixels' rays, seeded as in the whole image."""
 
     def __init__(self, pfd: PerFrameData, depth, normal_oid,
-                 settings: HybridSettings | None = None, ao_rays: int = 2):
+                 settings: HybridSettings | None = None, ao_rays: int = 2,
+                 rows: screen.Rows | None = None):
         h, w = depth.shape
-        p_world, n, sky = surface(pfd, depth, normal_oid)
+        rows = rows or screen.Rows.whole(h)
+        p_world, n, sky = surface(pfd, depth, normal_oid, rows)
         sky_flat = sky.reshape(-1)
         n_flat = n.reshape(-1, 3)
         l = -pfd.directional_light.direction[:3]
         self.origin = (p_world + n * 0.1).reshape(-1, 3).contiguous()
 
-        state = rng.pixel_seed(w, h, pfd.frame_index, device=depth.device)
+        state = rng.pixel_seed(w, rows.height, pfd.frame_index, depth.device, rows.start, h)
         state, r1 = rng.random01(state)
         state, r2 = rng.random01(state)
         u2 = torch.stack([r1, r2], dim=-1).reshape(-1, 2)
@@ -123,28 +129,51 @@ def hybrid_raytrace(scene, tables, tri_rows, bvh: BVH8 | None, tri_verts,
     (``shadow_accel="grid"``) the shadow rays go through the light-space
     grid (K3) instead of the BVH8, with the same hit / miss answers; `bvh`
     may then be None when nothing else is traced.  With a `mesh`
-    (parallel/mesh.py) of N > 1 shards whose count divides H, the rays are
-    made here as without one (the same RNG streams) and each BVH8
-    wavefront is traced one row slab per shard (``traverse.trace_rows``),
-    which gives every ray the same result; the grid's trace stays whole, as
-    in the reference.  Where N does not divide H, everything runs on
-    depth's device (the mesh's primary), as in the reference, and a warning
-    says so."""
+    (parallel/mesh.py) of N > 1 shards whose count divides H, each row
+    slab runs ``raytrace_rows`` on its shard's device (its rays seeded as in
+    the whole image, each wavefront traced there, K2 or K3, and its hits
+    shaded there, over the mesh's replicas of the tables), and the slabs'
+    images are gathered onto the primary, which gives mesh=None's
+    outputs exactly.  (The mesh frame runs raytrace_rows itself and keeps
+    the slabs on the shards.)  Where N does not divide H, everything runs on
+    depth's device, as in the reference, and a warning says so.  Over a
+    mesh, depth and normal_oid lie on its primary, where the outputs come
+    back."""
+    h = depth.shape[0]
+    n_dev = mesh.devices.size if mesh is not None else 1
+    if n_dev > 1 and h % n_dev == 0:
+        slabs = []
+        for i in range(n_dev):
+            sc, tab, rows_t, b, f, grid = (mesh.replicate(x)[i] for x in (
+                scene, tables, tri_rows, bvh, pfd, shadow_grid))
+            slabs.append(raytrace_rows(sc, tab, rows_t, b, f, mesh.slab(depth, i),
+                                       mesh.slab(normal_oid, i), ao_rays, settings, grid,
+                                       rows=mesh.rows(i, h)))
+        return tuple(mesh.gather(list(parts)) for parts in zip(*slabs))
+    if n_dev > 1:
+        warnings.warn(f"hybrid_raytrace: {h} trace rows do not divide over the mesh's "
+                      f"{n_dev} shards; the rays are traced on {depth.device} alone, as the "
+                      "reference's mesh does")
+    return raytrace_rows(scene, tables, tri_rows, bvh, pfd, depth, normal_oid, ao_rays,
+                         settings, shadow_grid)
+
+
+def raytrace_rows(scene, tables, tri_rows, bvh: BVH8 | None, pfd: PerFrameData, depth,
+                  normal_oid, ao_rays: int = 2, settings: HybridSettings | None = None,
+                  shadow_grid: shadowgrid.ShadowGrid | None = None,
+                  rows: screen.Rows | None = None):
+    """hybrid_raytrace's body on one device: depth (h, W) and normal_oid
+    (4, h, W) are the `rows` of the trace image (all of it by default),
+    every other argument on their device.  Each pixel's rays are those of
+    the whole image (Wavefronts with `rows`) and K2 and K3 give each ray
+    the answer it gets in any wavefront, so a slab's outputs are those rows
+    of the whole image's."""
     h, w = depth.shape
     dev = depth.device
-    rays = Wavefronts(pfd, depth, normal_oid, settings, ao_rays)
+    rays = Wavefronts(pfd, depth, normal_oid, settings, ao_rays, rows)
     ones = torch.ones((h, w), dtype=torch.float32, device=dev)
-    n_dev = mesh.devices.size if mesh is not None else 1
-    sharded = n_dev > 1 and h % n_dev == 0
-    if n_dev > 1 and not sharded:
-        warnings.warn(f"hybrid_raytrace: {h} trace rows do not divide over the mesh's "
-                      f"{n_dev} shards; the rays are traced on {dev} alone, as the "
-                      "reference's mesh does")
 
     def trace(origin, direction, tmax, anyhit, rays_per_pixel=1):
-        if sharded:
-            return traverse.trace_rows(mesh.replicate(bvh), origin, direction, SHADOW_TMIN,
-                                       tmax, anyhit, rays_per_pixel)
         if rays_per_pixel > 1:
             origin, tmax = origin.repeat(rays_per_pixel, 1), tmax.repeat(rays_per_pixel)
         return traverse.trace(bvh, None, origin, direction, SHADOW_TMIN, tmax, anyhit=anyhit)

@@ -11,6 +11,10 @@ The reference's quirks are kept:
     with sigma 1 and beta 1e-4 (:31-46), and 0 on sky pixels (:17-23);
   * the blur sums the in-bounds taps of a 13x13 box and always divides by
     169 (ssao_blur.comp:14-25), which darkens the edges.
+
+Over a mesh a shard computes its row slab (``rows``): SSAO from the whole
+depth (a sample's screen radius has no bound) and its own rows' normals,
+the blur from its rows and the BLUR_RADIUS rows above and below them.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from vulkanhybridrenderer_tpu_torch.core.types import PerFrameData
 from vulkanhybridrenderer_tpu_torch.ops import screen
 from vulkanhybridrenderer_tpu_torch.ops.filters import bilinear_quad, quad2x2_rows
+from vulkanhybridrenderer_tpu_torch.ops.screen import Rows
 from vulkanhybridrenderer_tpu_torch.utils import rng
 from vulkanhybridrenderer_tpu_torch.utils.math3d import TWO_PI, div, transform_directions
 
@@ -29,19 +34,21 @@ BETA = 1e-4
 BLUR_RADIUS = 6
 
 
-def ssao(pfd: PerFrameData, depth, normal_oid, radius: float):
-    """depth (H, W), normal_oid (4, H, W) -> AO (H, W)."""
+def ssao(pfd: PerFrameData, depth, normal_oid, radius: float, rows: Rows | None = None):
+    """depth (H, W), normal_oid (4, H, W) -> AO (H, W).  With `rows`,
+    normal_oid and the output are those rows; depth is whole."""
     h, w = depth.shape
-    coords = screen.pixel_coords(h, w, depth.device)
+    rows = rows or Rows.whole(h)
+    coords = screen.pixel_coords(h, w, depth.device, rows.start, rows.count)
     dq = quad2x2_rows(depth)
     d0 = bilinear_quad(dq, h, w, coords)
     p = screen.position_from_depth(d0, coords, pfd.camera_proj_inverse)
     n = transform_directions(pfd.camera_view, normal_oid[:3].permute(1, 2, 0))
     # a true division (python_scalar / tensor is a reciprocal times a product)
     perspective_radius = torch.div(torch.tensor(radius, dtype=torch.float32), p[..., 2])
-    state = rng.pixel_seed(w, h, pfd.frame_index, device=depth.device)
+    state = rng.pixel_seed(w, h, pfd.frame_index, depth.device, rows.start, rows.count)
 
-    acc = torch.zeros((h, w), dtype=torch.float32, device=depth.device)
+    acc = torch.zeros((rows.count, w), dtype=torch.float32, device=depth.device)
     for _ in range(NUM_SAMPLES):
         state, r1 = rng.random01(state)
         state, r2 = rng.random01(state)
@@ -58,14 +65,17 @@ def ssao(pfd: PerFrameData, depth, normal_oid, radius: float):
     return torch.where(d0 == 0.0, 0.0, ao)
 
 
-def ssao_blur(ao):
+def ssao_blur(ao, rows: Rows | None = None):
     """13x13 box blur, every pixel divided by the full 169 (ssao_blur.comp:
     14-25).  The taps are added in the reference's row-major order, read as
-    views of one zero-padded copy."""
-    h, w = ao.shape
+    views of one copy zero-padded past the image's edges.  With `rows`, ao
+    is rows.window(BLUR_RADIUS) of the image and the output is `rows`."""
     r = BLUR_RADIUS
-    pad = F.pad(ao, (r, r, r, r))
-    acc = torch.zeros_like(ao)
+    rows = rows or Rows.whole(ao.shape[0])
+    top, bottom = rows.window(r)
+    h, w = rows.count, ao.shape[1]
+    pad = F.pad(ao, (r, r, r - (rows.start - top), r - (bottom - rows.stop)))
+    acc = torch.zeros((h, w), dtype=ao.dtype, device=ao.device)
     for dy in range(2 * r + 1):
         for dx in range(2 * r + 1):
             acc = acc + pad[dy:dy + h, dx:dx + w]

@@ -5,7 +5,9 @@ steps (200 by default); a step hits when 0.3 < dist_to_ray - dist_to_screen
 < thickness.  Then bsearch_steps halvings between the last miss and the
 hit, and the hit's texel is shaded with the full BRDF (:28-59).  Every pixel
 walks every step, as the reference's fixed-count loops do; the march is a
-plain Python loop over whole-image tensors.
+plain Python loop over whole-image tensors.  Over a mesh a shard marches
+its row slab's pixels (``rows``) over the whole images, since a reflected
+ray may reach any row.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from vulkanhybridrenderer_tpu_torch.ops.filters import (
     bilinear_sample,
     quad2x2_rows,
 )
+from vulkanhybridrenderer_tpu_torch.ops.screen import Rows
 from vulkanhybridrenderer_tpu_torch.utils.math3d import (
     PI_INVERSE,
     matmul4,
@@ -36,16 +39,18 @@ def _length(v):
 
 
 def ssr(pfd: PerFrameData, depth, normal_oid, albedo, motion_mr,
-        settings: SSRSettings):
-    """Returns (4, H, W) reflections: rgb, and the hit flag in alpha."""
+        settings: SSRSettings, rows: Rows | None = None):
+    """Returns (4, H, W) reflections: rgb, and the hit flag in alpha; with
+    `rows`, those rows of them (the images are whole)."""
     h, w = depth.shape
-    coords = screen.pixel_coords(h, w, depth.device)
+    rows = rows or Rows.whole(h)
+    coords = screen.pixel_coords(h, w, depth.device, rows.start, rows.count)
     depth_quad = quad2x2_rows(depth)
     cam = pfd.camera_position
     viewproj = matmul4(pfd.camera_proj, pfd.camera_view)
     p = screen.position_from_depth(bilinear_quad(depth_quad, h, w, coords), coords,
                                    pfd.camera_viewproj_inverse)
-    n = normal_oid[:3].permute(1, 2, 0)
+    n = normal_oid[:3, rows.start:rows.stop].permute(1, 2, 0)
     r_dir = normalize(reflect(normalize(p - cam), n))
 
     def in_hit_band(offset):
@@ -58,12 +63,12 @@ def ssr(pfd: PerFrameData, depth, normal_oid, albedo, motion_mr,
         return (delta > DELTA_MIN) & (delta < settings.thickness), suv
 
     # linear march (:83-104)
-    found = torch.zeros((h, w), dtype=torch.bool, device=depth.device)
-    prev_step = torch.zeros((h, w), dtype=torch.float32, device=depth.device)
+    found = torch.zeros((rows.count, w), dtype=torch.bool, device=depth.device)
+    prev_step = torch.zeros((rows.count, w), dtype=torch.float32, device=depth.device)
     final_step = torch.zeros_like(prev_step)
     for i in range(int(settings.ray_distance / settings.step_size)):
         # step_size * i rounded in f32, like the reference's float loop
-        offset = torch.full((h, w), float(np.float32(settings.step_size) * np.float32(i)),
+        offset = torch.full((rows.count, w), float(np.float32(settings.step_size) * np.float32(i)),
                             dtype=torch.float32, device=depth.device)
         hit, _ = in_hit_band(offset)
         final_step = torch.where(hit & ~found, offset, final_step)
@@ -72,7 +77,7 @@ def ssr(pfd: PerFrameData, depth, normal_oid, albedo, motion_mr,
 
     # binary search (:105-128)
     mid = (prev_step + final_step) * 0.5
-    final_uv = torch.zeros((h, w, 2), dtype=torch.float32, device=depth.device)
+    final_uv = torch.zeros((rows.count, w, 2), dtype=torch.float32, device=depth.device)
     for _ in range(settings.bsearch_steps):
         hit, final_uv = in_hit_band(mid)
         mid, prev_step = (torch.where(hit, (prev_step + mid) * 0.5, mid + (mid - prev_step)),

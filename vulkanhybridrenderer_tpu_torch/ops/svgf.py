@@ -27,13 +27,21 @@ Parity details:
 The reference runs the a-trous iterations as one lax.scan over a
 dynamic-step body, which exists to cut XLA compile time; here they are a
 Python loop over atrous_iteration (the reference's tests pin the two equal).
+
+Over a mesh (models/hybrid.py's row plan) each shard computes its row slab
+(``rows``): the temporal stage from the whole previous state (a motion
+vector may point at any row), each a-trous iteration of step s from its
+rows and the 2 s rows above and below them (its 5x5 taps; the variance's
+3x3 Gaussian is read at the centre only).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from vulkanhybridrenderer_tpu_torch.core.types import TemporalState
 from vulkanhybridrenderer_tpu_torch.ops.filters import shifted
+from vulkanhybridrenderer_tpu_torch.ops.screen import Rows
 from vulkanhybridrenderer_tpu_torch.utils.math3d import COS_PI_4
 
 ALPHA = 0.2
@@ -43,10 +51,14 @@ _B3 = (1 / 16, 1 / 4, 3 / 8, 1 / 4, 1 / 16)
 _GAUSS = (1 / 4, 1 / 2, 1 / 4)
 
 
-def temporal(normal_oid, motion_mr, shadow_ao, state: TemporalState):
+def temporal(normal_oid, motion_mr, shadow_ao, state: TemporalState,
+             rows: Rows | None = None):
     """Returns (integrated (4, H, W): shadow, ao, var_s, var_a; the new
-    moments history (4, H, W))."""
-    _, h, w = normal_oid.shape
+    moments history (4, H, W)).  With `rows` the current images are those
+    rows of the image and the outputs too; the state is always whole."""
+    _, n, w = normal_oid.shape
+    rows = rows or Rows.whole(n)
+    h = rows.height
     dev = normal_oid.device
     cur_n = normal_oid[:3].permute(1, 2, 0)
     cur_oid = normal_oid[3].to(torch.int32)
@@ -54,7 +66,7 @@ def temporal(normal_oid, motion_mr, shadow_ao, state: TemporalState):
     motion = motion_mr[:2]
 
     xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
-    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    yy = torch.arange(rows.start, rows.stop, dtype=torch.float32, device=dev)[:, None]
     px = xx - motion[0] * w + 0.5  # svgf.comp:53
     py = yy - motion[1] * h + 0.5
     fx = px - torch.floor(px)
@@ -82,10 +94,10 @@ def temporal(normal_oid, motion_mr, shadow_ao, state: TemporalState):
     taps = {(oy, ox): tap(oy, ox) for oy in (-1, 0, 1) for ox in (-1, 0, 1)}
 
     def accumulate(weighted):
-        acc_s = torch.zeros((h, w), device=dev)
-        acc_a = torch.zeros((h, w), device=dev)
-        acc_m = torch.zeros((h, w, 4), device=dev)
-        acc_w = torch.zeros((h, w), device=dev)
+        acc_s = torch.zeros((n, w), device=dev)
+        acc_a = torch.zeros((n, w), device=dev)
+        acc_m = torch.zeros((n, w, 4), device=dev)
+        acc_w = torch.zeros((n, w), device=dev)
         for (oy, ox), wgt in weighted:
             valid, sh_ao, mom = taps[(oy, ox)]
             vw = torch.where(valid, wgt, 0.0)
@@ -98,7 +110,7 @@ def temporal(normal_oid, motion_mr, shadow_ao, state: TemporalState):
     # 2x2 bilinear (svgf.comp:52-77), then the 3x3 fallback (:79-97)
     bil = accumulate([((0, 0), (1 - fx) * (1 - fy)), ((0, 1), fx * (1 - fy)),
                       ((1, 0), (1 - fx) * fy), ((1, 1), fx * fy)])
-    box = accumulate([((oy, ox), torch.ones((h, w), device=dev))
+    box = accumulate([((oy, ox), torch.ones((n, w), device=dev))
                       for oy in (-1, 0, 1) for ox in (-1, 0, 1)])
     use_box = ~(bil[3] > 1e-6)
     acc_s, acc_a, acc_m, acc_w = (
@@ -122,30 +134,46 @@ def temporal(normal_oid, motion_mr, shadow_ao, state: TemporalState):
     return integrated, mom.permute(2, 0, 1).contiguous()
 
 
-def atrous_iteration(integrated, normal_oid, step: int):
+def atrous_iteration(integrated, normal_oid, step: int, rows: Rows | None = None):
     """One edge-stopping a-trous iteration (svgf_atrous_filter.comp:56-101).
-    integrated: (4, H, W) (shadow, ao, var_s, var_a)."""
-    _, h, w = integrated.shape
+    integrated: (4, H, W) (shadow, ao, var_s, var_a).  With `rows`,
+    integrated and normal_oid are rows.window(2 * step) of the image, the
+    rows the 5x5 taps reach, and the output is `rows`."""
+    r = 2 * step
+    rows = rows or Rows.whole(integrated.shape[1])
+    top, bottom = rows.window(r)
+    n, h, w = rows.count, rows.height, integrated.shape[2]
+    own = slice(rows.start - top, rows.stop - top)
     dev = integrated.device
-    n_p = normal_oid[:3]
-    oid_p = normal_oid[3]
+
+    def taps(img, fill=0.0):
+        """tap(dy, dx): img shifted as shifted(img, dy, dx, fill) reads it,
+        on the output rows only (row k of the padded copy is image row
+        rows.start - r + k; fill past the image's edges)."""
+        pad = F.pad(img, (0, 0, r - (rows.start - top), r - (bottom - rows.stop)), value=fill)
+        return lambda dy, dx: shifted(pad[..., r + dy:r + dy + n, :], 0, dx, fill)
+
+    tap_i, tap_n = taps(integrated), taps(normal_oid[:3])
+    tap_oid = taps(normal_oid[3], fill=-2.0)
+    cen = integrated[:, own]
+    n_p = normal_oid[:3, own]
+    oid_p = normal_oid[3, own]
 
     # 3x3 Gaussian of the variance channels (:17-38); taps outside the image
     # are skipped without renormalizing, which the zero fill reproduces
-    var = integrated[2:4]
-    var_f = torch.zeros_like(var)
+    var_f = torch.zeros_like(cen[2:4])
     for oy in (-1, 0, 1):
         for ox in (-1, 0, 1):
-            var_f = var_f + (_GAUSS[oy + 1] * _GAUSS[ox + 1]) * shifted(var, oy, ox)
+            var_f = var_f + (_GAUSS[oy + 1] * _GAUSS[ox + 1]) * tap_i(oy, ox)[2:4]
 
-    p_sh, p_ao = integrated[0], integrated[1]
+    p_sh, p_ao = cen[0], cen[1]
     sum_sh, sum_ao = p_sh, p_ao  # the centre tap has weight 1 (:66-67)
-    sum_vs, sum_va = integrated[2], integrated[3]
-    sum_ws = torch.ones((h, w), device=dev)
-    sum_wa = torch.ones((h, w), device=dev)
+    sum_vs, sum_va = cen[2], cen[3]
+    sum_ws = torch.ones((n, w), device=dev)
+    sum_wa = torch.ones((n, w), device=dev)
     sigma_s = 4.0 * torch.sqrt(var_f[0]) + 1e-6
     sigma_a = 4.0 * torch.sqrt(var_f[1]) + 1e-6
-    ys = torch.arange(h, device=dev)[:, None]
+    ys = torch.arange(rows.start, rows.stop, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
     oid_pi = oid_p.to(torch.int32)
 
@@ -156,9 +184,9 @@ def atrous_iteration(integrated, normal_oid, step: int):
             dy, dx = oy * step, ox * step
             kern = _B3[oy + 2] * _B3[ox + 2]
             inb = (ys + dy >= 0) & (ys + dy < h) & (xs + dx >= 0) & (xs + dx < w)
-            q = shifted(integrated, dy, dx)
-            n_q = shifted(n_p, dy, dx)
-            oid_q = shifted(oid_p, dy, dx, fill=-2.0)
+            q = tap_i(dy, dx)
+            n_q = tap_n(dy, dx)
+            oid_q = tap_oid(dy, dx)
 
             w_norm = torch.clamp(torch.sum(n_p * n_q, dim=0), min=0.0)
             for _ in range(7):  # ** 128 by squaring, as XLA's integer_pow

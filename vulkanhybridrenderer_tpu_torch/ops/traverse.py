@@ -585,42 +585,6 @@ def trace(bvh: BVH8 | BVH | FlatTables, tri_verts, origin, direction, tmin, tmax
 trace.launches = collections.Counter()
 
 
-def trace_rows(bvhs, origin, direction, tmin, tmax, anyhit: bool,
-               rays_per_pixel: int = 1) -> HitRecord:
-    """``trace`` of one wavefront, one row slab per shard: the same
-    HitRecord as ``trace(bvh, None, origin.repeat(k, 1), direction, tmin,
-    tmax.repeat(k), anyhit)`` with k = `rays_per_pixel`, in image order on
-    origin's device.  bvhs: the BVH8 on each shard's device, in shard order
-    (a mesh's ``replicate(bvh)``).  origin (R, 3) and tmax (R,) per pixel in
-    image order; direction (k * R, 3), ray m of pixel p at m * R + p (the
-    AO wavefront).  R must divide into the N shards: slab s holds pixels
-    s*R/N to (s+1)*R/N, so whole rows when the image's height divides.
-    Each slab's rays (its pixels from every block of `direction`) go to its
-    BVH8's device, where K2 traces them (any of its kinds); each ray is
-    computed as the whole wavefront's trace computes it."""
-    n = len(bvhs)
-    r, k = origin.shape[0], rays_per_pixel
-    if r % n:
-        raise ValueError(f"trace_rows: {r} pixels do not divide into {n} slabs")
-    s = r // n
-    dirs = direction.reshape(k, r, 3)
-    slabs = []
-    for i, b in enumerate(bvhs):
-        dev = b.rows.device
-        px = slice(i * s, (i + 1) * s)
-        o, tm = origin[px], tmax[px]
-        if k > 1:
-            o, tm = o.repeat(k, 1), tm.repeat(k)
-        slabs.append(trace(b, None, o.to(dev), dirs[:, px].reshape(-1, 3).to(dev), tmin,
-                           tm.to(dev), anyhit=anyhit))
-
-    def gather(field):
-        return torch.cat([getattr(rec, field).to(origin.device).reshape(k, s)
-                          for rec in slabs], dim=1).reshape(-1)
-
-    return HitRecord(t=gather("t"), tri=gather("tri"), u=gather("u"), v=gather("v"))
-
-
 # ---- K4: the threaded walk of a binary BVH (the reference's _trace_flat) ----
 
 

@@ -11,11 +11,16 @@ The upsample blends each full-resolution pixel's 4 nearest low-resolution
 taps with weights = bilinear footprint x object-id match x normal
 alignment^32 x relative depth closeness, and falls back to plain bilinear
 where no tap matches.
+
+Over a mesh a shard upsamples its row slab (``rows``; the slabs of the two
+resolutions line up) from its low-resolution rows and the one row above
+and below them that its taps reach.
 """
 from __future__ import annotations
 
 import torch
 
+from vulkanhybridrenderer_tpu_torch.ops.screen import Rows
 from vulkanhybridrenderer_tpu_torch.utils.math3d import div
 
 NORMAL_POW = 32
@@ -30,10 +35,12 @@ def downsample_nearest(img, scale: int):
     return img[..., ::scale, ::scale].contiguous()
 
 
-def _tap_indices(n_hi: int, n_lo: int, scale: int, device="cpu"):
+def _tap_indices(n_hi: int, n_lo: int, scale: int, device="cpu", row0: int = 0):
     """Bilinear footprint of full-resolution row / column i on the low-
-    resolution grid: (i0, i1, frac) with i0 and i1 clamped to [0, n_lo-1]."""
-    f = div(torch.arange(n_hi, dtype=torch.float32, device=device) + 0.5, scale) - 0.5
+    resolution grid: (i0, i1, frac) with i0 and i1 clamped to [0, n_lo-1],
+    for i = row0 .. row0 + n_hi - 1 (n_lo: the whole grid's)."""
+    f = div(torch.arange(row0, row0 + n_hi, dtype=torch.float32, device=device) + 0.5,
+            scale) - 0.5
     i0 = torch.floor(f)
     frac = f - i0
     i0i = torch.clamp(i0.to(torch.int64), 0, n_lo - 1)
@@ -42,16 +49,25 @@ def _tap_indices(n_hi: int, n_lo: int, scale: int, device="cpu"):
 
 
 def joint_bilateral_upsample(lo, scale: int, depth_hi, normal_oid_hi, depth_lo,
-                             normal_oid_lo):
+                             normal_oid_lo, rows: Rows | None = None):
     """lo (C, hs, ws) -> (C, H, W), weighted by the full-resolution depth
     (H, W) and normals + object id (4, H, W), and the low-resolution depth
-    and normals the trace used."""
+    and normals the trace used.  With `rows` (a mesh shard's, whose first
+    row `scale` divides) the full-resolution images and the output are those
+    rows, and the low-resolution ones their rows rows.start / scale to
+    rows.stop / scale and one row more above and below, clipped to the
+    image."""
     if scale == 1:
         return lo
     h, w = depth_hi.shape
     hs, ws = depth_lo.shape
     dev = lo.device
-    y0, y1, fy = _tap_indices(h, hs, scale, dev)
+    if rows is not None:
+        hs = -(-rows.height // scale)
+    rows = rows or Rows.whole(h)
+    first = max(0, rows.start // scale - 1)  # the low-resolution window's first row
+    y0, y1, fy = _tap_indices(h, hs, scale, dev, rows.start)
+    y0, y1 = y0 - first, y1 - first
     x0, x1, fx = _tap_indices(w, ws, scale, dev)
     wy = [(1.0 - fy)[:, None], fy[:, None]]  # (H, 1)
     wx = [(1.0 - fx)[None, :], fx[None, :]]  # (1, W)

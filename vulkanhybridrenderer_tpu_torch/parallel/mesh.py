@@ -1,35 +1,63 @@
 """One frame over several devices (port of ``parallel/mesh.py``).
 
-The reference shards a frame's pixel rows across a JAX device mesh: GSPMD
-partitions the image passes, and two passes distribute their own work.
-PyTorch has no GSPMD, so here the image passes run on the mesh's primary
-device (its first) and the two passes that opt in, through ``res["mesh"]``,
-split their work across the devices:
+The reference shards a frame's pixel rows across a JAX device mesh: every
+image-shaped intermediate is row-sharded after every pass, and GSPMD
+partitions the passes, inserting the exchanges they need.  PyTorch has no
+GSPMD, so here the exchanges are explicit.  An image over the mesh is
+``Slabs``: row slab i (rows i*H/N to (i+1)*H/N) on the mesh's device i.
+Each pass of the hybrid path declares where it is registered how it runs
+over a mesh (``RenderGraph.row_plans``): a sequence of steps (``Step``), each run
+once per shard on the shard's device over its slab (``Rows``), reading each
+image one of three ways, the explicit form of what GSPMD inserts:
 
-- ``rasterize_scene_sharded``, sort-last raster: each shard bins and
-  rasters (K1a) 1/N of the triangles over the whole frame on its device,
-  the partial frames are regrouped by row band (the reference's all_to_all,
+- ``ROWS``: the shard's own rows, no exchange (resolve, raygen and hit
+  shading, the RT downsample, composition);
+- ``halo(r)``: its rows and the r rows above and below them, fetched from
+  whichever shards hold them and clipped at the image's edges (SVGF's
+  a-trous, 2 s rows at step s; the SSAO blur, 6; the joint bilateral
+  upsample, 1 low-resolution row);
+- ``WHOLE``: the whole image gathered on the shard (SSAO's depth, SSR's
+  images, SVGF's previous state).
+
+Every other resource a step reads (the scene, its tables, the BVH8, the
+shadow map, the per-frame data) is the shard's replica (``Mesh.replicate``:
+one copy a device for as long as the object lives).  A step whose slabs do
+not divide, or do not line up across the two resolutions of
+``rt_scale``, runs once on the primary over whole images, with a warning,
+as the reference's mesh falls back; a pass without a plan (the geometry,
+the BVH, the shadow-map prepass, the forward, raytraced and rayquery
+paths' passes) runs on the primary, where the passes that opt in through
+``res["mesh"]`` split their own work:
+
+- ``rasterize_scene_bands``, sort-last raster: each shard bins and rasters
+  (K1a) 1/N of the triangles over the whole frame on its device, the
+  partial frames are regrouped by row band (the reference's all_to_all,
   here device-to-device copies) and each band is depth-composited on its
-  device with the single-device tie-break, then gathered on the primary.
-- ``ops/raygen.hybrid_raytrace``, the raytrace pass's wavefronts one row
-  slab per device (K2, ``ops/traverse.trace_rows``), the BVH8 replicated
-  (``Mesh.replicate``), no exchange but the gather of the hits.
+  device with the single-device tie-break.  The hybrid G-Buffer Pass
+  resolves each band where it lies; ``rasterize_scene_sharded`` gathers
+  them for the other passes.
 
-Where the shard count does not divide the rows, both passes run on the
-primary alone and warn, as the reference's mesh falls back silently.
+The temporal state stays row-sharded between frames.  The frame reads
+nothing back to the host: the copies are stream-ordered device-to-device
+copies, and every decision depends on shapes alone.  ``Mesh.moved`` counts
+the bytes each kind of exchange moves between shards, as a mesh of N
+distinct devices moves them.
 
 A mesh may name one device more than once: ``[torch.device("cpu")] * 8``
 (the tests, as the reference's tests use 8 virtual CPU devices) or
 ``[torch.device("cuda", 0)] * 4``, a virtual mesh on one card.  Every shard
 then runs on that device, one after another, and computes what a real mesh
-computes.  Binning sizes its buffers by the true entry count, a host read,
-so the shards' launches are issued one shard at a time even on distinct
-cards.
+computes.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import time
+import warnings
 import weakref
+from typing import Callable
 
 import numpy as np
 import torch
@@ -41,6 +69,7 @@ from vulkanhybridrenderer_tpu_torch.ops.rasterizer import (
     VisibilityBuffer,
     triangle_setup,
 )
+from vulkanhybridrenderer_tpu_torch.ops.screen import Rows
 
 ROW_AXIS = "sp"  # image rows (the "sequence/pixel" axis of the reference)
 
@@ -54,11 +83,62 @@ def canonical_device(d) -> torch.device:
     return d
 
 
+@dataclasses.dataclass(frozen=True)
+class Slabs:
+    """An image (..., H, W) over a mesh: parts[i], on the mesh's device i,
+    holds its rows i*H/N to (i+1)*H/N."""
+
+    parts: tuple
+
+    @property
+    def height(self) -> int:
+        return sum(p.shape[-2] for p in self.parts)
+
+
+@dataclasses.dataclass(frozen=True)
+class Read:
+    """How a step's shard reads an image: "rows" (its own), "halo" (its
+    own and `halo` rows above and below, clipped at the image's edges) or
+    "whole"."""
+
+    kind: str
+    halo: int = 0
+
+
+ROWS = Read("rows")
+WHOLE = Read("whole")
+
+
+def halo(rows: int) -> Read:
+    return Read("halo", rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """One stage of a pass over a mesh: fn(res) -> dict holding `outputs`.
+
+    reads None: fn runs once, on the primary, with the mesh in res["mesh"]
+    (a stage that splits its own work, the sort-last raster); its outputs
+    may be Slabs.  Else fn runs once per shard on the shard's device: res
+    holds each image of `reads` read as its Read says, res["rows"] the Rows
+    its outputs cover, and for every other name the shard's replica; its
+    outputs (tensors, or dataclasses of them) become Slabs.  Its rows are
+    those of an image of ceil(H / out_scale) rows (`out_scale` defaults to
+    `scale`); `scale` is the trace scale of the step's images, whose slabs
+    line up with the frame's only where (H / N) % scale == 0."""
+
+    fn: Callable
+    reads: dict | None
+    outputs: tuple
+    scale: int = 1
+    out_scale: int | None = None
+
+
 class Mesh:
     """A device mesh of one axis (ROW_AXIS).  `devices` is a numpy object
     array of torch.device (``devices.size`` shards, as the reference reads
     ``mesh.devices.size``); a device may repeat.  The first is the primary:
-    the frame's resources live there."""
+    the frame's resources and its output live there."""
 
     def __init__(self, devices):
         devs = [canonical_device(d) for d in devices]
@@ -70,6 +150,9 @@ class Mesh:
         #: id(obj) -> {device: obj's copy there}, for the objects replicate()
         #: has copied; an entry goes when its object does
         self._replicas: dict[int, dict] = {}
+        #: bytes moved between shards, by kind ("halo", "gather", "slab",
+        #: "raster", "replica", "output"): what N distinct devices move
+        self.moved: collections.Counter = collections.Counter()
 
     @property
     def primary(self) -> torch.device:
@@ -80,26 +163,130 @@ class Mesh:
         return list(dict.fromkeys(self.devices.tolist()))
 
     def replicate(self, obj) -> list:
-        """`obj` (anything with ``.to(device)`` whose tensors share one
+        """`obj` (a tensor, or a dataclass of them, whose tensors share one
         device) on each shard's device, in mesh order.  Each device gets one
         copy per object, kept while the object lives, so a static BVH8 is
         copied once and an animated scene's refit BVH8, a new object every
-        frame, is copied again.  Where obj already lies it is obj itself."""
-        own = canonical_device(next(t for t in _tensors(obj)).device)
+        frame, is copied again.  Where obj already lies it is obj itself;
+        an object without tensors is itself everywhere."""
+        first = next(_tensors(obj), None)
+        if first is None:
+            return [obj] * self.devices.size
+        own = canonical_device(first.device)
         copies = self._replicas.get(id(obj))
         if copies is None:
-            copies = {d: obj.to(d) for d in self.distinct() if d != own}
+            copies = {d: _to(obj, d) for d in self.distinct() if d != own}
             self._replicas[id(obj)] = copies
             weakref.finalize(obj, self._replicas.pop, id(obj), None)
+            self.moved["replica"] += _nbytes(obj) * (self.devices.size - 1)
         return [obj if d == own else copies[d] for d in self.devices]
+
+    def rows(self, i: int, height: int) -> Rows:
+        """Shard i's rows of an image `height` rows tall."""
+        per = height // self.devices.size
+        return Rows(i * per, (i + 1) * per, height)
+
+    def _move(self, t, i: int, j: int, kind: str):
+        """Tensor t of shard i on shard j's device (a stream-ordered copy)."""
+        if i != j:
+            self.moved[kind] += t.numel() * t.element_size()
+        return t.to(self.devices[j], non_blocking=True)
+
+    def slab(self, img, i: int):
+        """Shard i's rows of a whole image (on the primary), on its device."""
+        r = self.rows(i, img.shape[-2])
+        return self._move(img[..., r.start:r.stop, :], 0, i, "slab")
+
+    def split(self, img) -> Slabs:
+        """A whole image (on the primary) as Slabs."""
+        return Slabs(tuple(self.slab(img, i) for i in range(self.devices.size)))
+
+    def gather(self, slabs, kind: str = "output", to: int = 0):
+        """The whole image of `slabs` (Slabs or their parts) on shard `to`'s
+        device (the primary's by default)."""
+        parts = slabs.parts if isinstance(slabs, Slabs) else slabs
+        return torch.cat([self._move(p, j, to, kind) for j, p in enumerate(parts)], dim=-2)
+
+    def fetch_halo(self, slabs: Slabs, i: int, r: int):
+        """Shard i's rows of `slabs` and the r rows above and below them,
+        clipped at the image's edges, on shard i's device: the pieces come
+        from every shard that holds one (r may pass several slabs)."""
+        if r == 0:
+            return slabs.parts[i]
+        h = slabs.height
+        a, b = self.rows(i, h).window(r)
+        pieces = []
+        for j, part in enumerate(slabs.parts):
+            rj = self.rows(j, h)
+            lo, hi = max(a, rj.start), min(b, rj.stop)
+            if lo < hi:
+                pieces.append(self._move(part[..., lo - rj.start:hi - rj.start, :], j, i,
+                                         "halo"))
+        return torch.cat(pieces, dim=-2)
+
+    def read(self, x, how: Read, i: int):
+        """Image x (Slabs, a whole tensor on the primary, or a dataclass of
+        either) as shard i reads it."""
+        if x is None:
+            return None
+        if dataclasses.is_dataclass(x) and not isinstance(x, Slabs):
+            return dataclasses.replace(x, **{f.name: self.read(getattr(x, f.name), how, i)
+                                             for f in dataclasses.fields(x) if f.init})
+        if not isinstance(x, Slabs):
+            if how.kind == "whole":
+                return self._move(x, 0, i, "gather")
+            a, b = self.rows(i, x.shape[-2]).window(how.halo)
+            return self._move(x[..., a:b, :], 0, i, "slab")
+        if how.kind == "rows":
+            return x.parts[i]
+        if how.kind == "halo":
+            return self.fetch_halo(x, i, how.halo)
+        return self.gather(x, "gather", to=i)
+
+    def whole(self, x, kind: str = "output"):
+        """x with every Slabs in it gathered onto the primary (x itself when
+        it holds none)."""
+        if isinstance(x, Slabs):
+            return self.gather(x, kind)
+        if not any(isinstance(v, Slabs) for v in _leaves(x)):
+            return x
+        return dataclasses.replace(x, **{f.name: self.whole(getattr(x, f.name), kind)
+                                         for f in dataclasses.fields(x) if f.init})
 
 
 def _tensors(obj):
     if isinstance(obj, torch.Tensor):
         yield obj
-    elif dataclasses.is_dataclass(obj):
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
             yield from _tensors(getattr(obj, f.name))
+
+
+def _nbytes(obj) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(obj))
+
+
+def _to(obj, device):
+    """obj with its tensors on `device` (stream-ordered copies)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device, non_blocking=True)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{f.name: _to(getattr(obj, f.name), device)
+                                           for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _combine(parts: list):
+    """Per-shard outputs as one: tensors become Slabs, dataclasses of them
+    dataclasses of Slabs."""
+    first = parts[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return Slabs(tuple(parts))
+    return dataclasses.replace(first, **{
+        f.name: _combine([getattr(p, f.name) for p in parts])
+        for f in dataclasses.fields(first) if f.init})
 
 
 def make_mesh(devices=None) -> Mesh:
@@ -119,31 +306,193 @@ def make_mesh(devices=None) -> Mesh:
 
 def shard_image_resources(resources: dict, mesh: Mesh, height: int, width: int) -> dict:
     """The resources with every full-resolution image (a tensor whose last
-    two dims are (height, width)) on the mesh's primary, where the image
-    passes run.  The reference row-shards them (GSPMD); here only the
-    raster and the raytrace pass distribute their work."""
+    two dims are (height, width), on the primary) split into Slabs over the
+    mesh, as the reference row-shards them, where the shard count divides
+    the rows; the rest as they are."""
+    if height % mesh.devices.size:
+        return dict(resources)
+
     def place(x):
         if isinstance(x, torch.Tensor) and x.dim() >= 2 and tuple(x.shape[-2:]) == (height, width):
-            return x.to(mesh.primary)
+            return mesh.split(x)
         return x
 
     return {k: place(v) for k, v in resources.items()}
 
 
+class _ShardRes(collections.abc.Mapping):
+    """What a step's fn reads on shard i: its images read as the step
+    declares, "rows", and for every other name the shard's replica (made on
+    first read).  An image it does not declare raises."""
+
+    def __init__(self, src: dict, step: Step, mesh: Mesh, i: int, rows: Rows):
+        self._src, self._step, self._mesh, self._i = src, step, mesh, i
+        self._got = {"rows": rows}
+
+    def __getitem__(self, k):
+        if k not in self._got:
+            x = self._src[k]
+            if k in self._step.reads:
+                self._got[k] = self._mesh.read(x, self._step.reads[k], self._i)
+            elif any(isinstance(v, Slabs) for v in _leaves(x)):
+                raise KeyError(f"a step reads the image {k!r} without declaring how")
+            else:
+                self._got[k] = self._mesh.replicate(x)[self._i]
+        return self._got[k]
+
+    def __iter__(self):
+        return iter({**self._src, "rows": None})
+
+    def __len__(self):
+        return len(self._src) + 1
+
+
+def _leaves(x):
+    if dataclasses.is_dataclass(x) and not isinstance(x, (type, Slabs)):
+        for f in dataclasses.fields(x):
+            yield from _leaves(getattr(x, f.name))
+    else:
+        yield x
+
+
+class ShardClock:
+    """Device time of each pass on each shard: events on the shard's
+    stream around its share of the pass (its reads and its calls), the
+    host clock on the CPU.  ``ms()`` waits for them: {pass: [ms a shard]}."""
+
+    def __init__(self, mesh: Mesh):
+        self._mesh = mesh
+        self._spans: dict = collections.defaultdict(list)  # (pass, shard) -> [() -> ms]
+
+    @contextlib.contextmanager
+    def shard(self, name: str, i: int):
+        dev = self._mesh.devices[i]
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record(stream)
+            yield
+            end.record(stream)
+            self._spans[(name, i)].append(lambda: start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            ms = (time.perf_counter() - t0) * 1e3
+            self._spans[(name, i)].append(lambda: ms)
+
+    def ms(self) -> dict:
+        for d in self._mesh.distinct():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        out: dict = {}
+        for (name, i), spans in self._spans.items():
+            out.setdefault(name, [0.0] * self._mesh.devices.size)[i] = sum(f() for f in spans)
+        return out
+
+
+def _run_step(step: Step, src: dict, mesh: Mesh, height: int, name: str,
+              clock: ShardClock | None) -> tuple[dict, bool]:
+    """One step of pass `name` over the mesh (Step's docstring): its
+    outputs, and whether it ran whole on the primary because its slabs do
+    not divide or line up."""
+    if step.reads is None:
+        return step.fn(src), False
+    n = mesh.devices.size
+    if height % n or (height // n) % step.scale:
+        whole = {**src, "rows": None}
+        whole.update({k: mesh.whole(src[k], "gather") for k in step.reads})
+        return step.fn(whole), True
+    grid = -(-height // (step.out_scale or step.scale))
+    outs = []
+    for i in range(n):
+        with clock.shard(name, i) if clock is not None else contextlib.nullcontext():
+            outs.append(step.fn(_ShardRes(src, step, mesh, i, mesh.rows(i, grid))))
+    return {k: _combine([o[k] for o in outs]) for k in step.outputs}, False
+
+
+def _run_pass(graph, name: str, res: dict, mesh: Mesh, height: int,
+              clock: ShardClock | None) -> dict:
+    """Pass `name`'s outputs over the mesh: its row plan's steps, or
+    without one the pass itself on the primary over whole images."""
+    p = graph.passes[name]
+    plan = graph.row_plans.get(name)
+    if plan is None:
+        return p.fn({**res, **{k: mesh.whole(res[k], "gather") for k in p.inputs if k in res}})
+    local, alone = dict(res), False
+    for step in plan:
+        out, whole = _run_step(step, local, mesh, height, name, clock)
+        local.update(out)
+        alone |= whole
+    if alone:
+        warnings.warn(f"{name}: {height} rows do not divide into the mesh's {mesh.devices.size} "
+                      f"shards (at rt_scale s, into slabs of a multiple of s rows); it runs on "
+                      f"{mesh.primary} alone, as the reference's mesh does")
+    return {k: local[k] for k in p.outputs}
+
+
+def run_sharded(graph, mesh: Mesh, resources: dict, height: int, width: int,
+                target: str = RENDER_OUTPUT, clock: ShardClock | None = None) -> dict:
+    """graph.run over the mesh: every pass feeding `target`, each as its
+    row plan says (module docstring); returns all resources, the images
+    among them Slabs where they were split."""
+    graph.validate(set(resources), target)
+    res = shard_image_resources(resources, mesh, height, width)
+    res["mesh"] = mesh
+    for name in graph.find_execution_order(target):
+        res.update(_run_pass(graph, name, res, mesh, height, clock))
+    return res
+
+
 def make_sharded_frame_fn(graph, mesh: Mesh, height: int, width: int,
                           target: str = RENDER_OUTPUT, keep: tuple = ()):
-    """The frame function of `graph` over `mesh`: runs every pass feeding
-    `target` with ``res["mesh"] = mesh`` (the passes that opt in split
-    their work across the mesh) and returns `target` and `keep`."""
-    wanted = (target,) + tuple(keep)
+    """The frame function of `graph` over `mesh` (run_sharded): returns
+    `target` whole on the primary and the `keep` resources as they are
+    (a temporal state stays row-sharded for the next frame)."""
 
     def frame_fn(resources: dict) -> dict:
-        res = shard_image_resources(resources, mesh, height, width)
-        res["mesh"] = mesh
-        out = graph.run(res, target)
-        return {k: out[k] for k in wanted}
+        res = run_sharded(graph, mesh, resources, height, width, target)
+        return {target: mesh.whole(res[target]), **{k: res[k] for k in keep}}
 
     return frame_fn
+
+
+def time_passes_sharded(graph, mesh: Mesh, resources: dict, height: int, width: int,
+                        target: str = RENDER_OUTPUT, iters: int = 5) -> dict[str, float]:
+    """RenderGraph.time_passes over the mesh: each pass runs once to warm
+    up, then `iters` times between synchronizations of every device; CUDA
+    events on the primary's stream, which the other devices' streams join
+    at both ends, or the host clock on the CPU."""
+    graph.validate(set(resources), target)
+    res = shard_image_resources(resources, mesh, height, width)
+    res["mesh"] = mesh
+    cuda = mesh.primary.type == "cuda"
+    others = mesh.distinct()[1:]
+    timings: dict[str, float] = {}
+    for name in graph.find_execution_order(target):
+        produced = _run_pass(graph, name, res, mesh, height, None)
+        if cuda:
+            for d in mesh.distinct():
+                torch.cuda.synchronize(d)
+            stream = torch.cuda.current_stream(mesh.primary)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            for d in others:
+                torch.cuda.current_stream(d).wait_event(start)
+            for _ in range(iters):
+                produced = _run_pass(graph, name, res, mesh, height, None)
+            for d in others:
+                stream.wait_event(torch.cuda.current_stream(d).record_event())
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            end.synchronize()
+            timings[name] = start.elapsed_time(end) / iters
+        else:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                produced = _run_pass(graph, name, res, mesh, height, None)
+            timings[name] = (time.perf_counter() - t0) * 1e3 / iters
+        res.update(produced)
+    return timings
 
 
 # ---------------------------------------------------------------------------
@@ -158,30 +507,30 @@ def _pad_setup(setup: TriangleSetup, pad: int) -> TriangleSetup:
     })
 
 
-def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
-                            alpha: bool = True, cull_backface: bool = True,
-                            tables=None) -> VisibilityBuffer:
-    """The binned raster over the mesh, sort-last: equal on every pixel to
+def rasterize_scene_bands(scene, clip, width: int, height: int, mesh: Mesh,
+                          alpha: bool = True, cull_backface: bool = True,
+                          tables=None) -> list[VisibilityBuffer]:
+    """The binned raster over the mesh, sort-last: band j (rows j*H/N to
+    (j+1)*H/N) on the mesh's device j, equal on every pixel to those rows of
     ``rasterizer_tiled.rasterize_scene`` with its default peel (below).
 
     The triangle setup runs once on the primary, its triangle dim padded
     to a multiple of the N shards (padding rows invalid).  Shard i bins its
     T/N triangles on its device (without the alpha-masked ones when they
     are peeled) and rasters them over the whole frame (K1a); its local ids
-    become global (+ i * T/N).  Band j (rows j*H/N to (j+1)*H/N) of every
-    partial frame goes to device j, which composites them in shard order:
-    a partial takes a pixel where it has a triangle and is nearer (reverse-Z
-    greater), or as near with a larger id, the single-device kernel's
-    (z, id) maximum.  The bands are gathered on the primary.
+    become global (+ i * T/N).  Band j of every partial frame goes to
+    device j, which composites them in shard order: a partial takes a pixel
+    where it has a triangle and is nearer (reverse-Z greater), or as near
+    with a larger id, the single-device kernel's (z, id) maximum.
 
     With alpha (and masked triangles in the scene) the masked stream is
-    peeled once on the primary over the whole setup and merged, as in the
-    reference, which calls its peel with the default 4 rounds and back-face
-    culling whatever the configuration says; so does this.  As the
-    reference's, each shard bins with the static cap of its own triangle
-    count, and the composited depth is NaN-poisoned when any shard's binning
-    overflowed (the sum of their overflows), the masked stream's after its
-    merge."""
+    peeled once on the primary over the whole setup, as in the reference,
+    which calls its peel with the default 4 rounds and back-face culling
+    whatever the configuration says; so does this.  Its rows go to each
+    band's device and merge there.  As the reference's, each shard bins
+    with the static cap of its own triangle count, and every band's depth
+    is NaN-poisoned when any shard's binning overflowed (the sum of their
+    overflows), the masked stream's after its merge."""
     n = mesh.devices.size
     if height % n:
         raise ValueError(f"rasterize_scene_sharded: {height} rows do not divide into "
@@ -199,40 +548,62 @@ def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
 
     partials = []
     overflow = torch.zeros(1, dtype=torch.int32, device=mesh.primary)
-    for i, dev in enumerate(mesh.devices):
+    for i in range(n):
         rows = slice(i * per, (i + 1) * per)
-        sub = TriangleSetup(**{f.name: getattr(setup, f.name)[rows].to(dev)
+        sub = TriangleSetup(**{f.name: mesh._move(getattr(setup, f.name)[rows], 0, i, "raster")
                                for f in dataclasses.fields(TriangleSetup)})
         bins = rasterizer_tiled.bin_triangles(sub, width, height, cull_backface=cull_backface,
-                                              include=opaque[rows].to(dev))
+                                              include=mesh._move(opaque[rows], 0, i, "raster"))
         vis = rasterizer_tiled.raster_tiles(sub.planes, bins, width, height)
-        overflow = overflow + bins.overflow.to(mesh.primary)
+        overflow = overflow + mesh._move(bins.overflow, i, 0, "raster")
         tri = torch.where(vis.tri_id >= 0, vis.tri_id + i * per, -1)
         partials.append((vis.depth, tri, vis.bary))
 
-    band = height // n
+    masked = None
+    if use_alpha:
+        if tables is None:
+            tables = shadetab.build_shade_tables(scene)
+        masked = rasterizer_tiled.rasterize_alpha_peeled(scene, setup, width, height, tables)
+
     bands = []
-    for j, dev in enumerate(mesh.devices):
-        rows = slice(j * band, (j + 1) * band)
-        z, tri, bary = (a[rows].to(dev) for a in partials[0])
-        for d_i, t_i, b_i in partials[1:]:
-            d_i, t_i, b_i = d_i[rows].to(dev), t_i[rows].to(dev), b_i[rows].to(dev)
+    for j in range(n):
+        rows = mesh.rows(j, height)
+        z, tri, bary = None, None, None
+        for i, part in enumerate(partials):
+            d_i, t_i, b_i = (mesh._move(a[rows.start:rows.stop], i, j, "raster") for a in part)
+            if z is None:
+                z, tri, bary = d_i, t_i, b_i
+                continue
             take = (t_i >= 0) & ((d_i > z) | ((d_i == z) & (t_i > tri)))
             z = torch.where(take, d_i, z)
             tri = torch.where(take, t_i, tri)
             bary = torch.where(take[..., None], b_i, bary)
-        bands.append((z, tri, bary))
-    primary = mesh.primary
-    vis = rasterizer_tiled.poison(VisibilityBuffer(
-        tri_id=torch.cat([b[1].to(primary) for b in bands]),
-        depth=torch.cat([b[0].to(primary) for b in bands]),
-        bary=torch.cat([b[2].to(primary) for b in bands]),
-    ), overflow)
-    if use_alpha:
-        if tables is None:
-            tables = shadetab.build_shade_tables(scene)
-        vis_m, overflow_m = rasterizer_tiled.rasterize_alpha_peeled(scene, setup, width,
-                                                                    height, tables)
-        vis = rasterizer_tiled.poison(rasterizer_tiled.merge_visibility(vis, vis_m),
-                                      overflow_m)
-    return vis
+        vis = rasterizer_tiled.poison(VisibilityBuffer(tri_id=tri, depth=z, bary=bary),
+                                      mesh._move(overflow, 0, j, "raster"))
+        if masked is not None:
+            vis_m, overflow_m = masked
+            vis_m = VisibilityBuffer(**{
+                f.name: mesh._move(getattr(vis_m, f.name)[rows.start:rows.stop], 0, j, "raster")
+                for f in dataclasses.fields(VisibilityBuffer)})
+            vis = rasterizer_tiled.poison(rasterizer_tiled.merge_visibility(vis, vis_m),
+                                          mesh._move(overflow_m, 0, j, "raster"))
+        bands.append(vis)
+    return bands
+
+
+def rasterize_scene_sharded(scene, clip, width: int, height: int, mesh: Mesh,
+                            alpha: bool = True, cull_backface: bool = True,
+                            tables=None) -> VisibilityBuffer:
+    """rasterize_scene_bands' bands gathered on the primary: equal on every
+    pixel to ``rasterizer_tiled.rasterize_scene`` with its default peel."""
+    return gather_bands(rasterize_scene_bands(scene, clip, width, height, mesh, alpha,
+                                              cull_backface, tables), mesh)
+
+
+def gather_bands(bands: list[VisibilityBuffer], mesh: Mesh) -> VisibilityBuffer:
+    """Row bands (band j on the mesh's device j) as one VisibilityBuffer on
+    the primary."""
+    return VisibilityBuffer(**{
+        f.name: torch.cat([mesh._move(getattr(b, f.name), j, 0, "raster")
+                           for j, b in enumerate(bands)])
+        for f in dataclasses.fields(VisibilityBuffer)})

@@ -13,10 +13,12 @@ eagerly, captures the frame function (``RenderGraph.make_frame_fn``) into
 one CUDA graph at its second and replays it from then on; "per_pass"
 captures one graph per pass, all of a key's at its first frame with
 ``auto_precompile`` (``precompile_passes``), else at its second.  On the CPU (the tests) both call the frame function directly.
-With a ``mesh`` (parallel/mesh.py) the frame's raster and raytrace passes
-split their work across the mesh's devices and the rest runs on its
-primary, where the frame is returned; that frame runs eagerly
-(``make_sharded_frame_fn``) in either mode.  The first frame checks the
+With a ``mesh`` (parallel/mesh.py) the frame is row-sharded across the
+mesh's devices: each image pass of the hybrid path runs once a shard over
+its row slab, with the halo and gather exchanges the pass declares, the
+raster runs sort-last, and the frame is gathered on the primary, where it
+is returned; the temporal state stays on the shards between frames.  That
+frame runs eagerly (``make_sharded_frame_fn``) in either mode.  The first frame checks the
 binning against its static entry cap (``check_binning``).  A graph is built
 once per (path, config), as the reference caches its compiled frame
 functions, so switching back with ``set_path`` / ``set_config`` reuses it;
@@ -280,11 +282,9 @@ class Renderer:
         if self._uses_shadow_grid():
             res["shadow_grid"] = self._get_shadow_grid()
         if self.mesh is not None:
-            # the passes that opt in split their work over it; the raytrace
-            # pass's slabs trace the BVH8's copy on each device, which the
-            # mesh makes at first use and keeps while the BVH8 lives (a
-            # refit BVH8 is copied again).  Nothing else is read off the
-            # primary.
+            # each shard reads the mesh's replica of the scene, its tables
+            # and the BVH8, made at first use and kept while the object
+            # lives (a refit BVH8 is copied again)
             res["mesh"] = self.mesh
         return res
 
@@ -494,9 +494,18 @@ class Renderer:
         """Render one frame and return the named graph resources (the
         reference's debug-texture view).  Like the reference's, it renders
         at the current frame index and leaves it, and the temporal state,
-        as they were; the previous view becomes the current camera's."""
-        res = self.graph.run(self._resources(self._make_pfd()))
-        return {n: res[n] for n in names}
+        as they were; the previous view becomes the current camera's.  Over
+        a mesh the frame runs row-sharded and each image comes back whole,
+        on the primary."""
+        resources = self._resources(self._make_pfd())
+        if self.mesh is None:
+            res = self.graph.run(resources)
+            return {n: res[n] for n in names}
+        from vulkanhybridrenderer_tpu_torch.parallel.mesh import run_sharded
+
+        res = run_sharded(self.graph, self.mesh, resources, self.config.height,
+                          self.config.width)
+        return {n: self.mesh.whole(res[n]) for n in names}
 
     def fetch_resource(self, *names: str):
         """The reference's fetch_resource: the named resources of one frame
@@ -510,9 +519,16 @@ class Renderer:
         """Per-pass milliseconds (device time between synchronizations on a
         GPU).  Uses one frame's PerFrameData and advances neither the frame
         nor the temporal state; as the reference's, the previous view
-        becomes the current camera's."""
-        pfd = self._make_pfd()
-        timings = self.graph.time_passes(self._resources(pfd), iters=iters)
+        becomes the current camera's.  Over a mesh each pass runs as in the
+        mesh frame and is timed across every device of the mesh."""
+        resources = self._resources(self._make_pfd())
+        if self.mesh is None:
+            timings = self.graph.time_passes(resources, iters=iters)
+        else:
+            from vulkanhybridrenderer_tpu_torch.parallel.mesh import time_passes_sharded
+
+            timings = time_passes_sharded(self.graph, self.mesh, resources, self.config.height,
+                                          self.config.width, iters=iters)
         self._stats.update(timings)
         return timings
 

@@ -37,15 +37,18 @@ def random01(state):
     return state, f - 1.0
 
 
-def pixel_seed(width: int, height: int, frame_index, device="cpu"):
+def pixel_seed(width: int, height: int, frame_index, device="cpu", row0: int = 0,
+               rows: int | None = None):
     """Per-pixel seeds of raygen.rgen:18: seed_thread((y * H + x) * frame).
 
     The reference multiplies the row by the HEIGHT and by the frame index, so
     frame 0 seeds every pixel with seed_thread(0); both quirks are kept.
     frame_index: a () integer tensor on `device` (PerFrameData's, read on
     the device, so a captured frame draws each frame's noise) or an int.
-    Returns an (H, W) int64 state grid."""
-    y = torch.arange(height, dtype=torch.int64, device=device)[:, None]
+    Returns an (H, W) int64 state grid, or its `rows` rows from `row0` (a
+    row slab of a mesh shard; every row to the end by default)."""
+    stop = height if rows is None else row0 + rows
+    y = torch.arange(row0, stop, dtype=torch.int64, device=device)[:, None]
     x = torch.arange(width, dtype=torch.int64, device=device)[None, :]
     frame = (frame_index.to(torch.int64) if isinstance(frame_index, torch.Tensor)
              else int(frame_index)) & _M
