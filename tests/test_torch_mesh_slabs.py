@@ -19,6 +19,14 @@ import pytest
 import torch
 
 from vulkanhybridrenderer_tpu_torch.core import config as pcfg
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import (
+    RENDER_OUTPUT,
+    ROWS,
+    WHOLE,
+    RenderGraph,
+    Step,
+    halo,
+)
 from vulkanhybridrenderer_tpu_torch.ops import (
     composition,
     gbuffer,
@@ -61,8 +69,8 @@ def test_halo_and_gather_against_slicing(n, h, r):
         # only the rows other shards hold cross between shards
         assert mesh.moved["halo"] - before == (b - a - per) * row_bytes
         # the reads of Slabs and of the whole image agree
-        for how, want in ((pmesh.ROWS, img[..., i * per:(i + 1) * per, :]),
-                          (pmesh.halo(r), img[..., a:b, :]), (pmesh.WHOLE, img)):
+        for how, want in ((ROWS, img[..., i * per:(i + 1) * per, :]),
+                          (halo(r), img[..., a:b, :]), (WHOLE, img)):
             assert torch.equal(mesh.read(slabs, how, i), want)
             assert torch.equal(mesh.read(img, how, i), want)
     before = mesh.moved["gather"]
@@ -228,3 +236,46 @@ def test_shard_clock_times_each_pass_on_each_shard():
                        "Composition Pass"}
     assert all(len(v) == 4 and min(v) > 0.0 for v in ms.values())
     assert isinstance(res["RENDER_OUTPUT"], pmesh.Slabs)
+
+
+def _two_image_graph(step_fn=None):
+    """A graph over the images "a" and "b": one pass of one step that reads
+    "a" by rows (step_fn(res) -> its output), or without steps."""
+    g = RenderGraph()
+    if step_fn is None:
+        g.add_pass("P", lambda res: {RENDER_OUTPUT: res["a"] + res["b"]}, inputs=("a", "b"),
+                   outputs=(RENDER_OUTPUT,))
+    else:
+        g.add_pass("P", (Step(lambda res: {RENDER_OUTPUT: step_fn(res)}, {"a": ROWS}),),
+                   inputs=("a", "b"), outputs=(RENDER_OUTPUT,))
+    return g
+
+
+def test_undeclared_image_read_raises_through_get():
+    """A step that reads an image it does not declare raises, whether it
+    reads it by [] or by .get (which takes a KeyError for a missing key); a
+    name missing from the resources is still None through .get, and a
+    resource that is not an image is the shard's replica."""
+    mesh = pmesh.make_mesh([CPU] * 2)
+    res = {"a": _image(H, w=W), "b": _image(H, w=W) + 1, "n": torch.ones(3)}
+    for read in (lambda r: r.get("b"), lambda r: r["b"]):
+        g = _two_image_graph(read)
+        with pytest.raises(pmesh.UndeclaredRead, match="'b'"):
+            pmesh.run_sharded(g, mesh, res, H, W)
+    seen = []
+    g = _two_image_graph(lambda r: seen.append((r.get("missing"), r["n"])) or r["a"])
+    out = pmesh.run_sharded(g, mesh, res, H, W)
+    assert seen == [(None, res["n"])] * 2
+    assert torch.equal(mesh.whole(out[RENDER_OUTPUT]), res["a"])
+
+
+def test_pass_without_steps_warns_where_it_gathers():
+    """Over a mesh a pass registered as a function runs on the primary; where
+    it reads a split image it warns and reads it gathered, and its frame
+    equals the one-device run."""
+    mesh = pmesh.make_mesh([CPU] * 4)
+    res = {"a": _image(H, w=W), "b": _image(H, w=W) + 1}
+    g = _two_image_graph()
+    with pytest.warns(UserWarning, match="without steps reads the split images"):
+        out = pmesh.run_sharded(g, mesh, res, H, W)
+    assert torch.equal(out[RENDER_OUTPUT], g.run(res)[RENDER_OUTPUT])

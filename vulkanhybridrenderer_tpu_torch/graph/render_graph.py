@@ -8,6 +8,12 @@ work on the device; ``make_frame_fn`` closes over ``run`` as the reference's
 does, and the renderer captures it into CUDA graphs (runtime/dispatch.py):
 every pass sizes its work from shapes alone, as the reference's static
 shapes do, so a frame on one device is one graph.
+
+A pass is a function, or a sequence of ``Step``s: stages that each declare
+how they read the images they use (``ROWS``, ``halo(r)`` or ``WHOLE``).  On
+one device the steps run in order over the resources with ``rows`` None
+(every row); over a device mesh (parallel/mesh.py) each runs once per row
+slab, its reads exchanged between the shards as declared.
 """
 from __future__ import annotations
 
@@ -25,11 +31,78 @@ class GraphError(RuntimeError):
 
 
 @dataclasses.dataclass(frozen=True)
+class Read:
+    """How a step's shard reads an image over a mesh: "rows" (its own),
+    "halo" (its own and `halo` rows above and below, clipped at the image's
+    edges) or "whole"."""
+
+    kind: str
+    halo: int = 0
+
+
+ROWS = Read("rows")
+WHOLE = Read("whole")
+
+
+def halo(rows: int) -> Read:
+    return Read("halo", rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """One stage of a pass: fn(res) -> a dict of what it produces.
+
+    On one device res holds every resource and what the steps before it
+    produced, and res["rows"] is None.  Over a mesh (parallel/mesh.py),
+    reads None: fn runs once, on the primary, with the mesh in res["mesh"]
+    (a stage that splits its own work, the sort-last raster); its outputs
+    may be Slabs.  Else fn runs once per shard on the shard's device: res
+    holds each image of `reads` read as its Read says, res["rows"] the Rows
+    its outputs cover, and for every other name the shard's replica; its
+    outputs (tensors, or dataclasses of them) become Slabs.  Its rows are
+    those of an image of ceil(H / out_scale) rows (`out_scale` defaults to
+    `scale`); `scale` is the trace scale of the step's images, whose slabs
+    line up with the frame's only where (H / N) % scale == 0."""
+
+    fn: Callable
+    reads: dict | None
+    scale: int = 1
+    out_scale: int | None = None
+
+
+def run_steps(steps, res: dict) -> dict:
+    """`steps` on one device: each over `res`, with every row (res["rows"]
+    None), and what the steps before it produced; returns `res` and all
+    they produced."""
+    local = {**res, "rows": None}
+    for step in steps:
+        local.update(step.fn(local))
+    return local
+
+
+@dataclasses.dataclass(frozen=True)
 class Pass:
     name: str
     fn: Callable[[dict], dict]
     inputs: tuple[str, ...]
     outputs: tuple[str, ...]
+
+
+class _StepsFn:
+    """The fn of a pass registered as Steps: on one device it runs them
+    (run_steps) and returns the pass's outputs."""
+
+    def __init__(self, steps: tuple, outputs: tuple):
+        self.steps, self.outputs = steps, outputs
+
+    def __call__(self, res: dict) -> dict:
+        produced = run_steps(self.steps, res)
+        return {k: produced[k] for k in self.outputs}
+
+
+def pass_steps(p: Pass) -> tuple:
+    """The Steps pass p was registered as; () for a pass given as a function."""
+    return p.fn.steps if isinstance(p.fn, _StepsFn) else ()
 
 
 def tensors_of(obj) -> list:
@@ -49,9 +122,6 @@ def tensors_of(obj) -> list:
 class RenderGraph:
     def __init__(self):
         self._passes: dict[str, Pass] = {}
-        #: pass name -> its row plan over a device mesh, parallel.mesh.Step
-        #: s declared beside add_pass; a run on one device never reads it
-        self.row_plans: dict[str, tuple] = {}
 
     @property
     def passes(self) -> dict[str, Pass]:
@@ -59,9 +129,12 @@ class RenderGraph:
 
     def add_pass(self, name: str, fn, inputs, outputs):
         """Register a pass: `fn(res: dict) -> dict` returns exactly its
-        declared outputs."""
+        declared outputs; or `fn` a sequence of Steps, which produce them
+        (run_steps; over a mesh, a shard at a time)."""
         if name in self._passes:
             raise GraphError(f"duplicate pass {name!r}")
+        if not callable(fn):
+            fn = _StepsFn(tuple(fn), tuple(outputs))
         self._passes[name] = Pass(name, fn, tuple(inputs), tuple(outputs))
         return self
 
@@ -141,27 +214,46 @@ class RenderGraph:
         """Per-pass milliseconds: each pass runs once to warm up, then `iters`
         times between device synchronizations (CUDA events where the
         resources' tensors lie on a GPU, the host clock on the CPU)."""
+        return self._time_passes(resources, target, iters)
+
+    def _time_passes(self, resources: dict, target: str, iters: int, run_pass=None,
+                     devices=None) -> dict[str, float]:
+        """time_passes, each pass run by `run_pass(name, res)` (by default
+        its fn over res); the events go on the current stream of the first
+        of the CUDA `devices` (by default the current device), which every
+        other one's stream joins at both ends (a frame over a mesh,
+        parallel/mesh.py)."""
         self.validate(set(resources), target)
         res = dict(resources)
+        if run_pass is None:
+            def run_pass(name, r):
+                return self._passes[name].fn(r)
         cuda = any(t.is_cuda for t in tensors_of(resources))
+        devs = list(devices or [torch.cuda.current_device()]) if cuda else []
         timings: dict[str, float] = {}
         for name in self.find_execution_order(target):
             p = self._passes[name]
-            produced = p.fn(res)
+            produced = run_pass(name, res)
             if cuda:
-                torch.cuda.synchronize()
+                for d in devs:
+                    torch.cuda.synchronize(d)
+                stream = torch.cuda.current_stream(devs[0])
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
-                start.record()
+                start.record(stream)
+                for d in devs[1:]:
+                    torch.cuda.current_stream(d).wait_event(start)
                 for _ in range(iters):
-                    produced = p.fn(res)
-                end.record()
-                torch.cuda.synchronize()
+                    produced = run_pass(name, res)
+                for d in devs[1:]:
+                    stream.wait_event(torch.cuda.current_stream(d).record_event())
+                end.record(stream)
+                torch.cuda.synchronize(devs[0])
                 timings[name] = start.elapsed_time(end) / iters
             else:
                 t0 = time.perf_counter()
                 for _ in range(iters):
-                    produced = p.fn(res)
+                    produced = run_pass(name, res)
                 timings[name] = (time.perf_counter() - t0) * 1e3 / iters
             res.update({k: produced[k] for k in p.outputs})
         return timings

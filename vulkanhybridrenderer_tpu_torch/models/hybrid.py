@@ -21,13 +21,15 @@ RT Upsample Pass brings the (denoised) shadows / AO and the reflections back
 to full resolution, weighted by the full-resolution G-buffer
 (ops/upsample.py).
 
-Each pass declares beside its registration how it runs over a device mesh
-(``graph.row_plans``, parallel/mesh.py): every pass after the geometry, the
-BVH, the shadow grid and the shadow-map prepass runs once per shard over
-its row slab (``rows``, None on one device), reading each image by its own
-rows, with a halo, or whole.  The G-Buffer Pass resolves the sort-last
-raster's bands where they lie; SVGF runs its temporal stage, then each
-a-trous iteration after a halo exchange of 2 s rows.
+Every pass after the geometry, the BVH, the shadow grid and the
+shadow-map prepass is registered as Steps (graph/render_graph.py), each
+declaring how it reads its images: by its own rows, with a halo, or whole.
+On one device they run over every row (``rows`` None); over a device mesh
+(parallel/mesh.py) once per shard over its row slab.  The G-Buffer Pass is
+the raster, then the resolve, which over a mesh resolves the sort-last
+raster's bands where they lie; SVGF is svgf.denoise_steps: its temporal
+stage, then each a-trous iteration, after a halo exchange of 2 s rows over a
+mesh.
 """
 from __future__ import annotations
 
@@ -36,15 +38,21 @@ from vulkanhybridrenderer_tpu_torch.core.config import (
     ReflectionMode,
     ShadowMode,
 )
-from vulkanhybridrenderer_tpu_torch.core.types import GBuffer, TemporalState
-from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT, RenderGraph
+from vulkanhybridrenderer_tpu_torch.core.types import GBuffer
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import (
+    RENDER_OUTPUT,
+    ROWS,
+    WHOLE,
+    RenderGraph,
+    Step,
+    halo,
+)
 from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
     add_shadow_map_pass,
     rasterize_bands,
-    rasterize_for_path,
 )
 from vulkanhybridrenderer_tpu_torch.ops import (
     composition,
@@ -57,7 +65,7 @@ from vulkanhybridrenderer_tpu_torch.ops import (
     upsample,
 )
 from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer
-from vulkanhybridrenderer_tpu_torch.parallel.mesh import ROWS, WHOLE, Slabs, Step, halo
+from vulkanhybridrenderer_tpu_torch.parallel.mesh import Slabs
 
 ALBEDO = "Albedo"
 NORMALS = "World Space Normals and Object IDs"
@@ -76,8 +84,8 @@ RT_MOTION = "RT Motion"
 UP_SHADOW_AO = "Upsampled Raytraced Shadows and Ambient Occlusion"
 UP_REFLECTIONS = "Upsampled Raytraced Reflections"
 SHADOW_GRID = "ShadowGrid"
-#: the G-Buffer Pass's visibility over a mesh, between its two steps (the
-#: barycentrics channel-planar, (3, H, W), so that rows are dim -2)
+#: the G-Buffer Pass's visibility between its two steps (the barycentrics
+#: channel-planar, (3, H, W), so that rows are dim -2)
 VIS = ("G-Buffer Tri ID", "G-Buffer Visible Depth", "G-Buffer Barycentrics")
 
 
@@ -101,25 +109,10 @@ class HybridPath(RenderPath):
 
         add_geometry_pass(graph)
 
-        def gbuffer_pass(res):
-            vis = rasterize_for_path(res["scene"], res["Clip"], w, h, cfg,
-                                     mesh=res.get("mesh"), tables=res["shade_tables"])
-            gb = gbuffer.resolve_gbuffer(
-                res["scene"], res["shade_tables"], res["TriRows"], vis, res["pfd"]
-            )
-            return {ALBEDO: gb.albedo, NORMALS: gb.normal_oid,
-                    MOTION_MR: gb.motion_mr, DEPTH: gb.depth}
-
-        graph.add_pass(
-            "G-Buffer Pass", gbuffer_pass,
-            inputs=("scene", "pfd", "Clip", "shade_tables", "TriRows"),
-            outputs=(ALBEDO, NORMALS, MOTION_MR, DEPTH),
-        )
-
         def raster_step(res):
-            """The raster over the mesh: the sort-last composite's bands, or
-            the single-device raster's frame where it does not run."""
-            vis = rasterize_bands(res["scene"], res["Clip"], w, h, cfg, mesh=res["mesh"],
+            """The raster: over a mesh the sort-last composite's bands, else
+            (or where it does not run) the single-device raster's frame."""
+            vis = rasterize_bands(res["scene"], res["Clip"], w, h, cfg, mesh=res.get("mesh"),
                                   tables=res["shade_tables"])
             bands = [(v.tri_id, v.depth, v.bary.permute(2, 0, 1))
                      for v in (vis if isinstance(vis, list) else [vis])]
@@ -128,16 +121,21 @@ class HybridPath(RenderPath):
             return dict(zip(VIS, bands[0]))
 
         def resolve_step(res):
-            vis = VisibilityBuffer(tri_id=res[VIS[0]], depth=res[VIS[1]],
-                                   bary=res[VIS[2]].permute(1, 2, 0))
+            # graph.run on one device with a mesh in res: the bands gathered
+            mesh = res.get("mesh")
+            tri, depth, bary = (res[k] if mesh is None else mesh.whole(res[k], "raster")
+                                for k in VIS)
+            vis = VisibilityBuffer(tri_id=tri, depth=depth, bary=bary.permute(1, 2, 0))
             gb = gbuffer.resolve_gbuffer(res["scene"], res["shade_tables"], res["TriRows"],
                                          vis, res["pfd"], rows=res["rows"])
             return {ALBEDO: gb.albedo, NORMALS: gb.normal_oid,
                     MOTION_MR: gb.motion_mr, DEPTH: gb.depth}
 
-        graph.row_plans["G-Buffer Pass"] = (
-            Step(raster_step, None, VIS),
-            Step(resolve_step, dict.fromkeys(VIS, ROWS), (ALBEDO, NORMALS, MOTION_MR, DEPTH)),
+        graph.add_pass(
+            "G-Buffer Pass",
+            (Step(raster_step, None), Step(resolve_step, dict.fromkeys(VIS, ROWS))),
+            inputs=("scene", "pfd", "Clip", "shade_tables", "TriRows"),
+            outputs=(ALBEDO, NORMALS, MOTION_MR, DEPTH),
         )
 
         comp_inputs = ["pfd", ALBEDO, NORMALS, MOTION_MR, DEPTH]
@@ -157,12 +155,11 @@ class HybridPath(RenderPath):
                         RT_MOTION: upsample.downsample_nearest(res[MOTION_MR], rs)}
 
             graph.add_pass(
-                "RT Downsample Pass", downsample_pass,
+                "RT Downsample Pass",
+                (Step(downsample_pass, dict.fromkeys((DEPTH, NORMALS, MOTION_MR), ROWS),
+                      scale=rs),),
                 inputs=(DEPTH, NORMALS, MOTION_MR), outputs=(RT_DEPTH, RT_NORMALS, RT_MOTION),
             )
-            graph.row_plans["RT Downsample Pass"] = (
-                Step(downsample_pass, dict.fromkeys((DEPTH, NORMALS, MOTION_MR), ROWS),
-                     (RT_DEPTH, RT_NORMALS, RT_MOTION), scale=rs),)
         rt_depth, rt_normals, rt_motion = ((RT_DEPTH, RT_NORMALS, RT_MOTION) if rt_half
                                            else (DEPTH, NORMALS, MOTION_MR))
 
@@ -200,63 +197,52 @@ class HybridPath(RenderPath):
                 shadow_ao, refl = raygen.raytrace_rows(
                     res["scene"], res["shade_tables"], res["TriRows"], res.get("BVH"),
                     res["pfd"], res[rt_depth], res[rt_normals], ao_rays=cfg.ao_rays,
-                    settings=s, shadow_grid=res.get(SHADOW_GRID), rows=res.get("rows"),
+                    settings=s, shadow_grid=res.get(SHADOW_GRID), rows=res["rows"],
                 )
                 return {RT_SHADOW_AO: shadow_ao, RT_REFLECTIONS: refl}
 
             graph.add_pass(
-                "Raytrace Pass", raytrace_pass, inputs=tuple(rt_inputs),
-                outputs=(RT_SHADOW_AO, RT_REFLECTIONS),
+                "Raytrace Pass",
+                (Step(raytrace_pass, {rt_depth: ROWS, rt_normals: ROWS}, scale=rs),),
+                inputs=tuple(rt_inputs), outputs=(RT_SHADOW_AO, RT_REFLECTIONS),
             )
-            graph.row_plans["Raytrace Pass"] = (
-                Step(raytrace_pass, {rt_depth: ROWS, rt_normals: ROWS},
-                     (RT_SHADOW_AO, RT_REFLECTIONS), scale=rs),)
 
         if s.ao_mode == AmbientOcclusionMode.SSAO:
             def ssao_pass(res):
                 return {SSAO_RAW: ssao.ssao(res["pfd"], res[DEPTH], res[NORMALS],
-                                            radius=s.ssao.radius, rows=res.get("rows"))}
+                                            radius=s.ssao.radius, rows=res["rows"])}
 
             def blur_pass(res):
-                return {SSAO: ssao.ssao_blur(res[SSAO_RAW], rows=res.get("rows"))}
+                return {SSAO: ssao.ssao_blur(res[SSAO_RAW], rows=res["rows"])}
 
-            graph.add_pass("SSAO Pass", ssao_pass, inputs=("pfd", DEPTH, NORMALS),
-                           outputs=(SSAO_RAW,))
-            graph.add_pass("SSAO Blur Pass", blur_pass, inputs=(SSAO_RAW,), outputs=(SSAO,))
             # a sample's screen radius has no bound: the whole depth
-            graph.row_plans["SSAO Pass"] = (
-                Step(ssao_pass, {DEPTH: WHOLE, NORMALS: ROWS}, (SSAO_RAW,)),)
-            graph.row_plans["SSAO Blur Pass"] = (
-                Step(blur_pass, {SSAO_RAW: halo(ssao.BLUR_RADIUS)}, (SSAO,)),)
+            graph.add_pass("SSAO Pass", (Step(ssao_pass, {DEPTH: WHOLE, NORMALS: ROWS}),),
+                           inputs=("pfd", DEPTH, NORMALS), outputs=(SSAO_RAW,))
+            graph.add_pass("SSAO Blur Pass",
+                           (Step(blur_pass, {SSAO_RAW: halo(ssao.BLUR_RADIUS)}),),
+                           inputs=(SSAO_RAW,), outputs=(SSAO,))
             comp_sources["ssao_tex"] = SSAO
 
         if s.reflection_mode == ReflectionMode.SSR:
             def ssr_pass(res):
                 return {SSR: ssr.ssr(res["pfd"], res[DEPTH], res[NORMALS], res[ALBEDO],
-                                     res[MOTION_MR], s.ssr, rows=res.get("rows"))}
+                                     res[MOTION_MR], s.ssr, rows=res["rows"])}
 
-            graph.add_pass("SSR Pass", ssr_pass,
-                           inputs=("pfd", DEPTH, NORMALS, ALBEDO, MOTION_MR), outputs=(SSR,))
             # the march and the hit's shading read any row
-            graph.row_plans["SSR Pass"] = (
-                Step(ssr_pass, dict.fromkeys((DEPTH, NORMALS, ALBEDO, MOTION_MR), WHOLE),
-                     (SSR,)),)
+            graph.add_pass("SSR Pass",
+                           (Step(ssr_pass, dict.fromkeys((DEPTH, NORMALS, ALBEDO, MOTION_MR),
+                                                         WHOLE)),),
+                           inputs=("pfd", DEPTH, NORMALS, ALBEDO, MOTION_MR), outputs=(SSR,))
             comp_sources["ssr_tex"] = SSR
 
         shadow_ao_src, refl_src = RT_SHADOW_AO, RT_REFLECTIONS
         if self.uses_temporal_state:
-            def svgf_pass(res):
-                denoised, new_state = svgf.denoise(
-                    res[rt_normals], res[rt_motion], res[RT_SHADOW_AO], res["temporal_state"]
-                )
-                return {DENOISED: denoised, "TemporalStateOut": new_state}
-
+            svgf_io = (rt_normals, rt_motion, RT_SHADOW_AO, "temporal_state")
             graph.add_pass(
-                "SVGF Denoise Pass", svgf_pass,
-                inputs=(rt_normals, rt_motion, RT_SHADOW_AO, "temporal_state"),
-                outputs=(DENOISED, "TemporalStateOut"),
+                "SVGF Denoise Pass",
+                svgf.denoise_steps(*svgf_io, DENOISED, "TemporalStateOut", scale=rs),
+                inputs=svgf_io, outputs=(DENOISED, "TemporalStateOut"),
             )
-            graph.row_plans["SVGF Denoise Pass"] = _svgf_steps(rt_normals, rt_motion, rs)
             shadow_ao_src = DENOISED
 
         refl_rt = s.reflection_mode == ReflectionMode.RAYTRACED
@@ -271,20 +257,19 @@ class HybridPath(RenderPath):
                 def up(lo):
                     return upsample.joint_bilateral_upsample(
                         lo, rs, res[DEPTH], res[NORMALS], res[RT_DEPTH], res[RT_NORMALS],
-                        rows=res.get("rows"))
+                        rows=res["rows"])
 
                 out = {UP_SHADOW_AO: up(res[src])}
                 if refl_rt:
                     out[UP_REFLECTIONS] = up(res[RT_REFLECTIONS])
                 return out
 
-            graph.add_pass("RT Upsample Pass", rt_up_pass, inputs=tuple(up_inputs),
-                           outputs=tuple(up_outputs))
             # the taps reach one low-resolution row past a slab's
             up_reads = {k: halo(1) for k in up_inputs}
             up_reads.update({DEPTH: ROWS, NORMALS: ROWS})
-            graph.row_plans["RT Upsample Pass"] = (
-                Step(rt_up_pass, up_reads, tuple(up_outputs), scale=rs, out_scale=1),)
+            graph.add_pass("RT Upsample Pass",
+                           (Step(rt_up_pass, up_reads, scale=rs, out_scale=1),),
+                           inputs=tuple(up_inputs), outputs=tuple(up_outputs))
             shadow_ao_src, refl_src = UP_SHADOW_AO, UP_REFLECTIONS
 
         if self._rt_needed():
@@ -297,45 +282,13 @@ class HybridPath(RenderPath):
             gb = GBuffer(albedo=res[ALBEDO], normal_oid=res[NORMALS],
                          motion_mr=res[MOTION_MR], depth=res[DEPTH])
             kwargs = {k: res[v] for k, v in comp_sources.items()}
-            return {RENDER_OUTPUT: composition.compose(gb, res["pfd"], s, rows=res.get("rows"),
+            return {RENDER_OUTPUT: composition.compose(gb, res["pfd"], s, rows=res["rows"],
                                                        **kwargs)}
 
+        # per pixel; the PCF reads the shadow map's replica
         graph.add_pass(
-            "Composition Pass", composition_pass,
+            "Composition Pass",
+            (Step(composition_pass, {k: ROWS for k in comp_inputs[1:] if k != SHADOW_MAP}),),
             inputs=tuple(comp_inputs), outputs=(RENDER_OUTPUT,),
         )
-        # per pixel; the PCF reads the shadow map's replica
-        graph.row_plans["Composition Pass"] = (
-            Step(composition_pass, {k: ROWS for k in comp_inputs[1:] if k != SHADOW_MAP},
-                 (RENDER_OUTPUT,)),)
 
-
-def _svgf_steps(normals: str, motion: str, scale: int) -> tuple:
-    """SVGF Denoise Pass over a mesh, svgf.denoise's stages: the temporal
-    stage over the whole previous state, then each a-trous iteration of
-    step s after a halo exchange of 2 s rows, then the new state, which
-    stays on the shards."""
-    stages = ["SVGF Integrated"] + [f"SVGF A-Trous {i}" for i in range(1, 6)]
-
-    def temporal_step(res):
-        integrated, moments = svgf.temporal(res[normals], res[motion], res[RT_SHADOW_AO],
-                                            res["temporal_state"], rows=res["rows"])
-        return {stages[0]: integrated, "SVGF Moments": moments}
-
-    def atrous_step(i):
-        return lambda res: {stages[i + 1]: svgf.atrous_iteration(
-            res[stages[i]], res[normals], 1 << i, rows=res["rows"])}
-
-    def state_step(res):
-        return {DENOISED: res[stages[-1]], "TemporalStateOut": TemporalState(
-            shadow_ao_history=res[stages[1]][:2].contiguous(),
-            moments_history=res["SVGF Moments"], prev_normal_oid=res[normals])}
-
-    return (
-        Step(temporal_step, {normals: ROWS, motion: ROWS, RT_SHADOW_AO: ROWS,
-                             "temporal_state": WHOLE}, (stages[0], "SVGF Moments"), scale),
-        *(Step(atrous_step(i), {stages[i]: halo(2 << i), normals: halo(2 << i)},
-               (stages[i + 1],), scale) for i in range(5)),
-        Step(state_step, dict.fromkeys((stages[-1], stages[1], "SVGF Moments", normals), ROWS),
-             (DENOISED, "TemporalStateOut"), scale),
-    )

@@ -67,13 +67,13 @@ def _check_binned_preset(config):
         )
 
 
-def rasterize_bands(scene, clip, width, height, config, mesh, tables=None):
-    """rasterize_for_path over `mesh` for a pass that keeps the frame
-    row-sharded: where the binned raster runs sort-last, its bands
+def rasterize_bands(scene, clip, width, height, config, mesh=None, tables=None):
+    """rasterize_for_path for a pass that keeps the frame row-sharded over
+    `mesh`: where the binned raster runs sort-last, its bands
     (parallel/mesh.rasterize_scene_bands: a list of VisibilityBuffers, band
-    j on the mesh's device j), not gathered; elsewhere rasterize_for_path's
-    VisibilityBuffer."""
-    if config.raster != "binned" or height % mesh.devices.size:
+    j on the mesh's device j), not gathered; elsewhere (and without a mesh)
+    rasterize_for_path's VisibilityBuffer."""
+    if mesh is None or config.raster != "binned" or height % mesh.devices.size:
         return rasterize_for_path(scene, clip, width, height, config, mesh=mesh, tables=tables)
     _check_binned_preset(config)
     return pmesh.rasterize_scene_bands(scene, clip, width, height, mesh,

@@ -26,13 +26,15 @@ Parity details:
 
 The reference runs the a-trous iterations as one lax.scan over a
 dynamic-step body, which exists to cut XLA compile time; here they are a
-Python loop over atrous_iteration (the reference's tests pin the two equal).
+sequence of atrous_iteration steps (the reference's tests pin the two
+equal).  ``denoise_steps`` is the stages as graph Steps, the SVGF Denoise
+Pass's body; ``denoise`` runs them on one device.
 
-Over a mesh (models/hybrid.py's row plan) each shard computes its row slab
-(``rows``): the temporal stage from the whole previous state (a motion
-vector may point at any row), each a-trous iteration of step s from its
-rows and the 2 s rows above and below them (its 5x5 taps; the variance's
-3x3 Gaussian is read at the centre only).
+Over a mesh (parallel/mesh.py) each shard computes its row slab (``rows``):
+the temporal stage from the whole previous state (a motion vector may point
+at any row), each a-trous iteration of step s from its rows and the 2 s rows
+above and below them (its 5x5 taps; the variance's 3x3 Gaussian is read at
+the centre only).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from vulkanhybridrenderer_tpu_torch.core.types import TemporalState
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import ROWS, WHOLE, Step, halo, run_steps
 from vulkanhybridrenderer_tpu_torch.ops.filters import shifted
 from vulkanhybridrenderer_tpu_torch.ops.screen import Rows
 from vulkanhybridrenderer_tpu_torch.utils.math3d import COS_PI_4
@@ -140,6 +143,7 @@ def atrous_iteration(integrated, normal_oid, step: int, rows: Rows | None = None
     integrated and normal_oid are rows.window(2 * step) of the image, the
     rows the 5x5 taps reach, and the output is `rows`."""
     r = 2 * step
+    whole = rows is None
     rows = rows or Rows.whole(integrated.shape[1])
     top, bottom = rows.window(r)
     n, h, w = rows.count, rows.height, integrated.shape[2]
@@ -148,12 +152,14 @@ def atrous_iteration(integrated, normal_oid, step: int, rows: Rows | None = None
 
     def taps(img, fill=0.0):
         """tap(dy, dx): img shifted as shifted(img, dy, dx, fill) reads it,
-        on the output rows only (row k of the padded copy is image row
-        rows.start - r + k; fill past the image's edges)."""
+        on the output rows only (with `rows`, row k of the padded copy is
+        image row rows.start - r + k; fill past the image's edges)."""
+        if whole:
+            return lambda dy, dx: shifted(img, dy, dx, fill)
         pad = F.pad(img, (0, 0, r - (rows.start - top), r - (bottom - rows.stop)), value=fill)
         return lambda dy, dx: shifted(pad[..., r + dy:r + dy + n, :], 0, dx, fill)
 
-    tap_i, tap_n = taps(integrated), taps(normal_oid[:3])
+    tap_i, tap_v, tap_n = taps(integrated), taps(integrated[2:4]), taps(normal_oid[:3])
     tap_oid = taps(normal_oid[3], fill=-2.0)
     cen = integrated[:, own]
     n_p = normal_oid[:3, own]
@@ -164,7 +170,7 @@ def atrous_iteration(integrated, normal_oid, step: int, rows: Rows | None = None
     var_f = torch.zeros_like(cen[2:4])
     for oy in (-1, 0, 1):
         for ox in (-1, 0, 1):
-            var_f = var_f + (_GAUSS[oy + 1] * _GAUSS[ox + 1]) * tap_i(oy, ox)[2:4]
+            var_f = var_f + (_GAUSS[oy + 1] * _GAUSS[ox + 1]) * tap_v(oy, ox)
 
     p_sh, p_ao = cen[0], cen[1]
     sum_sh, sum_ao = p_sh, p_ao  # the centre tap has weight 1 (:66-67)
@@ -211,19 +217,48 @@ def atrous_iteration(integrated, normal_oid, step: int, rows: Rows | None = None
     ])
 
 
+def denoise_steps(normals: str, motion: str, shadow_ao: str, state: str, out: str,
+                  state_out: str, scale: int = 1, iterations: int = 5) -> tuple:
+    """Full SVGF as graph Steps over the named resources (normal_oid,
+    motion_mr, the noisy shadow / AO and the TemporalState in; the denoised
+    shadow / AO (4, H, W) and the new TemporalState out): the temporal stage,
+    which reads the whole previous state; `iterations` a-trous steps (1, 2,
+    4, ...), the one of step s with a halo of 2 s rows; the new state.
+    `scale` is the images' trace scale (Step.scale)."""
+    stages = [f"{out} Integrated"] + [f"{out} A-Trous {i}" for i in range(1, iterations + 1)]
+    moments = f"{out} Moments"
+
+    def temporal_step(res):
+        integrated, new_moments = temporal(res[normals], res[motion], res[shadow_ao],
+                                           res[state], rows=res["rows"])
+        return {stages[0]: integrated, moments: new_moments}
+
+    def atrous_step(i):
+        return lambda res: {stages[i + 1]: atrous_iteration(res[stages[i]], res[normals],
+                                                            1 << i, rows=res["rows"])}
+
+    history = stages[min(1, iterations)]  # the first iteration's output
+
+    def state_step(res):
+        return {out: res[stages[-1]], state_out: TemporalState(
+            shadow_ao_history=res[history][:2].contiguous(),
+            moments_history=res[moments], prev_normal_oid=res[normals])}
+
+    return (
+        Step(temporal_step, {normals: ROWS, motion: ROWS, shadow_ao: ROWS, state: WHOLE},
+             scale),
+        *(Step(atrous_step(i), {stages[i]: halo(2 << i), normals: halo(2 << i)}, scale)
+          for i in range(iterations)),
+        Step(state_step, dict.fromkeys((stages[-1], history, moments, normals), ROWS), scale),
+    )
+
+
 def denoise(normal_oid, motion_mr, shadow_ao, state: TemporalState,
             iterations: int = 5):
     """Full SVGF: temporal + `iterations` a-trous steps (1, 2, 4, ...).
     Returns (denoised shadow / AO (4, H, W), the new TemporalState)."""
-    integrated, new_moments = temporal(normal_oid, motion_mr, shadow_ao, state)
-    cur, history = integrated, integrated[:2]
-    for i in range(iterations):
-        cur = atrous_iteration(cur, normal_oid, 1 << i)
-        if i == 0:
-            history = cur[:2]
-    new_state = TemporalState(
-        shadow_ao_history=history.contiguous(),
-        moments_history=new_moments,
-        prev_normal_oid=normal_oid,
-    )
-    return cur, new_state
+    res = run_steps(denoise_steps("normal_oid", "motion_mr", "shadow_ao", "state", "out",
+                                  "state_out", iterations=iterations),
+                    {"normal_oid": normal_oid, "motion_mr": motion_mr, "shadow_ao": shadow_ao,
+                     "state": state})
+    return res["out"], res["state_out"]

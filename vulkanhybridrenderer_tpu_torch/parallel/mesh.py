@@ -5,10 +5,10 @@ image-shaped intermediate is row-sharded after every pass, and GSPMD
 partitions the passes, inserting the exchanges they need.  PyTorch has no
 GSPMD, so here the exchanges are explicit.  An image over the mesh is
 ``Slabs``: row slab i (rows i*H/N to (i+1)*H/N) on the mesh's device i.
-Each pass of the hybrid path declares where it is registered how it runs
-over a mesh (``RenderGraph.row_plans``): a sequence of steps (``Step``), each run
-once per shard on the shard's device over its slab (``Rows``), reading each
-image one of three ways, the explicit form of what GSPMD inserts:
+Each pass of the hybrid path is registered as a sequence of steps
+(``graph.render_graph.Step``); over a mesh each runs once per shard on the
+shard's device over its slab (``Rows``), reading each image one of three
+ways, as the step declares, the explicit form of what GSPMD inserts:
 
 - ``ROWS``: the shard's own rows, no exchange (resolve, raygen and hit
   shading, the RT downsample, composition);
@@ -24,10 +24,11 @@ shadow map, the per-frame data) is the shard's replica (``Mesh.replicate``:
 one copy a device for as long as the object lives).  A step whose slabs do
 not divide, or do not line up across the two resolutions of
 ``rt_scale``, runs once on the primary over whole images, with a warning,
-as the reference's mesh falls back; a pass without a plan (the geometry,
+as the reference's mesh falls back; a pass without steps (the geometry,
 the BVH, the shadow-map prepass, the forward, raytraced and rayquery
 paths' passes) runs on the primary, where the passes that opt in through
-``res["mesh"]`` split their own work:
+``res["mesh"]`` split their own work (and warns where it has to gather an
+image that is split):
 
 - ``rasterize_scene_bands``, sort-last raster: each shard bins and rasters
   (K1a) 1/N of the triangles over the whole frame on its device, the
@@ -57,12 +58,16 @@ import dataclasses
 import time
 import warnings
 import weakref
-from typing import Callable
 
 import numpy as np
 import torch
 
-from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import (
+    RENDER_OUTPUT,
+    Read,
+    Step,
+    pass_steps,
+)
 from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled, shadetab
 from vulkanhybridrenderer_tpu_torch.ops.rasterizer import (
     TriangleSetup,
@@ -93,45 +98,6 @@ class Slabs:
     @property
     def height(self) -> int:
         return sum(p.shape[-2] for p in self.parts)
-
-
-@dataclasses.dataclass(frozen=True)
-class Read:
-    """How a step's shard reads an image: "rows" (its own), "halo" (its
-    own and `halo` rows above and below, clipped at the image's edges) or
-    "whole"."""
-
-    kind: str
-    halo: int = 0
-
-
-ROWS = Read("rows")
-WHOLE = Read("whole")
-
-
-def halo(rows: int) -> Read:
-    return Read("halo", rows)
-
-
-@dataclasses.dataclass(frozen=True)
-class Step:
-    """One stage of a pass over a mesh: fn(res) -> dict holding `outputs`.
-
-    reads None: fn runs once, on the primary, with the mesh in res["mesh"]
-    (a stage that splits its own work, the sort-last raster); its outputs
-    may be Slabs.  Else fn runs once per shard on the shard's device: res
-    holds each image of `reads` read as its Read says, res["rows"] the Rows
-    its outputs cover, and for every other name the shard's replica; its
-    outputs (tensors, or dataclasses of them) become Slabs.  Its rows are
-    those of an image of ceil(H / out_scale) rows (`out_scale` defaults to
-    `scale`); `scale` is the trace scale of the step's images, whose slabs
-    line up with the frame's only where (H / N) % scale == 0."""
-
-    fn: Callable
-    reads: dict | None
-    outputs: tuple
-    scale: int = 1
-    out_scale: int | None = None
 
 
 class Mesh:
@@ -320,10 +286,16 @@ def shard_image_resources(resources: dict, mesh: Mesh, height: int, width: int) 
     return {k: place(v) for k, v in resources.items()}
 
 
+class UndeclaredRead(ValueError):
+    """A step read an image of the mesh frame that its reads do not name
+    (a ValueError, so that Mapping.get does not take it for a missing
+    key)."""
+
+
 class _ShardRes(collections.abc.Mapping):
     """What a step's fn reads on shard i: its images read as the step
     declares, "rows", and for every other name the shard's replica (made on
-    first read).  An image it does not declare raises."""
+    first read).  An image it does not declare raises UndeclaredRead."""
 
     def __init__(self, src: dict, step: Step, mesh: Mesh, i: int, rows: Rows):
         self._src, self._step, self._mesh, self._i = src, step, mesh, i
@@ -335,7 +307,7 @@ class _ShardRes(collections.abc.Mapping):
             if k in self._step.reads:
                 self._got[k] = self._mesh.read(x, self._step.reads[k], self._i)
             elif any(isinstance(v, Slabs) for v in _leaves(x)):
-                raise KeyError(f"a step reads the image {k!r} without declaring how")
+                raise UndeclaredRead(f"a step reads the image {k!r} without declaring how")
             else:
                 self._got[k] = self._mesh.replicate(x)[self._i]
         return self._got[k]
@@ -407,19 +379,25 @@ def _run_step(step: Step, src: dict, mesh: Mesh, height: int, name: str,
     for i in range(n):
         with clock.shard(name, i) if clock is not None else contextlib.nullcontext():
             outs.append(step.fn(_ShardRes(src, step, mesh, i, mesh.rows(i, grid))))
-    return {k: _combine([o[k] for o in outs]) for k in step.outputs}, False
+    return {k: _combine([o[k] for o in outs]) for k in outs[0]}, False
 
 
 def _run_pass(graph, name: str, res: dict, mesh: Mesh, height: int,
-              clock: ShardClock | None) -> dict:
-    """Pass `name`'s outputs over the mesh: its row plan's steps, or
-    without one the pass itself on the primary over whole images."""
+              clock: ShardClock | None = None) -> dict:
+    """Pass `name`'s outputs over the mesh: its steps, or a pass without
+    steps on the primary over whole images (warning where it gathers an
+    image that is split)."""
     p = graph.passes[name]
-    plan = graph.row_plans.get(name)
-    if plan is None:
-        return p.fn({**res, **{k: mesh.whole(res[k], "gather") for k in p.inputs if k in res}})
+    steps = pass_steps(p)
+    if not steps:
+        split = [k for k in p.inputs if k in res
+                 and any(isinstance(v, Slabs) for v in _leaves(res[k]))]
+        if split:
+            warnings.warn(f"{name}: a pass without steps reads the split images {split}; it "
+                          f"runs on {mesh.primary} over them gathered")
+        return p.fn({**res, **{k: mesh.whole(res[k], "gather") for k in split}})
     local, alone = dict(res), False
-    for step in plan:
+    for step in steps:
         out, whole = _run_step(step, local, mesh, height, name, clock)
         local.update(out)
         alone |= whole
@@ -430,14 +408,17 @@ def _run_pass(graph, name: str, res: dict, mesh: Mesh, height: int,
     return {k: local[k] for k in p.outputs}
 
 
+def _mesh_resources(resources: dict, mesh: Mesh, height: int, width: int) -> dict:
+    return {**shard_image_resources(resources, mesh, height, width), "mesh": mesh}
+
+
 def run_sharded(graph, mesh: Mesh, resources: dict, height: int, width: int,
                 target: str = RENDER_OUTPUT, clock: ShardClock | None = None) -> dict:
     """graph.run over the mesh: every pass feeding `target`, each as its
-    row plan says (module docstring); returns all resources, the images
-    among them Slabs where they were split."""
+    steps say (module docstring); returns all resources, the images among
+    them Slabs where they were split."""
     graph.validate(set(resources), target)
-    res = shard_image_resources(resources, mesh, height, width)
-    res["mesh"] = mesh
+    res = _mesh_resources(resources, mesh, height, width)
     for name in graph.find_execution_order(target):
         res.update(_run_pass(graph, name, res, mesh, height, clock))
     return res
@@ -458,41 +439,13 @@ def make_sharded_frame_fn(graph, mesh: Mesh, height: int, width: int,
 
 def time_passes_sharded(graph, mesh: Mesh, resources: dict, height: int, width: int,
                         target: str = RENDER_OUTPUT, iters: int = 5) -> dict[str, float]:
-    """RenderGraph.time_passes over the mesh: each pass runs once to warm
-    up, then `iters` times between synchronizations of every device; CUDA
-    events on the primary's stream, which the other devices' streams join
-    at both ends, or the host clock on the CPU."""
-    graph.validate(set(resources), target)
-    res = shard_image_resources(resources, mesh, height, width)
-    res["mesh"] = mesh
-    cuda = mesh.primary.type == "cuda"
-    others = mesh.distinct()[1:]
-    timings: dict[str, float] = {}
-    for name in graph.find_execution_order(target):
-        produced = _run_pass(graph, name, res, mesh, height, None)
-        if cuda:
-            for d in mesh.distinct():
-                torch.cuda.synchronize(d)
-            stream = torch.cuda.current_stream(mesh.primary)
-            start = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            for d in others:
-                torch.cuda.current_stream(d).wait_event(start)
-            for _ in range(iters):
-                produced = _run_pass(graph, name, res, mesh, height, None)
-            for d in others:
-                stream.wait_event(torch.cuda.current_stream(d).record_event())
-            end = torch.cuda.Event(enable_timing=True)
-            end.record(stream)
-            end.synchronize()
-            timings[name] = start.elapsed_time(end) / iters
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                produced = _run_pass(graph, name, res, mesh, height, None)
-            timings[name] = (time.perf_counter() - t0) * 1e3 / iters
-        res.update(produced)
-    return timings
+    """RenderGraph.time_passes over the mesh: each pass as in the mesh
+    frame, its CUDA events on the primary's stream, which every other
+    device's stream joins at both ends."""
+    return graph._time_passes(
+        _mesh_resources(resources, mesh, height, width), target, iters,
+        run_pass=lambda name, res: _run_pass(graph, name, res, mesh, height),
+        devices=[d for d in mesh.distinct() if d.type == "cuda"])
 
 
 # ---------------------------------------------------------------------------
