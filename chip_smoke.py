@@ -334,7 +334,18 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 nvidia-smi's line; K1a on shard 0's triangles and K2 on
                 slab 0's AO and reflection rays against their plain
                 versions, timed, with their bounds (the JSON line's mesh
-                entries, their launches path 8's timed mesh frames').  Any
+                entries, their launches path 8's timed mesh frames').  Since
+                the mesh frame is captured (runtime/dispatch.py: one CUDA
+                graph a frame, or a pass, spanning the mesh's cards): path
+                8, cell 4 with and without SSR, the full frame at
+                rt_scale=2 and path 11 (the animated pica), fused and
+                per_pass (precompile_passes), equal (torch.equal) to the
+                eager mesh frame and one card's over frames 0-3 with the
+                camera moving; the warm-up and the captures under
+                set_sync_debug_mode("error"); a replayed frame's launches
+                and Mesh.moved bytes equal to the eager frame's; graphs a
+                frame and capture seconds; ms/frame in turns (one card
+                fused, mesh eager, mesh captured) but for SSR's.  Any
                 failure fails the run
   7. probe    - the row-gather probe (probes/gather.py), printed in full:
                 the yardstick (the delivered L1 and L2 read rates in TB/s
@@ -2288,6 +2299,7 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.update(_mesh_phase(realglb, full_cfg, raster_cfg, dev, drive, k1_equal, k1_bound,
                                k2_wave, smi, launches))
+    _mesh_captured_phase(realglb, full_cfg, raster_cfg, pica, pica_cfg, dev, smi)
     _phase("mesh", t0)
 
     # ---- 7. the row-gather probe ---------------------------------------------------
@@ -2584,6 +2596,174 @@ def _mesh_phase(realglb, cfg, raster_cfg, dev, drive, k1_equal, k1_bound, k2_wav
     del single, meshed
     torch.cuda.empty_cache()
     return entries
+
+
+def _eager_mesh_frame(r):
+    """One eager frame of a mesh renderer r on the card (the mesh frame
+    function, run_sharded, not its captured frame), advancing r as
+    render_frame does; the primary's current stream then waits for every
+    card's.  Returns RENDER_OUTPUT on the primary."""
+    from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT
+
+    res = r._frame_fn()(r._resources(r._make_pfd()))
+    if r.path.uses_temporal_state:
+        r.temporal_state = res["TemporalStateOut"]
+    r.frame_index += 1
+    main = torch.cuda.current_stream(r.device)
+    for d in r.mesh.distinct()[1:]:
+        main.wait_stream(torch.cuda.current_stream(d))
+    return res[RENDER_OUTPUT]
+
+
+def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
+    """Phase 6c (e): the mesh frame captured (runtime/dispatch.py: one
+    graph a frame, fused, or one a pass, per_pass, each spanning the mesh's
+    cards) against the eager mesh frame (run_sharded) and one card's fused
+    frame, on make_mesh() where the machine has two cards or more, else a
+    virtual mesh of 4 on `dev`: path 8, cell 4 with and without SSR, the
+    full frame at rt_scale=2 (on realglb) and path 11 (pica_proxy animated
+    a frame).  Over frames 0-3, the camera moving before each and the
+    temporal state carried, every frame equal (torch.equal); fused captures
+    at frame 1 and per_pass at frame 0 (auto_precompile: precompile_passes
+    over the mesh), the warm-up and the captures under
+    set_sync_debug_mode("error"); a replayed frame's launch counts and
+    Mesh.moved bytes equal to the eager frame's; the graphs a frame and
+    capture seconds printed; then, but for SSR's, ms/frame in turns (one
+    card fused, mesh eager, mesh captured, mesh captured, mesh eager, one
+    card fused; CUDA events on the primary's stream, 10 frames each, 5
+    eager)."""
+    import copy
+
+    from vulkanhybridrenderer_tpu_torch.core.config import ReflectionMode
+    from vulkanhybridrenderer_tpu_torch.parallel import mesh as pmesh
+    from vulkanhybridrenderer_tpu_torch.runtime import dispatch as pdispatch
+    from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
+    from vulkanhybridrenderer_tpu_torch.scene import procedural
+
+    n_cards = torch.cuda.device_count()
+    kind = "real" if n_cards >= 2 else "virtual"
+
+    def make_mesh():
+        return pmesh.make_mesh() if n_cards >= 2 else pmesh.make_mesh([dev] * 4)
+
+    cards = make_mesh().distinct()
+
+    def sync_all():
+        for d in cards:
+            torch.cuda.synchronize(d)
+
+    def animate_pica(r, f):
+        r.animate(procedural.animate_pica(pica, f / 60.0))
+
+    ssr_cfg = dataclasses.replace(raster_cfg, hybrid=dataclasses.replace(
+        raster_cfg.hybrid, reflection_mode=ReflectionMode.SSR))
+    half_cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(cfg.hybrid, rt_scale=2))
+    # (label, scene, config, animate, timed): SSR's frame (~0.5 s on one
+    # card) is checked, not timed
+    cases = (("path 8", realglb, cfg, None, True), ("cell 4", realglb, raster_cfg, None, True),
+             ("cell 4 with SSR", realglb, ssr_cfg, None, False),
+             ("full at rt_scale=2", realglb, half_cfg, None, True),
+             ("path 11, animated pica", pica, pica_cfg, animate_pica, True))
+    for label, scene, cfg_, animate, timed in cases:
+        camera = copy.deepcopy(scene.camera)
+        one = Renderer(scene, cfg_, device=dev)
+        one._get_bvh()
+        rs = {"eager": Renderer(scene, cfg_, mesh=make_mesh()),
+              "fused": Renderer(scene, cfg_, mesh=make_mesh()),
+              "per_pass": Renderer(scene, cfg_, mesh=make_mesh(), dispatch="per_pass")}
+        for r in rs.values():
+            # the set-up's reads back (a host BVH build, check_binning) before
+            # the frames: one host build, read in place on the primary
+            r._bvh, r._shade_tables = one._bvh, one._get_shade_tables()
+            prev = (r._prev_view, r._prev_proj)
+            r.check_binning()
+            r._prev_view, r._prev_proj = prev
+            r._binning_checked = True
+            r._consts()
+        counted = {m: pdispatch.counters(r.mesh) for m, r in rs.items()}
+        equal, replayed_same, when = True, True, {}
+        for f in range(4):
+            one.update_camera(1 / 30, keys={"w"} if f % 2 else {"a"})
+            for r in (one, *rs.values()):
+                if animate is not None:
+                    animate(r, f)
+            want = one.render_frame()
+            per = {}
+            for m, r in rs.items():
+                before = pdispatch.snapshot(counted[m])
+                if m != "eager" and (r._captured is None or not r._captured.captured):
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    img = _eager_mesh_frame(r) if m == "eager" else r.render_frame(sync=False)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                sync_all()
+                per[m] = pdispatch.delta(before, pdispatch.snapshot(counted[m]))
+                if m != "eager" and r._captured.captured:
+                    when.setdefault(m, f)
+                eq = torch.equal(img, want)
+                equal &= eq
+                if not eq:
+                    print(f"mesh capture: {label} frame {f} {m} DIFFERS from one card's on "
+                          f"{int((img != want).any(dim=0).sum())} pixels (max "
+                          f"{_max_abs(img - want):.3g})")
+            if f >= 2:
+                for m in ("fused", "per_pass"):
+                    same = per[m] == per["eager"]
+                    replayed_same &= same
+                    if not same:
+                        print(f"mesh capture: {label} frame {f} {m} counted {per[m]}, the eager "
+                              f"frame {per['eager']}")
+        cfu, cpp = rs["fused"]._captured, rs["per_pass"]._captured
+        n_pass = len(rs["eager"].graph.find_execution_order())
+        moved = dict(per["fused"][-1])
+        print(f"mesh capture: {label} over a {kind} mesh of {rs['fused'].mesh.devices.size} "
+              f"(cards {[str(d) for d in rs['fused'].mesh.distinct()]}): frames 0-3 of fused, "
+              f"per_pass and eager mesh frames {'all equal' if equal else 'NOT all equal'} to one "
+              f"card's; captured at frame fused {when.get('fused')}, per_pass "
+              f"{when.get('per_pass')} (precompile_passes); graphs a frame fused {cfu.n_graphs}, "
+              f"per_pass {cpp.n_graphs} ({n_pass} passes); capture s fused "
+              f"{sum(cfu.capture_s.values()):.3f}, per_pass {sum(cpp.capture_s.values()):.3f}; "
+              f"a replayed frame's counts equal the eager frame's: {replayed_same} (bytes "
+              f"between shards {moved}) | card: {smi}")
+        _check(equal, f"mesh capture: {label}: a frame differs")
+        _check(replayed_same, f"mesh capture: {label}: a replayed frame counts another frame")
+        _check(cfu.n_graphs == 1 and cpp.n_graphs == n_pass and when == {"fused": 1,
+                                                                           "per_pass": 0},
+               f"mesh capture: {label}: graphs {cfu.n_graphs} / {cpp.n_graphs}, captured {when}")
+        _check(moved.get("halo", 0) > 0 or moved.get("gather", 0) > 0,
+               f"mesh capture: {label}: a replayed frame exchanged nothing: {moved}")
+
+        def ms(r, m, frames):
+            for f in range(2):
+                if animate is not None:
+                    animate(r, f)
+                _eager_mesh_frame(r) if m == "eager" else r.render_frame()
+            sync_all()
+            main = torch.cuda.current_stream(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record(main)
+            for f in range(frames):
+                if animate is not None:
+                    animate(r, f)
+                _eager_mesh_frame(r) if m == "eager" else r.render_frame(sync=False)
+            end.record(main)
+            sync_all()
+            return start.elapsed_time(end) / frames
+
+        times = collections.defaultdict(list)
+        for m in ("one", "eager", "fused", "fused", "eager", "one") if timed else ():
+            r = one if m == "one" else rs[m]
+            times[m].append(ms(r, m, 5 if m == "eager" else 10))
+        if timed:
+            print(f"mesh capture: {label} ms/frame in turns (one card fused, mesh eager, mesh "
+                  f"captured, mesh captured, mesh eager, one card fused): one card "
+                  f"{times['one'][0]:.3f} / {times['one'][1]:.3f}, {kind} mesh eager "
+                  f"{times['eager'][0]:.3f} / {times['eager'][1]:.3f}, captured "
+                  f"{times['fused'][0]:.3f} / {times['fused'][1]:.3f} | card: {smi}")
+        scene.camera = camera
+        del one, rs
+        torch.cuda.empty_cache()
 
 
 def _mesh_frame(label, single, meshed, mesh, sync_all, smi):

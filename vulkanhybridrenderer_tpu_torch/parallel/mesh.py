@@ -40,9 +40,10 @@ image that is split):
 
 The temporal state stays row-sharded between frames.  The frame reads
 nothing back to the host: the copies are stream-ordered device-to-device
-copies, and every decision depends on shapes alone.  ``Mesh.moved`` counts
-the bytes each kind of exchange moves between shards, as a mesh of N
-distinct devices moves them.
+copies, and every decision depends on shapes alone, so on CUDA the
+renderer captures it whole, every card's work in one graph
+(runtime/dispatch.py).  ``Mesh.moved`` counts the bytes each kind of
+exchange moves between shards, as a mesh of N distinct devices moves them.
 
 A mesh may name one device more than once: ``[torch.device("cpu")] * 8``
 (the tests, as the reference's tests use 8 virtual CPU devices) or
@@ -146,6 +147,15 @@ class Mesh:
             weakref.finalize(obj, self._replicas.pop, id(obj), None)
             self.moved["replica"] += _nbytes(obj) * (self.devices.size - 1)
         return [obj if d == own else copies[d] for d in self.devices]
+
+    def forget(self, *objs) -> None:
+        """Drop the replicas of `objs`, so that the next replicate copies
+        them again.  A captured frame forgets its fixed inputs (refilled in
+        place every frame) before its capture: the capture then copies
+        them inside its graph, where a replica the warm-up frame made would
+        be a copy no replay refreshes.  Constants keep theirs."""
+        for obj in objs:
+            self._replicas.pop(id(obj), None)
 
     def rows(self, i: int, height: int) -> Rows:
         """Shard i's rows of an image `height` rows tall."""
@@ -382,8 +392,8 @@ def _run_step(step: Step, src: dict, mesh: Mesh, height: int, name: str,
     return {k: _combine([o[k] for o in outs]) for k in outs[0]}, False
 
 
-def _run_pass(graph, name: str, res: dict, mesh: Mesh, height: int,
-              clock: ShardClock | None = None) -> dict:
+def run_pass_sharded(graph, name: str, res: dict, mesh: Mesh, height: int,
+                     clock: ShardClock | None = None) -> dict:
     """Pass `name`'s outputs over the mesh: its steps, or a pass without
     steps on the primary over whole images (warning where it gathers an
     image that is split)."""
@@ -408,7 +418,9 @@ def _run_pass(graph, name: str, res: dict, mesh: Mesh, height: int,
     return {k: local[k] for k in p.outputs}
 
 
-def _mesh_resources(resources: dict, mesh: Mesh, height: int, width: int) -> dict:
+def mesh_resources(resources: dict, mesh: Mesh, height: int, width: int) -> dict:
+    """A frame's resources as the mesh frame reads them: its full-resolution
+    images split (shard_image_resources) and the mesh itself."""
     return {**shard_image_resources(resources, mesh, height, width), "mesh": mesh}
 
 
@@ -418,9 +430,9 @@ def run_sharded(graph, mesh: Mesh, resources: dict, height: int, width: int,
     steps say (module docstring); returns all resources, the images among
     them Slabs where they were split."""
     graph.validate(set(resources), target)
-    res = _mesh_resources(resources, mesh, height, width)
+    res = mesh_resources(resources, mesh, height, width)
     for name in graph.find_execution_order(target):
-        res.update(_run_pass(graph, name, res, mesh, height, clock))
+        res.update(run_pass_sharded(graph, name, res, mesh, height, clock))
     return res
 
 
@@ -443,8 +455,8 @@ def time_passes_sharded(graph, mesh: Mesh, resources: dict, height: int, width: 
     frame, its CUDA events on the primary's stream, which every other
     device's stream joins at both ends."""
     return graph._time_passes(
-        _mesh_resources(resources, mesh, height, width), target, iters,
-        run_pass=lambda name, res: _run_pass(graph, name, res, mesh, height),
+        mesh_resources(resources, mesh, height, width), target, iters,
+        run_pass=lambda name, res: run_pass_sharded(graph, name, res, mesh, height),
         devices=[d for d in mesh.distinct() if d.type == "cuda"])
 
 

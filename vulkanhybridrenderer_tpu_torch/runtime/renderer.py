@@ -17,8 +17,10 @@ With a ``mesh`` (parallel/mesh.py) the frame is row-sharded across the
 mesh's devices: each image pass of the hybrid path runs once a shard over
 its row slab, with the halo and gather exchanges the pass declares, the
 raster runs sort-last, and the frame is gathered on the primary, where it
-is returned; the temporal state stays on the shards between frames.  That
-frame runs eagerly (``make_sharded_frame_fn``) in either mode.  The first frame checks the
+is returned; the temporal state stays on the shards between frames.  On
+CUDA that frame (``make_sharded_frame_fn``'s passes) is captured as one
+device's is, in either mode, each graph spanning the mesh's cards
+(runtime/dispatch.py); on a CPU mesh it runs eagerly.  The first frame checks the
 binning against its static entry cap (``check_binning``).  A graph is built
 once per (path, config), as the reference caches its compiled frame
 functions, so switching back with ``set_path`` / ``set_config`` reuses it;
@@ -375,16 +377,17 @@ class Renderer:
             cf = self._captured = CapturedFrame(
                 key, self.graph, RENDER_OUTPUT, keep, per_pass, self.device, consts,
                 self.buffers.num_primitives,
-                self.temporal_state if self.path.uses_temporal_state else None)
+                self.temporal_state if self.path.uses_temporal_state else None,
+                (self.config.height, self.config.width))
         return cf
 
     def precompile_passes(self, max_workers: int | None = None) -> dict[str, float]:
         """The reference's precompile_passes: build every pass of the active
         (path, config) for dispatch="per_pass" ahead of its frames.  On a
-        CUDA device one eager frame builds the kernels and caches, then each
-        pass is captured into its CUDA graph; returns {pass: capture
-        seconds}, "__trace_s__" (the eager frame) and "__wall_s__" (the
-        whole).  The
+        CUDA device, or a mesh of them, one eager frame builds the kernels
+        and caches, then each pass is captured into its CUDA graph (over a
+        mesh one spanning its cards); returns {pass: capture seconds},
+        "__trace_s__" (the eager frame) and "__wall_s__" (the whole).  The
         frame index, previous view and temporal state are left as they
         were.  On the CPU nothing is built and every value is 0.0.
         max_workers: accepted for the reference's signature; captures run
@@ -392,7 +395,7 @@ class Renderer:
         renderer's one captured frame (_captured_frame), in place of
         whatever it held."""
         order = self.graph.find_execution_order()
-        if self.device.type != "cuda" or self.mesh is not None:
+        if self.device.type != "cuda":
             return {**{n: 0.0 for n in order}, "__trace_s__": 0.0, "__wall_s__": 0.0}
         t0 = time.perf_counter()
         cf = self._captured_frame(per_pass=True)
@@ -407,7 +410,8 @@ class Renderer:
         cf.restore_state(saved)
         if cf.state is not None:
             self.temporal_state = cf.state
-        torch.cuda.synchronize(self.device)
+        for d in [self.device, *cf.others]:
+            torch.cuda.synchronize(d)
         return {**{n: seconds.get(n, 0.0) for n in order}, "__trace_s__": trace_s,
                 "__wall_s__": time.perf_counter() - t0}
 
@@ -423,7 +427,7 @@ class Renderer:
     def _run_frame(self, packed) -> dict:
         """One frame's resources out (RENDER_OUTPUT, and TemporalStateOut
         where the path carries state), dispatched as `dispatch` says."""
-        if self.device.type != "cuda" or self.mesh is not None:
+        if self.device.type != "cuda":
             return self._frame_fn()(self._resources(per_frame_data_from_flat(
                 *upload_per_frame_data(*packed, device=self.device))))
         per_pass = self.dispatch == "per_pass"
@@ -448,10 +452,9 @@ class Renderer:
         device, or with srgb8=True the (H, W, 4) uint8 sRGB image, a tensor
         of its own (a captured frame's output buffer is copied, since the
         next replay overwrites it).  The work is queued on the device's
-        current stream (over a mesh, on each of its devices' current
-        streams: they wait for the frame's start on the primary's, and the
-        primary's waits for their end before the frame's end, so the
-        frame's time and sync=True cover every device); with sync=True (the
+        current stream (over a mesh, the captured frame's graphs launch
+        there after the other cards' current streams and before them, so
+        the frame's time and sync=True cover every device); with sync=True (the
         reference's jax.block_until_ready) it returns once the frame has
         finished there, with sync=False once it is queued.  Both give the
         same frame, and so do both dispatch modes."""
@@ -464,12 +467,8 @@ class Renderer:
         if cuda:
             self._read_frame_times()
             stream = torch.cuda.current_stream(self.device)
-            others = ([torch.cuda.current_stream(d) for d in self.mesh.distinct()[1:]]
-                      if self.mesh is not None else [])
             start = torch.cuda.Event(enable_timing=True)
             start.record(stream)
-            for s in others:
-                s.wait_event(start)
         else:
             t0 = time.perf_counter()
         res = self._run_frame(packed)
@@ -479,8 +478,6 @@ class Renderer:
         out = res[RENDER_OUTPUT]
         out = _encode_srgb8(out) if srgb8 else out
         if cuda:
-            for s in others:
-                stream.wait_event(s.record_event())
             end = torch.cuda.Event(enable_timing=True)
             end.record(stream)
             self._frame_events.append((start, end))
