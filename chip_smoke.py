@@ -345,8 +345,26 @@ Phases, each printed with its seconds; any failure raises and exits non-zero:
                 set_sync_debug_mode("error"); a replayed frame's launches
                 and Mesh.moved bytes equal to the eager frame's; graphs a
                 frame and capture seconds; ms/frame in turns (one card
-                fused, mesh eager, mesh captured) but for SSR's.  Any
-                failure fails the run
+                fused, mesh eager, mesh captured) but for SSR's.  Then
+                the other paths, row-sharded as the hybrid (each shard
+                rasters its band, traces and shades its slab): the
+                raytraced frame with test_alpha (cell 14's, bf16 rows),
+                the rayquery frame (cell 6's configuration) and the
+                forward frame at one sample and at supersample 4 (a
+                3840x2160 raster), on realglb: the same captured checks
+                over frames 0-3, no halo and no gather moved, every eager
+                frame launching K1a once per shard and image rastered and
+                K2 once per slab and wavefront, Mesh.moved by kind, each
+                pass's device ms on each shard (ShardClock), ms/frame in
+                turns (one card fused, mesh captured, mesh captured, one
+                card fused); then K2 filtered closest-hit and any-hit on
+                the raytraced frame's slab-0 primary and shadow rays, K2
+                any-hit on the rayquery frame's slab-0 shadow rays and K1a
+                on shard 0 of the supersample raster against their plain
+                versions, timed, with their bounds (the JSON line's
+                "raytraced mesh slab", "rayquery mesh slab" and
+                "supersample mesh shard" entries, their launches the first
+                captured turn's 10 frames').  Any failure fails the run
   7. probe    - the row-gather probe (probes/gather.py), printed in full:
                 the yardstick (the delivered L1 and L2 read rates in TB/s
                 and bytes a clock an SM, their bit sums equal to a plain
@@ -2299,7 +2317,12 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.update(_mesh_phase(realglb, full_cfg, raster_cfg, dev, drive, k1_equal, k1_bound,
                                k2_wave, smi, launches))
-    _mesh_captured_phase(realglb, full_cfg, raster_cfg, pica, pica_cfg, dev, smi)
+    timed_counts, realglb_bvh = _mesh_captured_phase(realglb, full_cfg, raster_cfg, pica,
+                                                     pica_cfg, dev, smi)
+    mesh_entries, mesh_launches = _mesh_path_kernels(realglb, realglb_bvh, dev, k1_equal,
+                                                     k1_bound, k2_wave, timed_counts)
+    kernels.update(mesh_entries)
+    launches.update(mesh_launches)
     _phase("mesh", t0)
 
     # ---- 7. the row-gather probe ---------------------------------------------------
@@ -2615,6 +2638,20 @@ def _eager_mesh_frame(r):
     return res[RENDER_OUTPUT]
 
 
+#: the counters of runtime/dispatch.counters(mesh), by name
+_COUNTER_NAMES = ("K1a", "K1b", "K1c", "K1d")
+
+
+def _named_counts(d: list) -> dict:
+    """A runtime/dispatch.delta over counters(mesh) by name: K1a-K1d, K2's
+    modes as _k2_name names them ("K2 <mode>", the kind in the mode), and
+    the mesh's moved bytes by kind."""
+    out = dict(zip(_COUNTER_NAMES, d[:4]))
+    out.update({f"K2 {mode}": v for mode, v in d[4].items() if v})
+    out["moved"] = dict(d[-1])
+    return out
+
+
 def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
     """Phase 6c (e): the mesh frame captured (runtime/dispatch.py: one
     graph a frame, fused, or one a pass, per_pass, each spanning the mesh's
@@ -2622,19 +2659,30 @@ def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
     frame, on make_mesh() where the machine has two cards or more, else a
     virtual mesh of 4 on `dev`: path 8, cell 4 with and without SSR, the
     full frame at rt_scale=2 (on realglb) and path 11 (pica_proxy animated
-    a frame).  Over frames 0-3, the camera moving before each and the
-    temporal state carried, every frame equal (torch.equal); fused captures
-    at frame 1 and per_pass at frame 0 (auto_precompile: precompile_passes
-    over the mesh), the warm-up and the captures under
-    set_sync_debug_mode("error"); a replayed frame's launch counts and
-    Mesh.moved bytes equal to the eager frame's; the graphs a frame and
-    capture seconds printed; then, but for SSR's, ms/frame in turns (one
-    card fused, mesh eager, mesh captured, mesh captured, mesh eager, one
-    card fused; CUDA events on the primary's stream, 10 frames each, 5
-    eager)."""
+    a frame); then the other paths, row-sharded as the hybrid, on realglb:
+    the raytraced frame with test_alpha (cell 14's, on the bf16 table), the
+    rayquery frame (cell 6's configuration), the forward frame at one
+    sample and at supersample 4 (a 3840x2160 raster).  Over frames 0-3,
+    the camera moving before each and the temporal state carried, every
+    frame equal (torch.equal); fused captures at frame 1 and per_pass at
+    frame 0 (auto_precompile: precompile_passes over the mesh), the warm-up
+    and the captures under set_sync_debug_mode("error"); a replayed frame's
+    launch counts and Mesh.moved bytes equal to the eager frame's; the
+    graphs a frame and capture seconds printed.  The hybrid cases must
+    exchange halos or gathers, the other paths none; their eager frames
+    must launch K1a once per shard and image rastered and K2 once per slab
+    and wavefront, and each pass's device ms on each shard is printed
+    (parallel/mesh.ShardClock).  Then ms/frame in turns (CUDA events on the
+    primary's stream): the hybrid cases but SSR's one card fused, mesh
+    eager, mesh captured, mesh captured, mesh eager, one card fused (10
+    frames each, 5 eager); the other paths one card fused, mesh captured,
+    mesh captured, one card fused.  Returns, for the other paths, the
+    counts of the first turn's 10 captured frames (_named_counts) and the
+    BVH8 they traced."""
     import copy
 
-    from vulkanhybridrenderer_tpu_torch.core.config import ReflectionMode
+    from vulkanhybridrenderer_tpu_torch.core import config as cfgmod
+    from vulkanhybridrenderer_tpu_torch.core.config import ReflectionMode, RenderConfig
     from vulkanhybridrenderer_tpu_torch.parallel import mesh as pmesh
     from vulkanhybridrenderer_tpu_torch.runtime import dispatch as pdispatch
     from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
@@ -2658,30 +2706,50 @@ def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
     ssr_cfg = dataclasses.replace(raster_cfg, hybrid=dataclasses.replace(
         raster_cfg.hybrid, reflection_mode=ReflectionMode.SSR))
     half_cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(cfg.hybrid, rt_scale=2))
-    # (label, scene, config, animate, timed): SSR's frame (~0.5 s on one
-    # card) is checked, not timed
-    cases = (("path 8", realglb, cfg, None, True), ("cell 4", realglb, raster_cfg, None, True),
-             ("cell 4 with SSR", realglb, ssr_cfg, None, False),
-             ("full at rt_scale=2", realglb, half_cfg, None, True),
-             ("path 11, animated pica", pica, pica_cfg, animate_pica, True))
-    for label, scene, cfg_, animate, timed in cases:
+    rt_cfg = RenderConfig(width=WIDTH, height=HEIGHT,
+                          raytraced=cfgmod.RaytracedSettings(test_alpha=True))
+    ss4_cfg = RenderConfig(width=WIDTH, height=HEIGHT, forward=cfgmod.ForwardSettings(
+        msaa_samples=4, msaa_mode="supersample"))
+    # (label, scene, config, path, animate, timed): "eager" times the eager
+    # mesh frame too, "captured" one card and the captured mesh frame; SSR's
+    # frame (~0.5 s on one card) is checked, not timed
+    cases = (("path 8", realglb, cfg, "hybrid", None, "eager"),
+             ("cell 4", realglb, raster_cfg, "hybrid", None, "eager"),
+             ("cell 4 with SSR", realglb, ssr_cfg, "hybrid", None, None),
+             ("full at rt_scale=2", realglb, half_cfg, "hybrid", None, "eager"),
+             ("path 11, animated pica", pica, pica_cfg, "hybrid", animate_pica, "eager"),
+             ("raytraced, test_alpha", realglb, rt_cfg, "raytraced", None, "captured"),
+             ("rayquery", realglb, RenderConfig(width=WIDTH, height=HEIGHT), "rayquery", None,
+              "captured"),
+             ("forward", realglb, RenderConfig(width=WIDTH, height=HEIGHT), "forward", None,
+              "captured"),
+             ("forward, supersample 4", realglb, ss4_cfg, "forward", None, "captured"))
+    # one host build a (scene, table knobs), read in place on the primary
+    bvhs = {}
+    timed_counts = {}
+    for label, scene, cfg_, path, animate, timed in cases:
         camera = copy.deepcopy(scene.camera)
-        one = Renderer(scene, cfg_, device=dev)
-        one._get_bvh()
-        rs = {"eager": Renderer(scene, cfg_, mesh=make_mesh()),
-              "fused": Renderer(scene, cfg_, mesh=make_mesh()),
-              "per_pass": Renderer(scene, cfg_, mesh=make_mesh(), dispatch="per_pass")}
+        one = Renderer(scene, cfg_, path=path, device=dev)
+        key = (id(scene), cfg_.bvh_dtype, cfg_.bvh_leaf_max, cfg_.animated)
+        if key in bvhs:
+            one._bvh = bvhs[key]
+        bvh = bvhs[key] = one._get_bvh()
+        rs = {"eager": Renderer(scene, cfg_, path=path, mesh=make_mesh()),
+              "fused": Renderer(scene, cfg_, path=path, mesh=make_mesh()),
+              "per_pass": Renderer(scene, cfg_, path=path, mesh=make_mesh(),
+                                   dispatch="per_pass")}
         for r in rs.values():
             # the set-up's reads back (a host BVH build, check_binning) before
             # the frames: one host build, read in place on the primary
-            r._bvh, r._shade_tables = one._bvh, one._get_shade_tables()
+            r._bvh, r._shade_tables = bvh, one._get_shade_tables()
             prev = (r._prev_view, r._prev_proj)
             r.check_binning()
             r._prev_view, r._prev_proj = prev
             r._binning_checked = True
             r._consts()
+        n = rs["eager"].mesh.devices.size
         counted = {m: pdispatch.counters(r.mesh) for m, r in rs.items()}
-        equal, replayed_same, when = True, True, {}
+        equal, replayed_same, when, eager_counts = True, True, {}, []
         for f in range(4):
             one.update_camera(1 / 30, keys={"w"} if f % 2 else {"a"})
             for r in (one, *rs.values()):
@@ -2707,6 +2775,7 @@ def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
                     print(f"mesh capture: {label} frame {f} {m} DIFFERS from one card's on "
                           f"{int((img != want).any(dim=0).sum())} pixels (max "
                           f"{_max_abs(img - want):.3g})")
+            eager_counts.append(_named_counts(per["eager"]))
             if f >= 2:
                 for m in ("fused", "per_pass"):
                     same = per[m] == per["eager"]
@@ -2717,7 +2786,7 @@ def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
         cfu, cpp = rs["fused"]._captured, rs["per_pass"]._captured
         n_pass = len(rs["eager"].graph.find_execution_order())
         moved = dict(per["fused"][-1])
-        print(f"mesh capture: {label} over a {kind} mesh of {rs['fused'].mesh.devices.size} "
+        print(f"mesh capture: {label} over a {kind} mesh of {n} "
               f"(cards {[str(d) for d in rs['fused'].mesh.distinct()]}): frames 0-3 of fused, "
               f"per_pass and eager mesh frames {'all equal' if equal else 'NOT all equal'} to one "
               f"card's; captured at frame fused {when.get('fused')}, per_pass "
@@ -2725,21 +2794,54 @@ def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
               f"per_pass {cpp.n_graphs} ({n_pass} passes); capture s fused "
               f"{sum(cfu.capture_s.values()):.3f}, per_pass {sum(cpp.capture_s.values()):.3f}; "
               f"a replayed frame's counts equal the eager frame's: {replayed_same} (bytes "
-              f"between shards {moved}) | card: {smi}")
+              f"between shards by kind " + ", ".join(f"{k} {v}" for k, v in sorted(moved.items()))
+              + f") | card: {smi}")
         _check(equal, f"mesh capture: {label}: a frame differs")
         _check(replayed_same, f"mesh capture: {label}: a replayed frame counts another frame")
         _check(cfu.n_graphs == 1 and cpp.n_graphs == n_pass and when == {"fused": 1,
                                                                            "per_pass": 0},
                f"mesh capture: {label}: graphs {cfu.n_graphs} / {cpp.n_graphs}, captured {when}")
-        _check(moved.get("halo", 0) > 0 or moved.get("gather", 0) > 0,
-               f"mesh capture: {label}: a replayed frame exchanged nothing: {moved}")
+        if path == "hybrid":
+            _check(moved.get("halo", 0) > 0 or moved.get("gather", 0) > 0,
+                   f"mesh capture: {label}: a replayed frame exchanged nothing: {moved}")
+        else:
+            # each shard reads only its own rows: no halo, no gather
+            _check(moved.get("halo", 0) == 0 and moved.get("gather", 0) == 0,
+                   f"mesh capture: {label}: a replayed frame moved halos or gathers: {moved}")
+            mode = ({"filtered closest-hit": n, "filtered any-hit": n} if path == "raytraced"
+                    else {"any-hit": n} if path == "rayquery" else {})
+            want_counts = {_k2_name(bvh.kind, k): v for k, v in mode.items()}
+            # a K1a a shard and image rastered: the frame's (rayquery,
+            # forward) and the forward path's 4096^2 shadow map
+            want_counts["K1a"] = {"raytraced": 0, "rayquery": n, "forward": 2 * n}[path]
+            for f, c in enumerate(eager_counts):
+                got = {k: c.get(k, 0) for k in want_counts}
+                k2_other = {k for k in c if k.startswith("K2 ")} - set(want_counts)
+                _check(got == want_counts and not k2_other,
+                       f"mesh capture: {label}: eager frame {f} launched {c}, want {want_counts}")
+            print(f"mesh capture: {label}: every eager frame launched {want_counts} (K1a once "
+                  f"a shard and image, K2 once a slab and wavefront; {bvh.kind} rows)")
+            res = rs["eager"]._resources(rs["eager"]._make_pfd())
+            for _ in range(2):  # the second run timed
+                clock = pmesh.ShardClock(rs["eager"].mesh)
+                pmesh.run_sharded(rs["eager"].graph, rs["eager"].mesh, res, HEIGHT, WIDTH,
+                                  clock=clock)
+            for name, shards in clock.ms().items():
+                print(f"mesh capture: {label}: {name} device ms per shard "
+                      f"{' / '.join(f'{x:.3f}' for x in shards)} (sum {sum(shards):.3f}) | "
+                      f"card: {smi}")
+            del res
 
         def ms(r, m, frames):
+            """ms/frame of `frames` frames after 2 warm-up ones, and their
+            counts (_named_counts)."""
             for f in range(2):
                 if animate is not None:
                     animate(r, f)
                 _eager_mesh_frame(r) if m == "eager" else r.render_frame()
             sync_all()
+            c = counted.get(m, pdispatch.counters(None))
+            before = pdispatch.snapshot(c)
             main = torch.cuda.current_stream(dev)
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record(main)
@@ -2749,21 +2851,146 @@ def _mesh_captured_phase(realglb, cfg, raster_cfg, pica, pica_cfg, dev, smi):
                 _eager_mesh_frame(r) if m == "eager" else r.render_frame(sync=False)
             end.record(main)
             sync_all()
-            return start.elapsed_time(end) / frames
+            return start.elapsed_time(end) / frames, pdispatch.delta(before,
+                                                                      pdispatch.snapshot(c))
 
         times = collections.defaultdict(list)
-        for m in ("one", "eager", "fused", "fused", "eager", "one") if timed else ():
+        turns = {"eager": ("one", "eager", "fused", "fused", "eager", "one"),
+                 "captured": ("one", "fused", "fused", "one"), None: ()}[timed]
+        for m in turns:
             r = one if m == "one" else rs[m]
-            times[m].append(ms(r, m, 5 if m == "eager" else 10))
-        if timed:
+            t, d = ms(r, m, 5 if m == "eager" else 10)
+            times[m].append(t)
+            if m == "fused" and timed == "captured" and label not in timed_counts:
+                timed_counts[label] = _named_counts(d)
+        if timed == "eager":
             print(f"mesh capture: {label} ms/frame in turns (one card fused, mesh eager, mesh "
                   f"captured, mesh captured, mesh eager, one card fused): one card "
                   f"{times['one'][0]:.3f} / {times['one'][1]:.3f}, {kind} mesh eager "
                   f"{times['eager'][0]:.3f} / {times['eager'][1]:.3f}, captured "
                   f"{times['fused'][0]:.3f} / {times['fused'][1]:.3f} | card: {smi}")
+        elif timed == "captured":
+            print(f"mesh capture: {label} ms/frame in turns (one card fused, mesh captured, "
+                  f"mesh captured, one card fused): one card {times['one'][0]:.3f} / "
+                  f"{times['one'][1]:.3f}, {kind} mesh of {n} captured {times['fused'][0]:.3f} / "
+                  f"{times['fused'][1]:.3f} | launches in the first captured turn's 10 frames "
+                  f"{timed_counts[label]} | card: {smi}")
         scene.camera = camera
         del one, rs
         torch.cuda.empty_cache()
+    return timed_counts, bvhs[(id(realglb), "auto", 0, False)]
+
+
+def _mesh_path_kernels(realglb, bvh, dev, k1_equal, k1_bound, k2_wave, timed_counts):
+    """The other paths' kernel instances over the mesh (make_mesh() where
+    the machine has two cards or more, else a virtual mesh of 4) against
+    their plain versions, timed, with their bounds: K2 filtered
+    closest-hit on the raytraced frame's slab-0 primary rays and filtered
+    any-hit on their shadow rays (test_alpha, second frame), K2 any-hit on
+    the rayquery frame's slab-0 shadow rays (resolved from band 0 of the
+    sort-last raster), K1a on shard 0's triangles of the forward frame's
+    3840x2160 supersample raster.  Returns the JSON line's entries and
+    their launches, the first captured turn's 10 frames of each path
+    (timed_counts; the supersample frame's K1a count holds its 4096^2
+    shadow map's shards too)."""
+    from vulkanhybridrenderer_tpu_torch.core import config as cfgmod
+    from vulkanhybridrenderer_tpu_torch.core.config import RenderConfig
+    from vulkanhybridrenderer_tpu_torch.models import rayquery as rayquery_path
+    from vulkanhybridrenderer_tpu_torch.models import raytraced as raytraced_path
+    from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled as rt
+    from vulkanhybridrenderer_tpu_torch.ops import rt_shade, shade, traverse
+    from vulkanhybridrenderer_tpu_torch.ops.rasterizer import triangle_setup
+    from vulkanhybridrenderer_tpu_torch.parallel import mesh as pmesh
+    from vulkanhybridrenderer_tpu_torch.runtime.renderer import Renderer
+
+    mesh = pmesh.make_mesh() if torch.cuda.device_count() >= 2 else pmesh.make_mesh([dev] * 4)
+    n = mesh.devices.size
+    rows = mesh.rows(0, HEIGHT)
+    entries, launches = {}, {}
+
+    def second_frame(cfg, path, *names):
+        r = Renderer(realglb, cfg, path=path, device=dev)
+        r._bvh = bvh
+        r.render_frame()
+        return r.fetch_resources(*names)
+
+    # the raytraced frame with test_alpha: slab 0's rays, through the filter
+    res = second_frame(RenderConfig(width=WIDTH, height=HEIGHT, raytraced=cfgmod.RaytracedSettings(
+        test_alpha=True)), "raytraced", "pfd", "BVH", "shade_tables", "TriRows")
+    pfd, b, tables = res["pfd"], res["BVH"], res["shade_tables"]
+    o, d = raytraced_path.primary_rays(pfd, HEIGHT, WIDTH, rows)
+    p_tmax = torch.full((o.shape[0],), raytraced_path.TMAX, device=dev)
+    k = traverse.trace(b, None, o, d, raytraced_path.PRIMARY_TMIN, p_tmax, alpha_tables=tables)
+    u = traverse.trace(b, None, o, d, raytraced_path.PRIMARY_TMIN, p_tmax)
+    pos = rt_shade.interpolate_hit_attributes(tables, res["TriRows"], k.tri, k.u,
+                                              k.v)["position"].contiguous()
+    s_dir = (-pfd.directional_light.direction[:3]).expand(pos.shape).contiguous()
+    s_tmax = torch.where(k.hit, raytraced_path.TMAX, -1.0)
+    ks = traverse.trace(b, None, pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, anyhit=True,
+                        alpha_tables=tables)
+    us = traverse.trace(b, None, pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, anyhit=True)
+    for mode, (oo, dd, tmin, tmax, anyhit, kk, uu) in {
+            "filtered closest-hit": (o, d, raytraced_path.PRIMARY_TMIN, p_tmax, False, k, u),
+            "filtered any-hit": (pos, s_dir, raytraced_path.SHADOW_TMIN, s_tmax, True, ks, us),
+    }.items():
+        # the bound's bytes add the tri_static rows (240 bytes) of the
+        # triangles hit with or without the filter, as the frame's row
+        tris = torch.unique(torch.cat([kk.tri, uu.tri]))
+        name = _k2_name(b.kind, mode)
+        entries[f"{name} raytraced mesh slab"] = k2_wave(
+            b, f"raytraced mesh slab 0 of {n} {'shadow' if anyhit else 'primary'}", oo, dd,
+            tmin, tmax, anyhit, tables, plain_timed=True, extra_bytes=int((tris >= 0).sum()) * 240)
+        launches[f"{name} raytraced mesh slab"] = timed_counts["raytraced, test_alpha"][name]
+    del res, o, d, k, u, pos, s_dir, ks, us
+
+    # the rayquery frame: band 0 of the sort-last raster resolved, its
+    # shadow rays any-hit
+    res = second_frame(RenderConfig(width=WIDTH, height=HEIGHT), "rayquery", "scene", "pfd",
+                       "Clip", "BVH", "shade_tables", "TriRows")
+    band = pmesh.rasterize_scene_bands(res["scene"], res["Clip"], WIDTH, HEIGHT, mesh,
+                                       alpha=False, tables=res["shade_tables"])[0]
+    attrs = shade.resolve_forward_attributes(res["scene"], res["shade_tables"], res["TriRows"],
+                                             band)
+    origins = attrs["position"].reshape(-1, 3).contiguous()
+    dirs = (-res["pfd"].directional_light.direction[:3]).expand(origins.shape).contiguous()
+    tmax = torch.where(attrs["valid"].reshape(-1), rayquery_path.SHADOW_TMAX, -1.0)
+    _check(origins.shape[0] == rows.count * WIDTH, f"rayquery band 0 has {origins.shape[0]} rays")
+    name = _k2_name(res["BVH"].kind, "any-hit")
+    entries[f"{name} rayquery mesh slab"] = k2_wave(
+        res["BVH"], f"rayquery mesh slab 0 of {n} shadow", origins, dirs,
+        rayquery_path.SHADOW_TMIN, tmax, True, plain_timed=True)
+    launches[f"{name} rayquery mesh slab"] = timed_counts["rayquery"][name]
+    del res, band, attrs, origins, dirs, tmax
+
+    # the forward frame at supersample 4: K1a on shard 0's triangles of
+    # the 3840x2160 raster (the opaque stream; the masked ones are peeled)
+    w2, h2 = 2 * WIDTH, 2 * HEIGHT
+    res = second_frame(RenderConfig(width=WIDTH, height=HEIGHT, forward=cfgmod.ForwardSettings(
+        msaa_samples=4, msaa_mode="supersample")), "forward", "scene", "Clip")
+    sc = res["scene"]
+    setup = triangle_setup(res["Clip"], sc.tri_vertex, w2, h2)
+    per = -(-setup.planes.shape[0] // n)
+    sub = type(setup)(**{f: getattr(setup, f)[:per]
+                         for f in ("planes", "sx", "sy", "bbox", "w_any", "front", "valid")})
+    opaque, _ = rt.opaque_include(sc, True)
+    bins = rt.bin_triangles(sub, w2, h2, include=None if opaque is None else opaque[:per])
+    _check(int(bins.overflow[0]) == 0, f"the {w2}x{h2} shard's binning overflowed its entry cap "
+           f"by {int(bins.overflow[0])}")
+    err = k1_equal(f"mesh: K1a on shard 0's {per} triangles of the {w2}x{h2} supersample raster",
+                   rt.raster_tiles(sub.planes, bins, w2, h2),
+                   rt.raster_tiles_plain(sub.planes, bins, w2, h2))
+    kb = k1_bound("K1a", sub.planes, bins, w2 * h2)
+    k_ms = _cuda_ms(lambda: rt.raster_tiles(sub.planes, bins, w2, h2), 20)
+    p_ms = _cuda_ms(lambda: rt.raster_tiles_plain(sub.planes, bins, w2, h2), 2)
+    entries["K1a supersample mesh shard"] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                                                 bound_ms=kb["bound_ms"], bound_by=kb["bound_by"])
+    launches["K1a supersample mesh shard"] = timed_counts["forward, supersample 4"]["K1a"]
+    print(f"mesh: K1a on supersample shard 0: {kb['entries']} entries, {kb['pairs']} passing "
+          f"(entry, sub-tile) pairs, kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{kb['bound_ms']:.4f} ms (set by {kb['bound_by']}; dense {kb['dense_bound_ms']:.4f})")
+    del res, setup, sub, bins
+    torch.cuda.empty_cache()
+    return entries, launches
 
 
 def _mesh_frame(label, single, meshed, mesh, sync_all, smi):

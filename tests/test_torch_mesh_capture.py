@@ -3,7 +3,8 @@ over parallel/mesh.py): on CUDA a mesh frame is captured into CUDA graphs
 spanning the mesh's cards, which needs a card; here a CapturedFrame is made
 on a CPU mesh of 4 and its frame run eagerly (``run_segments``, the body a
 capture records), fused and per_pass, against the renderer's eager mesh
-frame.  Checks: the temporal state's clone, copy (whole into Slabs, Slabs
+frame: the hybrid path's, and the raytraced frame with test_alpha and the
+forward frame at supersample 4, row-sharded as the hybrid's.  Checks: the temporal state's clone, copy (whole into Slabs, Slabs
 into whole, Slabs into Slabs), save and restore, each slab on its own
 device; the state taking the layout of the warm-up frame's (row-sharded);
 ``Mesh.moved`` and the launch counters re-added per replay from a
@@ -19,6 +20,7 @@ equal bit for bit).
 """
 import collections
 import dataclasses
+import functools
 
 import pytest
 import torch
@@ -46,10 +48,11 @@ def _config(rt_scale=1, w=W, h=H):
 
 def _frame(r, per_pass: bool):
     """A CapturedFrame of renderer r's active key, as the renderer makes it."""
-    keep = (dispatch.TEMPORAL_OUT,) if r.path.uses_temporal_state else ()
+    state = r.path.uses_temporal_state
     return dispatch.CapturedFrame(
-        "test", r.graph, RENDER_OUTPUT, keep, per_pass, r.device, r._consts(),
-        r.buffers.num_primitives, r.temporal_state, (r.config.height, r.config.width))
+        "test", r.graph, RENDER_OUTPUT, (dispatch.TEMPORAL_OUT,) if state else (), per_pass,
+        r.device, r._consts(), r.buffers.num_primitives, r.temporal_state if state else None,
+        (r.config.height, r.config.width))
 
 
 def _step(r, f):
@@ -141,6 +144,47 @@ def test_captured_frame_body_equals_eager_mesh_frame(per_pass, rt_scale):
         assert [t.data_ptr() for t in tensors_of(cf.state)] == ptrs
         for k, v in _fields(eager.temporal_state).items():
             assert torch.equal(_fields(cf.state)[k], v), (f, k)
+
+
+#: the other paths' row-sharded frames (no temporal state): (scene, config)
+OTHER_PATHS = {
+    "raytraced, test_alpha": (functools.partial(pproc.checker_quad, alpha_leaf=True),
+                              pcfg.RenderConfig(width=W, height=H, raytraced=pcfg.RaytracedSettings(
+                                  test_alpha=True)), "raytraced"),
+    "forward, supersample 4": (pproc.cornell_box, pcfg.RenderConfig(
+        width=W, height=H, shadow_map_size=128, forward=pcfg.ForwardSettings(
+            msaa_samples=4, msaa_mode="supersample")), "forward"),
+}
+
+
+@pytest.mark.parametrize("case", list(OTHER_PATHS))
+@pytest.mark.parametrize("per_pass", [False, True], ids=["fused", "per_pass"])
+def test_captured_frame_body_other_paths(per_pass, case):
+    """The raytraced frame with test_alpha (each shard tracing its slab)
+    and the forward frame at supersample 4 (each shard shading its band):
+    a CapturedFrame's segments over a CPU mesh of 4 give the renderer's
+    eager mesh frames over frames 0-3 with the camera moving, and each
+    frame moves the bytes an eager frame moves."""
+    scene_fn, cfg, path = OTHER_PATHS[case]
+    eager = Renderer(scene_fn(), cfg, path=path, mesh=pmesh.make_mesh([CPU] * 4))
+    r = Renderer(scene_fn(), cfg, path=path, mesh=pmesh.make_mesh([CPU] * 4))
+    cf = _frame(r, per_pass)
+    assert cf.state is None and cf.n_graphs == (len(r.graph.find_execution_order())
+                                                if per_pass else 1)
+    for f in range(4):
+        _step(eager, f)
+        _step(r, f)
+        before = collections.Counter(eager.mesh.moved)
+        want = eager.render_frame()
+        moved = collections.Counter(eager.mesh.moved) - before
+        cf.load(r._pack_pfd(), r.prim_transform)
+        before = collections.Counter(r.mesh.moved)
+        res = cf.run_segments(cf.inputs())
+        r.frame_index += 1
+        assert torch.equal(res[RENDER_OUTPUT], want), f
+        if f:  # frame 0 makes the constants' replicas
+            assert collections.Counter(r.mesh.moved) - before == moved, f
+    assert want[:3].std() > 0.01
 
 
 def test_moved_readded_per_replay():

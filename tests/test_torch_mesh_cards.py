@@ -29,7 +29,10 @@ animated pica, its refit BVH8 and rebuilt grid replicated to the cards
 inside the graph), fused and per_pass, equal to the eager mesh frame and
 one card's over frames 0-3 with the camera moving, the warm-up and the
 capture making no synchronizing call and a replayed frame counting the
-eager frame's launches and bytes.  No JAX.
+eager frame's launches and bytes; the same for the raytraced
+frame with test_alpha, the rayquery frame and the forward frame at one
+sample and at supersample 4 on realglb, each card rastering its band,
+tracing and shading its slab.  No JAX.
 """
 import collections
 import dataclasses
@@ -188,31 +191,55 @@ def _full(**kw):
         reflection_mode=pcfg.ReflectionMode.RAYTRACED, denoise=True), **kw)
 
 
+def _pica(r, f):
+    r.animate(procedural.animate_pica(r.scene, f / 60.0))
+
+
+#: label -> (scene, config, path, animate(r, f) or None), each at 1920x1080
+CAPTURED = {
+    "path 8": (lambda: app.load_any_scene("realglb"), lambda: _full(), "hybrid", None),
+    "path 11": (procedural.pica_proxy, lambda: _full(shadow_accel="grid", animated=True),
+                "hybrid", _pica),
+    # the other paths, row-sharded as the hybrid: the raytraced frame of
+    # PERF.md's cell 14, cell 6's rayquery frame, the forward frame at one sample and at
+    # supersample 4 (a 3840x2160 raster), all on realglb
+    "raytraced, test_alpha": (lambda: app.load_any_scene("realglb"), lambda: pcfg.RenderConfig(
+        width=W, height=H, raytraced=pcfg.RaytracedSettings(test_alpha=True)), "raytraced",
+        None),
+    "rayquery": (lambda: app.load_any_scene("realglb"),
+                 lambda: pcfg.RenderConfig(width=W, height=H), "rayquery", None),
+    "forward": (lambda: app.load_any_scene("realglb"),
+                lambda: pcfg.RenderConfig(width=W, height=H), "forward", None),
+    "forward, supersample 4": (lambda: app.load_any_scene("realglb"), lambda: pcfg.RenderConfig(
+        width=W, height=H, forward=pcfg.ForwardSettings(msaa_samples=4,
+                                                        msaa_mode="supersample")),
+        "forward", None),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["path 8", "path 11"])
-def test_captured_mesh_frame_over_every_card(case):
+@pytest.mark.parametrize("case", list(CAPTURED))
+def test_captured_mesh_frame_over_every_card(case, monkeypatch):
     """The mesh frame captured into CUDA graphs spanning every card, fused
     (one graph a frame) and per_pass (one a pass), against the eager mesh
     frame and one card's over frames 0-3, the camera moving between frames:
-    path 8 (the flagship on realglb) and path 11 (pica_proxy animated a
+    path 8 (the flagship on realglb), path 11 (pica_proxy animated a
     frame, its BVH8 refit and its shadow grid rebuilt in the frame, both
-    replicated to the cards inside the graph).  The warm-up and the capture
-    make no synchronizing call; a replayed frame's launches and bytes
-    between cards equal the eager frame's; every frame after the capture is
-    a replay."""
+    replicated to the cards inside the graph), and the raytraced (with
+    test_alpha), rayquery and forward (one sample, supersample 4) frames,
+    each card rastering its band, tracing and shading its slab.  The
+    warm-up and the capture make no synchronizing call; a replayed frame's
+    launches and bytes between cards equal the eager frame's; every frame
+    after the capture is a replay; in the eager frames every card launches
+    K1a where the path rasters and K2 where it traces, the raytraced and
+    rayquery frames moving no halo and no gather."""
     mesh = _mesh_or_skip()
-    if case == "path 8":
-        scene, cfg, animate = app.load_any_scene("realglb"), _full(), None
-    else:
-        scene = procedural.pica_proxy()
-        cfg = _full(shadow_accel="grid", animated=True)
-
-        def animate(r, f):
-            r.animate(procedural.animate_pica(r.scene, f / 60.0))
-    one = Renderer(scene, cfg, device="cuda:0")
-    eager = Renderer(scene, cfg, mesh=pmesh.make_mesh())
-    caps = {m: Renderer(scene, cfg, mesh=pmesh.make_mesh(), dispatch=m, auto_precompile=False)
-            for m in ("fused", "per_pass")}
+    scene_fn, cfg_fn, path, animate = CAPTURED[case]
+    scene, cfg = scene_fn(), cfg_fn()
+    one = Renderer(scene, cfg, path=path, device="cuda:0")
+    eager = Renderer(scene, cfg, path=path, mesh=pmesh.make_mesh())
+    caps = {m: Renderer(scene, cfg, path=path, mesh=pmesh.make_mesh(), dispatch=m,
+                        auto_precompile=False) for m in ("fused", "per_pass")}
     for r in (eager, *caps.values()):
         r._bvh = one._get_bvh()  # one host build, read in place on card 0
         prev = (r._prev_view, r._prev_proj)
@@ -221,6 +248,19 @@ def test_captured_mesh_frame_over_every_card(case):
         r._binning_checked = True
         r._consts()
     counted = {m: dispatch.counters(r.mesh) for m, r in (("eager", eager), *caps.items())}
+    # each eager launch's card, as in the flagship's test above
+    cards = collections.Counter()
+    launch, trace = rasterizer_tiled.launch, traverse.trace
+
+    def counted_launch(mode, planes, *args, **kwargs):
+        cards[(mode, planes.device.index)] += 1
+        return launch(mode, planes, *args, **kwargs)
+
+    def counted_trace(bvh, tri_verts, origin, *args, **kwargs):
+        cards[("K2", origin.device.index)] += 1
+        return trace(bvh, tri_verts, origin, *args, **kwargs)
+
+    counted_trace.launches = trace.launches
     for f in range(4):
         for r in (one, eager, *caps.values()):
             r.update_camera(1 / 30, keys={"w"} if f % 2 else {"a"})
@@ -232,10 +272,14 @@ def test_captured_mesh_frame_over_every_card(case):
             before = dispatch.snapshot(counted[m])
             if m != "eager" and f < 2:
                 torch.cuda.set_sync_debug_mode("error")
+            if m == "eager":
+                monkeypatch.setattr(rasterizer_tiled, "launch", counted_launch)
+                monkeypatch.setattr(traverse, "trace", counted_trace)
             try:
                 got[m] = _eager_frame(r) if m == "eager" else r.render_frame(sync=False)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
+                monkeypatch.undo()
             for d in mesh.distinct():
                 torch.cuda.synchronize(d)
             per[m] = dispatch.delta(before, dispatch.snapshot(counted[m]))
@@ -248,12 +292,20 @@ def test_captured_mesh_frame_over_every_card(case):
             assert cf.n_graphs == (1 if m == "fused" else len(r.graph.find_execution_order()))
             if f >= 2:
                 assert per[m] == per["eager"], (case, f, m, per[m], per["eager"])
+    moved = per["fused"][-1]
+    for i in range(mesh.devices.size):
+        assert path == "forward" or cards[("K2", i)] >= 4, dict(cards)
+        assert path == "raytraced" or cards[("K1a", i)] >= 4, dict(cards)
+    if path in ("raytraced", "rayquery"):
+        assert moved["halo"] == 0 and moved["gather"] == 0, dict(moved)
     for m, r in caps.items():
-        parts = r.temporal_state.shadow_ao_history.parts
-        assert [p.device for p in parts] == list(mesh.devices), m
+        if r.path.uses_temporal_state:
+            parts = r.temporal_state.shadow_ao_history.parts
+            assert [p.device for p in parts] == list(mesh.devices), m
         print(f"\n{case} {m} over {mesh.devices.size} cards: frames 0-3 equal to the eager "
               f"mesh frame and one card's; capture s {r._captured.capture_s}; a replayed "
-              f"frame moved {dict(per[m][-1])} | {_smi()}")
+              f"frame moved {dict(per[m][-1])}; eager launches by (kernel, card) "
+              f"{dict(cards)} | {_smi()}")
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The port's frame over a CPU mesh (``Renderer(mesh=make_mesh([cpu] * N))``)
 against its single-device frame: equal on every pixel.
 
-The mesh row-shards the hybrid path's image passes (each shard computes its
+The mesh row-shards every path's image passes (each shard computes its
 slab, with the halo and gather exchanges each pass declares), splits the
 raster (sort-last, K1a per shard) and computes each pixel, each ray, as the
 single-device frame does, so the frames are exactly equal: the flagship
@@ -12,8 +12,9 @@ SSAO and its blur, SSR) likewise; a height the shards do not divide (each
 pass then runs on the primary and warns); the raytrace pass alone
 (``hybrid_raytrace(mesh=)``) against ``mesh=None``, with K2 called once
 per slab and wavefront; and the other paths and modes a mesh reaches (the
-alpha peel on the small SponzaProxy, the forward path's supersample MSAA,
-the rayquery path, an animated scene whose refit BVH8 each frame's slabs
+alpha peel on the small SponzaProxy, the forward path at one sample and
+supersample, the rayquery path, the raytraced path with and without
+test_alpha, an animated scene whose refit BVH8 each frame's slabs
 trace).  Coverage MSAA on a mesh raises, as in the reference.  No JAX:
 test_torch_mesh_jax.py and test_torch_mesh_jax_raster.py hold the mesh
 frame against the JAX package's.
@@ -202,20 +203,33 @@ MODES = {
         width=W, height=H, shadow_map_size=128, hybrid=pcfg.HybridSettings(
             shadow_mode=pcfg.ShadowMode.RASTERIZED, ao_mode=pcfg.AmbientOcclusionMode.SSAO,
             reflection_mode=pcfg.ReflectionMode.SSR)), "hybrid"),
-    # supersample: the raster at 192x128
+    # supersample: the raster at 192x128, each shard's 16 raster rows box
+    # filtered into its 8 output rows
     "sponza forward, supersample 4": (SMALL_SPONZA, pcfg.RenderConfig(
         width=W, height=H, shadow_map_size=128, forward=pcfg.ForwardSettings(
             msaa_samples=4, msaa_mode="supersample")), "forward"),
     "checker rayquery": (functools.partial(pproc.checker_quad, alpha_leaf=True),
                          pcfg.RenderConfig(width=W, height=H), "rayquery"),
+    # each shard traces its slab's primary and shadow rays through the
+    # alpha filter, on the masked materials' tables
+    "sponza raytraced, test_alpha": (SMALL_SPONZA, pcfg.RenderConfig(
+        width=W, height=H, raytraced=pcfg.RaytracedSettings(test_alpha=True)), "raytraced"),
+    "cornell raytraced": (pproc.cornell_box, pcfg.RenderConfig(width=W, height=H),
+                          "raytraced"),
+    # the raster's bands shaded where they lie; the shadow map on the primary
+    "sponza forward, one sample": (SMALL_SPONZA, pcfg.RenderConfig(
+        width=W, height=H, shadow_map_size=128), "forward"),
     # 60 rows do not divide over 8 shards: the single-device raster and trace
     "cornell full, 60 rows": (pproc.cornell_box, pcfg.RenderConfig(
         width=W, height=60, hybrid=FULL), "hybrid"),
 }
 
 
+@pytest.mark.filterwarnings("error:.*a pass without steps reads the split images")
 @pytest.mark.parametrize("mode", list(MODES))
 def test_mesh_modes_equal_single_device(mode):
+    """Frames 0-1 equal one device's; every pass that reads a split image
+    has steps (the warning that one without read them is an error)."""
     scene_fn, cfg, path = MODES[mode]
     for one, mesh in _frames(scene_fn, cfg, path):
         assert torch.equal(one, mesh)

@@ -19,6 +19,13 @@ MSAA (forward_raster_render_path.cpp:59, the max-sample-count attachments):
     the reference): raster and shade at isqrt(k) times the resolution per
     axis, then a box filter (k = 2 gives 1x, 4 and 8 give 2x);
   * one sample: the plain raster.
+
+One sample and supersample register the Forward Pass as two Steps
+(graph/render_graph.py): the raster, then the resolve, the shading and the
+box filter.  Over a device mesh (parallel/mesh.py) the raster runs
+sort-last and each shard shades its band: ss * H / N raster rows, whose
+boxes make its H / N output rows, no box straddling two bands.  Coverage
+MSAA stays one function, single-device as in the reference.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_geometry_pass,
     add_shadow_map_pass,
-    rasterize_for_path,
+    raster_steps,
 )
 from vulkanhybridrenderer_tpu_torch.ops import rasterizer_tiled, shade
 from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer
@@ -55,46 +62,47 @@ class ForwardRasterPath(RenderPath):
                 res["scene"], res["shade_tables"], res["TriRows"], vis)
             return shade.forward_shade(attrs, res["pfd"], shadow=None)
 
-        def forward_pass(res):
-            scene = res["scene"]
-            if coverage:
-                if res.get("mesh") is not None:
-                    raise NotImplementedError(
-                        "coverage MSAA is single-device; use "
-                        "forward.msaa_mode='supersample' on a mesh"
-                    )
-                vises = rasterizer_tiled.rasterize_scene_msaa(
-                    scene, res["Clip"], w, h, k, alpha=cfg.alpha_raster != "off",
-                    cull_backface=cfg.raster_state.cull_mode == "back",
-                    tables=res["shade_tables"],
+        def coverage_pass(res):
+            if res.get("mesh") is not None:
+                raise NotImplementedError(
+                    "coverage MSAA is single-device; use "
+                    "forward.msaa_mode='supersample' on a mesh"
                 )
-                v0 = vises[0]
-                found = torch.zeros_like(v0.tri_id, dtype=torch.bool)
-                tb, db, bb = v0.tri_id, v0.depth, v0.bary
-                for v in vises[1:]:
-                    take = ~found & (v.tri_id != v0.tri_id) & (v.tri_id >= 0)
-                    tb = torch.where(take, v.tri_id, tb)
-                    db = torch.where(take, v.depth, db)
-                    bb = torch.where(take[..., None], v.bary, bb)
-                    found |= take
-                col_a = shade_vis(res, v0)
-                col_b = shade_vis(res, VisibilityBuffer(tri_id=tb, depth=db, bary=bb))
-                acc = torch.zeros_like(col_a)
-                for v in vises:
-                    ci = torch.where((v.tri_id == v0.tri_id)[None], col_a, col_b)
-                    ci = torch.where((v.tri_id == -1)[None], 0.0, ci)
-                    acc = acc + ci
-                return {RENDER_OUTPUT: acc / k}
+            vises = rasterizer_tiled.rasterize_scene_msaa(
+                res["scene"], res["Clip"], w, h, k, alpha=cfg.alpha_raster != "off",
+                cull_backface=cfg.raster_state.cull_mode == "back",
+                tables=res["shade_tables"],
+            )
+            v0 = vises[0]
+            found = torch.zeros_like(v0.tri_id, dtype=torch.bool)
+            tb, db, bb = v0.tri_id, v0.depth, v0.bary
+            for v in vises[1:]:
+                take = ~found & (v.tri_id != v0.tri_id) & (v.tri_id >= 0)
+                tb = torch.where(take, v.tri_id, tb)
+                db = torch.where(take, v.depth, db)
+                bb = torch.where(take[..., None], v.bary, bb)
+                found |= take
+            col_a = shade_vis(res, v0)
+            col_b = shade_vis(res, VisibilityBuffer(tri_id=tb, depth=db, bary=bb))
+            acc = torch.zeros_like(col_a)
+            for v in vises:
+                ci = torch.where((v.tri_id == v0.tri_id)[None], col_a, col_b)
+                ci = torch.where((v.tri_id == -1)[None], 0.0, ci)
+                acc = acc + ci
+            return {RENDER_OUTPUT: acc / k}
 
-            vis = rasterize_for_path(scene, res["Clip"], w, h, cfg, mesh=res.get("mesh"),
-                                     tables=res["shade_tables"])
+        def shade_band(res, vis):
             img = shade_vis(res, vis)
             if ss > 1:  # the supersample resolve: a box filter
-                img = img.reshape(img.shape[0], cfg.height, ss, cfg.width, ss).mean(dim=(2, 4))
+                img = img.reshape(img.shape[0], -1, ss, cfg.width, ss).mean(dim=(2, 4))
             return {RENDER_OUTPUT: img}
 
-        graph.add_pass(
-            "Forward Pass", forward_pass,
-            inputs=("scene", "pfd", "Clip", "Shadow Map", "shade_tables", "TriRows"),
-            outputs=(RENDER_OUTPUT,),
-        )
+        inputs = ("scene", "pfd", "Clip", "Shadow Map", "shade_tables", "TriRows")
+        if coverage:
+            graph.add_pass("Forward Pass", coverage_pass, inputs=inputs,
+                           outputs=(RENDER_OUTPUT,))
+        else:
+            # the shade step reads no shadow map (forward_shade(shadow=None)),
+            # so no shard gets a replica of it
+            graph.add_pass("Forward Pass", raster_steps(w, h, cfg, shade_band), inputs=inputs,
+                           outputs=(RENDER_OUTPUT,))

@@ -52,7 +52,7 @@ from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
     add_shadow_map_pass,
-    rasterize_bands,
+    raster_steps,
 )
 from vulkanhybridrenderer_tpu_torch.ops import (
     composition,
@@ -64,8 +64,6 @@ from vulkanhybridrenderer_tpu_torch.ops import (
     svgf,
     upsample,
 )
-from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer
-from vulkanhybridrenderer_tpu_torch.parallel.mesh import Slabs
 
 ALBEDO = "Albedo"
 NORMALS = "World Space Normals and Object IDs"
@@ -84,9 +82,6 @@ RT_MOTION = "RT Motion"
 UP_SHADOW_AO = "Upsampled Raytraced Shadows and Ambient Occlusion"
 UP_REFLECTIONS = "Upsampled Raytraced Reflections"
 SHADOW_GRID = "ShadowGrid"
-#: the G-Buffer Pass's visibility between its two steps (the barycentrics
-#: channel-planar, (3, H, W), so that rows are dim -2)
-VIS = ("G-Buffer Tri ID", "G-Buffer Visible Depth", "G-Buffer Barycentrics")
 
 
 class HybridPath(RenderPath):
@@ -109,23 +104,7 @@ class HybridPath(RenderPath):
 
         add_geometry_pass(graph)
 
-        def raster_step(res):
-            """The raster: over a mesh the sort-last composite's bands, else
-            (or where it does not run) the single-device raster's frame."""
-            vis = rasterize_bands(res["scene"], res["Clip"], w, h, cfg, mesh=res.get("mesh"),
-                                  tables=res["shade_tables"])
-            bands = [(v.tri_id, v.depth, v.bary.permute(2, 0, 1))
-                     for v in (vis if isinstance(vis, list) else [vis])]
-            if isinstance(vis, list):
-                return {k: Slabs(parts) for k, parts in zip(VIS, zip(*bands))}
-            return dict(zip(VIS, bands[0]))
-
-        def resolve_step(res):
-            # graph.run on one device with a mesh in res: the bands gathered
-            mesh = res.get("mesh")
-            tri, depth, bary = (res[k] if mesh is None else mesh.whole(res[k], "raster")
-                                for k in VIS)
-            vis = VisibilityBuffer(tri_id=tri, depth=depth, bary=bary.permute(1, 2, 0))
+        def resolve(res, vis):
             gb = gbuffer.resolve_gbuffer(res["scene"], res["shade_tables"], res["TriRows"],
                                          vis, res["pfd"], rows=res["rows"])
             return {ALBEDO: gb.albedo, NORMALS: gb.normal_oid,
@@ -133,7 +112,7 @@ class HybridPath(RenderPath):
 
         graph.add_pass(
             "G-Buffer Pass",
-            (Step(raster_step, None), Step(resolve_step, dict.fromkeys(VIS, ROWS))),
+            raster_steps(w, h, cfg, resolve),
             inputs=("scene", "pfd", "Clip", "shade_tables", "TriRows"),
             outputs=(ALBEDO, NORMALS, MOTION_MR, DEPTH),
         )

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import warnings
 
-from vulkanhybridrenderer_tpu_torch.graph.render_graph import RenderGraph
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import ROWS, RenderGraph, Step
 from vulkanhybridrenderer_tpu_torch.ops import (
     bvh,
     bvh8,
@@ -14,6 +14,7 @@ from vulkanhybridrenderer_tpu_torch.ops import (
     shadetab,
     shadowmap,
 )
+from vulkanhybridrenderer_tpu_torch.ops.rasterizer import VisibilityBuffer
 from vulkanhybridrenderer_tpu_torch.parallel import mesh as pmesh
 from vulkanhybridrenderer_tpu_torch.utils.math3d import matmul4
 
@@ -67,19 +68,54 @@ def _check_binned_preset(config):
         )
 
 
-def rasterize_bands(scene, clip, width, height, config, mesh=None, tables=None):
+def rasterize_bands(scene, clip, width, height, config, alpha: bool = True, mesh=None,
+                    tables=None):
     """rasterize_for_path for a pass that keeps the frame row-sharded over
     `mesh`: where the binned raster runs sort-last, its bands
     (parallel/mesh.rasterize_scene_bands: a list of VisibilityBuffers, band
     j on the mesh's device j), not gathered; elsewhere (and without a mesh)
-    rasterize_for_path's VisibilityBuffer."""
+    rasterize_for_path's VisibilityBuffer.  `height` is the raster's own
+    (the forward path's supersample rasters ss times the frame's rows)."""
     if mesh is None or config.raster != "binned" or height % mesh.devices.size:
-        return rasterize_for_path(scene, clip, width, height, config, mesh=mesh, tables=tables)
+        return rasterize_for_path(scene, clip, width, height, config, alpha, mesh, tables)
     _check_binned_preset(config)
     return pmesh.rasterize_scene_bands(scene, clip, width, height, mesh,
-                                       alpha=config.alpha_raster != "off",
+                                       alpha=alpha and config.alpha_raster != "off",
                                        cull_backface=config.raster_state.cull_mode == "back",
                                        tables=tables)
+
+
+#: the raster step's visibility (raster_steps), the barycentrics
+#: channel-planar, (3, H, W), so that rows are dim -2
+_VIS = ("Raster Tri ID", "Raster Visible Depth", "Raster Barycentrics")
+
+
+def raster_steps(width, height, config, then, alpha: bool = True) -> tuple[Step, Step]:
+    """A pass's raster and what follows it, as two Steps.  The raster
+    (reads None: it splits its own work over a mesh) is rasterize_bands of
+    res's scene and "Clip" at width x height: over a mesh the sort-last
+    composite's bands, kept as Slabs, else (or where it does not run) the
+    whole raster.  Then `then(res, vis)` returns the pass's outputs from
+    the VisibilityBuffer `vis`: over a mesh on each shard over its band;
+    where graph.run runs the steps on one device with a mesh in res, over
+    the bands gathered."""
+
+    def raster(res):
+        vis = rasterize_bands(res["scene"], res["Clip"], width, height, config, alpha,
+                              mesh=res.get("mesh"), tables=res["shade_tables"])
+        bands = [(v.tri_id, v.depth, v.bary.permute(2, 0, 1))
+                 for v in (vis if isinstance(vis, list) else [vis])]
+        if isinstance(vis, list):
+            return {k: pmesh.Slabs(parts) for k, parts in zip(_VIS, zip(*bands))}
+        return dict(zip(_VIS, bands[0]))
+
+    def after(res):
+        mesh = res.get("mesh")
+        tri, depth, bary = (res[k] if mesh is None else mesh.whole(res[k], "raster")
+                            for k in _VIS)
+        return then(res, VisibilityBuffer(tri_id=tri, depth=depth, bary=bary.permute(1, 2, 0)))
+
+    return Step(raster, None), Step(after, dict.fromkeys(_VIS, ROWS))
 
 
 def add_geometry_pass(graph: RenderGraph):

@@ -9,6 +9,10 @@ non-opaque candidate, so no alpha test anywhere).  The raster is
 ``rasterize_for_path(alpha=False)`` (K1a, or the brute rasterizer with
 ``raster="brute"``), the shadow rays K2 any-hit.  Shading:
 0.2 * albedo ambient + N.L * albedo * light color * visibility.
+
+The pass is two Steps (graph/render_graph.py): the raster, sort-last over a
+device mesh (its bands left where they lie), then per pixel the resolve,
+the shadow ray and the shading, each shard over its band (parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import (
     add_bvh_pass,
     add_geometry_pass,
-    rasterize_for_path,
+    raster_steps,
 )
 from vulkanhybridrenderer_tpu_torch.ops import shade, traverse
 
@@ -37,23 +41,22 @@ class RayqueryPath(RenderPath):
         add_geometry_pass(graph)
         add_bvh_pass(graph, cfg.animated)
 
-        def rayquery_pass(res):
-            scene, pfd = res["scene"], res["pfd"]
-            # no alpha discard in the rayquery fragment shader (default.frag)
-            vis = rasterize_for_path(scene, res["Clip"], w, h, cfg, alpha=False,
-                                     mesh=res.get("mesh"))
-            attrs = shade.resolve_forward_attributes(scene, res["shade_tables"],
+        def shade_band(res, vis):
+            pfd = res["pfd"]
+            attrs = shade.resolve_forward_attributes(res["scene"], res["shade_tables"],
                                                      res["TriRows"], vis)
             origins = attrs["position"].reshape(-1, 3).contiguous()
             dirs = (-pfd.directional_light.direction[:3]).expand(origins.shape).contiguous()
             # a pixel without a triangle shades to 0: its shadow ray is dead
             tmax = torch.where(attrs["valid"].reshape(-1), SHADOW_TMAX, -1.0)
             rec = traverse.trace(res["BVH"], None, origins, dirs, SHADOW_TMIN, tmax, anyhit=True)
-            in_shadow = torch.where(rec.hit, 0.0, 1.0).reshape(h, w)
+            in_shadow = torch.where(rec.hit, 0.0, 1.0).reshape(attrs["valid"].shape)
             return {RENDER_OUTPUT: shade.rayquery_shade(attrs, pfd, in_shadow)}
 
+        # no alpha discard in the rayquery fragment shader (default.frag);
+        # over a mesh each shard resolves, traces and shades its band
         graph.add_pass(
-            "Rayquery Pass", rayquery_pass,
+            "Rayquery Pass", raster_steps(w, h, cfg, shade_band, alpha=False),
             inputs=("scene", "pfd", "Clip", "BVH", "shade_tables", "TriRows"),
             outputs=(RENDER_OUTPUT,),
         )

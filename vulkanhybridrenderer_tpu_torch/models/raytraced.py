@@ -15,12 +15,22 @@ the hit position toward the light, tmin 0.1, any-hit.  A miss is the sky
 go through K2's alpha any-hit filter when the scene has masked materials,
 and the hit shader takes its other constants.  The reference's tilers,
 strips and packets have no counterpart: one GPU thread traces one ray.
+
+Both passes are registered as Steps (graph/render_graph.py): on one device
+they run over every row; over a device mesh (parallel/mesh.py) each shard
+makes, traces and shades its row slab's rays, and the blit copies its slab,
+as the reference's GSPMD partitions the row-sharded frame.
 """
 from __future__ import annotations
 
 import torch
 
-from vulkanhybridrenderer_tpu_torch.graph.render_graph import RENDER_OUTPUT, RenderGraph
+from vulkanhybridrenderer_tpu_torch.graph.render_graph import (
+    RENDER_OUTPUT,
+    ROWS,
+    RenderGraph,
+    Step,
+)
 from vulkanhybridrenderer_tpu_torch.models.base import RenderPath
 from vulkanhybridrenderer_tpu_torch.models.passes import add_bvh_pass, add_geometry_pass
 from vulkanhybridrenderer_tpu_torch.ops import rt_shade, screen, traverse
@@ -38,10 +48,13 @@ TMAX = 10000.0
 OUTPUT = "Raytraced Output"
 
 
-def primary_rays(pfd, height: int, width: int):
-    """raygen.rgen:11-18: origins and directions, (H * W, 3) each, in image
-    order."""
-    uv = screen.pixel_uv_grid(height, width, device=pfd.camera_view.device).reshape(-1, 2)
+def primary_rays(pfd, height: int, width: int, rows: screen.Rows | None = None):
+    """raygen.rgen:11-18: origins and directions, (R, 3) each, in image
+    order: every pixel's, or those of `rows` (a screen.Rows of the image),
+    equal to those rows of the whole image's."""
+    r0, n = (0, None) if rows is None else (rows.start, rows.count)
+    uv = screen.pixel_uv_grid(height, width, device=pfd.camera_view.device, row0=r0,
+                              rows=n).reshape(-1, 2)
     ndc = uv * 2.0 - 1.0
     target = transform_points(pfd.camera_proj_inverse,
                               torch.cat([ndc, torch.ones_like(ndc[:, :1])], dim=-1))
@@ -61,11 +74,12 @@ class RaytracedPath(RenderPath):
         add_geometry_pass(graph)
         add_bvh_pass(graph, cfg.animated)
 
-        def raytrace_pass(res):
+        def raytrace_step(res):
             scene, pfd, bvh, tables = res["scene"], res["pfd"], res["BVH"], res["shade_tables"]
+            rows = res["rows"]
             # the filter changes nothing on a scene without masked materials
             alpha = tables if test_alpha and scene.has_alpha_mask else None
-            o, d = primary_rays(pfd, h, w)
+            o, d = primary_rays(pfd, h, w, rows)
             rec = traverse.trace(bvh, None, o, d, PRIMARY_TMIN, TMAX, alpha_tables=alpha)
             pos = rt_shade.interpolate_hit_attributes(
                 tables, res["TriRows"], rec.tri, rec.u, rec.v)["position"]
@@ -80,11 +94,16 @@ class RaytracedPath(RenderPath):
             )
             sky = device_constant(SKY, device=shaded.device)
             img = torch.where(rec.hit[:, None], shaded, sky)
-            return {OUTPUT: img.reshape(h, w, 4).permute(2, 0, 1).contiguous()}
+            n = h if rows is None else rows.count
+            return {OUTPUT: img.reshape(n, w, 4).permute(2, 0, 1).contiguous()}
 
+        # every pixel's rays are made, traced and shaded where its row lies:
+        # over a mesh each shard its slab, on its replicas of the scene,
+        # the BVH8 and the tables
         graph.add_pass(
-            "Raytrace Pass", raytrace_pass,
+            "Raytrace Pass", (Step(raytrace_step, {}),),
             inputs=("scene", "pfd", "BVH", "shade_tables", "TriRows"), outputs=(OUTPUT,),
         )
-        graph.add_pass("Composition", lambda res: {RENDER_OUTPUT: res[OUTPUT]},
+        graph.add_pass("Composition", (Step(lambda res: {RENDER_OUTPUT: res[OUTPUT]},
+                                            {OUTPUT: ROWS}),),
                        inputs=(OUTPUT,), outputs=(RENDER_OUTPUT,))

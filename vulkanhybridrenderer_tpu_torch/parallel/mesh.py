@@ -5,13 +5,16 @@ image-shaped intermediate is row-sharded after every pass, and GSPMD
 partitions the passes, inserting the exchanges they need.  PyTorch has no
 GSPMD, so here the exchanges are explicit.  An image over the mesh is
 ``Slabs``: row slab i (rows i*H/N to (i+1)*H/N) on the mesh's device i.
-Each pass of the hybrid path is registered as a sequence of steps
-(``graph.render_graph.Step``); over a mesh each runs once per shard on the
-shard's device over its slab (``Rows``), reading each image one of three
-ways, as the step declares, the explicit form of what GSPMD inserts:
+Every pass of every path that reads a frame image is registered as a
+sequence of steps (``graph.render_graph.Step``); over a mesh each runs
+once per shard on the shard's device over its slab (``Rows``), reading
+each image one of three ways, as the step declares, the explicit form of
+what GSPMD inserts:
 
-- ``ROWS``: the shard's own rows, no exchange (resolve, raygen and hit
-  shading, the RT downsample, composition);
+- ``ROWS``: the shard's own rows, no exchange (the hybrid path's resolve,
+  raygen and hit shading, RT downsample and composition; the rayquery
+  and forward paths' resolve and shading of their raster's bands; the
+  raytraced path's blit);
 - ``halo(r)``: its rows and the r rows above and below them, fetched from
   whichever shards hold them and clipped at the image's edges (SVGF's
   a-trous, 2 s rows at step s; the SSAO blur, 6; the joint bilateral
@@ -19,24 +22,30 @@ ways, as the step declares, the explicit form of what GSPMD inserts:
 - ``WHOLE``: the whole image gathered on the shard (SSAO's depth, SSR's
   images, SVGF's previous state).
 
+A step may read no image (the raytraced path's Raytrace Pass makes, traces
+and shades its slab's primary and shadow rays from the replicas alone).
 Every other resource a step reads (the scene, its tables, the BVH8, the
 shadow map, the per-frame data) is the shard's replica (``Mesh.replicate``:
-one copy a device for as long as the object lives).  A step whose slabs do
-not divide, or do not line up across the two resolutions of
-``rt_scale``, runs once on the primary over whole images, with a warning,
-as the reference's mesh falls back; a pass without steps (the geometry,
-the BVH, the shadow-map prepass, the forward, raytraced and rayquery
-paths' passes) runs on the primary, where the passes that opt in through
-``res["mesh"]`` split their own work (and warns where it has to gather an
-image that is split):
+one copy a device for as long as the object lives), made only when the
+step reads it.  A step whose slabs do not divide, or do not line up
+across the two resolutions of ``rt_scale``, runs once on the primary over
+whole images, with a warning, as the reference's mesh falls back.  The
+passes without steps read no frame image (the geometry, the BVH or its
+refit, the shadow grid, the shadow-map prepass; coverage MSAA, which is
+single-device) and run on the primary; a pass without steps that did read
+a split image would run over it gathered, with a warning.  The passes that
+opt in through ``res["mesh"]`` split their own work:
 
 - ``rasterize_scene_bands``, sort-last raster: each shard bins and rasters
   (K1a) 1/N of the triangles over the whole frame on its device, the
   partial frames are regrouped by row band (the reference's all_to_all,
   here device-to-device copies) and each band is depth-composited on its
-  device with the single-device tie-break.  The hybrid G-Buffer Pass
-  resolves each band where it lies; ``rasterize_scene_sharded`` gathers
-  them for the other passes.
+  device with the single-device tie-break.  The hybrid G-Buffer Pass, the
+  Rayquery Pass and the Forward Pass (``models/passes.raster_steps``)
+  resolve each band where it lies; at supersample ss the forward raster's
+  bands are ss*H/N rows, which box-filter into the shard's H/N output
+  rows.  ``rasterize_scene_sharded`` gathers them for the shadow-map
+  prepass.
 
 The temporal state stays row-sharded between frames.  The frame reads
 nothing back to the host: the copies are stream-ordered device-to-device
@@ -395,8 +404,9 @@ def _run_step(step: Step, src: dict, mesh: Mesh, height: int, name: str,
 def run_pass_sharded(graph, name: str, res: dict, mesh: Mesh, height: int,
                      clock: ShardClock | None = None) -> dict:
     """Pass `name`'s outputs over the mesh: its steps, or a pass without
-    steps on the primary over whole images (warning where it gathers an
-    image that is split)."""
+    steps on the primary over whole images.  No pass of the paths reads a
+    split image without steps; one that did would read it gathered, with
+    a warning."""
     p = graph.passes[name]
     steps = pass_steps(p)
     if not steps:

@@ -1,17 +1,21 @@
 """The frame over a mesh of one checkout on the card, captured and eager,
-beside one card's frame: main path 8 (the full hybrid, ``chip_smoke.py``'s
-configuration) and cell 4 (the raster mode: rasterized shadows, SSAO) on
-realglb at 1920x1080.
+beside one card's frame, on realglb at 1920x1080: main path 8 (the full
+hybrid, ``chip_smoke.py``'s configuration), cell 4 (the raster mode:
+rasterized shadows, SSAO), the raytraced frame with test_alpha, the
+rayquery frame, and the forward frame at one sample and at supersample 4.
 
     python3 vulkanhybridrenderer_tpu_torch/probes/mesh_turns.py [--root DIR]
         [--mesh virtual|cards|both] [--frames N]
+        [--path hybrid|raster|raytraced|rayquery|forward ...]
 
 --root: the checkout whose ``vulkanhybridrenderer_tpu_torch`` is imported
 (default: the one holding this file), so that one call can time two
 commits with the same script, in turns (parent, change, change, parent).
 --mesh: a virtual mesh of 4 shards on card 0, ``make_mesh()`` over every
 card of the machine (two or more), or both (the default: the virtual mesh
-first).  For each configuration and mesh, in turns (one card, eager,
+first).  --path: the configurations to time (default: hybrid and raster,
+path 8 and cell 4; forward times both its sample modes).  For each
+configuration and mesh, in turns (one card, eager,
 captured, captured, eager, one card):
 
 - one card's frame: ms/frame over 10 frames of the default dispatch
@@ -50,6 +54,8 @@ def _args():
     p.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     p.add_argument("--mesh", choices=("virtual", "cards", "both"), default="both")
     p.add_argument("--frames", type=int, default=5)
+    p.add_argument("--path", nargs="+", default=["hybrid", "raster"],
+                   choices=("hybrid", "raster", "raytraced", "rayquery", "forward"))
     return p.parse_args()
 
 
@@ -150,22 +156,36 @@ def main() -> int:
         reflection_mode=cfgmod.ReflectionMode.RAYTRACED, denoise=True, rt_scale=1)
     raster = cfgmod.HybridSettings(shadow_mode=cfgmod.ShadowMode.RASTERIZED,
                                    ao_mode=cfgmod.AmbientOcclusionMode.SSAO)
-    configs = {
-        "path 8": cfgmod.RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="brute",
-                                      alpha_peel_rounds=4, ao_rays=2, hybrid=full),
-        "cell 4": cfgmod.RenderConfig(width=WIDTH, height=HEIGHT, alpha_raster="off",
-                                      hybrid=raster),
+    # --path -> [(label, render path, config)]
+    paths = {
+        "hybrid": [("path 8", "hybrid", cfgmod.RenderConfig(
+            width=WIDTH, height=HEIGHT, alpha_raster="brute", alpha_peel_rounds=4, ao_rays=2,
+            hybrid=full))],
+        "raster": [("cell 4", "hybrid", cfgmod.RenderConfig(
+            width=WIDTH, height=HEIGHT, alpha_raster="off", hybrid=raster))],
+        "raytraced": [("raytraced, test_alpha", "raytraced", cfgmod.RenderConfig(
+            width=WIDTH, height=HEIGHT, raytraced=cfgmod.RaytracedSettings(test_alpha=True)))],
+        "rayquery": [("rayquery", "rayquery", cfgmod.RenderConfig(width=WIDTH, height=HEIGHT))],
+        "forward": [("forward", "forward", cfgmod.RenderConfig(width=WIDTH, height=HEIGHT)),
+                    ("forward, supersample 4", "forward", cfgmod.RenderConfig(
+                        width=WIDTH, height=HEIGHT, forward=cfgmod.ForwardSettings(
+                            msaa_samples=4, msaa_mode="supersample")))],
     }
+    configs = [c for p in dict.fromkeys(args.path) for c in paths[p]]
     scene = app.load_any_scene("realglb")
     label = f"mesh_turns {root.name}"
-    for name, cfg in configs.items():
-        one = Renderer(scene, cfg, device=dev)
+    bvh = None  # one host build, read in place on the primary by every renderer
+    for name, path, cfg in configs:
+        one = Renderer(scene, cfg, path=path, device=dev)
+        if bvh is not None:
+            one._bvh = bvh
+        bvh = one._get_bvh()
         out = {"tree": root.name, "config": name, "card": smi, "single_ms": []}
         for mesh_name, make in meshes:
-            eager = Renderer(scene, cfg, mesh=make())
-            cap = Renderer(scene, cfg, mesh=make())
+            eager = Renderer(scene, cfg, path=path, mesh=make())
+            cap = Renderer(scene, cfg, path=path, mesh=make())
             for r in (eager, cap):
-                r._bvh = one._get_bvh()  # one host build, read in place on the primary
+                r._bvh = bvh
             got = {"eager": [], "captured": []}
             for which in ("one", "eager", "captured", "captured", "eager", "one"):
                 if which == "one":

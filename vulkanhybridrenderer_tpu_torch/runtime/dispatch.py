@@ -25,11 +25,12 @@ the capture lasts (the mesh's copies and the kernel wrappers queue on the
 current stream of their tensors' device) and is joined back by an event
 before it ends.  Each other card's allocations in the capture go into a
 memory pool of its own (``torch.cuda.MemPool``), held with the graphs; the
-cross-card copies become the graph's copy nodes.  The temporal state stays
-row-sharded (``Slabs``), each slab copied on its own card; the fixed
-inputs' replicas on the other cards are made inside the graph
-(``Mesh.forget``); a virtual mesh (one card named N times) is captured as
-one card is.
+cross-card copies become the graph's copy nodes (every path's sort-last
+bands among them, and the shadow-map prepass's gathered whole on the
+primary).  The temporal state stays row-sharded (``Slabs``), each slab
+copied on its own card; the fixed inputs' replicas on the other cards are
+made inside the graph (``Mesh.forget``); a virtual mesh (one card named N
+times) is captured as one card is.
 
 The temporal state is carried as the reference donates it: the captured
 pass that makes "TemporalStateOut" ends by copying it into the state it

@@ -14,10 +14,11 @@ one CUDA graph at its second and replays it from then on; "per_pass"
 captures one graph per pass, all of a key's at its first frame with
 ``auto_precompile`` (``precompile_passes``), else at its second.  On the CPU (the tests) both call the frame function directly.
 With a ``mesh`` (parallel/mesh.py) the frame is row-sharded across the
-mesh's devices: each image pass of the hybrid path runs once a shard over
-its row slab, with the halo and gather exchanges the pass declares, the
-raster runs sort-last, and the frame is gathered on the primary, where it
-is returned; the temporal state stays on the shards between frames.  On
+mesh's devices, whatever the path: each image pass runs once a shard over
+its row slab, with the halo and gather exchanges the pass declares (the
+raytraced and rayquery paths need none), the raster runs sort-last, each
+shard resolving and shading its band, and the frame is gathered on the
+primary, where it is returned; the temporal state stays on the shards between frames.  On
 CUDA that frame (``make_sharded_frame_fn``'s passes) is captured as one
 device's is, in either mode, each graph spanning the mesh's cards
 (runtime/dispatch.py); on a CPU mesh it runs eagerly.  The first frame checks the
